@@ -1,0 +1,87 @@
+"""Port CLI on the CPU: encode gives the reference encoder's bytes, decode /
+info / psnr round-trip, and flags the port does not support exit 2."""
+
+import io
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_clip
+from video_encoder_tpu.codec.config import EncoderConfig
+from video_encoder_tpu.pipeline.encoder import encode_clip
+from video_encoder_tpu_torch import cli
+
+torch.set_num_threads(1)
+
+W, H = 64, 48
+
+
+@pytest.fixture
+def clip_file(rng, tmp_path):
+    clip = make_clip(rng, W, H, 5)
+    path = tmp_path / "in.yuv"
+    with open(path, "wb") as f:
+        for y, cb, cr in clip:
+            f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
+    return clip, str(path)
+
+
+def test_encode_matches_reference_encoder(clip_file, tmp_path, capsys):
+    clip, path = clip_file
+    out = tmp_path / "out.tvc"
+    rc = cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                   "-o", str(out), "--gop", "3", "--qp", "26",
+                   "--device", "cpu"])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["frames"] == 5 and summary["device"] == "cpu"
+    want = io.BytesIO()
+    encode_clip(EncoderConfig(width=W, height=H, gop_n=3, base_qp=26), clip,
+                want, 5)
+    assert out.read_bytes() == want.getvalue()   # last GOP is short (2 frames)
+
+
+def test_decode_info_psnr_roundtrip(clip_file, tmp_path, capsys):
+    _, path = clip_file
+    out, dec = tmp_path / "o.tvc", tmp_path / "d.yuv"
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(out), "--gop", "5", "--device", "cpu"]) == 0
+    enc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cli.main(["decode", "-i", str(out), "-o", str(dec)]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 5
+    assert cli.main(["info", "-i", str(out)]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert (info["width"], info["height"], info["frame_count"]) == (W, H, 5)
+    assert cli.main(["psnr", "-a", path, "-b", str(dec), "-W", str(W),
+                     "-H", str(H)]) == 0
+    p = json.loads(capsys.readouterr().out)
+    assert abs(p["psnr_y"] - enc["mean_psnr_y"]) < 1e-2
+    assert p["psnr_y"] > 25
+
+
+@pytest.mark.parametrize("extra", [
+    ["--two-pass"], ["--kbps", "500"], ["--search", "diamond"],
+    ["--format", "2"], ["--rc", "vbv"], ["--devices", "2"],
+    ["--engine", "golden"], ["--gop-batch=2"], ["--no-such-flag"],
+])
+def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
+    _, path = clip_file
+    argv = ["encode", "-i", path, "-W", str(W), "-H", str(H),
+            "-o", str(tmp_path / "x.tvc"), "--device", "cpu", *extra]
+    try:
+        rc = cli.main(argv)
+    except SystemExit as e:   # argparse rejects unknown flags itself
+        rc = e.code
+    assert rc == 2
+    assert "error" in capsys.readouterr().err
+
+
+def test_cuda_device_without_cuda_fails(clip_file, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    _, path = clip_file
+    rc = cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                   "-o", str(tmp_path / "x.tvc")])
+    assert rc == 1 and "CUDA is not available" in capsys.readouterr().err

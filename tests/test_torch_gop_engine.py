@@ -1,0 +1,92 @@
+"""Port GopEngine (plain PyTorch on the CPU) vs the JAX GopEngine and the
+numpy golden model: packet byte-equality, including the exact
+overflow -> worst-case rerun. One JAX GopEngine compile only (the XLA CPU
+compile of the GOP program takes about a minute)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_clip
+from video_encoder_tpu.codec import golden
+from video_encoder_tpu.codec.config import EncoderConfig
+from video_encoder_tpu.pipeline import gop_engine as jgop
+from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_gop
+from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+torch.set_num_threads(1)
+
+
+def _frames(clip):
+    return [golden.Frame.from_planes(*p) for p in clip]
+
+
+def test_gop_engine_matches_jax_engine_and_golden(rng):
+    frames = _frames(make_clip(rng, 48, 32, 4))
+    cfg = EncoderConfig(width=48, height=32, gop_n=4, base_qp=28)
+    gpk, gst = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
+    jpk, jst = jgop.GopEngine(cfg).encode_gop(frames, 0)
+    tpk, tst = GopEngine(cfg, device="cpu").encode_gop(frames, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in jpk]
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    for t, j, g in zip(tst, jst, gst):
+        assert (t.frame_type, t.base_qp, t.bits) == (j.frame_type, j.base_qp, j.bits)
+        assert (t.n_intra_mb, t.n_inter_mb) == (j.n_intra_mb, j.n_inter_mb)
+        # the JAX engine sums SSE in float32, the port in int64
+        for a, b in ((t.psnr_y, j.psnr_y), (t.psnr_cb, j.psnr_cb),
+                     (t.psnr_cr, j.psnr_cr)):
+            assert abs(a - b) < 1e-3
+        assert abs(t.psnr_y - g.psnr_y) < 1e-9
+
+
+@pytest.mark.parametrize("w,h,qp", [(64, 48, 28), (80, 48, 20), (48, 40, 36)])
+def test_gop_engine_matches_golden(rng, w, h, qp):
+    frames = _frames(make_clip(rng, w, h, 3))
+    cfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=qp)
+    gpk, _ = encode_gop(cfg, GoldenEngine(), frames, 5, 5)
+    tpk, tst = GopEngine(cfg, device="cpu").encode_gop(frames, 5)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    assert [p.index for p in tpk] == [5, 6, 7]
+    assert tst[0].n_inter_mb == 0 and tst[1].frame_type == 1
+
+
+def test_overflow_rerun_matches_golden(rng):
+    """Noise at qp 1 overflows the budgeted frame capacity: the GOP is
+    encoded again at worst-case capacity, with the same bytes as golden."""
+    h, w = 32, 48
+    clip = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+            for _ in range(3)]
+    frames = _frames(clip)
+    cfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=1)
+    eng = GopEngine(cfg, device="cpu")
+    handle = eng.encode_gop_start(frames, 0)
+    assert bool(handle["outs"]["ovf"].any())          # the budget overflowed
+    tpk, _ = eng.encode_gop_finish(handle)
+    gpk, _ = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+
+
+@pytest.mark.parametrize("change,kw", [
+    (dict(search="diamond"), {}),
+    (dict(format_version=2), {}),
+    (dict(rc="adaptive"), {}),
+    (dict(gop_devices=2), {}),
+    ({}, dict(emit="chunks")),
+])
+def test_unported_settings_raise(change, kw):
+    cfg = dataclasses.replace(EncoderConfig(width=32, height=32), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+        GopEngine(cfg, device="cpu", **kw)
+
+
+def test_cuda_device_is_never_silently_cpu():
+    cfg = EncoderConfig(width=32, height=32)
+    if torch.cuda.is_available():
+        assert GopEngine(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            GopEngine(cfg)
