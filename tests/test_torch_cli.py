@@ -62,7 +62,7 @@ def test_decode_info_psnr_roundtrip(clip_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--two-pass"], ["--kbps", "500"], ["--search", "diamond"],
+    ["--two-pass"], ["--rc", "adaptive"], ["--search", "hier"],
     ["--format", "2"], ["--rc", "vbv"], ["--devices", "2"],
     ["--engine", "golden"], ["--gop-batch=2"], ["--no-such-flag"],
 ])
@@ -85,3 +85,34 @@ def test_cuda_device_without_cuda_fails(clip_file, tmp_path, capsys):
     rc = cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
                    "-o", str(tmp_path / "x.tvc")])
     assert rc == 1 and "CUDA is not available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("rc,kbps", [("mb", 300), ("bitrate", 300)])
+def test_diamond_rc_encode_matches_golden_and_decodes(clip_file, tmp_path,
+                                                      capsys, rc, kbps):
+    from video_encoder_tpu.pipeline.encoder import GoldenEngine
+
+    clip, path = clip_file
+    out, dec = tmp_path / "o.tvc", tmp_path / "d.yuv"
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(out), "--gop", "5", "--qp", "26",
+                     "--search", "diamond", "--rc", rc, "--kbps", str(kbps),
+                     "--device", "cpu"]) == 0
+    capsys.readouterr()
+    want = io.BytesIO()
+    cfg = EncoderConfig(width=W, height=H, gop_n=5, base_qp=26,
+                        search="diamond", rc=rc, target_kbps=kbps)
+    encode_clip(cfg, clip, want, 5, engine=GoldenEngine())
+    assert out.read_bytes() == want.getvalue()
+    assert cli.main(["decode", "-i", str(out), "-o", str(dec)]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 5
+
+
+def test_rc_mb_without_kbps_fails_as_the_config_does(clip_file, tmp_path,
+                                                     capsys):
+    _, path = clip_file
+    rc = cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                   "-o", str(tmp_path / "x.tvc"), "--rc", "mb",
+                   "--device", "cpu"])
+    assert rc == 1
+    assert "requires target_kbps > 0" in capsys.readouterr().err

@@ -1,9 +1,10 @@
 """Port GopEngine (plain PyTorch on the CPU) vs the JAX GopEngine and the
-numpy golden model: packet byte-equality, including the exact
-overflow -> worst-case rerun. One JAX GopEngine compile only (the XLA CPU
-compile of the GOP program takes about a minute)."""
+numpy golden model: packet byte-equality under both emits, full and
+diamond search, rc none, bitrate and mb, including the exact overflow ->
+worst-case rerun. One JAX GopEngine compile per configuration."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -71,11 +72,11 @@ def test_overflow_rerun_matches_golden(rng):
 
 
 @pytest.mark.parametrize("change,kw", [
-    (dict(search="diamond"), {}),
+    (dict(rc="vbv", target_kbps=500), {}),
     (dict(format_version=2), {}),
     (dict(rc="adaptive"), {}),
     (dict(gop_devices=2), {}),
-    ({}, dict(emit="chunks")),
+    (dict(format_version=3), dict(emit="chunks")),
 ])
 def test_unported_settings_raise(change, kw):
     cfg = dataclasses.replace(EncoderConfig(width=32, height=32), **change)
@@ -90,3 +91,86 @@ def test_cuda_device_is_never_silently_cpu():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GopEngine(cfg)
+
+
+def _skewed_clip(rng, w, h, n):
+    """Left half flat, right half noise (tests/test_rc_mb.py): each MB
+    row overspends its uniform pace late, so rc=mb offsets fire."""
+    clip = []
+    for t in range(n):
+        y = np.full((h, w), 120, np.uint8)
+        y[:, w // 2:] = rng.integers(0, 256, (h, w // 2))
+        y[t % h, :] = 200
+        clip.append((y, np.full((h // 2, w // 2), 128, np.uint8),
+                     np.full((h // 2, w // 2), 128, np.uint8)))
+    return clip
+
+
+_DIAMOND_CASES = {
+    # rc=mb on skewed content: per-MB offsets and the frame carry engage
+    "mb": (lambda rng: _skewed_clip(rng, 96, 48, 5),
+           dict(width=96, height=48, gop_n=5, base_qp=26, search="diamond",
+                rc="mb", target_kbps=64)),
+    # rc=bitrate (the frame half of mb): the carry moves qp up and down
+    "bitrate": (lambda rng: make_clip(rng, 96, 48, 4),
+                dict(width=96, height=48, gop_n=4, base_qp=24,
+                     search="diamond", rc="bitrate", target_kbps=700)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _diamond_reference(case):
+    """(frames, cfg, JAX GopEngine packets/stats, golden packets/stats):
+    one JAX engine compile per configuration, shared by both emits."""
+    make, kw = _DIAMOND_CASES[case]
+    frames = _frames(make(np.random.default_rng(99)))
+    cfg = EncoderConfig(**kw)
+    return (frames, cfg, jgop.GopEngine(cfg).encode_gop(frames, 0),
+            encode_gop(cfg, GoldenEngine(), frames, 0, 0))
+
+
+@pytest.mark.parametrize("emit", ["frame", "chunks"])
+@pytest.mark.parametrize("case", ["mb", "bitrate"])
+def test_diamond_rc_matches_jax_engine_and_golden(case, emit):
+    frames, cfg, (jpk, jst), (gpk, gst) = _diamond_reference(case)
+    tpk, tst = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in jpk]
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    qps = [p.base_qp for p in tpk]
+    assert qps == [p.base_qp for p in jpk] == [s.base_qp for s in tst]
+    assert [s.bits for s in tst] == [s.bits for s in jst] == [s.bits for s in gst]
+    assert len(set(qps)) > 1                      # the carry moved qp
+    if case == "bitrate":
+        assert any(b < a for a, b in zip(qps, qps[1:]))   # down as well as up
+
+
+def test_rc_mb_offsets_fire():
+    """Same clip and rate under rc=mb and rc=bitrate: the frame carry is
+    the same rule, so any payload difference is the per-MB offsets."""
+    frames, cfg, _, _ = _diamond_reference("mb")
+    mb, _ = GopEngine(cfg, device="cpu").encode_gop(frames, 0)
+    br, _ = GopEngine(dataclasses.replace(cfg, rc="bitrate"),
+                      device="cpu").encode_gop(frames, 0)
+    assert mb[0].payload != br[0].payload
+
+
+def test_chunk_emit_overflow_rerun_matches_golden(rng):
+    """Noise at qp 28 overflows the budgeted span width (64 pieces of 16
+    words at 4 words per piece) under chunk emit, diamond search and
+    rc=mb: the GOP is encoded again at worst-case capacity, with golden's
+    bytes and per-frame qps."""
+    h, w = 128, 128
+    clip = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+            for _ in range(3)]
+    frames = _frames(clip)
+    cfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=28,
+                        search="diamond", rc="mb", target_kbps=200)
+    eng = GopEngine(cfg, device="cpu", emit="chunks")
+    handle = eng.encode_gop_start(frames, 0)
+    assert bool(handle["outs"]["ovf"].any())          # a budget overflowed
+    tpk, tst = eng.encode_gop_finish(handle)
+    gpk, gst = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    assert [s.base_qp for s in tst] == [s.base_qp for s in gst]

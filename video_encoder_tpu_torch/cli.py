@@ -6,9 +6,14 @@ host.
     python -m video_encoder_tpu_torch.cli info   -i out.tvc
     python -m video_encoder_tpu_torch.cli psnr   -a ref.yuv -b dec.yuv -W 1920 -H 1080
 
-`encode` runs the GOP-resident engine (full search, format 1, rc none)
-on `--device` (default cuda). Its streams are byte-identical to the
-reference CLI's. Decoding uses the reference's C++ parser through ctypes.
+`encode` runs the GOP-resident engine (full or diamond search, format 1,
+rc none, bitrate or mb with --kbps) on `--device` (default cuda):
+
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --search diamond --rc mb --kbps 12000
+
+Its streams are byte-identical to the reference CLI's. Decoding uses the
+reference's C++ parser through ctypes.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from .pipeline.gop_engine import GopEngine
 # Encode flags of the reference CLI that the port does not take yet, with
 # the ROADMAP.md item that ports them.
 NOT_PORTED = {
-    "--kbps": "A10", "--vbv-kbits": "A10", "--two-pass": "A10",
+    "--vbv-kbits": "A10", "--two-pass": "A10",
     "--quant-matrix": "A10", "--intra-slice": "A10", "--quant-bias": "A10",
     "--chroma-qp-offset": "A10", "--engine": "A11", "--gop-batch": "A12",
     "--devices": "A13", "--tile": "A13", "--multiprocess": "A13",
@@ -93,7 +98,8 @@ def cmd_encode(a) -> int:
     w, h, fps, frames = yuv.open_clip(a.input, a.width, a.height)
     cfg = EncoderConfig(
         width=w, height=h, gop_n=a.gop, base_qp=a.qp, search=a.search,
-        rc=a.rc, fps_num=fps[0], fps_den=fps[1], format_version=a.format,
+        rc=a.rc, target_kbps=a.kbps, fps_num=fps[0], fps_den=fps[1],
+        format_version=a.format,
     )
     eng = GopEngine(cfg, device=a.device)
     n_frames = a.frames
@@ -187,11 +193,14 @@ def main(argv=None) -> int:
     e.add_argument("--gop", type=int, default=30)
     e.add_argument("--qp", type=int, default=28)
     e.add_argument("--frames", type=int, default=0, help="0 = all")
-    # the reference's other values are ROADMAP.md A10
-    e.add_argument("--search", choices=["full"], default="full",
-                   help="ME mode (diamond is not ported yet)")
-    e.add_argument("--rc", choices=["none"], default="none",
-                   help="rate control (the other modes are not ported yet)")
+    # the reference's other values are ROADMAP.md A10 (hier is
+    # golden/oracle-only in the reference too)
+    e.add_argument("--search", choices=["full", "diamond"], default="full",
+                   help="ME mode")
+    e.add_argument("--rc", choices=["none", "bitrate", "mb"], default="none",
+                   help="rate control (adaptive and vbv are not ported yet)")
+    e.add_argument("--kbps", type=int, default=0,
+                   help="target rate of --rc bitrate/mb")
     e.add_argument("--format", type=int, choices=[1], default=1,
                    help="bitstream format (2-4 are not ported yet)")
     e.add_argument("--device", default="cuda",

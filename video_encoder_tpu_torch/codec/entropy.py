@@ -1,6 +1,8 @@
 """Device-side entropy pack of a format-1 frame (SPEC.md §6-7).
 
-Twin of the format-1 half of `video_encoder_tpu/codec/entropy.py`: every
+Twin of the format-1 half of `video_encoder_tpu/codec/entropy.py`, with
+both emits: frame (`pack_frame_planes`) and chunks (`pack_frame_chunks`,
+span strings the host glues; `codec/pack.py`). Every
 symbol's (value, length) is computed in parallel, each 8x8 block is
 packed into its own MSB-first word string (`block_pack`, a kernel on the
 GPU), and the frame payload is assembled from the per-MB pieces (header,
@@ -160,10 +162,11 @@ def _pack_blocks(levels: torch.Tensor, block_words: int):
             (b > 32 * block_words).any())
 
 
-def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
-                  is_inter, dy, dx, block_words: int):
-    """Per-MB piece strings [n_mbs, 7, W] and bit counts [n_mbs, 7] in the
-    order header, Y00, Y01, Y10, Y11, Cb, Cr."""
+def _mb_sources(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
+                is_inter, dy, dx, block_words: int):
+    """Per-MB piece sources: words (hw [n_mbs, 2], yw [n_mbs, 4, W], cbw,
+    crw [n_mbs, W]), piece bit counts [n_mbs, 7] int32 in the order
+    header, Y00, Y01, Y10, Y11, Cb, Cr, and the block overflow flag."""
     nby, nbx = qp_delta.shape
     n_mbs = nby * nbx
 
@@ -176,19 +179,27 @@ def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
     cbwords, cbbits, ovf_cb = _pack_blocks(levels_cb, block_words)
     crwords, crbits, ovf_cr = _pack_blocks(levels_cr, block_words)
 
-    hpad = torch.nn.functional.pad(
-        hwords.reshape(n_mbs, 1, HEADER_WORDS), (0, block_words - HEADER_WORDS))
-    piece_words = torch.cat([
-        hpad,
-        ywords.reshape(n_mbs, 4, block_words),
-        cbwords.reshape(n_mbs, 1, block_words),
-        crwords.reshape(n_mbs, 1, block_words),
-    ], 1)
+    words = (hwords.reshape(n_mbs, HEADER_WORDS),
+             ywords.reshape(n_mbs, 4, block_words),
+             cbwords.reshape(n_mbs, block_words),
+             crwords.reshape(n_mbs, block_words))
     piece_bits = torch.cat([
         hbits.reshape(n_mbs, 1), ybits.reshape(n_mbs, 4),
         cbbits.reshape(n_mbs, 1), crbits.reshape(n_mbs, 1),
     ], 1)
-    return piece_words, piece_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
+    return words, piece_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
+
+
+def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
+                  is_inter, dy, dx, block_words: int):
+    """Per-MB piece strings [n_mbs, 7, W] and bit counts [n_mbs, 7] in the
+    order header, Y00, Y01, Y10, Y11, Cb, Cr."""
+    (hw, yw, cbw, crw), piece_bits, ovf = _mb_sources(
+        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
+        dy, dx, block_words)
+    hpad = torch.nn.functional.pad(hw[:, None], (0, block_words - HEADER_WORDS))
+    piece_words = torch.cat([hpad, yw, cbw[:, None], crw[:, None]], 1)
+    return piece_words, piece_bits, ovf
 
 
 def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
@@ -230,3 +241,58 @@ def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
         piece_words.reshape(-1, block_words), piece_bits.reshape(-1), n_words)
     mb_bits = piece_bits.sum(1, dtype=torch.int32).reshape(nby, nbx)
     return words, total, mb_bits, ovf | (total > 32 * n_words)
+
+
+def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
+                  is_p_frame: bool, is_inter, dy, dx, block_words: int):
+    """Per-MB bit counts [nby, nbx] int32 (header symbols plus the six
+    block strings) with no payload assembled: the rc=mb pass-1 estimate,
+    which uses nothing else of the pack."""
+    nby, nbx = qp_delta.shape
+    _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx)
+    _, ybits, _ = _pack_blocks(levels_y8, block_words)
+    _, cbbits, _ = _pack_blocks(levels_cb, block_words)
+    _, crbits, _ = _pack_blocks(levels_cr, block_words)
+    ysum = ybits.reshape(nby, 2, nbx, 2).sum((1, 3))
+    return (hl.sum(0) + ysum + cbbits + crbits).int()
+
+
+def chunk_capacity(n_pieces: int, block_words: int) -> tuple[int, int, int]:
+    """(n_chunk_strings, pieces_per_chunk_string, words_per_chunk_string)
+    for a frame of n_pieces piece strings of block_words words: the
+    reference's span geometry (the port's strings carry the budgeted
+    width of `pack.span_plan`, at most this)."""
+    from . import pack
+
+    _, h, cw, n_strings = pack.span_geometry(n_pieces, block_words)
+    return n_strings, h, cw
+
+
+def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
+                      is_p_frame: bool, is_inter, dy, dx, block_words: int):
+    """Format-1 frame as span strings: (chunk_words [C, cw] int64,
+    chunk_bits [C] int32, mb_bits [nby, nbx], ovf). The frame payload is
+    the host bit-concatenation of the strings in order (`codec/mux.py`),
+    the same bytes as pack_frame_planes. The span merge runs through the
+    dispatch rule (span_merge_mb, then span_merge in the two-stage shape)
+    straight from the per-MB sources; no [n_mbs, 8, W] piece array is
+    made."""
+    from ..ops import dispatch  # lazy: dispatch imports this module
+    from . import pack
+
+    nby, nbx = qp_delta.shape
+    n_mbs = nby * nbx
+    (hw, yw, cbw, crw), bits7, ovf = _mb_sources(
+        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
+        dy, dx, block_words)
+    piece_bits = torch.nn.functional.pad(bits7, (0, 1)).reshape(-1)
+    plan = pack.span_plan(n_mbs, block_words)
+    words, bits, ovf_m = dispatch.span_merge_mb(
+        hw.contiguous(), yw.contiguous(), cbw.contiguous(), crw.contiguous(),
+        piece_bits, plan.m1, plan.cw1, plan.n1)
+    if plan.two_stage:
+        words, bits, ovf_2 = dispatch.span_merge(words, bits, plan.g,
+                                                 plan.stop, plan.cwf)
+        ovf_m = ovf_m | ovf_2
+    mb_bits = bits7.sum(1, dtype=torch.int32).reshape(nby, nbx)
+    return words, bits, mb_bits, ovf | ovf_m

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use every `csrc/*.cu` is compiled by nvcc into one shared library
-with a plain C interface, loaded with ctypes:
+At first use every `csrc/*.cu` is compiled by nvcc, one process per source
+and all started together, then linked into one shared library with a
+plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/libtvc_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c -o build/torch_kernels/obj_<hash>/<name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o build/torch_kernels/libtvc_<hash>.so build/torch_kernels/obj_<hash>/*.o
 
 The library name carries a hash of the sources, so an edited source is
 rebuilt. Each C entry point launches on the stream it is given (the
@@ -32,19 +34,25 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"full_search": 0, "mc_fetch_luma": 0, "mc_fetch_chroma": 0,
-            "code_plane": 0, "block_pack": 0}
+LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
+            "mc_fetch_luma": 0, "mc_fetch_chroma": 0, "code_plane": 0,
+            "block_pack": 0, "span_merge_mb": 0, "span_merge": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: pointers, ints, then the stream; every entry returns an int
 _SIGNATURES = {
     "tvc_full_search": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "tvc_sad_map_even": [_P, _P, _I, _I, _P, _P],
+    "tvc_sad_at_mv": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "tvc_mc_fetch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tvc_code_plane": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tvc_block_pack": [_P, _I, _I, _P, _P, _P],
+    "tvc_span_merge_mb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P],
+    "tvc_span_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -75,18 +83,33 @@ def lib() -> ctypes.CDLL:
     for path in sources:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    so_path = os.path.join(BUILD_DIR, f"libtvc_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"libtvc_{tag}.so")
     if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
+        obj_dir = os.path.join(BUILD_DIR, f"obj_{tag}.{os.getpid()}")
+        os.makedirs(obj_dir, exist_ok=True)
         t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        objs, procs = [], []
+        for path in sources:
+            obj = os.path.join(obj_dir, os.path.basename(path)[:-3] + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, path],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [s for s, p in zip(sources, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
                            capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
-        build_log = r.stdout + r.stderr
+        build_log += r.stdout + r.stderr
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{build_log}")
         os.replace(tmp, so_path)
+        shutil.rmtree(obj_dir, ignore_errors=True)
     dll = ctypes.CDLL(so_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(dll, name)

@@ -1,19 +1,24 @@
 """Motion estimation and compensation in plain PyTorch (SPEC.md §9).
 
-Twin of `video_encoder_tpu/ops/motion.py` for the full-search path. These
-are the plain versions the `full_search` and `mc_fetch` kernels are held
-against, and the CPU path of the port.
+Twin of `video_encoder_tpu/ops/motion.py` for the full and diamond
+searches. These are the plain versions the `full_search`, `sad_map_even`,
+`sad_at_mv` and `mc_fetch` kernels are held against, and the CPU path of
+the port.
 """
 
 from __future__ import annotations
 
 import torch
 
+from video_encoder_tpu.codec import spec
+
 from ..codec import tables
 from .transform import unblockify
 
 R = tables.SEARCH_R
 ND = 2 * R + 1  # 33 offsets per axis, 1089 candidates
+NE = R + 1      # 17 even offsets per axis, 289 even-lattice candidates
+BIG = 1 << 30   # cost of a candidate outside the ±R window
 
 
 def pad_ref(plane: torch.Tensor, r: int) -> torch.Tensor:
@@ -53,18 +58,99 @@ def full_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     return k // ND - R, k % ND - R, best >> 11
 
 
+def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
+    """SADs of every even-even mv, [nby, nbx, 289] int32: candidate
+    kE = ((dy+R)/2)*17 + (dx+R)/2, the values full_search sees there (same
+    edge padding). One even dy row of 17 candidates per step."""
+    h, w = cur_y.shape
+    refpad = pad_ref(ref_y, R)
+    rows_of_sads = []
+    for ky in range(NE):
+        rows = refpad[2 * ky:2 * ky + h]
+        shifted = torch.stack([rows[:, 2 * kx:2 * kx + w] for kx in range(NE)])
+        rows_of_sads.append(_mb_sums((cur_y - shifted).abs(), tables.MB))
+    return torch.cat(rows_of_sads).permute(1, 2, 0).contiguous()
+
+
+def sad_at(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
+           dx: torch.Tensor) -> torch.Tensor:
+    """Per-MB 16x16 SAD at integer mvs dy, dx [..., nby, nbx] (|mv| <= R;
+    any number of leading candidate axes). Returns int32 of dy's shape."""
+    h, w = cur_y.shape
+    mb = tables.MB
+    cur_b = cur_y.reshape(h // mb, mb, w // mb, mb).permute(0, 2, 1, 3)
+    pred = mc_fetch(pad_ref(ref_y, R), dy, dx, mb, R)
+    return (cur_b - pred).abs().sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def diamond_search_with(cur_y: torch.Tensor, sad_fn, sad_fn_small):
+    """Masked diamond search (SPEC.md §9) over per-MB SAD evaluators that
+    take mvs [..., nby, nbx]: sad_fn for the even-lattice large-diamond
+    loop, sad_fn_small for the final ±1 step. Returns (dy, dx, sad) int32.
+
+    The loop runs the fixed budget of DIAMOND_MAX_STEPS steps and never
+    reads a device value on the host. The reference's while-loop stops
+    once every MB is frozen, and a step where every MB is frozen is the
+    identity, so the two agree bit for bit. Candidates are ranked by the
+    packed int64 key cost * 8 + index (invalid ones cost BIG), whose
+    minimum is the first minimum in the order current, up, left, right,
+    down."""
+    nby, nbx = cur_y.shape[0] // tables.MB, cur_y.shape[1] // tables.MB
+    dev = cur_y.device
+    dy = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    dx = torch.zeros_like(dy)
+    cost = sad_fn(dy, dx)
+    frozen = cost < spec.DIAMOND_EARLY_SAD
+
+    # unit steps up, left, right, down, made on the device: a host tensor
+    # copied there would make the host wait for the stream
+    k = torch.arange(4, device=dev)[:, None, None]
+    unit = ((k == 3).int() - (k == 0).int(), (k == 2).int() - (k == 1).int())
+    large = (2 * unit[0], 2 * unit[1])
+    idx = torch.arange(5, device=dev)[:, None, None]
+
+    def evaluate(dy, dx, cost, frozen, offs, fn):
+        ndy, ndx = dy + offs[0], dx + offs[1]                  # [4, nby, nbx]
+        valid = (ndy.abs() <= R) & (ndx.abs() <= R)
+        cs = torch.where(valid, fn(ndy.clamp(-R, R), ndx.clamp(-R, R)), BIG)
+        cc = torch.cat([cost[None], cs]).long()                # [5, nby, nbx]
+        widx = (cc * 8 + idx).amin(0) & 7
+        cand_dy = torch.cat([dy[None], ndy])
+        cand_dx = torch.cat([dx[None], ndx])
+        pick = widx[None]
+        wdy = cand_dy.gather(0, pick)[0]
+        wdx = cand_dx.gather(0, pick)[0]
+        wcost = cc.gather(0, pick)[0].int()
+        return (torch.where(frozen, dy, wdy), torch.where(frozen, dx, wdx),
+                torch.where(frozen, cost, wcost), (widx != 0) & ~frozen)
+
+    for _ in range(spec.DIAMOND_MAX_STEPS):
+        dy, dx, cost, moved = evaluate(dy, dx, cost, frozen, large, sad_fn)
+        frozen = frozen | ~moved | (cost < spec.DIAMOND_EARLY_SAD)
+    dy, dx, cost, _ = evaluate(dy, dx, cost, torch.zeros_like(frozen), unit,
+                               sad_fn_small)
+    return dy, dx, cost
+
+
+def diamond_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
+    """Diamond search with every SAD from sad_at: the plain route."""
+    def fn(dy, dx):
+        return sad_at(cur_y, ref_y, dy, dx)
+    return diamond_search_with(cur_y, fn, fn)
+
+
 def mc_fetch(refpad: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
              bs: int, r: int) -> torch.Tensor:
-    """Per-block predictor gather [nby, nbx, bs, bs] from refpad (padded
-    by r) at the per-block integer mvs."""
-    nby, nbx = dy.shape
+    """Per-block predictor gather [..., nby, nbx, bs, bs] from refpad
+    (padded by r) at the per-block integer mvs [..., nby, nbx]."""
+    nby, nbx = dy.shape[-2:]
     dev = refpad.device
     my = torch.arange(nby, device=dev)[:, None, None, None] * bs
     mx = torch.arange(nbx, device=dev)[None, :, None, None] * bs
     ii = torch.arange(bs, device=dev)[None, None, :, None]
     jj = torch.arange(bs, device=dev)[None, None, None, :]
-    rows = r + my + dy.long()[:, :, None, None] + ii
-    cols = r + mx + dx.long()[:, :, None, None] + jj
+    rows = r + my + dy.long()[..., None, None] + ii
+    cols = r + mx + dx.long()[..., None, None] + jj
     return refpad[rows, cols]
 
 

@@ -1,13 +1,14 @@
 """GOP-resident encoder on one device: the port's production path.
 
-Twin of `video_encoder_tpu/pipeline/gop_engine.py` for full search,
-format 1, rc none and frame emit. A Python loop over the GOP's frames
-replaces `lax.scan`; the reconstruction stays on the device as the next
-frame's reference, and the kernels launch asynchronously on the current
-stream. The host waits once per GOP, for the overflow flag: payload
-capacity is budgeted, and a GOP whose pack overflows any budget is encoded
-again at the exact worst-case capacities (the bytes are the same either
-way, SPEC.md §11 invariant 2).
+Twin of `video_encoder_tpu/pipeline/gop_engine.py` for full and diamond
+search, format 1, rc none, bitrate and mb, and both emits (frame and
+chunks). A Python loop over the GOP's frames replaces `lax.scan`; the
+reconstruction and the frame qp stay on the device as the next frame's
+reference and rate-control carry, and the kernels launch asynchronously
+on the current stream. The host waits once per GOP, for the overflow
+flag: payload capacity is budgeted, and a GOP whose pack overflows any
+budget is encoded again at the exact worst-case capacities (the bytes are
+the same either way, SPEC.md §11 invariant 2).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from video_encoder_tpu.codec.golden import Frame
 from video_encoder_tpu.utils.metrics import FrameStats
 
 from ..codec import entropy, tables
+from ..codec.mux import bit_concat
 from ..ops import dispatch, motion
 from ..ops import transform as tx
 
@@ -52,11 +54,40 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def predict_p_traced(cur_y, ref_y, ref_cb, ref_cr, icost):
-    """P-frame prediction: full search, mode decision (sad <= intra cost),
-    luma and chroma MC; intra MBs predict flat 128. Returns (dy, dx,
-    is_inter, pred_y, pred_cb, pred_cr)."""
-    dy, dx, best_sad = dispatch.full_search(cur_y, ref_y)
+def mb_rc_offsets(est: torch.Tensor) -> torch.Tensor:
+    """rc=mb per-MB qp offsets (SPEC.md §10.4) from pass-1 per-MB bits
+    [nby, nbx]: the integer program of spec.mb_rc_offsets, in int64, with
+    floor division and the arithmetic >> 7 (floor by 128 for either
+    sign). Returns int32 in [-2, 2]."""
+    est = est.long()
+    nbx = est.shape[-1]
+    row_tot = est.sum(-1, keepdim=True).clamp(min=1)
+    share = torch.div(est * 1024, row_tot, rounding_mode="floor")
+    spent = torch.cumsum(share, -1) - share
+    plan = torch.div(torch.arange(nbx, device=est.device) * 1024, nbx,
+                     rounding_mode="floor")
+    return ((spent - plan) >> 7).clamp(-2, 2).int()
+
+
+def rc_carry_step(target_bits: int, qp: torch.Tensor,
+                  bits: torch.Tensor) -> torch.Tensor:
+    """Frame-level carry of rc=bitrate and rc=mb (SPEC.md §10): the next
+    frame's qp from this frame's payload bits, on the device (a 0-dim
+    int32 tensor), so the GOP loop never waits on the host."""
+    if target_bits <= 0:
+        return qp
+    delta = torch.div((bits.long() - target_bits) * 4, target_bits,
+                      rounding_mode="floor").clamp(-2, 2)
+    return (qp + delta).clamp(tables.QP_MIN, tables.QP_MAX).int()
+
+
+def predict_p_traced(cur_y, ref_y, ref_cb, ref_cr, icost, search: str):
+    """P-frame prediction: motion search (full or diamond), mode decision
+    (sad <= intra cost), luma and chroma MC; intra MBs predict flat 128.
+    Returns (dy, dx, is_inter, pred_y, pred_cb, pred_cr)."""
+    search_fn = {"full": dispatch.full_search,
+                 "diamond": dispatch.diamond_search}[search]
+    dy, dx, best_sad = search_fn(cur_y, ref_y)
     is_inter = best_sad <= icost
     m_y = is_inter.repeat_interleave(tables.MB, 0).repeat_interleave(tables.MB, 1)
     m_c = is_inter.repeat_interleave(tables.BLK, 0).repeat_interleave(tables.BLK, 1)
@@ -80,30 +111,47 @@ def _sse(a, b):
     return (d * d).sum()
 
 
-def code_pack_traced(cur_y, cur_cb, cur_cr, pred_y, pred_cb, pred_cr,
-                     dy, dx, is_inter, is_p: bool, base_qp: int, *,
-                     block_words: int, cap_words: int, qbias: int = 8):
-    """Transform/quant/recon of the three planes and the frame-emit pack.
-    Returns a dict of device tensors: words [cap_words] int64, bits, ovf,
-    n_inter, rec_y/rec_cb/rec_cr and sse [3] int64."""
-    nby, nbx = dy.shape
-    qp_mb = torch.full((nby, nbx), base_qp, dtype=torch.int32,
-                       device=cur_y.device)
+def _code_frame(cur, pred, qp_mb, qbias: int):
+    """Transform/quant/recon of the three planes at per-MB qps:
+    ((levels_y8, levels_cb, levels_cr), (rec_y, rec_cb, rec_cr))."""
     qs = tx.qstep(qp_mb)
     qy = qs.repeat_interleave(2, 0).repeat_interleave(2, 1)
-    lz_y, rec_y = dispatch.code_plane(cur_y, pred_y, qy, qbias)
-    lz_cb, rec_cb = dispatch.code_plane(cur_cb, pred_cb, qs, qbias)
-    lz_cr, rec_cr = dispatch.code_plane(cur_cr, pred_cr, qs, qbias)
-    words, total_bits, _, ovf = entropy.pack_frame_planes(
-        lz_y, lz_cb, lz_cr, qp_mb - base_qp, is_p, is_inter, dy, dx,
-        block_words, cap_words,
-    )
-    return dict(
-        words=words, bits=total_bits, ovf=ovf,
-        n_inter=is_inter.sum(), rec_y=rec_y, rec_cb=rec_cb, rec_cr=rec_cr,
-        sse=torch.stack([_sse(cur_y, rec_y), _sse(cur_cb, rec_cb),
-                         _sse(cur_cr, rec_cr)]),
-    )
+    coded = [dispatch.code_plane(c, p, q, qbias)
+             for c, p, q in zip(cur, pred, (qy, qs, qs))]
+    return tuple(lv for lv, _ in coded), tuple(rec for _, rec in coded)
+
+
+def code_pack_traced(cur, pred, dy, dx, is_inter, is_p: bool,
+                     qp: torch.Tensor, *, rc: str, emit: str,
+                     block_words: int, cap_words: int, qbias: int = 8):
+    """Transform/quant/recon of the three planes and the entropy pack at
+    the frame qp (a 0-dim int32 device tensor). rc="mb" first codes the
+    frame at the flat qp for its per-MB bit counts only, whose row pace
+    offsets set the per-MB qps of the real pass (SPEC.md §10.4); headers
+    code qp_mb - qp. emit="frame" assembles the payload (words
+    [cap_words]); emit="chunks" stops at span strings (words [C, cw],
+    cbits [C]). Returns a dict of device tensors: words, (cbits,) bits,
+    ovf, n_inter, rec (three planes) and sse [3] int64."""
+    nby, nbx = dy.shape
+    flat = qp.reshape(1, 1).expand(nby, nbx)
+    if rc == "mb":
+        levels, _ = _code_frame(cur, pred, flat, qbias)
+        est = entropy.frame_mb_bits(*levels, flat - qp, is_p, is_inter,
+                                    dy, dx, block_words)
+        qp_mb = (qp + mb_rc_offsets(est)).clamp(tables.QP_MIN, tables.QP_MAX)
+    else:
+        qp_mb = flat
+    levels, rec = _code_frame(cur, pred, qp_mb, qbias)
+    args = (*levels, qp_mb - qp, is_p, is_inter, dy, dx, block_words)
+    if emit == "chunks":
+        words, cbits, _, ovf = entropy.pack_frame_chunks(*args)
+        out = dict(words=words, cbits=cbits, bits=cbits.sum(dtype=torch.int64))
+    else:
+        words, bits, _, ovf = entropy.pack_frame_planes(*args, cap_words)
+        out = dict(words=words, bits=bits)
+    out.update(ovf=ovf, n_inter=is_inter.sum(), rec=rec,
+               sse=torch.stack([_sse(c, r) for c, r in zip(cur, rec)]))
+    return out
 
 
 class GopEngine:
@@ -111,41 +159,50 @@ class GopEngine:
 
     encode_gop(frames, first_index) -> (packets, stats). `device` is
     explicit and defaults to "cuda"; nothing moves to the CPU on its own.
+    `emit` is "frame" (the device assembles each payload) or "chunks"
+    (span strings glued on the host); both give the same bytes. The
+    default is the one measured faster on the card (PERF.md).
     """
 
-    def __init__(self, cfg: EncoderConfig, device="cuda", emit: str = "frame"):
-        if cfg.search != "full":
-            raise NotImplementedError(
-                f"search={cfg.search!r} is not ported yet (ROADMAP.md A10: "
-                "diamond; hier is golden/oracle-only)")
+    emit = "frame"
+
+    def __init__(self, cfg: EncoderConfig, device="cuda",
+                 emit: str | None = None):
+        if cfg.search not in ("full", "diamond"):
+            raise ValueError(
+                f"search={cfg.search!r} is not a device-engine mode (full, "
+                "diamond); hier is golden/oracle-only")
         if cfg.format_version != 1:
             raise NotImplementedError(
                 f"format {cfg.format_version} is not ported yet "
                 "(ROADMAP.md A10)")
-        if cfg.rc != "none":
+        if cfg.rc not in ("none", "bitrate", "mb"):
             raise NotImplementedError(
                 f"rc={cfg.rc!r} is not ported yet (ROADMAP.md A10)")
         if cfg.gop_devices != 1 or cfg.tile_devices != 1:
             raise NotImplementedError(
                 "multi-device encode is not ported yet (ROADMAP.md A13)")
-        if emit != "frame":
-            raise NotImplementedError(
-                f"emit={emit!r} is not ported yet (ROADMAP.md A8: chunk "
-                "emit with super_merge_mb)")
+        if emit not in (None, "frame", "chunks"):
+            raise ValueError(f"unknown emit {emit!r} (frame, chunks)")
         self.cfg = cfg
-        self.emit = emit
+        self.emit = emit or self.emit
         self.device = resolve_device(device)
 
     def run(self, y, cb, cr, base_qp: int, xl: bool = False):
         """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
         on the engine's device; launches only, no host wait. xl selects the
-        worst-case block and frame capacities. Returns stacked per-frame
-        device tensors (words, bits, ovf, n_inter, sse)."""
+        worst-case block and frame capacities. The frame qp is a device
+        scalar carried from frame to frame (rc bitrate/mb). Returns stacked
+        per-frame device tensors: words, bits, ovf, n_inter, qp, sse, and
+        cbits [T, C] under chunk emit."""
+        cfg = self.cfg
         n_mbs = (y.shape[1] // tables.MB) * (y.shape[2] // tables.MB)
         if xl:
             bw, cap = entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
         else:
             bw, cap = block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
+        target_bits = cfg.target_bits_per_frame()
+        qp = torch.full((), base_qp, dtype=torch.int32, device=y.device)
         ref = None
         outs = []
         for t in range(y.shape[0]):
@@ -155,17 +212,21 @@ class GopEngine:
                 pred = predict_i_traced(*cur)
             else:
                 _, icost = motion.intra_cost_and_dc(cur[0])
-                pred = predict_p_traced(cur[0], *ref, icost)
-            dy, dx, is_inter, pred_y, pred_cb, pred_cr = pred
+                pred = predict_p_traced(cur[0], *ref, icost, cfg.search)
+            dy, dx, is_inter = pred[:3]
             out = code_pack_traced(
-                *cur, pred_y, pred_cb, pred_cr, dy, dx, is_inter, t > 0,
-                base_qp, block_words=bw, cap_words=cap,
-                qbias=self.cfg.quant_bias,
+                cur, pred[3:], dy, dx, is_inter, t > 0, qp, rc=cfg.rc,
+                emit=self.emit, block_words=bw, cap_words=cap,
+                qbias=cfg.quant_bias,
             )
-            ref = (out["rec_y"], out["rec_cb"], out["rec_cr"])
+            out["qp"] = qp
+            qp = rc_carry_step(target_bits, qp, out["bits"])
+            ref = out["rec"]
             outs.append(out)
-        return {k: torch.stack([o[k] for o in outs])
-                for k in ("words", "bits", "ovf", "n_inter", "sse")}
+        keys = ["words", "bits", "ovf", "n_inter", "qp", "sse"]
+        if self.emit == "chunks":
+            keys.append("cbits")
+        return {k: torch.stack([o[k] for o in outs]) for k in keys}
 
     def encode_gop_start(self, frames: list[Frame], first_index: int,
                          base_qp: int | None = None):
@@ -192,11 +253,23 @@ class GopEngine:
         if bool(outs["ovf"].any()):   # the GOP's one wait on the device
             outs = self.run(handle["y"], handle["cb"], handle["cr"],
                             handle["base_qp"], xl=True)
-        small = torch.cat([outs["bits"][:, None], outs["n_inter"][:, None],
-                           outs["sse"]], 1).cpu().numpy()
-        bits, n_inter, sse = small[:, 0], small[:, 1], small[:, 2:]
-        maxw = int(bits.max() + 31) // 32
-        words = outs["words"][:, :maxw].cpu().numpy()
+        chunked = "cbits" in outs
+        cols = [outs["bits"][:, None], outs["n_inter"][:, None],
+                outs["qp"][:, None], outs["sse"]]
+        if chunked:
+            cols.append(outs["cbits"])
+        small = torch.cat(cols, 1).cpu().numpy()
+        bits, n_inter, qps, sse = small[:, 0], small[:, 1], small[:, 2], small[:, 3:6]
+        if chunked:
+            # only the words up to the GOP's longest span string, as the
+            # low 32 bits of each int64 word
+            cbits = small[:, 6:]
+            maxw = max(int(cbits.max() + 31) // 32, 1)
+            words = (outs["words"][:, :, :maxw].contiguous()
+                     .view(torch.int32)[..., ::2].cpu().numpy().view(np.uint32))
+        else:
+            maxw = int(bits.max() + 31) // 32
+            words = outs["words"][:, :maxw].cpu().numpy()
         ms_total = (time.perf_counter() - handle["t0"]) * 1e3
 
         n_mbs = (frames[0].y.shape[0] // tables.MB) * (frames[0].y.shape[1] // tables.MB)
@@ -207,10 +280,18 @@ class GopEngine:
 
         packets, stats = [], []
         for t in range(len(frames)):
-            nw = (int(bits[t]) + 31) // 32
-            payload = words[t, :nw].astype(">u4").tobytes()
+            if chunked:
+                payload, nbits = bit_concat(
+                    [(words[t, c], int(b)) for c, b in enumerate(cbits[t]) if b])
+                if nbits != int(bits[t]):
+                    raise RuntimeError(f"frame {first_index + t}: span "
+                                       f"strings hold {nbits} bits, the "
+                                       f"pack counted {int(bits[t])}")
+            else:
+                nw = (int(bits[t]) + 31) // 32
+                payload = words[t, :nw].astype(">u4").tobytes()
             ftype = 0 if t == 0 else 1
-            qp = handle["base_qp"]
+            qp = int(qps[t])
             packets.append(FramePacket(first_index + t, ftype, qp,
                                        int(bits[t]), payload))
             stats.append(FrameStats(
