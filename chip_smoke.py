@@ -6,25 +6,40 @@ Phases, each of which raises on failure (exit code not 0):
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/.
-3. Kernels: each of the eight kernels against its plain PyTorch version
-   on the card at the main paths' shapes (1088x1920 luma, 544x960 chroma,
-   the odd 368x640 grid, the span strings of real 1080p and 320x192
-   frames and dense overflowing pieces), exact equality (tolerance 0: the
-   codec is integer-only), with both times.
-4. Paths: the port CLI encodes a 1920x1080 I420 clip of 30 frames (GOP 30,
-   qp 28, format 1) in-process on the card, once with full search and rc
-   none and once, on a smoother texture, with diamond search, rc mb and
-   --kbps 12000 (BASELINE config 3), each under the engine's default
-   emit; each stream must be
-   byte-identical to the C++ oracle's, the oracle decodes it and PSNR-Y is
-   checked. The config-3 clip is then encoded in-process under the other
-   emit and must give the same packets. Launch counts are zeroed before
-   and read after each path; every kernel of a path must have launched.
-   Then 640x360 at GOP 1 (odd 23-row MB grid).
+3. Kernels: each kernel (the eight of formats 1, and block_pack in the
+   format-2 syntax, code_plane with the quant matrix and the chroma twin
+   of sad_at_mv) against its plain PyTorch version on the card at the
+   main paths' shapes (1088x1920 luma, 544x960 chroma, the odd 368x640
+   grid, the [8, W] stripes of the I-frame row scan, the half-pel
+   refine's nine candidates on four parity planes, the span strings of
+   real 1080p and 320x192 frames and dense overflowing pieces), exact
+   equality (tolerance 0: the codec is
+   integer-only), with both times, the least time the card could take
+   (bytes moved over its memory rate, or integer operations over its
+   peak, whichever is larger) and, where one PyTorch call computes the
+   same function, that call's time.
+4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
+   (GOP 30, qp 28) in-process on the card: full search, rc none, format
+   1; on a smoother texture, diamond search, rc mb and --kbps 12000
+   (BASELINE config 3); and, on a clip with true half-pel motion, format
+   4 with the quant matrix and chroma qp offset 2. Each runs under the
+   engine's default emit and each stream must be byte-identical to the
+   C++ oracle's; the oracle decodes it and PSNR-Y is checked. The share
+   of inter MBs with a half-pel vector in the format-4 stream must be
+   above 0. The config-3 and format-4 clips are then encoded in-process
+   under the other emit and must give the same packets. Launch counts
+   are zeroed before and read after each path; every kernel of a path
+   must have launched. Then 640x360: GOP 1 (odd 23-row MB grid), format 2
+   (chroma qp offset 4, diamond, rc vbv at 1500 kbps) and format 3 (quant
+   matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
+   each, against the oracle. The oracle's encodes run side by side on the
+   host's CPU before the port's.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
-   (the emits timed in turns), each with its device ops per frame, busy
-   share and top device times from torch.profiler, and the CLI's wall fps.
+   (the emits timed in turns) and for the format-4 cell under the default
+   emit, each with its device ops per frame, busy share and top device
+   times from torch.profiler, the format-4 I frame (the row scan) on its
+   own, and the CLI's wall fps.
 
 The last two lines of standard output are the kernel table and
 {"ok": true, "device": {...}}. Builds go to build/ (gitignored).
@@ -45,6 +60,18 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+# Published peaks of one H100 SXM at its full power limit: device memory
+# rate, and int32 operations outside the tensor cores. The SM has 64 int32
+# lanes against 128 fp32 lanes, so the int32 rate is half the fp32 rate of
+# 67 TFLOP/s; a multiply-add or an abs-diff-accumulate counts 2 operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+# the main paths' plane shapes: 1080p (padded to 1088 rows) and 640x360
+# (padded to 368, an odd 23-row MB grid)
+LUMA = [(1088, 1920), (368, 640)]
+CHROMA = [(544, 960), (184, 320)]
+PSNR_FLOOR = 30.0   # dB, luma, of every path's decoded stream
 ORACLE_SRC = os.path.join(ROOT, "oracle", "oracle.cpp")
 ORACLE_BIN = os.path.join(ROOT, "build", "oracle", "oracle")
 
@@ -60,23 +87,30 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def texture(rng, h: int, w: int, passes: int = 2) -> np.ndarray:
-    """Smoothed random texture [h + 128, w + 128] int32 in [0, 255]."""
-    base = rng.integers(0, 256, (h + 128, w + 128)).astype(np.int32)
+def texture(rng, h: int, w: int, passes: int = 2, scale: int = 1) -> np.ndarray:
+    """Smoothed random texture [h + 128, w + 128] int32 in [0, 255]. With
+    scale > 1 the random field is made at 1/scale of the size and repeated
+    up, so the texture is band-limited as camera content is: most of its
+    energy sits in the low frequencies the quant matrix keeps."""
+    hs, ws = -(-(h + 128) // scale), -(-(w + 128) // scale)
+    base = rng.integers(0, 256, (hs, ws)).astype(np.int32)
+    if scale > 1:
+        base = np.kron(base, np.ones((scale, scale), np.int32))[:h + 128, :w + 128]
     for _ in range(passes):
         base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
                 + np.roll(base, 2, 0) + np.roll(base, 2, 1)) // 5
     return base
 
 
-def synth_clip(t: int, h: int, w: int, seed: int, passes: int = 2):
+def synth_clip(t: int, h: int, w: int, seed: int, passes: int = 2,
+               scale: int = 1):
     """Panning texture, a moving random patch, mild noise; flat chroma.
     More smoothing passes (contrast stretched back to 0-255) give the
     larger-scale texture that a diamond descent can follow: on the
     two-pass texture it stalls in a local minimum for about a third of
     the MBs."""
     rng = np.random.default_rng(seed)
-    base = texture(rng, h, w, passes)
+    base = texture(rng, h, w, passes, scale)
     if passes > 2:
         base = (base - base.min()) * 255 // max(int(np.ptp(base)), 1)
     ys, cbs, crs = [], [], []
@@ -88,6 +122,46 @@ def synth_clip(t: int, h: int, w: int, seed: int, passes: int = 2):
         cbs.append(np.full((h // 2, w // 2), 108 + k, np.uint8))
         crs.append(np.full((h // 2, w // 2), 148, np.uint8))
     return ys, cbs, crs
+
+
+def synth_clip_halfpel(t: int, h: int, w: int, seed: int, passes: int = 2,
+                       scale: int = 1):
+    """A clip with true half-pel motion: the texture is made at twice the
+    size and each frame is its 2x2 means at an offset that grows by (1, 3)
+    double-resolution pixels per frame, a pan of (+0.5, +1.5) px. A moving
+    random patch and mild noise as in synth_clip; chroma is textured and
+    pans with the luma (4x4 means of a second texture)."""
+    rng = np.random.default_rng(seed)
+    big = texture(rng, 2 * h, 2 * w, passes, scale)
+    big = (big - big.min()) * 255 // max(int(np.ptp(big)), 1)
+    cbig = texture(rng, 2 * h, 2 * w, passes, scale)
+    ys, cbs, crs = [], [], []
+    for k in range(t):
+        oy, ox = k, 3 * k
+        win = big[oy: oy + 2 * h, ox: ox + 2 * w]
+        y = (win[0::2, 0::2] + win[0::2, 1::2] + win[1::2, 0::2]
+             + win[1::2, 1::2] + 2) // 4 + rng.integers(-2, 3, (h, w))
+        px, py = (200 + 11 * k) % max(w - 64, 1), (300 + 7 * k) % max(h - 64, 1)
+        y[py: py + 64, px: px + 64] = rng.integers(0, 256, (64, 64))
+        c = cbig[oy: oy + 2 * h, ox: ox + 2 * w].reshape(
+            h // 2, 4, w // 2, 4).sum((1, 3)) // 16
+        ys.append(np.clip(y, 0, 255).astype(np.uint8))
+        cbs.append((96 + c // 4).astype(np.uint8))
+        crs.append((160 - c // 4).astype(np.uint8))
+    return ys, cbs, crs
+
+
+def bound(inputs, outputs, ops: float):
+    """(bound_ms, bound_by): the least time the card could take for a
+    function that reads each input tensor once, writes each output once
+    and does `ops` int32 operations. The int64 tensors of these interfaces
+    (the packed strings of block_pack and the span merges) hold 32-bit
+    words, so the function needs 4 bytes of each element, not 8."""
+    nbytes = sum(t.numel() * (4 if t.dtype == torch.int64 else t.element_size())
+                 for t in (*inputs, *outputs))
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def time_ms(fn, budget_s: float = 0.5) -> float:
@@ -152,18 +226,41 @@ def phase_kernels(dev, card: str):
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
+    def tensors(x):
+        return [t for t in (x if isinstance(x, (tuple, list)) else [x])
+                if isinstance(t, torch.Tensor)]
+
     rows = {}
 
-    def record(name, src, replaces, err, ms=None, plain_ms=None):
+    def record(name, src, replaces, err, timing=None, also=None):
+        """timing: (ms, plain_ms, (bound_ms, bound_by), library_ms), at the
+        kernel's first launch shape on the main paths; also: the same
+        (without a library call) at a further launch shape, kept in the
+        row's "also" list under the shape's name."""
         row = rows.setdefault(name, dict(
             name=name, route="cuda", source=f"video_encoder_tpu_torch/csrc/{src}",
-            replaces=replaces, launches=0, max_abs_err=0, ms=None, plain_ms=None))
+            replaces=replaces, launches=0, max_abs_err=0, ms=None,
+            plain_ms=None, bound_ms=None, bound_by=None, library_ms=None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if ms is not None:
-            row.update(ms=ms, plain_ms=plain_ms)
+        if timing is not None:
+            ms, plain_ms, (bound_ms, bound_by), library_ms = timing
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+        if also is not None:
+            shape, (ms, plain_ms, (bound_ms, bound_by), _) = also
+            row.setdefault("also", []).append(dict(
+                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
 
-    luma = [(1088, 1920), (368, 640)]
-    chroma = [(544, 960), (184, 320)]
+    def shown(timing):
+        if timing is None:
+            return ""
+        ms, plain_ms, (bound_ms, bound_by), library_ms = timing
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        return (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}, library call {lib} [{card}]")
+
+    luma, chroma = LUMA, CHROMA
 
     # full search: a pan that puts the best match at the (+16, -16) corner,
     # and a flat region where all 1089 candidates tie
@@ -177,15 +274,19 @@ def phase_kernels(dev, card: str):
         got, want = both(dispatch.full_search, cur_t, ref_t)
         err = max_abs_err(got, want)
         corner = int(((got[0] == 16) & (got[1] == -16)).sum())
-        ms = plain_ms = None
+        timing = None
         if (h, w) == luma[0]:
-            ms, plain_ms = timed(dispatch.full_search, cur_t, ref_t)
+            n_mbs = (h // 16) * (w // 16)
+            timing = (*timed(dispatch.full_search, cur_t, ref_t),
+                      bound([cur_t, ref_t], got, n_mbs * 1089 * 256 * 2), None)
         record("full_search", "full_search.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:68", err, ms, plain_ms)
+               "video_encoder_tpu/ops/pallas/sad.py:68", err, timing)
         log(f"kernel full_search {h}x{w}: equal, {corner} MBs at mv (16,-16)"
-            + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
+            + shown(timing))
 
-    # MC fetch: random mvs over the whole range, corners forced to the edges
+    # MC fetch: random mvs over the whole range, corners forced to the
+    # edges. Its library call is one torch.take over flat indices made
+    # outside the timed call.
     for (h, w), (ch, cw) in zip(luma, chroma):
         for name, (ph, pw), bs, fn in (
                 ("mc_fetch_luma", (h, w), 16, dispatch.mc_fetch_luma_plane),
@@ -200,57 +301,119 @@ def phase_kernels(dev, card: str):
             args = (ref_t, t32(dy), t32(dx))
             got, want = both(fn, *args)
             err = max_abs_err([got], [want])
-            ms = plain_ms = None
-            if (ph, pw) in ((1088, 1920), (544, 960)):
-                ms, plain_ms = timed(fn, *args)
+            timing = None
+            if (ph, pw) in (luma[0], chroma[0]):
+                rows_i = (torch.arange(ph, device=dev)[:, None]
+                          + args[1].repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+                          ).clamp(0, ph - 1)
+                cols_i = (torch.arange(pw, device=dev)[None, :]
+                          + args[2].repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+                          ).clamp(0, pw - 1)
+                flat = (rows_i * pw + cols_i).long()
+                max_abs_err([torch.take(ref_t, flat)], [want])
+                timing = (*timed(fn, *args), bound(args, [got], 0),
+                          time_ms(lambda: torch.take(ref_t, flat)))
             record(name, "mc_fetch.cu",
-                   "video_encoder_tpu/ops/pallas/sad.py:724", err, ms, plain_ms)
-            log(f"kernel {name} {ph}x{pw}: equal"
-                + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
+                   "video_encoder_tpu/ops/pallas/sad.py:724", err, timing)
+            log(f"kernel {name} {ph}x{pw}: equal" + shown(timing))
 
     # code_plane: per-block qp mixing 1, 28 and 63; midpoint and deadzone
-    # bias; block_pack on the levels it produces (qp 1 overflows 16 words)
-    levels_for_pack = None
-    for h, w in [(1088, 1920), (544, 960), (368, 640)]:
+    # bias; flat steps and the v3 quant matrix; block_pack in both
+    # syntaxes on the levels it produces (qp 1 overflows 16 words)
+    pack_levels = {}
+    for h, w in [luma[0], chroma[0], luma[1]]:
         tex = texture(rng, h, w)
         cur_t = t32(tex[:h, :w])
         pred_t = t32(np.clip(tex[3:3 + h, 5:5 + w] + rng.integers(-20, 21, (h, w)), 0, 255))
         qp = rng.choice([1, 28, 63], (h // 8, w // 8))
         q_blk = tables.load(dev).QSTEP[t32(qp).long()].contiguous()
-        for qbias in (8, 5):
-            got, want = both(dispatch.code_plane, cur_t, pred_t, q_blk, qbias)
-            err = max_abs_err(got, want)
-            ms = plain_ms = None
-            if (h, w) == (1088, 1920) and qbias == 8:
-                q28 = torch.full_like(q_blk, int(tables.load(dev).QSTEP[28]))
-                ms, plain_ms = timed(dispatch.code_plane, cur_t, pred_t, q28, 8)
-                levels_for_pack = dispatch.code_plane(cur_t, pred_t, q28, 8)[0]
-            record("code_plane", "code_plane.cu",
-                   "video_encoder_tpu/ops/pallas/codec.py:96", err, ms, plain_ms)
-            log(f"kernel code_plane {h}x{w} qbias {qbias}: equal"
-                + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
-            for n_words in (16, entropy.BLOCK_WORDS_MAX):
-                lv = got[0].reshape(-1, 64)
-                gp, wp = both(dispatch.block_pack, lv, n_words)
-                err = max_abs_err(gp, wp)
-                over = int((gp[1] > 32 * n_words).sum())
-                record("block_pack", "block_pack.cu",
-                       "video_encoder_tpu/ops/pallas/entropy_pack.py:116", err)
-                log(f"kernel block_pack {lv.shape[0]} blocks, {n_words} words: "
-                    f"equal, {over} blocks overflow")
+        for qmat, name in ((False, "code_plane"), (True, "code_plane_qmat")):
+            for qbias in (8, 5):
+                got, want = both(dispatch.code_plane, cur_t, pred_t, q_blk,
+                                 qbias, qmat)
+                err = max_abs_err(got, want)
+                timing = None
+                if (h, w) == luma[0] and qbias == 8:
+                    q28 = torch.full_like(q_blk, int(tables.load(dev).QSTEP[28]))
+                    # per pixel: four 8-point passes of multiply-adds, the
+                    # quantizer's multiply, divide and dequantize, roundings
+                    timing = (*timed(dispatch.code_plane, cur_t, pred_t, q28, 8, qmat),
+                              bound([cur_t, pred_t, q28], got, h * w * (4 * 16 + 10)),
+                              None)
+                    pack_levels[qmat] = dispatch.code_plane(
+                        cur_t, pred_t, q28, 8, qmat)[0]
+                record(name, "code_plane.cu",
+                       "video_encoder_tpu/ops/pallas/codec.py:96", err, timing)
+                log(f"kernel {name} {h}x{w} qbias {qbias}: equal" + shown(timing))
+                for fmt, pname in ((1, "block_pack"), (2, "block_pack_v2")):
+                    dc_pred = (entropy._dc_pred_left(got[0]).reshape(-1).contiguous()
+                               if fmt >= 2 else None)
+                    for n_words in (16, entropy.BLOCK_WORDS_MAX):
+                        lv = got[0].reshape(-1, 64)
+                        gp, wp = both(dispatch.block_pack, lv, n_words, dc_pred, fmt)
+                        err = max_abs_err(gp, wp)
+                        over = int((gp[1] > 32 * n_words).sum())
+                        record(pname, "block_pack.cu",
+                               "video_encoder_tpu/ops/pallas/entropy_pack.py:116", err)
+                        log(f"kernel {pname} {lv.shape[0]} blocks, {n_words} "
+                            f"words: equal, {over} blocks overflow")
 
-    # dense random levels at the quantizer's extremes: every block overflows
-    lv = t32(rng.integers(-3925, 3926, (4096, 64)))
-    gp, wp = both(dispatch.block_pack, lv, 16)
-    max_abs_err(gp, wp)
-    if not bool((gp[1] > 512).all()):
-        raise AssertionError("dense blocks should overflow 16 words")
+    # the I-frame row scan's shape of code_plane (formats 3 and 4): one
+    # [8, W] stripe, a single row of the grid, whose pred is one pixel row
+    # repeated eight times; luma and chroma widths of 1080p and 640x360
+    for w in (1920, 960, 640, 320):
+        cur_t = t32(texture(rng, 8, w)[:8, :w])
+        pred_t = t32(rng.integers(0, 256, (1, w))).expand(8, w).contiguous()
+        qp = rng.choice([1, 28, 63], (1, w // 8))
+        q_blk = tables.load(dev).QSTEP[t32(qp).long()].contiguous()
+        for qmat, name in ((False, "code_plane"), (True, "code_plane_qmat")):
+            for qbias in (8, 5):
+                got, want = both(dispatch.code_plane, cur_t, pred_t, q_blk,
+                                 qbias, qmat)
+                err = max_abs_err(got, want)
+                also = None
+                if w == 1920 and qbias == 8:
+                    q28 = torch.full_like(q_blk, int(tables.load(dev).QSTEP[28]))
+                    also = (f"stripe 8x{w}", (
+                        *timed(dispatch.code_plane, cur_t, pred_t, q28, 8, qmat),
+                        bound([cur_t, pred_t, q28], got, 8 * w * (4 * 16 + 10)),
+                        None))
+                record(name, "code_plane.cu",
+                       "video_encoder_tpu/ops/pallas/codec.py:96", err, also=also)
+                log(f"kernel {name} stripe 8x{w} qbias {qbias}: equal"
+                    + shown(also and also[1]))
+
+    # dense random levels at the quantizer's extremes: every block
+    # overflows; in the format-2 syntax a row of DCs alternating +-3925
+    # codes dc - pred = +-7850, the longest code (27 bits)
+    lv = rng.integers(-3925, 3926, (64, 64, 64))
+    lv[1, :, 1:] = 0
+    lv[1, 0::2, 0], lv[1, 1::2, 0] = 3925, -3925
+    lv = t32(lv)
     bw = block_words_for_qp(28)
-    ms, plain_ms = timed(dispatch.block_pack, levels_for_pack.reshape(-1, 64), bw)
-    record("block_pack", "block_pack.cu",
-           "video_encoder_tpu/ops/pallas/entropy_pack.py:116", 0, ms, plain_ms)
-    log(f"kernel block_pack dense overflow: equal; 1080p luma qp 28, {bw} words: "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]")
+    for fmt, pname, levels in ((1, "block_pack", pack_levels[False]),
+                               (2, "block_pack_v2", pack_levels[True])):
+        dc_pred = (entropy._dc_pred_left(lv).reshape(-1).contiguous()
+                   if fmt >= 2 else None)
+        gp, wp = both(dispatch.block_pack, lv.reshape(-1, 64), 16, dc_pred, fmt)
+        max_abs_err(gp, wp)
+        bits = gp[1].reshape(64, 64)
+        if not bool((bits[0] > 512).all() and (bits[2:] > 512).all()):
+            raise AssertionError("dense blocks should overflow 16 words")
+        if fmt >= 2 and int(bits[1, 1:].max()) != 1 + 27 + 1:
+            raise AssertionError("se(+-7850) should take 27 bits")
+        flat = levels.reshape(-1, 64)
+        dc_pred = (entropy._dc_pred_left(levels).reshape(-1).contiguous()
+                   if fmt >= 2 else None)
+        got = dispatch.block_pack(flat, bw, dc_pred, fmt)
+        # per block: 64 zero tests, then ~10 operations per nonzero level
+        ops = flat.shape[0] * 64 + 10 * int((flat != 0).sum())
+        timing = (*timed(dispatch.block_pack, flat, bw, dc_pred, fmt),
+                  bound(tensors([flat, dc_pred]), got, ops), None)
+        record(pname, "block_pack.cu",
+               "video_encoder_tpu/ops/pallas/entropy_pack.py:116", 0, timing)
+        log(f"kernel {pname} dense overflow: equal; 1080p luma qp 28, {bw} "
+            f"words" + shown(timing))
 
     # sad_map_even: the full-search pan (best even mv on the (+16, -16)
     # corner) and a flat region where all 289 candidates tie
@@ -267,69 +430,122 @@ def phase_kernels(dev, card: str):
         best = got.argmin(-1)
         corner = int((best == 16 * 17).sum())          # (dy, dx) = (16, -16)
         ties = int((got == got[..., :1]).all(-1).sum())
-        ms = plain_ms = None
+        timing = None
         if (h, w) == luma[0]:
-            ms, plain_ms = timed(dispatch.sad_map_even, cur_t, ref_t)
+            n_mbs = (h // 16) * (w // 16)
+            timing = (*timed(dispatch.sad_map_even, cur_t, ref_t),
+                      bound([cur_t, ref_t], [got], n_mbs * 289 * 256 * 2), None)
         record("sad_map_even", "full_search.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:594", err, ms, plain_ms)
+               "video_encoder_tpu/ops/pallas/sad.py:594", err, timing)
         log(f"kernel sad_map_even {h}x{w}: equal, {corner} MBs best at "
-            f"(16,-16), {ties} MBs with all 289 tied"
-            + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
+            f"(16,-16), {ties} MBs with all 289 tied" + shown(timing))
         seen = [seen[0] + corner, seen[1] + ties]
     if not all(seen):
         raise AssertionError("sad_map_even: edge or tie case not exercised")
 
-    # sad_at_mv: K = 4 candidates over the whole ±16 range, corners forced
+    # sad_at_mv (16x16 luma MBs) and its chroma twin (8x8 blocks): K = 4
+    # candidates over the whole range, corners forced
+    for name, planes, bs, fn in (
+            ("sad_at_mv", luma, 16, dispatch.sad_at_mv),
+            ("sad_at_mv_chroma", chroma, 8, dispatch.sad_at_mv_chroma)):
+        for h, w in planes:
+            cur_t = t32(rng.integers(0, 256, (h, w)))
+            ref_t = t32(rng.integers(0, 256, (h, w)))
+            dy = rng.integers(-bs, bs + 1, (4, h // bs, w // bs))
+            dx = rng.integers(-bs, bs + 1, (4, h // bs, w // bs))
+            for k, (sy, sx) in enumerate(((-1, -1), (-1, 1), (1, -1), (1, 1))):
+                dy[k, 0, 0], dx[k, 0, 0] = bs * sy, bs * sx
+                dy[k, -1, -1], dx[k, -1, -1] = -bs * sy, -bs * sx
+            args = (cur_t, ref_t, t32(dy), t32(dx))
+            got, want = both(fn, *args)
+            err = max_abs_err([got], [want])
+            timing = None
+            if (h, w) == planes[0]:
+                timing = (*timed(fn, *args),
+                          bound(args, [got], dy.size * bs * bs * 2), None)
+            record(name, "sad_at.cu",
+                   "video_encoder_tpu/ops/pallas/sad.py:852", err, timing)
+            log(f"kernel {name} {h}x{w} K=4: equal" + shown(timing))
+
+    # the half-pel refine's shape of sad_at_mv: nine candidates, each on
+    # the parity plane of its vector, in one launch; vectors on the +-16
+    # edge (candidates beyond +-32 half-pels are invalid). First the
+    # wrapper itself on the refine's nine candidate planes, all
+    # [9, nby, nbx] SADs held, then the whole refine.
+    from video_encoder_tpu_torch.ops import motion
+    uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
+    plane_of = [abs(u) * 2 + abs(v) for u, v in uv]
     for h, w in luma:
-        cur_t = t32(rng.integers(0, 256, (h, w)))
-        ref_t = t32(rng.integers(0, 256, (h, w)))
-        dy = rng.integers(-16, 17, (4, h // 16, w // 16))
-        dx = rng.integers(-16, 17, (4, h // 16, w // 16))
-        for k, (sy, sx) in enumerate(((-1, -1), (-1, 1), (1, -1), (1, 1))):
-            dy[k, 0, 0], dx[k, 0, 0] = 16 * sy, 16 * sx
-            dy[k, -1, -1], dx[k, -1, -1] = -16 * sy, -16 * sx
-        args = (cur_t, ref_t, t32(dy), t32(dx))
-        got, want = both(dispatch.sad_at_mv, *args)
-        err = max_abs_err([got], [want])
-        ms = plain_ms = None
+        tex = texture(rng, h, w)
+        cur_t = t32(tex[64:64 + h, 64:64 + w])
+        ref_t = t32(tex[63:63 + h, 66:66 + w])
+        dy = rng.integers(-16, 17, (h // 16, w // 16))
+        dx = rng.integers(-16, 17, (h // 16, w // 16))
+        dy[0], dx[:, 0], dy[-1], dx[:, -1] = -16, -16, 16, 16
+        planes4 = motion.hpel_stack(ref_t)
+        iy9 = t32(np.stack([np.clip((2 * dy + u) >> 1, -16, 16) for u, _ in uv]))
+        ix9 = t32(np.stack([np.clip((2 * dx + v) >> 1, -16, 16) for _, v in uv]))
+        args9 = (cur_t, planes4, iy9, ix9, plane_of)
+        got9, want9 = both(dispatch.sad_at_mv, *args9)
+        err = max_abs_err([got9], [want9])
+        also = None
         if (h, w) == luma[0]:
-            ms, plain_ms = timed(dispatch.sad_at_mv, *args)
+            also = (f"K=9 on 4 planes {h}x{w}", (
+                *timed(dispatch.sad_at_mv, *args9),
+                bound(args9[:4], [got9], iy9.numel() * 256 * 2), None))
         record("sad_at_mv", "sad_at.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:852", err, ms, plain_ms)
-        log(f"kernel sad_at_mv {h}x{w} K=4: equal"
-            + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
+               "video_encoder_tpu/ops/pallas/sad.py:852", err, also=also)
+        log(f"kernel sad_at_mv {h}x{w} K=9 on 4 planes: all 9 SADs equal"
+            + shown(also and also[1]))
+        args = (cur_t, ref_t, t32(dy), t32(dx), planes4)
+        got, want = both(dispatch.hpel_refine, *args)
+        err = max_abs_err(got, want)
+        record("sad_at_mv", "sad_at.cu",
+               "video_encoder_tpu/ops/pallas/sad.py:852", err)
+        odd = float(((got[0] & 1) | (got[1] & 1)).float().mean())
+        line = (f"kernel sad_at_mv in hpel_refine {h}x{w} K=9 on 4 planes: "
+                f"equal, {100 * odd:.1f} % of MBs pick a half-pel vector")
+        if (h, w) == luma[0]:
+            ms, plain_ms = timed(dispatch.hpel_refine, *args)
+            rows["sad_at_mv"]["hpel_refine_ms"] = ms
+            line += (f"; the whole refine {ms:.4f} ms vs plain "
+                     f"{plain_ms:.4f} ms [{card}]")
+        log(line)
 
     # span merges: the pieces of real frames (1080p: two stages at 16
     # words; 320x192: one stage) and dense pieces that overflow the budget
-    for name, (h, w), dense in (("1080p frame", (1088, 1920), False),
+    for name, (h, w), dense in (("1080p frame", luma[0], False),
                                 ("320x192 frame", (192, 320), False),
                                 ("dense pieces", (256, 128), True)):
         srcs, plan = span_sources(rng, dev, h, w, dense)
         got, want = both(dispatch.span_merge_mb, *srcs, plan.m1, plan.cw1,
                          plan.n1)
         err = max_abs_err(got, want)
-        ms = plain_ms = None
+        timing = None
         if name == "1080p frame":
-            ms, plain_ms = timed(dispatch.span_merge_mb, *srcs, plan.m1,
-                                 plan.cw1, plan.n1)
+            # per piece word: two shifts and two ors into the string
+            timing = (*timed(dispatch.span_merge_mb, *srcs, plan.m1, plan.cw1,
+                             plan.n1),
+                      bound(srcs, got, 4 * sum(t.numel() for t in srcs[:4])),
+                      None)
         record("span_merge_mb", "span_merge.cu",
-               "video_encoder_tpu/ops/pallas/pack.py:448", err, ms, plain_ms)
+               "video_encoder_tpu/ops/pallas/pack.py:448", err, timing)
         ovf = bool(got[2])
         log(f"kernel span_merge_mb {name}: {plan.n1} strings of {plan.m1} "
-            f"pieces, {plan.cw1} words: equal, overflow {ovf}"
-            + (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]" if ms else ""))
+            f"pieces, {plan.cw1} words: equal, overflow {ovf}" + shown(timing))
         if ovf != dense:
             raise AssertionError(f"span_merge_mb {name}: overflow {ovf}")
         if plan.two_stage:
             args = (got[0], got[1], plan.g, plan.stop, plan.cwf)
             got2, want2 = both(dispatch.span_merge, *args)
             err = max_abs_err(got2, want2)
-            ms, plain_ms = timed(dispatch.span_merge, *args)
+            timing = (*timed(dispatch.span_merge, *args),
+                      bound(args[:2], got2, 4 * args[0].numel()), None)
             record("span_merge", "span_merge.cu",
-                   "video_encoder_tpu/ops/pallas/pack.py:296", err, ms, plain_ms)
+                   "video_encoder_tpu/ops/pallas/pack.py:296", err, timing)
             log(f"kernel span_merge {name}: {plan.n_strings} strings of "
-                f"{plan.cwf} words: equal, overflow {bool(got2[2])}, "
-                f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]")
+                f"{plan.cwf} words: equal, overflow {bool(got2[2])}"
+                + shown(timing))
     return rows
 
 
@@ -387,25 +603,43 @@ def write_clip(path, ys, cbs, crs):
             f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
 
 
-FULL = dict(search="full", rc="none", kbps=0, passes=2)
+def mode(tag, **kw):
+    """An encode configuration: the CLI's flags and the clip recipe
+    (clip "pan": synth_clip with `passes`; "halfpel": synth_clip_halfpel)."""
+    return dict(dict(tag=tag, search="full", rc="none", kbps=0, vbv_kbits=0,
+                     fmt=1, cqpo=0, qbias=8, qmat=False, islice=0, clip="pan",
+                     passes=2, scale=1), **kw)
+
+
+FULL = mode("full")
 # BASELINE config 3 on the four-pass texture, which spends about twice
 # 12000 kbps at qp 28 without rate control, so the frame carry and the
 # per-MB offsets both work
-CONFIG3 = dict(search="diamond", rc="mb", kbps=12000, passes=4)
-PATH_KERNELS = {   # the kernels each path must launch
-    "full": ["full_search", "mc_fetch_luma", "mc_fetch_chroma", "code_plane",
-             "block_pack"],
-    "diamond": ["sad_map_even", "sad_at_mv", "mc_fetch_luma",
-                "mc_fetch_chroma", "code_plane", "block_pack"],
-    "chunks": ["span_merge_mb", "span_merge"],
-}
+CONFIG3 = mode("config3", search="diamond", rc="mb", kbps=12000, passes=4)
+# this slice's path at full width: half-pel vectors, the quant matrix and a
+# chroma qp offset, on a clip whose motion is a true half-pel pan. The
+# quant matrix coarsens the high frequencies, so the clips of the
+# quant-matrix paths are band-limited (scale): on the noise-like texture
+# of the paths above it costs 5 dB and the stream decodes below the floor
+V4 = mode("v4", fmt=4, qmat=True, cqpo=2, clip="halfpel", scale=16)
+V2_SMALL = mode("v2", fmt=2, cqpo=4, search="diamond", rc="vbv", kbps=1500,
+                passes=4, scale=4)
+V3_SMALL = mode("v3", fmt=3, qmat=True, islice=2, rc="adaptive", scale=16)
 
 
-def expected_kernels(search, emit, intra_only=False):
-    if intra_only:
-        return ["code_plane", "block_pack"]
-    return PATH_KERNELS[search] + (PATH_KERNELS["chunks"] if emit == "chunks"
-                                   else [])
+def expected_kernels(m, emit, intra_only=False):
+    """The launch counters a path must move."""
+    ks = ["code_plane_qmat" if m["qmat"] else "code_plane",
+          "block_pack_v2" if m["fmt"] >= 2 else "block_pack"]
+    if not intra_only:
+        ks += ["mc_fetch_luma", "mc_fetch_chroma"]
+        ks += (["full_search"] if m["search"] == "full"
+               else ["sad_map_even", "sad_at_mv"])
+        if m["fmt"] >= 4:
+            ks.append("sad_at_mv")
+    if emit == "chunks":
+        ks += ["span_merge_mb", "span_merge"]
+    return ks
 
 
 def check_launches(what, launches, expected):
@@ -414,98 +648,158 @@ def check_launches(what, launches, expected):
         raise AssertionError(f"{what}: kernels not launched: {missing}")
 
 
-def phase_slice(tmp, w, h, n, gop, card, mode):
+def config_of(m, w, h, gop):
+    from video_encoder_tpu_torch.codec.config import EncoderConfig
+
+    return EncoderConfig(
+        width=w, height=h, gop_n=gop, base_qp=28, search=m["search"],
+        rc=m["rc"], target_kbps=m["kbps"], vbv_kbits=m["vbv_kbits"],
+        format_version=m["fmt"], chroma_qp_offset=m["cqpo"],
+        quant_bias=m["qbias"], quant_matrix=m["qmat"],
+        intra_slice_mbrows=m["islice"])
+
+
+def start_job(tmp, m, w, h, n, gop):
+    """Make and write the clip of one path and start the oracle's encode
+    of it (one CPU process; the jobs' oracles run side by side)."""
+    if m["clip"] == "halfpel":
+        clip = synth_clip_halfpel(n, h, w, seed=11, passes=m["passes"],
+                                  scale=m["scale"])
+    else:
+        clip = synth_clip(n, h, w, seed=11, passes=m["passes"],
+                          scale=m["scale"])
+    tag = f"{w}x{h}_gop{gop}_{m['tag']}"
+    job = dict(mode=m, w=w, h=h, n=n, gop=gop, tag=tag, clip=clip,
+               raw=os.path.join(tmp, f"in_{tag}.yuv"),
+               ours=os.path.join(tmp, f"port_{tag}.tvc"),
+               theirs=os.path.join(tmp, f"oracle_{tag}.tvc"),
+               dec=os.path.join(tmp, f"dec_{tag}.yuv"), t0=time.perf_counter())
+    write_clip(job["raw"], *clip)
+    # oracle encode in out W H gop qp search rc kbps frames fmt cqpo qbias
+    #   vbv_kbits qmat islice
+    job["oracle"] = subprocess.Popen(
+        [ORACLE_BIN, "encode", job["raw"], job["theirs"], str(w), str(h),
+         str(gop), "28", m["search"], m["rc"], str(m["kbps"]), str(n),
+         str(m["fmt"]), str(m["cqpo"]), str(m["qbias"]), str(m["vbv_kbits"]),
+         str(int(m["qmat"])), str(m["islice"])],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    return job
+
+
+def wait_oracles(jobs):
+    for job in jobs:
+        _, err = job["oracle"].communicate()
+        if job["oracle"].returncode != 0:
+            raise RuntimeError(f"oracle encode of {job['tag']} failed: "
+                               f"{err.decode()[-300:]}")
+        job["oracle_s"] = time.perf_counter() - job["t0"]
+
+
+def halfpel_share(stream: bytes, fmt: int) -> float:
+    """Share of the stream's inter MBs whose vector has an odd (half-pel)
+    component, from the C++ parser."""
+    from video_encoder_tpu_torch.codec import bitstream, native
+
+    info, packets = bitstream.demux(io.BytesIO(stream))
+    nby, nbx = -(-info.height // 16), -(-info.width // 16)
+    inter = odd = 0
+    for pkt in packets:
+        if pkt.frame_type == 0:
+            continue
+        _, dy, dx, is_inter, _ = native.parse_frame(
+            pkt.payload, pkt.payload_bits, True, pkt.base_qp, nby, nbx, fmt)
+        inter += int(is_inter.sum())
+        odd += int((((dy & 1) | (dx & 1)) != 0)[is_inter].sum())
+    return odd / max(inter, 1)
+
+
+def phase_slice(job, card):
     """Port CLI encode on the card vs the C++ oracle, byte for byte.
-    Returns (launches of this path, CLI summary, clip, packets)."""
+    Returns (launches of this path, CLI summary, stream)."""
     from video_encoder_tpu_torch import cli
     from video_encoder_tpu_torch.ops.kernels import build
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
-    ys, cbs, crs = synth_clip(n, h, w, seed=11, passes=mode["passes"])
-    tag = f"{w}x{h}_{mode['search']}_{mode['rc']}"
-    raw = os.path.join(tmp, f"in_{tag}.yuv")
-    ours = os.path.join(tmp, f"port_{tag}.tvc")
-    theirs = os.path.join(tmp, f"oracle_{tag}.tvc")
-    dec = os.path.join(tmp, f"dec_{tag}.yuv")
-    write_clip(raw, ys, cbs, crs)
-
+    m, w, h, n, gop, tag = (job[k] for k in ("mode", "w", "h", "n", "gop", "tag"))
+    argv = ["encode", "-i", job["raw"], "-W", str(w), "-H", str(h),
+            "-o", job["ours"], "--gop", str(gop), "--qp", "28",
+            "--search", m["search"], "--format", str(m["fmt"]),
+            "--rc", m["rc"], "--kbps", str(m["kbps"]),
+            "--vbv-kbits", str(m["vbv_kbits"]),
+            "--chroma-qp-offset", str(m["cqpo"]),
+            "--quant-bias", str(m["qbias"]), "--intra-slice", str(m["islice"]),
+            "--device", DEVICE] + (["--quant-matrix"] if m["qmat"] else [])
     build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["encode", "-i", raw, "-W", str(w), "-H", str(h),
-                       "-o", ours, "--gop", str(gop), "--qp", "28",
-                       "--search", mode["search"], "--format", "1",
-                       "--rc", mode["rc"], "--kbps", str(mode["kbps"]),
-                       "--device", "cuda"])
+        rc = cli.main(argv)
     launches = dict(build.LAUNCHES)
     if rc != 0:
         raise RuntimeError(f"port encode exited {rc}")
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     check_launches(f"{tag} CLI encode", launches,
-                   expected_kernels(mode["search"], GopEngine.emit, gop == 1))
+                   expected_kernels(m, GopEngine.emit, gop == 1))
 
-    t0 = time.perf_counter()
-    subprocess.run([ORACLE_BIN, "encode", raw, theirs, str(w), str(h),
-                    str(gop), "28", mode["search"], mode["rc"],
-                    str(mode["kbps"])], check=True, capture_output=True)
-    oracle_s = time.perf_counter() - t0
-    with open(ours, "rb") as f1, open(theirs, "rb") as f2:
+    with open(job["ours"], "rb") as f1, open(job["theirs"], "rb") as f2:
         a, b = f1.read(), f2.read()
     if a != b:
         i = next((k for k in range(min(len(a), len(b))) if a[k] != b[k]),
                  min(len(a), len(b)))
         raise AssertionError(f"{tag}: port stream ({len(a)} B) differs from "
                              f"the oracle's ({len(b)} B) at byte {i}")
-    subprocess.run([ORACLE_BIN, "decode", theirs, dec], check=True,
-                   capture_output=True)
-    dy = np.fromfile(dec, np.uint8).reshape(n, h * w * 3 // 2)[:, :h * w]
-    src = np.stack(ys).reshape(n, h * w).astype(np.float64)
+    subprocess.run([ORACLE_BIN, "decode", job["theirs"], job["dec"]],
+                   check=True, capture_output=True)
+    dy = np.fromfile(job["dec"], np.uint8).reshape(n, h * w * 3 // 2)[:, :h * w]
+    src = np.stack(job["clip"][0]).reshape(n, h * w).astype(np.float64)
     mse = float(((dy.astype(np.float64) - src) ** 2).mean())
     psnr_y = 10 * np.log10(255.0 ** 2 / mse)
-    if not (np.isfinite(psnr_y) and psnr_y > 30.0):
+    if not (np.isfinite(psnr_y) and psnr_y > PSNR_FLOOR):
         raise AssertionError(f"{tag}: decoded PSNR-Y {psnr_y:.3f} dB")
-    log(f"slice {tag} GOP {gop}, {n} frames, emit {GopEngine.emit}: port "
-        f"stream == oracle stream ({len(a)} bytes), oracle decode PSNR-Y "
+    log(f"slice {tag}, {n} frames, format {m['fmt']}, emit {GopEngine.emit}: "
+        f"port stream == oracle stream ({len(a)} bytes), oracle decode PSNR-Y "
         f"{psnr_y:.4f} dB, launches {launches}")
     log(f"  port CLI wall {summary['wall_s']} s = {summary['wall_fps']} fps "
-        f"[{card}]; oracle CPU encode {oracle_s:.2f} s")
-    return launches, summary, (ys, cbs, crs), a
+        f"[{card}]; oracle CPU encode {job['oracle_s']:.2f} s beside the "
+        f"other oracles")
+    if m["fmt"] >= 4:
+        share = halfpel_share(a, m["fmt"])
+        log(f"  {100 * share:.2f} % of the inter MBs carry a half-pel vector")
+        if share <= 0:
+            raise AssertionError(f"{tag}: no half-pel vector was chosen")
+    return launches, summary, a
 
 
-def phase_other_emit(clip, stream, card):
-    """The config-3 clip in-process under the emit the CLI did not use:
-    the same packets as the CLI's stream."""
-    from video_encoder_tpu_torch.cli import OrderedMux
+def phase_other_emit(job, stream, card):
+    """A path's clip in-process under the emit the CLI did not use: the
+    same packets as the CLI's stream."""
+    from video_encoder_tpu_torch.codec.bitstream import OrderedMux
+    from video_encoder_tpu_torch.codec.frame import Frame
     from video_encoder_tpu_torch.ops.kernels import build
-    from video_encoder_tpu_torch.pipeline.gop_engine import (EncoderConfig,
-                                                             Frame, GopEngine)
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
-    ys, cbs, crs = clip
-    h, w = ys[0].shape
+    m = job["mode"]
     emit = "chunks" if GopEngine.emit == "frame" else "frame"
-    cfg = EncoderConfig(width=w, height=h, gop_n=len(ys), base_qp=28,
-                        search=CONFIG3["search"], rc=CONFIG3["rc"],
-                        target_kbps=CONFIG3["kbps"])
-    frames = [Frame.from_planes(*p) for p in zip(ys, cbs, crs)]
-    eng = GopEngine(cfg, device="cuda", emit=emit)
+    cfg = config_of(m, job["w"], job["h"], job["gop"])
+    frames = [Frame.from_planes(*p) for p in zip(*job["clip"])]
+    eng = GopEngine(cfg, device=DEVICE, emit=emit)
     build.reset_launches()
     packets, stats = eng.encode_gop(frames, 0)
     launches = dict(build.LAUNCHES)
-    check_launches(f"config 3 in-process, emit {emit}", launches,
-                   expected_kernels(CONFIG3["search"], emit))
+    check_launches(f"{m['tag']} in-process, emit {emit}", launches,
+                   expected_kernels(m, emit))
     buf = io.BytesIO()
     mux = OrderedMux(buf, cfg, len(frames))
     for pkt in packets:
         mux.push(pkt)
     mux.close()
     if buf.getvalue() != stream:
-        raise AssertionError(f"config 3 under emit {emit} differs from the "
+        raise AssertionError(f"{m['tag']} under emit {emit} differs from the "
                              "CLI's stream")
     qps = [st.base_qp for st in stats]
-    log(f"other emit: config 3 in-process, emit {emit}: same stream "
+    log(f"other emit: {m['tag']} in-process, emit {emit}: same stream "
         f"({len(stream)} bytes), frame qps {qps}, launches {launches}")
-    if len(set(qps)) < 2:
-        raise AssertionError("config 3: the rate control never moved qp")
+    if m["rc"] != "none" and len(set(qps)) < 2:
+        raise AssertionError(f"{m['tag']}: the rate control never moved qp")
     return launches
 
 
@@ -535,32 +829,31 @@ def device_ops(run_once, n_frames):
         (name[:60], n, round(us / 1e3, 3)) for name, (n, us) in top]
 
 
-def phase_speed(clips, card):
+def phase_speed(cells, card):
     """Device-resident 1080p GOP-30 fps (upload once, loop, sync once), and
     the same with each GOP's finish (sync, download, payload glue,
-    packets), for {full rc none, diamond rc mb} x {frame, chunks}. The two
-    emits are timed in turns (frame, chunks, chunks, frame) on one card;
-    each figure is the mean of its two turns."""
-    from video_encoder_tpu_torch.pipeline.gop_engine import (EncoderConfig,
-                                                             Frame, GopEngine)
+    packets), for each (mode, clip, emits) cell. Two emits are timed in
+    turns (frame, chunks, chunks, frame) on one card, one emit twice;
+    each figure is the mean of its two turns. For format >= 3 the I frame
+    (the vertical-intra row scan) is also timed on its own."""
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     def up(planes, mult):
         a = np.stack([np.pad(p, ((0, -p.shape[0] % mult), (0, -p.shape[1] % mult)),
                              mode="edge") for p in planes])
-        return torch.from_numpy(a).cuda()
+        return torch.from_numpy(a).to(DEVICE)
 
     results = {}
-    for mode, (ys, cbs, crs) in clips:
+    for m, (ys, cbs, crs), emits in cells:
         h, w = ys[0].shape
         n = len(ys)
         frames = [Frame.from_planes(*p) for p in zip(ys, cbs, crs)]
         y, cb, cr = up(ys, 16), up(cbs, 8), up(crs, 8)
-        cfg = EncoderConfig(width=w, height=h, gop_n=n, base_qp=28,
-                            search=mode["search"], rc=mode["rc"],
-                            target_kbps=mode["kbps"])
+        cfg = config_of(m, w, h, n)
         engines, reruns, times = {}, {}, {}
-        for emit in ("frame", "chunks"):
-            eng = engines[emit] = GopEngine(cfg, device="cuda", emit=emit)
+        for emit in emits:
+            eng = engines[emit] = GopEngine(cfg, device=DEVICE, emit=emit)
             # the engine reruns a GOP that overflows its budgets
             reruns[emit] = bool(eng.run(y, cb, cr, 28)["ovf"].any())
             times[emit] = [0.0, 0.0]
@@ -578,7 +871,8 @@ def phase_speed(clips, card):
                 outs=eng.run(y, cb, cr, 28), t0=time.perf_counter()))
 
         iters = 2
-        for emit in ("frame", "chunks", "chunks", "frame"):
+        turns = (emits + emits[::-1]) if len(emits) == 2 else emits * 2
+        for emit in turns:
             gop(emit)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -591,14 +885,14 @@ def phase_speed(clips, card):
             t2 = time.perf_counter()
             times[emit][0] += t1 - t0
             times[emit][1] += t2 - t1
-        for emit in ("frame", "chunks"):
+        for emit in emits:
             frames_timed = 2 * iters * n
             fps = frames_timed / times[emit][0]
             fin_fps = frames_timed / times[emit][1]
             torch.cuda.reset_peak_memory_stats()
             ops, busy, top = device_ops(lambda: gop(emit), n)
             peak = torch.cuda.max_memory_allocated() / 2**20
-            key = f"{mode['search']}/{mode['rc']}/{emit}"
+            key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
             results[key] = dict(resident=fps, with_finish=fin_fps)
             log(f"speed: device-resident {w}x{h} GOP {n} {key} {fps:.3f} fps "
                 f"({1e3 / fps:.3f} ms/frame, {2 * iters} GOPs, rerun "
@@ -608,6 +902,27 @@ def phase_speed(clips, card):
                 f"device busy {busy if busy is None else round(100 * busy, 1)}"
                 f" % [{card}]")
             log(f"  device ms per GOP by name (launches, ms): {top}")
+        if m["fmt"] >= 3:
+            eng = engines[emits[0]]
+
+            def i_frame():
+                eng.run(y[:1], cb[:1], cr[:1], 28)
+
+            i_frame()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                i_frame()
+            torch.cuda.synchronize()
+            i_ms = (time.perf_counter() - t0) * 1e3 / 5
+            ops, busy, top = device_ops(i_frame, 1)
+            results[f"{m['tag']}/i_frame_ms"] = i_ms
+            log(f"speed: {m['tag']} I frame alone (row scan of "
+                f"{y.shape[1] // 4} stripes, pack) {i_ms:.3f} ms, "
+                f"{ops if ops is None else round(ops, 1)} device ops, device "
+                f"busy {busy if busy is None else round(100 * busy, 1)} % "
+                f"[{card}]")
+            log(f"  device ms by name (launches, ms): {top}")
     return results
 
 
@@ -617,11 +932,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
     card = card_line()
+    t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -634,26 +951,42 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     rows = phase_kernels(dev, card)
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
 
     build_oracle()
     path_launches = []
     with tempfile.TemporaryDirectory() as tmp:
-        launches, summary, clip, _ = phase_slice(tmp, 1920, 1080, 30, 30,
-                                                 card, FULL)
-        path_launches.append(launches)
-        launches, summary3, clip3, stream3 = phase_slice(
-            tmp, 1920, 1080, 30, 30, card, CONFIG3)
-        path_launches.append(launches)
-        path_launches.append(phase_other_emit(clip3, stream3, card))
-        phase_slice(tmp, 640, 360, 30, 1, card, FULL)
+        jobs = {name: start_job(tmp, *args) for name, args in (
+            ("full", (FULL, 1920, 1080, 30, 30)),
+            ("config3", (CONFIG3, 1920, 1080, 30, 30)),
+            ("v4", (V4, 1920, 1080, 30, 30)),
+            ("intra", (FULL, 640, 360, 30, 1)),
+            ("v2", (V2_SMALL, 640, 360, 12, 12)),
+            ("v3", (V3_SMALL, 640, 360, 12, 4)))}
+        wait_oracles(jobs.values())
+        log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s")
+        summaries, streams = {}, {}
+        for name, job in jobs.items():
+            launches, summaries[name], streams[name] = phase_slice(job, card)
+            path_launches.append(launches)
+        for name in ("config3", "v4"):
+            path_launches.append(
+                phase_other_emit(jobs[name], streams[name], card))
+    log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
+    # the chroma twin of sad_at_mv has no caller on any encode path (nor in
+    # the reference): it is held against its plain version above only
+    rows["sad_at_mv_chroma"]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
-                   list(rows))
-    fps = phase_speed([(FULL, clip), (CONFIG3, clip3)], card)
+                   [k for k, r in rows.items() if r.get("on_path", True)])
+    fps = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),
+                       (CONFIG3, jobs["config3"]["clip"], ["frame", "chunks"]),
+                       (V4, jobs["v4"]["clip"], [GopEngine.emit])], card)
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "
-        f"full {summary['wall_fps']} fps, config 3 {summary3['wall_fps']} fps "
-        f"[{card}]")
+        + ", ".join(f"{k} {summaries[k]['wall_fps']} fps"
+                    for k in ("full", "config3", "v4"))
+        + f" [{card}]; whole run {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -1,7 +1,9 @@
 """Port GopEngine (plain PyTorch on the CPU) vs the JAX GopEngine and the
 numpy golden model: packet byte-equality under both emits, full and
-diamond search, rc none, bitrate and mb, including the exact overflow ->
-worst-case rerun. One JAX GopEngine compile per configuration."""
+diamond search, formats 1 to 4, every rc mode, including the exact
+overflow -> worst-case rerun. One JAX GopEngine compile per configuration.
+The port takes its own EncoderConfig and Frame classes, made from the
+reference's by `config_from_dict` and `Frame.from_planes`."""
 
 import dataclasses
 import functools
@@ -15,6 +17,9 @@ from video_encoder_tpu.codec import golden
 from video_encoder_tpu.codec.config import EncoderConfig
 from video_encoder_tpu.pipeline import gop_engine as jgop
 from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_gop
+from video_encoder_tpu.ops import dispatch as jdispatch
+from video_encoder_tpu_torch.codec.config import config_from_dict
+from video_encoder_tpu_torch.codec.frame import Frame
 from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
 torch.set_num_threads(1)
@@ -72,11 +77,12 @@ def test_overflow_rerun_matches_golden(rng):
 
 
 @pytest.mark.parametrize("change,kw", [
-    (dict(rc="vbv", target_kbps=500), {}),
-    (dict(format_version=2), {}),
-    (dict(rc="adaptive"), {}),
     (dict(gop_devices=2), {}),
-    (dict(format_version=3), dict(emit="chunks")),
+    (dict(tile_devices=2), {}),
+    (dict(gop_devices=2, tile_devices=2), {}),
+    (dict(gop_devices=4, format_version=4), dict(emit="frame")),
+    (dict(tile_devices=2, format_version=3, intra_slice_mbrows=1),
+     dict(emit="chunks")),
 ])
 def test_unported_settings_raise(change, kw):
     cfg = dataclasses.replace(EncoderConfig(width=32, height=32), **change)
@@ -174,3 +180,133 @@ def test_chunk_emit_overflow_rerun_matches_golden(rng):
     gpk, gst = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
     assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
     assert [s.base_qp for s in tst] == [s.base_qp for s in gst]
+
+
+# (fmt, search, rc, cqpo, qmat, islice, emit)
+_FORMAT_CASES = [
+    (2, "full", "none", 0, False, 0, "frame"),
+    (2, "full", "none", 4, False, 0, "chunks"),
+    (3, "full", "none", 0, False, 0, "frame"),
+    (3, "full", "none", -3, True, 0, "chunks"),
+    (3, "full", "none", 0, False, 1, "frame"),
+    (3, "diamond", "none", 2, True, 2, "chunks"),
+    (4, "full", "none", 0, False, 0, "frame"),
+    (4, "full", "none", 2, True, 0, "frame"),
+    (4, "full", "none", 2, True, 0, "chunks"),
+    (4, "diamond", "none", 0, False, 0, "frame"),
+    (1, "full", "adaptive", 0, False, 0, "frame"),
+    (4, "full", "adaptive", 3, True, 1, "chunks"),
+    (1, "full", "vbv", 0, False, 0, "frame"),
+    (2, "diamond", "vbv", 4, False, 0, "chunks"),
+    (3, "full", "mb", 0, False, 0, "frame"),
+    (3, "full", "mb", 2, True, 2, "chunks"),
+    (4, "diamond", "bitrate", 0, False, 0, "frame"),
+]
+
+
+def _halfpel_clip(rng, w, h, n):
+    """A texture made at twice the size and reduced by 2x2 means at an odd
+    offset per frame: true half-pel motion, so the format-4 refine leaves
+    the integer grid; chroma moves too."""
+    big = rng.integers(0, 256, (2 * h + 32, 2 * w + 32)).astype(np.int64)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+           + np.roll(big, (1, 1), (0, 1))) // 4
+    cbig = rng.integers(96, 160, (h + 32, w + 32)).astype(np.int64)
+
+    def down(a, oy, ox, hh, ww):
+        o = a[oy:oy + 2 * hh, ox:ox + 2 * ww]
+        return ((o[0::2, 0::2] + o[0::2, 1::2] + o[1::2, 0::2] + o[1::2, 1::2]
+                 + 2) // 4).astype(np.uint8)
+    clip = []
+    for t in range(n):
+        y = down(big, 3 * t, 5 * t, h, w)
+        y[(5 * t) % (h - 16):(5 * t) % (h - 16) + 16, 8:24] = 230
+        clip.append((y, down(cbig, t, 2 * t, h // 2, w // 2),
+                     down(cbig[::-1].copy(), 2 * t, t, h // 2, w // 2)))
+    return clip
+
+
+@pytest.mark.parametrize("fmt,search,rc,cqpo,qmat,islice,emit", _FORMAT_CASES)
+def test_formats_match_jax_engine_and_golden(fmt, search, rc, cqpo, qmat,
+                                             islice, emit):
+    w, h, n = 96, 64, 4
+    clip = _halfpel_clip(np.random.default_rng(fmt * 100 + cqpo + 50), w, h, n)
+    rcfg = EncoderConfig(
+        width=w, height=h, gop_n=n, base_qp=26, search=search, rc=rc,
+        target_kbps=250 if rc in ("vbv", "mb", "bitrate") else 0,
+        vbv_kbits=30 if rc == "vbv" and fmt == 2 else 0,
+        format_version=fmt, chroma_qp_offset=cqpo, quant_matrix=qmat,
+        intra_slice_mbrows=islice)
+    gframes = _frames(clip)
+    gpk, gst = encode_gop(rcfg, GoldenEngine(), gframes, 0, 0)
+    jdispatch.force("jnp")
+    try:
+        jpk, jst = jgop.GopEngine(rcfg).encode_gop(gframes, 0)
+    finally:
+        jdispatch.force(None)
+    cfg = config_from_dict(dataclasses.asdict(rcfg))
+    assert cfg.config_hash() == rcfg.config_hash()
+    frames = [Frame.from_planes(*p) for p in clip]
+    tpk, tst = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in jpk]
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    assert [s.base_qp for s in tst] == [s.base_qp for s in gst]
+    assert [s.n_inter_mb for s in tst] == [s.n_inter_mb for s in jst]
+    assert tst[1].n_inter_mb > 0
+    if rc in ("vbv", "mb", "bitrate"):
+        assert len({s.base_qp for s in tst}) > 1          # the carry moved qp
+    for t, g in zip(tst, gst):
+        assert abs(t.psnr_y - g.psnr_y) < 1e-9
+        assert abs(t.psnr_cb - g.psnr_cb) < 1e-9
+
+
+def test_format4_picks_half_pel_vectors():
+    """On the half-pel clip format 4 spends fewer bits than format 3 (same
+    I frame, better P prediction), and its stream differs from format
+    3's: the refine left the integer grid."""
+    clip = _halfpel_clip(np.random.default_rng(5), 96, 64, 3)
+    frames = [Frame.from_planes(*p) for p in clip]
+    bits = {}
+    for fmt in (3, 4):
+        cfg = config_from_dict(dict(width=96, height=64, gop_n=3,
+                                    format_version=fmt))
+        _, st = GopEngine(cfg, device="cpu").encode_gop(frames, 0)
+        bits[fmt] = [s.bits for s in st]
+    assert bits[3][0] == bits[4][0]
+    assert sum(bits[4][1:]) < sum(bits[3][1:])
+
+
+@pytest.mark.parametrize("emit,w,h,qp", [("frame", 48, 32, 1),
+                                         ("chunks", 128, 128, 28)])
+def test_format2_overflow_rerun_matches_golden(rng, emit, w, h, qp):
+    """Noise overflows the budgets under the format-2 syntax (the frame
+    capacity at qp 1; the budgeted span width at qp 28 under chunk emit):
+    the GOP is encoded again at worst-case capacity (BLOCK_WORDS_MAX,
+    max_words), with golden's bytes."""
+    clip = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+            for _ in range(3)]
+    rcfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=qp,
+                         format_version=2, chroma_qp_offset=-1)
+    eng = GopEngine(config_from_dict(dataclasses.asdict(rcfg)), device="cpu",
+                    emit=emit)
+    handle = eng.encode_gop_start([Frame.from_planes(*p) for p in clip], 0)
+    assert bool(handle["outs"]["ovf"].any())          # the budget overflowed
+    tpk, _ = eng.encode_gop_finish(handle)
+    gpk, _ = encode_gop(rcfg, GoldenEngine(), _frames(clip), 0, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+
+
+def test_vbv_fullness_stays_on_the_device(rng):
+    """The vbv carry is device state: run() returns without the qps of
+    later frames ever reaching the host, and they match golden's."""
+    clip = make_clip(rng, 64, 48, 5)
+    rcfg = EncoderConfig(width=64, height=48, gop_n=5, rc="vbv",
+                         target_kbps=120, vbv_kbits=8)
+    tpk, _ = GopEngine(config_from_dict(dataclasses.asdict(rcfg)),
+                       device="cpu").encode_gop(
+        [Frame.from_planes(*p) for p in clip], 0)
+    gpk, _ = encode_gop(rcfg, GoldenEngine(), _frames(clip), 0, 0)
+    assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
+    assert len({p.base_qp for p in tpk}) > 2

@@ -156,7 +156,8 @@ def test_fixed_diamond_budget_equals_stop_at_all_frozen(rng, monkeypatch):
     every MB is frozen. On a pan whose MBs all freeze within a few steps,
     every budget from the freezing step on gives the same vectors: the
     extra steps are the identity."""
-    from video_encoder_tpu.codec import golden, spec
+    from video_encoder_tpu.codec import golden
+    from video_encoder_tpu_torch.codec import spec   # the port reads its own
 
     cur, ref = _diamond_clip(rng, 48, 64, "pan")
     full = motion.diamond_search(_t(cur), _t(ref))

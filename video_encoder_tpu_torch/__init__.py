@@ -7,10 +7,11 @@ CUDA C++ kernel for sm_90a under `csrc/`, built at first use by
 this package are byte-identical to its streams, to the numpy golden model
 and to the C++ oracle (`oracle/`).
 
-This package imports `torch` and never `jax`. It reuses the reference's
-JAX-free host modules (`codec.spec`, `codec.config`, `codec.golden.Frame`,
-`codec.bitstream`, `io.yuv`, `utils.metrics`, `pipeline.encoder`) as they
-are.
+This package imports `torch`, never `jax`, and nothing of
+`video_encoder_tpu`: it keeps its own copies of the host modules it needs
+(`codec/spec.py`, `codec/config.py`, `codec/bitstream.py`,
+`codec/frame.py`, `codec/native.py`, `io/yuv.py`, `utils/metrics.py`),
+held equal to the reference's by tests/test_torch_copies.py.
 """
 
 __version__ = "0.1.0"

@@ -6,14 +6,16 @@ host.
     python -m video_encoder_tpu_torch.cli info   -i out.tvc
     python -m video_encoder_tpu_torch.cli psnr   -a ref.yuv -b dec.yuv -W 1920 -H 1080
 
-`encode` runs the GOP-resident engine (full or diamond search, format 1,
-rc none, bitrate or mb with --kbps) on `--device` (default cuda):
+`encode` runs the GOP-resident engine (full or diamond search, formats 1
+to 4, every rc mode) on `--device` (default cuda):
 
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --search diamond --rc mb --kbps 12000
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --format 4 --quant-matrix --chroma-qp-offset 2
 
 Its streams are byte-identical to the reference CLI's. Decoding uses the
-reference's C++ parser through ctypes.
+C++ parser of `oracle/oracle.cpp` through ctypes (`codec/native.py`).
 """
 
 from __future__ import annotations
@@ -26,21 +28,18 @@ import time
 
 import numpy as np
 
-from video_encoder_tpu.codec import native
-from video_encoder_tpu.codec.bitstream import OrderedMux, read_stream_header
-from video_encoder_tpu.codec.config import EncoderConfig
-from video_encoder_tpu.codec.golden import Frame
-from video_encoder_tpu.io import yuv
-from video_encoder_tpu.utils.metrics import RunSummary, psnr
-
+from .codec import native
+from .codec.bitstream import OrderedMux, read_stream_header
+from .codec.config import EncoderConfig
+from .codec.frame import Frame
+from .io import yuv
 from .pipeline.gop_engine import GopEngine
+from .utils.metrics import RunSummary, psnr
 
 # Encode flags of the reference CLI that the port does not take yet, with
 # the ROADMAP.md item that ports them.
 NOT_PORTED = {
-    "--vbv-kbits": "A10", "--two-pass": "A10",
-    "--quant-matrix": "A10", "--intra-slice": "A10", "--quant-bias": "A10",
-    "--chroma-qp-offset": "A10", "--engine": "A11", "--gop-batch": "A12",
+    "--two-pass": "A10", "--engine": "A11", "--gop-batch": "A12",
     "--devices": "A13", "--tile": "A13", "--multiprocess": "A13",
     "--failover": "A14", "--checkpoint": "A14", "--trace": "A14",
     "--stage-timers": "A14",
@@ -99,7 +98,9 @@ def cmd_encode(a) -> int:
     cfg = EncoderConfig(
         width=w, height=h, gop_n=a.gop, base_qp=a.qp, search=a.search,
         rc=a.rc, target_kbps=a.kbps, fps_num=fps[0], fps_den=fps[1],
-        format_version=a.format,
+        format_version=a.format, chroma_qp_offset=a.chroma_qp_offset,
+        quant_bias=a.quant_bias, vbv_kbits=a.vbv_kbits,
+        quant_matrix=a.quant_matrix, intra_slice_mbrows=a.intra_slice,
     )
     eng = GopEngine(cfg, device=a.device)
     n_frames = a.frames
@@ -193,16 +194,29 @@ def main(argv=None) -> int:
     e.add_argument("--gop", type=int, default=30)
     e.add_argument("--qp", type=int, default=28)
     e.add_argument("--frames", type=int, default=0, help="0 = all")
-    # the reference's other values are ROADMAP.md A10 (hier is
-    # golden/oracle-only in the reference too)
+    # hier is golden/oracle-only in the reference too
     e.add_argument("--search", choices=["full", "diamond"], default="full",
                    help="ME mode")
-    e.add_argument("--rc", choices=["none", "bitrate", "mb"], default="none",
-                   help="rate control (adaptive and vbv are not ported yet)")
+    e.add_argument("--rc", choices=["none", "adaptive", "bitrate", "vbv", "mb"],
+                   default="none", help="rate control")
     e.add_argument("--kbps", type=int, default=0,
-                   help="target rate of --rc bitrate/mb")
-    e.add_argument("--format", type=int, choices=[1], default=1,
-                   help="bitstream format (2-4 are not ported yet)")
+                   help="target rate of --rc bitrate/vbv/mb")
+    e.add_argument("--vbv-kbits", type=int, default=0,
+                   help="rc=vbv buffer size (0 = 8x per-frame target)")
+    e.add_argument("--format", type=int, choices=[1, 2, 3, 4], default=1,
+                   help="bitstream format: 1=TVC1, 2=v2 (mv pred, DC DPCM), "
+                        "3=v3 (I-frame intra pred, quant matrix), "
+                        "4=v4 (half-pel motion)")
+    e.add_argument("--quant-matrix", action="store_true",
+                   help="v3: per-frequency quant matrix (SPEC.md 13.2)")
+    e.add_argument("--intra-slice", type=int, default=0,
+                   help="v3: reset the I-frame vertical-intra predictor "
+                        "every N MB rows (SPEC.md 13.3)")
+    e.add_argument("--quant-bias", type=int, default=8,
+                   help="AC quantizer rounding bias /16; 8=midpoint, "
+                        "lower=deadzone (fewer bits, encoder-side only)")
+    e.add_argument("--chroma-qp-offset", type=int, default=0,
+                   help="v2+: chroma QP offset in [-12, 12]")
     e.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:N or cpu)")
     e.add_argument("-v", "--verbose", action="store_true")

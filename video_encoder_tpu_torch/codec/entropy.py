@@ -1,8 +1,9 @@
-"""Device-side entropy pack of a format-1 frame (SPEC.md §6-7).
+"""Device-side entropy pack of a frame (SPEC.md §6-7, §12).
 
-Twin of the format-1 half of `video_encoder_tpu/codec/entropy.py`, with
-both emits: frame (`pack_frame_planes`) and chunks (`pack_frame_chunks`,
-span strings the host glues; `codec/pack.py`). Every
+Twin of `video_encoder_tpu/codec/entropy.py` for the format-1 syntax and
+the format-2 syntax (left-MV prediction and DC DPCM, which formats 3 and
+4 share), with both emits: frame (`pack_frame_planes`) and chunks
+(`pack_frame_chunks`, span strings the host glues; `codec/pack.py`). Every
 symbol's (value, length) is computed in parallel, each 8x8 block is
 packed into its own MSB-first word string (`block_pack`, a kernel on the
 GPU), and the frame payload is assembled from the per-MB pieces (header,
@@ -40,7 +41,7 @@ def max_words(n_mbs: int) -> int:
     return (n_mbs * MAX_MB_BITS + 31) // 32 + 1
 
 
-def _bitlen(x: torch.Tensor) -> torch.Tensor:
+def bitlen(x: torch.Tensor) -> torch.Tensor:
     """floor(log2(x)) + 1 for 1 <= x < 2^32, 0 for x == 0 (int64)."""
     x = x.long()
     out = torch.zeros_like(x)
@@ -54,7 +55,7 @@ def _bitlen(x: torch.Tensor) -> torch.Tensor:
 def ue_code(v: torch.Tensor):
     """(value, length) of ue(v): value v+1 in 2*bitlen(v+1)-1 bits."""
     vp1 = v.long() + 1
-    return vp1, 2 * _bitlen(vp1) - 1
+    return vp1, 2 * bitlen(vp1) - 1
 
 
 def se_code(v: torch.Tensor):
@@ -63,41 +64,81 @@ def se_code(v: torch.Tensor):
     return ue_code(torch.where(v > 0, 2 * v - 1, -2 * v))
 
 
-def block_symbols(levels_zz: torch.Tensor):
-    """Per-block symbols [..., 130]: cbf, ue(nnz-1), then (ue(run),
-    se(level)) at each zigzag position, length 0 where the coefficient is
-    zero. Returns (values, lengths), both int64."""
-    nz = levels_zz != 0
-    nnz = nz.sum(-1)
-    cbf = nnz > 0
-    idx = torch.arange(64, device=levels_zz.device)
+def _run_level_symbols(coefs: torch.Tensor):
+    """(ue(run), se(level)) pairs of a scan [..., n], runs counted from its
+    first position, length 0 where the coefficient is zero: (nonzero count
+    [...], pair values [..., 2n], pair lengths [..., 2n])."""
+    n = coefs.shape[-1]
+    nz = coefs != 0
+    idx = torch.arange(n, device=coefs.device)
     masked = torch.where(nz, idx, -1)
     prev_nz = torch.cat(
         [torch.full_like(masked[..., :1], -1),
          torch.cummax(masked, dim=-1).values[..., :-1]], dim=-1)
-    run = idx - prev_nz - 1
-
-    run_val, run_len = ue_code(torch.where(nz, run, 0))
-    lev_val, lev_len = se_code(levels_zz)
+    run_val, run_len = ue_code(torch.where(nz, idx - prev_nz - 1, 0))
+    lev_val, lev_len = se_code(coefs)
     run_len = torch.where(nz, run_len, 0)
     lev_len = torch.where(nz, lev_len, 0)
-    nnz_val, nnz_len = ue_code((nnz - 1).clamp(min=0))
-    nnz_len = torch.where(cbf, nnz_len, 0)
+    lead = coefs.shape[:-1]
+    return (nz.sum(-1),
+            torch.stack([run_val, lev_val], -1).reshape(*lead, 2 * n),
+            torch.stack([run_len, lev_len], -1).reshape(*lead, 2 * n))
 
-    lead = nnz.shape
-    pair_val = torch.stack([run_val, lev_val], -1).reshape(*lead, 128)
-    pair_len = torch.stack([run_len, lev_len], -1).reshape(*lead, 128)
-    values = torch.cat([cbf.long()[..., None], nnz_val[..., None], pair_val], -1)
-    lengths = torch.cat([torch.ones_like(nnz)[..., None], nnz_len[..., None],
-                         pair_len], -1)
+
+def _block_string(head_vals, head_lens, pair_val, pair_len):
+    """Symbols [..., S] from leading per-block symbols and the pairs."""
+    values = torch.cat([*(v.long()[..., None] for v in head_vals), pair_val], -1)
+    lengths = torch.cat([*(l[..., None] for l in head_lens), pair_len], -1)
     return torch.where(lengths > 0, values, 0), lengths
 
 
-def _header_slots(qp_delta, is_p_frame: bool, is_inter, dy, dx):
+def block_symbols(levels_zz: torch.Tensor):
+    """Per-block symbols [..., 130]: cbf, ue(nnz-1), then (ue(run),
+    se(level)) at each zigzag position, length 0 where the coefficient is
+    zero. Returns (values, lengths), both int64."""
+    nnz, pair_val, pair_len = _run_level_symbols(levels_zz)
+    cbf = nnz > 0
+    nnz_val, nnz_len = ue_code((nnz - 1).clamp(min=0))
+    return _block_string(
+        (cbf, nnz_val), (torch.ones_like(nnz), torch.where(cbf, nnz_len, 0)),
+        pair_val, pair_len)
+
+
+def block_symbols_v2(levels_zz: torch.Tensor, dc_pred: torch.Tensor):
+    """Format-2 per-block symbols [..., 129] (SPEC.md §12.4-12.5): cbf,
+    se(dc - dc_pred), ue(nnz_ac), then (ue(run), se(level)) at each AC
+    zigzag position 1..63, runs counted from position 1. Returns (values,
+    lengths), both int64."""
+    dc = levels_zz[..., 0]
+    nnz_ac, pair_val, pair_len = _run_level_symbols(levels_zz[..., 1:])
+    cbf = (dc != 0) | (nnz_ac > 0)
+    dcd_val, dcd_len = se_code(dc - dc_pred)
+    nnz_val, nnz_len = ue_code(nnz_ac)
+    return _block_string(
+        (cbf, dcd_val, nnz_val),
+        (torch.ones_like(nnz_ac), torch.where(cbf, dcd_len, 0),
+         torch.where(cbf, nnz_len, 0)), pair_val, pair_len)
+
+
+def _dc_pred_left(levels: torch.Tensor) -> torch.Tensor:
+    """Left-block DC predictor of a [by, bx, 64] plane level array: the dc
+    level of block (by, bx - 1), 0 at bx = 0 (SPEC.md §12.4). Luma
+    predicts across MB boundaries on its [2 nby, 2 nbx] grid."""
+    return torch.nn.functional.pad(levels[..., :-1, 0], (1, 0))
+
+
+def _header_slots(qp_delta, is_p_frame: bool, is_inter, dy, dx,
+                  fmt: int = 1):
     """Per-MB header symbols, slot axis leading: ([4, nby, nbx] values,
-    lengths) for mode, se(dx), se(dy), se(qp_delta)."""
+    lengths) for mode, se(dx), se(dy), se(qp_delta). From format 2 on the
+    vectors code as differences from the left MB's when both MBs are
+    inter (zero at column 0; SPEC.md §12.3)."""
     mode_val, mode_len = ue_code(torch.where(is_inter, 0, 1))
     inter_p = is_inter & is_p_frame
+    if fmt >= 2:
+        both = is_inter & torch.nn.functional.pad(is_inter[:, :-1], (1, 0))
+        dx = dx - torch.where(both, torch.nn.functional.pad(dx[:, :-1], (1, 0)), 0)
+        dy = dy - torch.where(both, torch.nn.functional.pad(dy[:, :-1], (1, 0)), 0)
     dx_val, dx_len = se_code(dx)
     dy_val, dy_len = se_code(dy)
     qpd_val, qpd_len = se_code(qp_delta)
@@ -150,34 +191,38 @@ def pack_header(values: torch.Tensor, lengths: torch.Tensor,
     return pack_dense(values.movedim(0, -1), lengths.movedim(0, -1), n_words)
 
 
-def _pack_blocks(levels: torch.Tensor, block_words: int):
-    """Per-block pack of a [..., 64] zigzag level array through the
-    dispatch rule (block_pack kernel on the GPU): ([..., W] words,
-    [...] bits, overflow)."""
+def _pack_blocks(levels: torch.Tensor, block_words: int, fmt: int = 1):
+    """Per-block pack of a plane's [by, bx, 64] zigzag level array through
+    the dispatch rule (block_pack kernel on the GPU): ([by, bx, W] words,
+    [by, bx] bits, overflow). From format 2 on each block's DC codes
+    against its left neighbour's."""
     from ..ops import dispatch  # lazy: dispatch imports this module
 
     lead = levels.shape[:-1]
-    w, b = dispatch.block_pack(levels.reshape(-1, 64), block_words)
+    dc_pred = (_dc_pred_left(levels).reshape(-1).contiguous() if fmt >= 2
+               else None)
+    w, b = dispatch.block_pack(levels.reshape(-1, 64), block_words, dc_pred,
+                               fmt)
     return (w.reshape(*lead, block_words), b.reshape(lead),
             (b > 32 * block_words).any())
 
 
 def _mb_sources(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
-                is_inter, dy, dx, block_words: int):
+                is_inter, dy, dx, block_words: int, fmt: int = 1):
     """Per-MB piece sources: words (hw [n_mbs, 2], yw [n_mbs, 4, W], cbw,
     crw [n_mbs, W]), piece bit counts [n_mbs, 7] int32 in the order
     header, Y00, Y01, Y10, Y11, Cb, Cr, and the block overflow flag."""
     nby, nbx = qp_delta.shape
     n_mbs = nby * nbx
 
-    hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx)
+    hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
     hwords, hbits, ovf_h = pack_header(hv, hl)
 
-    ywords, ybits, ovf_y = _pack_blocks(levels_y8, block_words)
+    ywords, ybits, ovf_y = _pack_blocks(levels_y8, block_words, fmt)
     ywords = ywords.reshape(nby, 2, nbx, 2, block_words).permute(0, 2, 1, 3, 4)
     ybits = ybits.reshape(nby, 2, nbx, 2).permute(0, 2, 1, 3)
-    cbwords, cbbits, ovf_cb = _pack_blocks(levels_cb, block_words)
-    crwords, crbits, ovf_cr = _pack_blocks(levels_cr, block_words)
+    cbwords, cbbits, ovf_cb = _pack_blocks(levels_cb, block_words, fmt)
+    crwords, crbits, ovf_cr = _pack_blocks(levels_cr, block_words, fmt)
 
     words = (hwords.reshape(n_mbs, HEADER_WORDS),
              ywords.reshape(n_mbs, 4, block_words),
@@ -191,12 +236,12 @@ def _mb_sources(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
 
 
 def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
-                  is_inter, dy, dx, block_words: int):
+                  is_inter, dy, dx, block_words: int, fmt: int = 1):
     """Per-MB piece strings [n_mbs, 7, W] and bit counts [n_mbs, 7] in the
     order header, Y00, Y01, Y10, Y11, Cb, Cr."""
     (hw, yw, cbw, crw), piece_bits, ovf = _mb_sources(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words)
+        dy, dx, block_words, fmt)
     hpad = torch.nn.functional.pad(hw[:, None], (0, block_words - HEADER_WORDS))
     piece_words = torch.cat([hpad, yw, cbw[:, None], crw[:, None]], 1)
     return piece_words, piece_bits, ovf
@@ -228,14 +273,15 @@ def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
 
 def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
                       is_p_frame: bool, is_inter, dy, dx, block_words: int,
-                      n_words: int):
-    """Format-1 frame payload from per-plane zigzag levels ([2nby, 2nbx,
-    64] luma, [nby, nbx, 64] chroma). Returns (words int64 [n_words],
-    total_bits, mb_bits [nby, nbx], overflow)."""
+                      n_words: int, fmt: int = 1):
+    """Frame payload from per-plane zigzag levels ([2nby, 2nbx, 64] luma,
+    [nby, nbx, 64] chroma) in the format-1 syntax, or the format-2 syntax
+    for fmt >= 2. Returns (words int64 [n_words], total_bits, mb_bits
+    [nby, nbx], overflow)."""
     nby, nbx = qp_delta.shape
     piece_words, piece_bits, ovf = _frame_pieces(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words,
+        dy, dx, block_words, fmt,
     )
     words, total = frame_concat(
         piece_words.reshape(-1, block_words), piece_bits.reshape(-1), n_words)
@@ -244,15 +290,16 @@ def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
 
 
 def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
-                  is_p_frame: bool, is_inter, dy, dx, block_words: int):
+                  is_p_frame: bool, is_inter, dy, dx, block_words: int,
+                  fmt: int = 1):
     """Per-MB bit counts [nby, nbx] int32 (header symbols plus the six
     block strings) with no payload assembled: the rc=mb pass-1 estimate,
     which uses nothing else of the pack."""
     nby, nbx = qp_delta.shape
-    _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx)
-    _, ybits, _ = _pack_blocks(levels_y8, block_words)
-    _, cbbits, _ = _pack_blocks(levels_cb, block_words)
-    _, crbits, _ = _pack_blocks(levels_cr, block_words)
+    _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
+    _, ybits, _ = _pack_blocks(levels_y8, block_words, fmt)
+    _, cbbits, _ = _pack_blocks(levels_cb, block_words, fmt)
+    _, crbits, _ = _pack_blocks(levels_cr, block_words, fmt)
     ysum = ybits.reshape(nby, 2, nbx, 2).sum((1, 3))
     return (hl.sum(0) + ysum + cbbits + crbits).int()
 
@@ -269,8 +316,9 @@ def chunk_capacity(n_pieces: int, block_words: int) -> tuple[int, int, int]:
 
 
 def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
-                      is_p_frame: bool, is_inter, dy, dx, block_words: int):
-    """Format-1 frame as span strings: (chunk_words [C, cw] int64,
+                      is_p_frame: bool, is_inter, dy, dx, block_words: int,
+                      fmt: int = 1):
+    """Frame (format-1 syntax, or format-2 for fmt >= 2) as span strings: (chunk_words [C, cw] int64,
     chunk_bits [C] int32, mb_bits [nby, nbx], ovf). The frame payload is
     the host bit-concatenation of the strings in order (`codec/mux.py`),
     the same bytes as pack_frame_planes. The span merge runs through the
@@ -284,7 +332,7 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
     n_mbs = nby * nbx
     (hw, yw, cbw, crw), bits7, ovf = _mb_sources(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words)
+        dy, dx, block_words, fmt)
     piece_bits = torch.nn.functional.pad(bits7, (0, 1)).reshape(-1)
     plan = pack.span_plan(n_mbs, block_words)
     words, bits, ovf_m = dispatch.span_merge_mb(
@@ -296,3 +344,4 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
         ovf_m = ovf_m | ovf_2
     mb_bits = bits7.sum(1, dtype=torch.int32).reshape(nby, nbx)
     return words, bits, mb_bits, ovf | ovf_m
+

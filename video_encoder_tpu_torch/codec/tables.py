@@ -1,8 +1,8 @@
 """The codec's pinned tables as device tensors (SPEC.md §3-5).
 
-The numpy tables in `video_encoder_tpu.codec.spec` are the single source
-of truth; `load(device)` carries them onto a device as int32 tensors, once
-per device. Scalars stay Python ints.
+The numpy tables in `codec/spec.py` are the single source of truth;
+`load(device)` carries them onto a device as int32 tensors, once per
+device. Scalars stay Python ints.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from video_encoder_tpu.codec import spec
+from . import spec
 
 TX_SHIFT = spec.TX_SHIFT
 MB = spec.MB
@@ -28,6 +28,7 @@ class Tables:
     QSTEP: torch.Tensor     # [64] quantizer step per qp
     ZIGZAG: torch.Tensor    # [64] raster index of each scan position
     UNZIGZAG: torch.Tensor  # [64] scan position of each raster index
+    QMAT: torch.Tensor      # [8, 8] v3 quant matrix, 16 = flat (SPEC.md §13.2)
     TX_SHIFT: int = TX_SHIFT
     MB: int = MB
     BLK: int = BLK
@@ -43,7 +44,7 @@ def _load(device: torch.device) -> Tables:
 
     return Tables(
         B=t(spec.B_MATRIX), QSTEP=t(spec.QSTEP),
-        ZIGZAG=t(spec.ZIGZAG), UNZIGZAG=t(spec.UNZIGZAG),
+        ZIGZAG=t(spec.ZIGZAG), UNZIGZAG=t(spec.UNZIGZAG), QMAT=t(spec.QMAT),
     )
 
 

@@ -16,7 +16,9 @@
 // is int32: |u2| <= ~73.3e6 is the largest intermediate (the bound proof
 // is in the reference module's docstring). Quantization is the exact
 // integer division (16|c| + bias*q) / (16q), bias 8 at DC; q is read from
-// q_blk[by][bx] directly. The TPU kernel's f32-reciprocal division and
+// q_blk[by][bx] directly and, under the v3 quant matrix, scaled per
+// position to max(1, (q * QMAT[r][c] + 8) >> 4) (16q <= 63712 then, still
+// int32). The TPU kernel's f32-reciprocal division and
 // one-hot f32 q expansion were TPU workarounds and are not carried over.
 
 #include <cuda_runtime.h>
@@ -44,6 +46,14 @@ __constant__ int kUnzigzag[64] = {
     21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63,
 };
 
+// v3 quant matrix in 16ths (codec/spec.py QMAT): 16 + 2 (r + c), 16 at DC
+__constant__ int kQmat[8][8] = {
+    {16, 18, 20, 22, 24, 26, 28, 30}, {18, 20, 22, 24, 26, 28, 30, 32},
+    {20, 22, 24, 26, 28, 30, 32, 34}, {22, 24, 26, 28, 30, 32, 34, 36},
+    {24, 26, 28, 30, 32, 34, 36, 38}, {26, 28, 30, 32, 34, 36, 38, 40},
+    {28, 30, 32, 34, 36, 38, 40, 42}, {30, 32, 34, 36, 38, 40, 42, 44},
+};
+
 __device__ __forceinline__ int rshift_round(int v) {
   const int mag = (abs(v) + 512) >> 10;  // TX_SHIFT = 10
   return v < 0 ? -mag : mag;
@@ -52,7 +62,7 @@ __device__ __forceinline__ int rshift_round(int v) {
 __global__ void __launch_bounds__(64 * SUB)
 code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
                   const int* __restrict__ q_blk, int h, int w, int qbias,
-                  int* __restrict__ levels, int* __restrict__ rec) {
+                  int qmat, int* __restrict__ levels, int* __restrict__ rec) {
   __shared__ int sa[SUB][8][8];
   __shared__ int sb[SUB][8][8];
   const int sub = threadIdx.y;
@@ -80,7 +90,8 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
   for (int j = 0; j < 8; ++j) acc += sb[sub][r][j] * kB[c][j];
   const int coef = rshift_round(acc);
 
-  const int q = active ? q_blk[by * nbx + bx] : 1;
+  int q = active ? q_blk[by * nbx + bx] : 1;
+  if (qmat) q = max(1, (q * kQmat[r][c] + 8) >> 4);
   const int bias = (r == 0 && c == 0) ? 8 : qbias;
   const int mag = (16 * abs(coef) + bias * q) / (16 * q);
   const int lv = coef < 0 ? -mag : mag;
@@ -103,13 +114,14 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
 }  // namespace
 
 // cur, pred, rec: [h, w] int32 (h, w multiples of 8); q_blk: [h/8, w/8]
-// int32; levels: [h/8, w/8, 64] int32 in zigzag order.
+// int32; levels: [h/8, w/8, 64] int32 in zigzag order; qmat != 0 applies
+// the v3 quant matrix.
 extern "C" int tvc_code_plane(const int* cur, const int* pred,
                               const int* q_blk, int h, int w, int qbias,
-                              int* levels, int* rec, void* stream) {
+                              int qmat, int* levels, int* rec, void* stream) {
   const dim3 block(64, SUB);
   const dim3 grid((w / 8 + SUB - 1) / SUB, h / 8);
   code_plane_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cur, pred, q_blk, h, w, qbias, levels, rec);
+      cur, pred, q_blk, h, w, qbias, qmat, levels, rec);
   return (int)cudaGetLastError();
 }

@@ -54,25 +54,66 @@ def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sad_at_mv(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
-              dx: torch.Tensor) -> torch.Tensor:
-    """Per-MB 16x16 SAD at integer mvs dy, dx [K, H/16, W/16] or
-    [H/16, W/16] int32 (|mv| <= 16): one launch for all K candidates."""
-    if cur_y.device.type == "cpu":
-        return motion.sad_at(cur_y, ref_y, dy, dx)
-    h, w = _require_planes(cur_y, ref_y, "sad_at_mv")
+def _require_mvs(dy, dx, h: int, w: int, bs: int, name: str):
     shape = tuple(dy.shape)
-    if shape[-2:] != (h // 16, w // 16) or len(shape) not in (2, 3):
-        raise ValueError(f"sad_at_mv: mvs of shape {shape} for a {h}x{w} plane")
-    build.require(dy, torch.int32, shape, "sad_at_mv dy")
-    build.require(dx, torch.int32, shape, "sad_at_mv dx")
-    k = shape[0] if len(shape) == 3 else 1
+    if shape[-2:] != (h // bs, w // bs) or len(shape) not in (2, 3):
+        raise ValueError(f"{name}: mvs of shape {shape} for a {h}x{w} plane")
+    build.require(dy, torch.int32, shape, f"{name} dy")
+    build.require(dx, torch.int32, shape, f"{name} dx")
+    return shape, shape[0] if len(shape) == 3 else 1
+
+
+def sad_at_mv(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
+              dx: torch.Tensor, plane_of=None) -> torch.Tensor:
+    """Per-MB 16x16 SAD at integer mvs dy, dx [K, H/16, W/16] or
+    [H/16, W/16] int32 (|mv| <= 16): one launch for all K candidates.
+    With plane_of (K <= 16 Python ints) ref_y is a stack of planes
+    [P, H, W], P <= 16, and candidate k reads ref_y[plane_of[k]]."""
+    if cur_y.device.type == "cpu":
+        return motion.sad_at(cur_y, ref_y, dy, dx, plane_of=plane_of)
+    h, w = cur_y.shape
+    if h % 16 or w % 16:
+        raise ValueError(f"sad_at_mv: {h}x{w} is not a multiple of 16")
+    build.require(cur_y, torch.int32, (h, w), "sad_at_mv cur")
+    shape, k = _require_mvs(dy, dx, h, w, 16, "sad_at_mv")
+    code = 0
+    if plane_of is None:
+        build.require(ref_y, torch.int32, (h, w), "sad_at_mv ref")
+    else:
+        p = ref_y.shape[0]
+        build.require(ref_y, torch.int32, (p, h, w), "sad_at_mv planes")
+        if len(shape) != 3 or k != len(plane_of) or k > 16 or not all(
+                0 <= q < min(p, 16) for q in plane_of):
+            raise ValueError(f"sad_at_mv: planes {list(plane_of)} for {k} "
+                             f"candidates on {p} planes")
+        code = sum(q << (4 * j) for j, q in enumerate(plane_of))
     sad = torch.empty(shape, dtype=torch.int32, device=cur_y.device)
     err = build.lib().tvc_sad_at_mv(
         cur_y.data_ptr(), ref_y.data_ptr(), dy.data_ptr(), dx.data_ptr(), k,
-        h, w, sad.data_ptr(), build.stream_ptr(cur_y.device))
+        h, w, code, sad.data_ptr(), build.stream_ptr(cur_y.device))
     build.check(err, "sad_at_mv")
     build.LAUNCHES["sad_at_mv"] += 1
+    return sad
+
+
+def sad_at_mv_chroma(cur_c: torch.Tensor, ref_c: torch.Tensor,
+                     dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """Per-block 8x8 SAD of a chroma plane at integer chroma mvs dy, dx
+    [K, H/8, W/8] or [H/8, W/8] int32 (|mv| <= 8): one launch."""
+    if cur_c.device.type == "cpu":
+        return motion.sad_at(cur_c, ref_c, dy, dx, 8)
+    h, w = cur_c.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"sad_at_mv_chroma: {h}x{w} is not a multiple of 8")
+    build.require(cur_c, torch.int32, (h, w), "sad_at_mv_chroma cur")
+    build.require(ref_c, torch.int32, (h, w), "sad_at_mv_chroma ref")
+    shape, k = _require_mvs(dy, dx, h, w, 8, "sad_at_mv_chroma")
+    sad = torch.empty(shape, dtype=torch.int32, device=cur_c.device)
+    err = build.lib().tvc_sad_at_mv_chroma(
+        cur_c.data_ptr(), ref_c.data_ptr(), dy.data_ptr(), dx.data_ptr(), k,
+        h, w, sad.data_ptr(), build.stream_ptr(cur_c.device))
+    build.check(err, "sad_at_mv_chroma")
+    build.LAUNCHES["sad_at_mv_chroma"] += 1
     return sad
 
 

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from video_encoder_tpu.codec import spec
-
-from ..codec import tables
+from ..codec import spec, tables
+from ..codec.entropy import bitlen
 from .transform import unblockify
 
 R = tables.SEARCH_R
@@ -73,13 +72,18 @@ def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
 
 
 def sad_at(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
-           dx: torch.Tensor) -> torch.Tensor:
-    """Per-MB 16x16 SAD at integer mvs dy, dx [..., nby, nbx] (|mv| <= R;
-    any number of leading candidate axes). Returns int32 of dy's shape."""
+           dx: torch.Tensor, bs: int = tables.MB, plane_of=None) -> torch.Tensor:
+    """Per-block bs x bs SAD at integer mvs dy, dx [..., nby, nbx]
+    (|mv| <= bs, the pad radius: 16 for luma MBs, 8 for chroma blocks; any
+    number of leading candidate axes). With plane_of (K Python ints) ref_y
+    is a stack of planes [P, H, W] and candidate k of dy, dx [K, nby, nbx]
+    reads ref_y[plane_of[k]]. Returns int32 of dy's shape."""
+    if plane_of is not None:
+        return torch.stack([sad_at(cur_y, ref_y[p], dy[k], dx[k], bs)
+                            for k, p in enumerate(plane_of)])
     h, w = cur_y.shape
-    mb = tables.MB
-    cur_b = cur_y.reshape(h // mb, mb, w // mb, mb).permute(0, 2, 1, 3)
-    pred = mc_fetch(pad_ref(ref_y, R), dy, dx, mb, R)
+    cur_b = cur_y.reshape(h // bs, bs, w // bs, bs).permute(0, 2, 1, 3)
+    pred = mc_fetch(pad_ref(ref_y, bs), dy, dx, bs, bs)
     return (cur_b - pred).abs().sum(dim=(-2, -1), dtype=torch.int32)
 
 
@@ -166,3 +170,25 @@ def intra_cost_and_dc(cur_y: torch.Tensor):
     dc = (_mb_sums(cur_y, tables.MB) + 128) >> 8
     dc_px = dc.repeat_interleave(tables.MB, 0).repeat_interleave(tables.MB, 1)
     return dc, _mb_sums((cur_y - dc_px).abs(), tables.MB)
+
+
+def adaptive_qp(base_qp: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """rc=adaptive per-MB qp (SPEC.md §10): base_qp + bitlen(act) - 10,
+    clipped to the qp range, from the per-MB intra cost [nby, nbx]."""
+    return (base_qp + (bitlen(act) - 10)).clamp(
+        tables.QP_MIN, tables.QP_MAX).int()
+
+
+def hpel_planes(p: torch.Tensor):
+    """SPEC.md §14.2 parity planes (H, V, D) on the plane grid, the +1
+    reads clamped at the edge."""
+    b = torch.cat([p[:, 1:], p[:, -1:]], 1)   # p[y, x+1]
+    c = torch.cat([p[1:], p[-1:]], 0)         # p[y+1, x]
+    d = torch.cat([b[1:], b[-1:]], 0)         # p[y+1, x+1]
+    return (p + b + 1) >> 1, (p + c + 1) >> 1, (p + b + c + d + 2) >> 2
+
+
+def hpel_stack(p: torch.Tensor) -> torch.Tensor:
+    """[4, H, W]: the plane and its H, V, D parity planes, indexed by
+    (d2y & 1) * 2 + (d2x & 1)."""
+    return torch.stack([p, *hpel_planes(p)])

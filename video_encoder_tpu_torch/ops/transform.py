@@ -89,15 +89,51 @@ def unzigzag(levels_zz: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*levels_zz.shape[:-1], 8, 8)
 
 
+def qsteps_pos(q: torch.Tensor, use_matrix: bool) -> torch.Tensor:
+    """Per-position steps [..., 8, 8] from per-block steps [...] under the
+    v3 quant matrix, max(1, (q * QMAT + 8) >> 4) (SPEC.md §13.2), or the
+    flat [..., 1, 1] broadcast when the matrix is off."""
+    if not use_matrix:
+        return q[..., None, None]
+    qmat = tables.load(q.device).QMAT
+    return ((q[..., None, None] * qmat + 8) >> 4).clamp(min=1)
+
+
 def code_plane(cur: torch.Tensor, pred: torch.Tensor, q_blk: torch.Tensor,
-               qbias: int = 8):
+               qbias: int = 8, qmat: bool = False):
     """Residual -> ITX8 -> quantize -> zigzag, and the clipped recon, of one
-    plane. cur, pred [H, W] int32; q_blk [H/8, W/8] int32 steps. Returns
-    (levels [H/8, W/8, 64] zigzag order, recon [H, W]) as the reference's
+    plane. cur, pred [H, W] int32; q_blk [H/8, W/8] int32 steps, scaled
+    per position by the v3 quant matrix when qmat. Returns (levels [H/8,
+    W/8, 64] zigzag order, recon [H, W]) as the reference's
     `dispatch.code_plane` does."""
-    q = q_blk[..., None, None]
+    q = qsteps_pos(q_blk, qmat)
     coefs = forward_transform(blockify(cur - pred, 8))
     lz = zigzag(quantize(coefs, q, qbias))
     deq = dequantize(unzigzag(lz), q)
     rec = (unblockify(inverse_transform(deq)) + pred).clamp(0, 255)
     return lz, rec
+
+
+def intra_rows_code_plane(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int,
+                          reset_rows: int = 0, qmat: bool = False,
+                          code=code_plane):
+    """v3 I-frame vertical intra coding of one plane (SPEC.md §13.1), twin
+    of the reference's `transform.intra_rows_code_plane`: block row j
+    predicts every pixel from the reconstructed pixel row above it (128
+    above row 0 and, with reset_rows > 0, above every reset_rows-th block
+    row, §13.3). The rows are the format's one serial chain: each stripe
+    is `code` (a code_plane) on an [8, W] plane whose pred is that row
+    broadcast to eight rows. cur [H, W] int32, q_blk [H/8, W/8] int32.
+    Returns (levels [H/8, W/8, 64] zigzag order, recon [H, W])."""
+    h, w = cur.shape
+    flat = torch.full((8, w), 128, dtype=cur.dtype, device=cur.device)
+    levels, recs = [], []
+    pred = flat
+    for j in range(h // 8):
+        if j == 0 or (reset_rows and j % reset_rows == 0):
+            pred = flat
+        lv, rec = code(cur[8 * j:8 * j + 8], pred, q_blk[j:j + 1], qbias, qmat)
+        pred = rec[-1].expand(8, w).contiguous()
+        levels.append(lv)
+        recs.append(rec)
+    return torch.cat(levels), torch.cat(recs)
