@@ -17,7 +17,11 @@ Phases, each of which raises on failure (exit code not 0):
    integer-only), with both times, the least time the card could take
    (bytes moved over its memory rate, or integer operations over its
    peak, whichever is larger) and, where one PyTorch call computes the
-   same function, that call's time.
+   same function, that call's time. Then the G-batched kernels at G = 4
+   on the same shapes ([4, 1088, 1920], [4, 544, 960], K = 4 and K = 9 on
+   four planes, the [4, 8, 1920] and [4, 8, 960] stripes): each equal to
+   its plain batched version and to G launches of the single-plane
+   kernel, whose time stands beside its own.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
    1; on a smoother texture, diamond search, rc mb and --kbps 12000
@@ -34,12 +38,27 @@ Phases, each of which raises on failure (exit code not 0):
    matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
    each, against the oracle. The oracle's encodes run side by side on the
    host's CPU before the port's.
+   Then the batched-GOP paths, `--gop 10 --gop-batch 3` on the same
+   30-frame 1080p clips (one lockstep encode of three GOPs): config 3
+   against the oracle's stream of that GOP length; full search and
+   format 4 against the port's own unbatched stream, format 4 also
+   in-process under the other emit; config 3 once more with a tail
+   (`--gop 12 --gop-batch 2`: a batch of two and a short GOP of 6). Every
+   `_g` kernel of a path must have launched, no single-plane kernel in a
+   run without a tail, and the folded block pack and span merges once
+   per plane and frame step, not G times. Then two-pass: 640x360,
+   `--two-pass --kbps 3000`, equal to the port's own `--device cpu`
+   stream, decoded by the oracle above the PSNR floor, its per-GOP qps
+   printed.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
    emit, each with its device ops per frame, busy share and top device
    times from torch.profiler, the format-4 I frame (the row scan) on its
-   own, and the CLI's wall fps.
+   own, and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
+   GOPs in lockstep (G = 1 is the single-GOP path), in turns within this
+   one run: device-resident fps, device ops per frame and busy share
+   (the G = 1 trace is the one taken of that GOP just before).
 
 The last two lines of standard output are the kernel table and
 {"ok": true, "device": {...}}. Builds go to build/ (gitignored).
@@ -232,7 +251,7 @@ def phase_kernels(dev, card: str):
 
     rows = {}
 
-    def record(name, src, replaces, err, timing=None, also=None):
+    def record(name, src, replaces, err, timing=None, also=None, **extra):
         """timing: (ms, plain_ms, (bound_ms, bound_by), library_ms), at the
         kernel's first launch shape on the main paths; also: the same
         (without a library call) at a further launch shape, kept in the
@@ -242,6 +261,7 @@ def phase_kernels(dev, card: str):
             replaces=replaces, launches=0, max_abs_err=0, ms=None,
             plain_ms=None, bound_ms=None, bound_by=None, library_ms=None))
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(extra)
         if timing is not None:
             ms, plain_ms, (bound_ms, bound_by), library_ms = timing
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -546,6 +566,127 @@ def phase_kernels(dev, card: str):
             log(f"kernel span_merge {name}: {plan.n_strings} strings of "
                 f"{plan.cwf} words: equal, overflow {bool(got2[2])}"
                 + shown(timing))
+
+    # ---- the G-batched kernels at G = 4: each against its plain batched
+    # version AND against G launches of the single-plane kernel; its bound
+    # is G times the single kernel's (the same bound() on G times the
+    # tensors and operations)
+    g4 = 4
+
+    def singles(fn, *args):
+        """G launches of the single-plane kernel, one per GOP's slice."""
+        return [fn(*(a[i] if isinstance(a, torch.Tensor) else a for a in args))
+                for i in range(g4)]
+
+    def per_g(fn, *args):
+        outs = singles(fn, *args)
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
+
+    def held_g(name, src, replaces, shape_name, fn, args, ops, library=None,
+               main=True, **extra):
+        """One batched kernel at one shape: equal to plain and to G single
+        launches; timed against both."""
+        got, want = both(fn, *args)
+        err = max_abs_err(tensors(got), tensors(want))
+        max_abs_err(tensors(got), tensors(per_g(fn, *args)))
+        torch.cuda.synchronize()
+        ms, plain_ms = timed(fn, *args)
+        singles_ms = time_ms(lambda: singles(fn, *args))
+        timing = (ms, plain_ms, bound(tensors(args), tensors(got), ops),
+                  None if library is None else time_ms(library))
+        if main:
+            record(name, src, replaces, err, timing, g=g4,
+                   single_launches_ms=singles_ms, **extra)
+        else:
+            record(name, src, replaces, err, also=(shape_name, timing))
+            rows[name]["also"][-1]["single_launches_ms"] = singles_ms
+        log(f"kernel {name} {shape_name}: equal to plain and to {g4} single "
+            f"launches ({singles_ms:.4f} ms)" + shown(timing))
+        return got
+
+    (h, w), (ch, cw) = luma[0], chroma[0]
+    n_mbs = (h // 16) * (w // 16)
+    cur = np.stack([texture(rng, h, w)[64:64 + h, 64:64 + w] for _ in range(g4)])
+    ref = np.stack([np.roll(cur[i], (16 - 5 * i, 3 * i - 16), (0, 1))
+                    for i in range(g4)]) + rng.integers(-3, 4, cur.shape)
+    cur[1, :128, :256] = 100          # GOP 1: a region where all candidates tie
+    ref[1, :160, :288] = 100
+    cur_t, ref_t = t32(cur), t32(np.clip(ref, 0, 255))
+    got = held_g("full_search_g", "full_search.cu",
+                 "video_encoder_tpu/ops/pallas/sad.py:420", f"[{g4}, {h}, {w}]",
+                 dispatch.full_search, (cur_t, ref_t), g4 * n_mbs * 1089 * 256 * 2)
+    corner = int(((got[0][0] == 16) & (got[1][0] == -16)).sum())
+    if not corner or torch.equal(got[0][0], got[0][2]):
+        raise AssertionError("full_search_g: the GOPs' vectors do not differ "
+                             "or GOP 0 misses its (16, -16) corner")
+    held_g("sad_map_even_g", "full_search.cu",
+           "video_encoder_tpu/ops/pallas/sad.py:632", f"[{g4}, {h}, {w}]",
+           dispatch.sad_map_even, (cur_t, ref_t), g4 * n_mbs * 289 * 256 * 2)
+
+    for name, (ph, pw), bs, fn in (
+            ("mc_fetch_luma_g", (h, w), 16, dispatch.mc_fetch_luma_plane),
+            ("mc_fetch_chroma_g", (ch, cw), 8, dispatch.mc_fetch_chroma_plane)):
+        plane = t32(rng.integers(0, 256, (g4, ph, pw)))
+        dy = rng.integers(-bs, bs + 1, (g4, ph // bs, pw // bs))
+        dx = rng.integers(-bs, bs + 1, (g4, ph // bs, pw // bs))
+        dy[:, 0, 0], dx[:, 0, 0], dy[:, -1, -1], dx[:, -1, -1] = -bs, -bs, bs, bs
+        args = (plane, t32(dy), t32(dx))
+        px = [a.repeat_interleave(bs, 1).repeat_interleave(bs, 2) for a in args[1:]]
+        flat = ((torch.arange(g4, device=dev)[:, None, None] * ph
+                 + (torch.arange(ph, device=dev)[None, :, None] + px[0]).clamp(0, ph - 1))
+                * pw + (torch.arange(pw, device=dev)[None, None, :] + px[1]).clamp(0, pw - 1))
+        got = held_g(name, "mc_fetch.cu", "video_encoder_tpu/ops/pallas/sad.py:825",
+                     f"[{g4}, {ph}, {pw}]", fn, args, 0,
+                     library=lambda: torch.take(plane, flat))
+        max_abs_err([torch.take(plane, flat)], [got])
+
+    for name, (ph, pw), bs, fn in (
+            ("sad_at_mv_g", (h, w), 16, dispatch.sad_at_mv),
+            ("sad_at_mv_chroma_g", (ch, cw), 8, dispatch.sad_at_mv_chroma)):
+        a_t = t32(rng.integers(0, 256, (g4, ph, pw)))
+        b_t = t32(rng.integers(0, 256, (g4, ph, pw)))
+        dy = rng.integers(-bs, bs + 1, (g4, 4, ph // bs, pw // bs))
+        dx = rng.integers(-bs, bs + 1, (g4, 4, ph // bs, pw // bs))
+        dy[..., 0, 0], dx[..., 0, 0], dy[..., -1, -1], dx[..., -1, -1] = -bs, -bs, bs, bs
+        held_g(name, "sad_at.cu", "video_encoder_tpu/ops/pallas/sad.py:861",
+               f"[{g4}, {ph}, {pw}] K=4", fn, (a_t, b_t, t32(dy), t32(dx)),
+               dy.size * bs * bs * 2)
+    planes4 = motion.hpel_stack(ref_t)                     # [G, 4, H, W]
+    dy9 = rng.integers(-16, 17, (g4, 9, h // 16, w // 16))
+    dx9 = rng.integers(-16, 17, (g4, 9, h // 16, w // 16))
+    dy9[..., 0, :], dx9[..., :, 0], dy9[..., -1, :], dx9[..., :, -1] = -16, -16, 16, 16
+    held_g("sad_at_mv_g", "sad_at.cu", "video_encoder_tpu/ops/pallas/sad.py:861",
+           f"[{g4}, {h}, {w}] K=9 on 4 planes", dispatch.sad_at_mv,
+           (cur_t, planes4, t32(dy9), t32(dx9), plane_of), dy9.size * 256 * 2,
+           main=False)
+
+    q28 = int(tables.load(dev).QSTEP[28])
+    # every shape a lockstep path codes: luma and chroma planes, and the
+    # luma and chroma stripes of the I-frame row scan (formats 3 and 4)
+    for shape_name, (ph, pw), main in (
+            (f"[{g4}, {h}, {w}]", (h, w), True),
+            (f"[{g4}, {ch}, {cw}]", (ch, cw), False),
+            (f"stripe [{g4}, 8, {w}]", (8, w), False),
+            (f"stripe [{g4}, 8, {cw}]", (8, cw), False)):
+        tex = np.stack([texture(rng, ph, pw)[:ph, :pw] for _ in range(g4)])
+        pred = (np.clip(np.roll(tex, 3, 2) + rng.integers(-20, 21, tex.shape), 0, 255)
+                if ph > 8 else
+                np.broadcast_to(rng.integers(0, 256, (g4, 1, pw)), tex.shape))
+        qp = rng.choice([1, 28, 63], (g4, ph // 8, pw // 8))
+        q_mixed = tables.load(dev).QSTEP[t32(qp).long()].contiguous()
+        q_flat = torch.full_like(q_mixed, q28)
+        for qmat, name in ((False, "code_plane_g"), (True, "code_plane_qmat_g")):
+            for qbias in (8, 5):     # mixed steps per GOP and block: held only
+                a = (t32(tex), t32(pred), q_mixed, qbias, qmat)
+                gq, wq = both(dispatch.code_plane, *a)
+                max_abs_err(gq, wq)
+                max_abs_err(gq, per_g(dispatch.code_plane, *a))
+            held_g(name, "code_plane.cu",
+                   "video_encoder_tpu/ops/pallas/codec.py:230", shape_name,
+                   dispatch.code_plane, (t32(tex), t32(pred), q_flat, 8, qmat),
+                   g4 * ph * pw * (4 * 16 + 10), main=main)
     return rows
 
 
@@ -625,18 +766,29 @@ V4 = mode("v4", fmt=4, qmat=True, cqpo=2, clip="halfpel", scale=16)
 V2_SMALL = mode("v2", fmt=2, cqpo=4, search="diamond", rc="vbv", kbps=1500,
                 passes=4, scale=4)
 V3_SMALL = mode("v3", fmt=3, qmat=True, islice=2, rc="adaptive", scale=16)
+# two-pass on the format-2 clip: rc none becomes bitrate, the target moves
+# every GOP's qp off the base qp (1500 kbps would take it to a qp that
+# decodes under the PSNR floor)
+TWOPASS_SMALL = mode("twopass", fmt=2, cqpo=4, search="diamond", kbps=3000,
+                     passes=4, scale=4)
 
 
-def expected_kernels(m, emit, intra_only=False):
-    """The launch counters a path must move."""
-    ks = ["code_plane_qmat" if m["qmat"] else "code_plane",
-          "block_pack_v2" if m["fmt"] >= 2 else "block_pack"]
+FOLDED = ("block_pack", "block_pack_v2", "span_merge_mb", "span_merge")
+
+
+def expected_kernels(m, emit, intra_only=False, batched=False):
+    """The launch counters a path must move; batched: those of a lockstep
+    encode of G GOPs (the `_g` kernels, and the folded pack and merges)."""
+    ks = ["code_plane_qmat" if m["qmat"] else "code_plane"]
     if not intra_only:
         ks += ["mc_fetch_luma", "mc_fetch_chroma"]
         ks += (["full_search"] if m["search"] == "full"
                else ["sad_map_even", "sad_at_mv"])
         if m["fmt"] >= 4:
             ks.append("sad_at_mv")
+    if batched:
+        ks = [k + "_g" for k in ks]
+    ks.append("block_pack_v2" if m["fmt"] >= 2 else "block_pack")
     if emit == "chunks":
         ks += ["span_merge_mb", "span_merge"]
     return ks
@@ -659,22 +811,23 @@ def config_of(m, w, h, gop):
         intra_slice_mbrows=m["islice"])
 
 
-def start_job(tmp, m, w, h, n, gop):
+def start_job(tmp, m, w, h, n, gop, like=None):
     """Make and write the clip of one path and start the oracle's encode
-    of it (one CPU process; the jobs' oracles run side by side)."""
-    if m["clip"] == "halfpel":
-        clip = synth_clip_halfpel(n, h, w, seed=11, passes=m["passes"],
-                                  scale=m["scale"])
-    else:
-        clip = synth_clip(n, h, w, seed=11, passes=m["passes"],
-                          scale=m["scale"])
+    of it (one CPU process; the jobs' oracles run side by side). `like`
+    is an earlier job of the same mode and size whose clip and raw file
+    this one encodes again at another GOP length."""
     tag = f"{w}x{h}_gop{gop}_{m['tag']}"
-    job = dict(mode=m, w=w, h=h, n=n, gop=gop, tag=tag, clip=clip,
-               raw=os.path.join(tmp, f"in_{tag}.yuv"),
+    if like is not None:
+        clip, raw = like["clip"], like["raw"]
+    else:
+        synth = synth_clip_halfpel if m["clip"] == "halfpel" else synth_clip
+        clip = synth(n, h, w, seed=11, passes=m["passes"], scale=m["scale"])
+        raw = os.path.join(tmp, f"in_{tag}.yuv")
+        write_clip(raw, *clip)
+    job = dict(mode=m, w=w, h=h, n=n, gop=gop, tag=tag, clip=clip, raw=raw,
                ours=os.path.join(tmp, f"port_{tag}.tvc"),
                theirs=os.path.join(tmp, f"oracle_{tag}.tvc"),
                dec=os.path.join(tmp, f"dec_{tag}.yuv"), t0=time.perf_counter())
-    write_clip(job["raw"], *clip)
     # oracle encode in out W H gop qp search rc kbps frames fmt cqpo qbias
     #   vbv_kbits qmat islice
     job["oracle"] = subprocess.Popen(
@@ -713,48 +866,70 @@ def halfpel_share(stream: bytes, fmt: int) -> float:
     return odd / max(inter, 1)
 
 
-def phase_slice(job, card):
-    """Port CLI encode on the card vs the C++ oracle, byte for byte.
-    Returns (launches of this path, CLI summary, stream)."""
+def run_cli(job, out_path, extra=(), device=None):
+    """One in-process CLI encode of a job's raw file with its mode's flags
+    plus `extra`; the launch counts are zeroed just before and read just
+    after. Returns (launches, CLI summary, stream bytes)."""
     from video_encoder_tpu_torch import cli
     from video_encoder_tpu_torch.ops.kernels import build
-    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
-    m, w, h, n, gop, tag = (job[k] for k in ("mode", "w", "h", "n", "gop", "tag"))
+    m, w, h, gop = (job[k] for k in ("mode", "w", "h", "gop"))
     argv = ["encode", "-i", job["raw"], "-W", str(w), "-H", str(h),
-            "-o", job["ours"], "--gop", str(gop), "--qp", "28",
+            "-o", out_path, "--gop", str(gop), "--qp", "28",
             "--search", m["search"], "--format", str(m["fmt"]),
             "--rc", m["rc"], "--kbps", str(m["kbps"]),
             "--vbv-kbits", str(m["vbv_kbits"]),
             "--chroma-qp-offset", str(m["cqpo"]),
             "--quant-bias", str(m["qbias"]), "--intra-slice", str(m["islice"]),
-            "--device", DEVICE] + (["--quant-matrix"] if m["qmat"] else [])
+            "--device", device or DEVICE, *extra
+            ] + (["--quant-matrix"] if m["qmat"] else [])
     build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     launches = dict(build.LAUNCHES)
     if rc != 0:
-        raise RuntimeError(f"port encode exited {rc}")
-    summary = json.loads(out.getvalue().strip().splitlines()[-1])
-    check_launches(f"{tag} CLI encode", launches,
-                   expected_kernels(m, GopEngine.emit, gop == 1))
+        raise RuntimeError(f"port encode {' '.join(extra)} exited {rc}")
+    with open(out_path, "rb") as f:
+        stream = f.read()
+    return launches, json.loads(out.getvalue().strip().splitlines()[-1]), stream
 
-    with open(job["ours"], "rb") as f1, open(job["theirs"], "rb") as f2:
-        a, b = f1.read(), f2.read()
+
+def same_stream(tag, a, b, other):
     if a != b:
         i = next((k for k in range(min(len(a), len(b))) if a[k] != b[k]),
                  min(len(a), len(b)))
         raise AssertionError(f"{tag}: port stream ({len(a)} B) differs from "
-                             f"the oracle's ({len(b)} B) at byte {i}")
-    subprocess.run([ORACLE_BIN, "decode", job["theirs"], job["dec"]],
+                             f"{other} ({len(b)} B) at byte {i}")
+
+
+def decoded_psnr_y(job, stream_path):
+    """PSNR-Y of the oracle's decode of a stream against the job's clip;
+    raises under the floor."""
+    w, h, n = job["w"], job["h"], job["n"]
+    subprocess.run([ORACLE_BIN, "decode", stream_path, job["dec"]],
                    check=True, capture_output=True)
     dy = np.fromfile(job["dec"], np.uint8).reshape(n, h * w * 3 // 2)[:, :h * w]
     src = np.stack(job["clip"][0]).reshape(n, h * w).astype(np.float64)
     mse = float(((dy.astype(np.float64) - src) ** 2).mean())
     psnr_y = 10 * np.log10(255.0 ** 2 / mse)
     if not (np.isfinite(psnr_y) and psnr_y > PSNR_FLOOR):
-        raise AssertionError(f"{tag}: decoded PSNR-Y {psnr_y:.3f} dB")
+        raise AssertionError(f"{job['tag']}: decoded PSNR-Y {psnr_y:.3f} dB")
+    return psnr_y
+
+
+def phase_slice(job, card):
+    """Port CLI encode on the card vs the C++ oracle, byte for byte.
+    Returns (launches of this path, CLI summary, stream)."""
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    m, n, gop, tag = (job[k] for k in ("mode", "n", "gop", "tag"))
+    launches, summary, a = run_cli(job, job["ours"])
+    check_launches(f"{tag} CLI encode", launches,
+                   expected_kernels(m, GopEngine.emit, gop == 1))
+    with open(job["theirs"], "rb") as f2:
+        same_stream(tag, a, f2.read(), "the oracle's")
+    psnr_y = decoded_psnr_y(job, job["theirs"])
     log(f"slice {tag}, {n} frames, format {m['fmt']}, emit {GopEngine.emit}: "
         f"port stream == oracle stream ({len(a)} bytes), oracle decode PSNR-Y "
         f"{psnr_y:.4f} dB, launches {launches}")
@@ -803,6 +978,210 @@ def phase_other_emit(job, stream, card):
     return launches
 
 
+def check_batched_launches(what, launches, m, emit, steps, tail=False):
+    """A lockstep run's counters: every `_g` kernel of the path launched;
+    without a tail no single-plane kernel did; the folded block pack ran
+    once per plane and frame step (twice under rc mb, whose first pass
+    packs for its bit counts) and each span merge once per frame step."""
+    check_launches(what, launches, expected_kernels(m, emit, batched=True))
+    if tail:
+        check_launches(what + " (tail)", launches, expected_kernels(m, emit))
+        return
+    single = [k for k, v in launches.items()
+              if v and not k.endswith("_g") and k not in FOLDED]
+    if single:
+        raise AssertionError(f"{what}: single-plane kernels ran: {single}")
+    packs = launches["block_pack"] + launches["block_pack_v2"]
+    want = 3 * steps * (2 if m["rc"] == "mb" else 1)
+    merges = steps if emit == "chunks" else 0
+    if packs != want or launches["span_merge_mb"] != merges:
+        raise AssertionError(
+            f"{what}: block_pack launched {packs} times (one per plane and "
+            f"frame step is {want}), span_merge_mb "
+            f"{launches['span_merge_mb']} times (want {merges})")
+
+
+def phase_batched(tmp, jobs, batched_oracle, card):
+    """The batched-GOP paths through the port CLI at 1920x1080: three GOPs
+    of 10 frames in one lockstep encode (`--gop 10 --gop-batch 3`).
+    Returns the launch counts of each path."""
+    from video_encoder_tpu_torch.codec.bitstream import OrderedMux
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    emit = GopEngine.emit
+    paths = []
+
+    def batched(job, g, tail=False):
+        steps = job["gop"]
+        out = os.path.join(tmp, f"batched_{job['tag']}.tvc")
+        launches, summary, stream = run_cli(job, out, ["--gop-batch", str(g)])
+        check_batched_launches(f"{job['tag']} --gop-batch {g}", launches,
+                               job["mode"], emit, steps, tail)
+        paths.append(launches)
+        return launches, summary, stream, out
+
+    # config 3 against the oracle's stream of the same GOP length
+    job = batched_oracle
+    launches, summary, stream, out = batched(job, 3)
+    with open(job["theirs"], "rb") as f:
+        same_stream(job["tag"] + " batched", stream, f.read(), "the oracle's")
+    psnr_y = decoded_psnr_y(job, out)
+    log(f"batched {job['tag']} --gop-batch 3: port stream == oracle stream "
+        f"({len(stream)} bytes), oracle decode PSNR-Y {psnr_y:.4f} dB, CLI wall "
+        f"{summary['wall_fps']} fps [{card}], launches {launches}")
+
+    # full search and format 4 against the port's own unbatched streams
+    for name in ("full", "v4"):
+        job = dict(jobs[name], gop=10, tag=jobs[name]["tag"].replace(
+            "gop30", "gop10"))
+        _, plain_summary, plain = run_cli(
+            job, os.path.join(tmp, f"plain_{job['tag']}.tvc"))
+        launches, summary, stream, _ = batched(job, 3)
+        same_stream(job["tag"] + " batched", stream, plain,
+                    "the port's unbatched stream")
+        log(f"batched {job['tag']} --gop-batch 3: == the unbatched stream "
+            f"({len(stream)} bytes), CLI wall {summary['wall_fps']} fps against "
+            f"{plain_summary['wall_fps']} fps unbatched [{card}], launches "
+            f"{launches}")
+    # ... and format 4 under the other emit, in-process
+    other = "chunks" if emit == "frame" else "frame"
+    cfg = config_of(job["mode"], job["w"], job["h"], 10)
+    frames = [Frame.from_planes(*p) for p in zip(*job["clip"])]
+    eng = GopEngine(cfg, device=DEVICE, emit=other)
+    build.reset_launches()
+    results = eng.encode_gops([frames[0:10], frames[10:20], frames[20:30]],
+                              [0, 10, 20])
+    launches = dict(build.LAUNCHES)
+    check_batched_launches(f"{job['tag']} in-process, emit {other}", launches,
+                           job["mode"], other, 10)
+    paths.append(launches)
+    buf = io.BytesIO()
+    mux = OrderedMux(buf, cfg, len(frames))
+    for packets, _ in results:
+        for pkt in packets:
+            mux.push(pkt)
+    mux.close()
+    same_stream(f"{job['tag']} batched, emit {other}", buf.getvalue(), stream,
+                "the CLI's batched stream")
+    log(f"batched {job['tag']} in-process, emit {other}: same stream, "
+        f"launches {launches}")
+
+    # a tail: 30 frames at GOP 12 are a batch of two GOPs and a short one
+    job = dict(jobs["config3"], gop=12, tag=jobs["config3"]["tag"].replace(
+        "gop30", "gop12"))
+    _, _, plain = run_cli(job, os.path.join(tmp, f"plain_{job['tag']}.tvc"))
+    launches, summary, stream, _ = batched(job, 2, tail=True)
+    same_stream(job["tag"] + " batched with a tail", stream, plain,
+                "the port's unbatched stream")
+    log(f"batched {job['tag']} --gop-batch 2 (two GOPs in lockstep, then a "
+        f"short GOP of 6): == the unbatched stream ({len(stream)} bytes), "
+        f"launches {launches}")
+    return paths
+
+
+def phase_twopass(tmp, job, card):
+    """Two-pass at 640x360 through the port CLI on the card: the stream of
+    the port's own CPU run, decodable above the PSNR floor."""
+    from video_encoder_tpu_torch.codec import bitstream
+
+    extra = ["--two-pass"]
+    launches, summary, stream = run_cli(
+        job, os.path.join(tmp, "twopass_card.tvc"), extra)
+    check_launches("two-pass CLI encode", launches,
+                   expected_kernels(job["mode"], "frame"))
+    _, _, cpu = run_cli(job, os.path.join(tmp, "twopass_cpu.tvc"), extra,
+                        device="cpu")
+    same_stream("two-pass", stream, cpu, "the port's --device cpu stream")
+    psnr_y = decoded_psnr_y(job, os.path.join(tmp, "twopass_card.tvc"))
+    packets = list(bitstream.demux(io.BytesIO(stream))[1])
+    qps = [packets[i].base_qp for i in range(0, len(packets), job["gop"])]
+    for i, pkt in enumerate(packets):
+        if pkt.base_qp != qps[i // job["gop"]]:
+            raise AssertionError(f"two-pass: frame {i} left its GOP's qp")
+    log(f"two-pass {job['tag']} --kbps {job['mode']['kbps']}: card stream == "
+        f"CPU stream ({len(stream)} bytes, {8 * len(stream) * 30 / job['n'] / 1e3:.0f} "
+        f"kbps at 30 fps), per-GOP qps {qps} from base qp 28, oracle decode "
+        f"PSNR-Y {psnr_y:.4f} dB, CLI wall {summary['wall_fps']} fps [{card}], "
+        f"launches {launches}")
+    return launches
+
+
+def up(planes, mult):
+    """[T, H, W] uint8 planes on the device, edge-padded to multiples of
+    `mult` as Frame.from_planes pads them."""
+    a = np.stack([np.pad(p, ((0, -p.shape[0] % mult), (0, -p.shape[1] % mult)),
+                         mode="edge") for p in planes])
+    return torch.from_numpy(a).to(DEVICE)
+
+
+def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
+    """Device-resident 1080p GOP-30 fps of G GOPs in lockstep for G in gs
+    (G = 1 is the single-GOP path), in turns (1, 2, 4, 4, 2, 1) so the
+    G share a host; each with its device ops per frame and busy share
+    from one traced batch (G = 1: the trace phase_speed took of the same
+    GOP, in `single`). The G GOPs are the cell's one 30-frame clip G
+    times: the work per GOP is the cell's own."""
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    results = {}
+    for m, (ys, cbs, crs) in cells:
+        h, w = ys[0].shape
+        n = len(ys)
+        eng = GopEngine(config_of(m, w, h, n), device=DEVICE)
+        one = (up(ys, 16), up(cbs, 8), up(crs, 8))
+        inputs = {1: one}
+        for g in gs:
+            if g > 1:        # [T, G, H, W]
+                inputs[g] = tuple(p[:, None].expand(-1, g, -1, -1).contiguous()
+                                  for p in one)
+
+        def launch(g, xl=False):
+            if g == 1:
+                return eng.run(*inputs[1], 28, xl=xl)
+            return eng.run_batch(*inputs[g], [28] * g, xl=xl)
+
+        # the engine reruns a batch that overflows its budgets
+        reruns = {g: bool(launch(g)["ovf"].any()) for g in gs}
+
+        def batch(g):
+            launch(g)
+            if reruns[g]:
+                launch(g, xl=True)
+
+        times = {g: 0.0 for g in gs}
+        iters = 1
+        for g in (*gs, *gs[::-1]):
+            batch(g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                batch(g)
+            torch.cuda.synchronize()
+            times[g] += time.perf_counter() - t0
+        for g in gs:
+            fps = 2 * iters * g * n / times[g]
+            torch.cuda.reset_peak_memory_stats()
+            if g == 1:
+                batch(g)
+                ops, busy, top = single[m["tag"]]
+            else:
+                ops, busy, top = device_ops(lambda: batch(g), g * n)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            results[f"{m['tag']}/G{g}"] = dict(
+                resident=fps, ops_per_frame=ops, busy=busy)
+            log(f"speed: lockstep {w}x{h} GOP {n} {m['tag']} G={g} emit "
+                f"{eng.emit}: {fps:.3f} fps device-resident "
+                f"({1e3 / fps:.3f} ms/frame, {2 * iters} batches, rerun "
+                f"{reruns[g]}, peak {peak:.0f} MiB); one batch traced: "
+                f"{ops if ops is None else round(ops, 1)} device ops/frame, "
+                f"device busy {busy if busy is None else round(100 * busy, 1)}"
+                f" % [{card}]")
+            log(f"  device ms per batch by name (launches, ms): {top[:6]}")
+    return results
+
+
 def device_ops(run_once, n_frames):
     """Device kernels (and memsets/copies) per frame, the device busy share
     and the largest device-time totals by name, of one GOP under
@@ -810,7 +1189,7 @@ def device_ops(run_once, n_frames):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_once()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
@@ -835,16 +1214,12 @@ def phase_speed(cells, card):
     packets), for each (mode, clip, emits) cell. Two emits are timed in
     turns (frame, chunks, chunks, frame) on one card, one emit twice;
     each figure is the mean of its two turns. For format >= 3 the I frame
-    (the vertical-intra row scan) is also timed on its own."""
+    (the vertical-intra row scan) is also timed on its own. Returns the
+    figures and, per cell, the trace of its GOP under the default emit."""
     from video_encoder_tpu_torch.codec.frame import Frame
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
-    def up(planes, mult):
-        a = np.stack([np.pad(p, ((0, -p.shape[0] % mult), (0, -p.shape[1] % mult)),
-                             mode="edge") for p in planes])
-        return torch.from_numpy(a).to(DEVICE)
-
-    results = {}
+    results, traces = {}, {}
     for m, (ys, cbs, crs), emits in cells:
         h, w = ys[0].shape
         n = len(ys)
@@ -894,6 +1269,8 @@ def phase_speed(cells, card):
             peak = torch.cuda.max_memory_allocated() / 2**20
             key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
             results[key] = dict(resident=fps, with_finish=fin_fps)
+            if emit == GopEngine.emit:
+                traces[m["tag"]] = (ops, busy, top)
             log(f"speed: device-resident {w}x{h} GOP {n} {key} {fps:.3f} fps "
                 f"({1e3 / fps:.3f} ms/frame, {2 * iters} GOPs, rerun "
                 f"{reruns[emit]}, peak {peak:.0f} MiB), with finish "
@@ -923,7 +1300,7 @@ def phase_speed(cells, card):
                 f"busy {busy if busy is None else round(100 * busy, 1)} % "
                 f"[{card}]")
             log(f"  device ms by name (launches, ms): {top}")
-    return results
+    return results, traces
 
 
 def main() -> int:
@@ -963,7 +1340,10 @@ def main() -> int:
             ("intra", (FULL, 640, 360, 30, 1)),
             ("v2", (V2_SMALL, 640, 360, 12, 12)),
             ("v3", (V3_SMALL, 640, 360, 12, 4)))}
-        wait_oracles(jobs.values())
+        # the batched path's referee: config 3 again at GOP 10
+        batched_oracle = start_job(tmp, CONFIG3, 1920, 1080, 30, 10,
+                                   like=jobs["config3"])
+        wait_oracles([*jobs.values(), batched_oracle])
         log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s")
         summaries, streams = {}, {}
         for name, job in jobs.items():
@@ -972,17 +1352,29 @@ def main() -> int:
         for name in ("config3", "v4"):
             path_launches.append(
                 phase_other_emit(jobs[name], streams[name], card))
+        log(f"single-GOP paths done at {time.perf_counter() - t_start:.1f} s")
+        path_launches += phase_batched(tmp, jobs, batched_oracle, card)
+        twopass_job = dict(jobs["v2"], gop=4, mode=TWOPASS_SMALL,
+                           tag="640x360_gop4_twopass")
+        path_launches.append(phase_twopass(tmp, twopass_job, card))
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
     # the chroma twin of sad_at_mv has no caller on any encode path (nor in
-    # the reference): it is held against its plain version above only
+    # the reference), and neither has its batched form: they are held
+    # against their plain versions above only
     rows["sad_at_mv_chroma"]["on_path"] = False
+    rows["sad_at_mv_chroma_g"]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])
-    fps = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),
+    fps, traces = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),
                        (CONFIG3, jobs["config3"]["clip"], ["frame", "chunks"]),
                        (V4, jobs["v4"]["clip"], [GopEngine.emit])], card)
+    log(f"single-GOP speed done at {time.perf_counter() - t_start:.1f} s")
+    lockstep = phase_speed_batched(
+        [(m, jobs[k]["clip"]) for m, k in ((FULL, "full"), (CONFIG3, "config3"),
+                                           (V4, "v4"))], traces, card)
+    log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "
         + ", ".join(f"{k} {summaries[k]['wall_fps']} fps"
                     for k in ("full", "config3", "v4"))

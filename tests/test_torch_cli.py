@@ -1,7 +1,8 @@
 """Port CLI on the CPU: encode gives the reference encoder's bytes (formats
 1 to 4, every rc mode), decode / info / psnr round-trip, the stream
-header carries the format fields, and flags the port does not support
-exit 2."""
+header carries the format fields, flags the port does not support exit
+2, `--gop-batch G` gives the unbatched file on a clip with a tail, and
+`--two-pass` gives the reference's two-pass file."""
 
 import io
 import json
@@ -66,7 +67,7 @@ def test_decode_info_psnr_roundtrip(clip_file, tmp_path, capsys):
 @pytest.mark.parametrize("extra", [
     ["--two-pass"], ["--tile=2"], ["--search", "hier"],
     ["--format", "5"], ["--multiprocess", "2"], ["--devices", "2"],
-    ["--engine", "golden"], ["--gop-batch=2"], ["--no-such-flag"],
+    ["--engine", "golden"], ["--gop-batch=0"], ["--no-such-flag"],
 ])
 def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
     _, path = clip_file
@@ -78,6 +79,136 @@ def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
         rc = e.code
     assert rc == 2
     assert "error" in capsys.readouterr().err
+
+
+def test_not_ported_flags_are_the_remaining_ones():
+    assert set(cli.NOT_PORTED) == {
+        "--engine", "--devices", "--tile", "--multiprocess", "--failover",
+        "--checkpoint", "--trace", "--stage-timers"}
+
+
+@pytest.fixture
+def long_clip_file(rng, tmp_path):
+    """17 frames: five full GOPs of 3 and a short one of 2."""
+    clip = make_clip(rng, W, H, 17)
+    path = tmp_path / "long.yuv"
+    with open(path, "wb") as f:
+        for y, cb, cr in clip:
+            f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
+    return clip, str(path)
+
+
+_BATCH_FLAGS = {
+    "full": [],
+    "diamond-mb": ["--search", "diamond", "--rc", "mb", "--kbps", "300"],
+    "v4-qmat": ["--format", "4", "--quant-matrix", "--chroma-qp-offset", "2"],
+}
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("case", sorted(_BATCH_FLAGS))
+def test_gop_batch_gives_the_unbatched_file(long_clip_file, tmp_path, capsys,
+                                            case, g):
+    """Five full GOPs and a short one: G = 2 batches 2 + 2, then one full
+    GOP and the short one alone; G = 3 batches 3, then the two leftover
+    full GOPs together, then the short one. Same bytes as no batching."""
+    _, path = long_clip_file
+    base = ["encode", "-i", path, "-W", str(W), "-H", str(H), "--gop", "3",
+            "--qp", "26", "--device", "cpu", *_BATCH_FLAGS[case]]
+    plain, batched = tmp_path / "plain.tvc", tmp_path / "batched.tvc"
+    assert cli.main([*base, "-o", str(plain)]) == 0
+    assert cli.main([*base, "-o", str(batched), "--gop-batch", str(g)]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["frames"] == 17
+    assert batched.read_bytes() == plain.read_bytes()
+
+
+def test_gop_batch_calls_the_batched_engine(long_clip_file, tmp_path,
+                                            monkeypatch, capsys):
+    """The reference's batching and tail rule, by the engine calls made."""
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    calls = []
+    one, many = GopEngine.encode_gop_start, GopEngine.encode_gops_start
+    monkeypatch.setattr(GopEngine, "encode_gop_start", lambda self, gop, first:
+                        calls.append(("one", first)) or one(self, gop, first))
+    monkeypatch.setattr(GopEngine, "encode_gops_start", lambda self, gops, firsts:
+                        calls.append(("many", list(firsts)))
+                        or many(self, gops, firsts))
+    _, path = long_clip_file
+    base = ["encode", "-i", path, "-W", str(W), "-H", str(H), "--gop", "3",
+            "--device", "cpu", "-o", str(tmp_path / "o.tvc")]
+    assert cli.main([*base, "--gop-batch", "2"]) == 0
+    assert calls == [("many", [0, 3]), ("many", [6, 9]), ("one", 12), ("one", 15)]
+    calls.clear()
+    assert cli.main([*base, "--gop-batch", "3"]) == 0
+    assert calls == [("many", [0, 3, 6]), ("many", [9, 12]), ("one", 15)]
+
+
+@pytest.mark.parametrize("flags,kw", [
+    (["--kbps", "150"], dict(rc="bitrate", target_kbps=150)),
+    (["--kbps", "400", "--rc", "vbv", "--search", "diamond", "--format", "2"],
+     dict(rc="vbv", target_kbps=400, search="diamond", format_version=2)),
+], ids=["none-becomes-bitrate", "vbv-diamond-v2"])
+def test_two_pass_matches_reference_twopass(tmp_path, capsys, flags, kw):
+    """--two-pass --kbps N gives the file the reference's
+    encode_clip_twopass writes with the reference GopEngine; the header is
+    written under the original config, and the GOPs get different qps."""
+    from video_encoder_tpu.ops import dispatch as jdispatch
+    from video_encoder_tpu.pipeline import gop_engine as jgop
+    from video_encoder_tpu.pipeline.encoder import encode_clip_twopass
+    from video_encoder_tpu_torch.codec.bitstream import demux
+
+    rng = np.random.default_rng(17)
+    # an easy GOP, then noisy ones: the allocation has something to move
+    clip = make_clip(rng, W, H, 3) + [
+        (rng.integers(0, 256, (H, W), dtype=np.uint8),
+         rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8),
+         rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8))
+        for _ in range(5)]
+    path = tmp_path / "in.yuv"
+    with open(path, "wb") as f:
+        for y, cb, cr in clip:
+            f.write(y.tobytes() + cb.tobytes() + cr.tobytes())
+    out = tmp_path / "o.tvc"
+    assert cli.main(["encode", "-i", str(path), "-W", str(W), "-H", str(H),
+                     "-o", str(out), "--gop", "3", "--qp", "26", "--two-pass",
+                     "--device", "cpu", *flags]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["frames"] == 8
+
+    cfg = EncoderConfig(width=W, height=H, gop_n=3, base_qp=26, **kw)
+    want = io.BytesIO()
+    jdispatch.force("jnp")
+    try:
+        encode_clip_twopass(cfg, lambda: iter(clip), want, 8,
+                            engine=jgop.GopEngine(cfg))
+    finally:
+        jdispatch.force(None)
+    assert out.read_bytes() == want.getvalue()
+    info, packets = demux(io.BytesIO(out.read_bytes()))
+    assert info.config_hash == cfg.config_hash()
+    qps = [p.base_qp for p in packets]
+    assert qps[0] == qps[1] == qps[2] and qps[3] == qps[4] == qps[5]
+    assert len(set(qps)) > 1
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--two-pass"], "--two-pass requires --kbps"),
+    (["--two-pass", "--kbps", "300", "--rc", "adaptive"],
+     "--two-pass allocates qp at the GOP level"),
+    (["--gop-batch", "0"], "--gop-batch must be >= 1"),
+    (["--gop-batch=-2", "--two-pass", "--kbps", "300"],
+     "--gop-batch must be >= 1"),
+])
+def test_two_pass_and_gop_batch_preconditions_exit_2(clip_file, tmp_path,
+                                                     capsys, flags, msg):
+    _, path = clip_file
+    out = tmp_path / "x.tvc"
+    rc = cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                   "-o", str(out), "--device", "cpu", *flags])
+    assert rc == 2
+    assert msg in capsys.readouterr().err
+    assert not out.exists()          # checked before the file is truncated
 
 
 def test_cuda_device_without_cuda_fails(clip_file, tmp_path, capsys):

@@ -215,3 +215,20 @@ def test_native_decode_equals_reference_binding(rng):
         want = jnative.decode_stream(buf.getvalue(), 48, 32, 3)
         assert np.array_equal(got, want)
     assert got.shape[0] == 3
+
+
+def test_allocate_gop_qps_equal(rng):
+    """pipeline/encoder.py: the two-pass allocation is host float math
+    (pow, log2, round); the copy picks the reference's qps."""
+    from video_encoder_tpu.pipeline import encoder as ref_encoder
+    from video_encoder_tpu_torch.pipeline import encoder as port_encoder
+
+    for _ in range(200):
+        n = int(rng.integers(1, 30))
+        bits = [int(b) for b in rng.integers(0, 5_000_000, n)]
+        lens = [int(x) for x in rng.integers(1, 61, n)]
+        args = (int(rng.integers(1, 64)), bits, lens,
+                int(rng.integers(1, 2_000_000)), float(rng.choice([0.3, 0.6, 1.0])))
+        assert port_encoder.allocate_gop_qps(*args) == ref_encoder.allocate_gop_qps(*args)
+    assert (inspect.signature(port_encoder.allocate_gop_qps)
+            == inspect.signature(ref_encoder.allocate_gop_qps))

@@ -311,3 +311,198 @@ def test_gop_engine_formats_on_card_match_cpu(cuda, rng, kw, emit):
     assert build.LAUNCHES["block_pack"] == 0
     want, _ = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
     assert [p.to_bytes() for p in got] == [p.to_bytes() for p in want]
+
+
+# ---------------------------------------------------------------------------
+# The G-batched kernels: planes [G, H, W] of G GOPs in lockstep, one launch,
+# equal to the plain batched version and to G launches of the single-plane
+# kernel
+# ---------------------------------------------------------------------------
+
+def _per_g(fn, g, *args):
+    """fn on each g's slice of the tensor arguments, stacked."""
+    outs = [fn(*(a[i].contiguous() if isinstance(a, torch.Tensor) else a
+                 for a in args)) for i in range(g)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _gop_planes(rng, g, h, w):
+    """G plane pairs that differ: each GOP pans its own way; GOP 1 has a
+    flat region where every candidate ties."""
+    cur = rng.integers(0, 256, (g, h, w))
+    ref = np.stack([np.roll(cur[i], (3 + 2 * i, -5 - 3 * i), (0, 1)) for i in range(g)])
+    ref = ref + rng.integers(-2, 3, (g, h, w))
+    cur[1, :32, :32] = 9
+    ref[1, :48, :48] = 9
+    return cur, np.clip(ref, 0, 255)
+
+
+@pytest.mark.parametrize("g,h,w", [(4, 1088, 1920), (3, 368, 640), (2, 48, 80)])
+def test_full_search_g_kernel(cuda, plain_and_kernel, rng, g, h, w):
+    cur, ref = _gop_planes(rng, g, h, w)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.full_search, *args)
+    assert _same(got, want)
+    assert _same(got, _per_g(dispatch.full_search, g, *args))
+    assert build.LAUNCHES["full_search_g"] > 0
+
+
+@pytest.mark.parametrize("g,h,w", [(4, 1088, 1920), (3, 368, 640), (2, 48, 80)])
+def test_sad_map_even_g_kernel(cuda, plain_and_kernel, rng, g, h, w):
+    cur, ref = _gop_planes(rng, g, h, w)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.sad_map_even, *args)
+    assert _same(got, want)
+    assert _same(got, _per_g(dispatch.sad_map_even, g, *args))
+
+
+@pytest.mark.parametrize("g,bs,h,w", [(4, 16, 1088, 1920), (4, 8, 544, 960),
+                                      (3, 16, 368, 640), (2, 8, 24, 40)])
+def test_mc_fetch_g_kernel(cuda, plain_and_kernel, rng, g, bs, h, w):
+    ref = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    dy = rng.integers(-bs, bs + 1, (g, h // bs, w // bs))
+    dx = rng.integers(-bs, bs + 1, (g, h // bs, w // bs))
+    dy[:, 0, 0], dx[:, 0, 0], dy[:, -1, -1], dx[:, -1, -1] = -bs, -bs, bs, bs
+    fn = dispatch.mc_fetch_luma_plane if bs == 16 else dispatch.mc_fetch_chroma_plane
+    args = (ref, _t(dy, cuda), _t(dx, cuda))
+    got, want = plain_and_kernel(fn, *args)
+    assert _same(got, want) and _same(got, _per_g(fn, g, *args))
+
+
+@pytest.mark.parametrize("g,k,h,w", [(4, 4, 1088, 1920), (3, None, 368, 640),
+                                     (2, 3, 48, 80)])
+def test_sad_at_mv_g_kernel(cuda, plain_and_kernel, rng, g, k, h, w):
+    cur = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    ref = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    shape = (g, h // 16, w // 16) if k is None else (g, k, h // 16, w // 16)
+    dy, dx = rng.integers(-16, 17, shape), rng.integers(-16, 17, shape)
+    dy[..., 0, 0], dx[..., 0, 0], dy[..., -1, -1], dx[..., -1, -1] = -16, -16, 16, 16
+    args = (cur, ref, _t(dy, cuda), _t(dx, cuda))
+    got, want = plain_and_kernel(dispatch.sad_at_mv, *args)
+    assert _same(got, want) and _same(got, _per_g(dispatch.sad_at_mv, g, *args))
+
+
+@pytest.mark.parametrize("g,h,w", [(4, 1088, 1920), (3, 368, 640)])
+def test_sad_at_mv_g_kernel_on_planes(cuda, plain_and_kernel, rng, g, h, w):
+    """Nine candidates, each on its own plane of each GOP's four."""
+    plane_of = [3, 2, 3, 1, 0, 1, 3, 2, 3]
+    cur = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    planes = _t(rng.integers(0, 256, (g, 4, h, w)), cuda)
+    dy = rng.integers(-16, 17, (g, 9, h // 16, w // 16))
+    dx = rng.integers(-16, 17, (g, 9, h // 16, w // 16))
+    dy[..., 0, 0], dx[..., 0, 0], dy[..., -1, -1], dx[..., -1, -1] = -16, -16, 16, 16
+    args = (cur, planes, _t(dy, cuda), _t(dx, cuda), plane_of)
+    got, want = plain_and_kernel(dispatch.sad_at_mv, *args)
+    assert _same(got, want) and _same(got, _per_g(dispatch.sad_at_mv, g, *args))
+
+
+@pytest.mark.parametrize("g,k,h,w", [(4, 4, 544, 960), (3, None, 184, 320)])
+def test_sad_at_mv_chroma_g_kernel(cuda, plain_and_kernel, rng, g, k, h, w):
+    cur = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    ref = _t(rng.integers(0, 256, (g, h, w)), cuda)
+    shape = (g, h // 8, w // 8) if k is None else (g, k, h // 8, w // 8)
+    dy, dx = rng.integers(-8, 9, shape), rng.integers(-8, 9, shape)
+    dy[..., 0, 0], dx[..., 0, 0], dy[..., -1, -1], dx[..., -1, -1] = -8, -8, 8, 8
+    args = (cur, ref, _t(dy, cuda), _t(dx, cuda))
+    got, want = plain_and_kernel(dispatch.sad_at_mv_chroma, *args)
+    assert _same(got, want)
+    assert _same(got, _per_g(dispatch.sad_at_mv_chroma, g, *args))
+
+
+@pytest.mark.parametrize("qmat", [False, True])
+@pytest.mark.parametrize("g,h,w", [(4, 1088, 1920), (4, 544, 960), (4, 8, 1920),
+                                   (3, 368, 640), (2, 24, 40)])
+def test_code_plane_g_kernel(cuda, plain_and_kernel, rng, g, h, w, qmat):
+    """Whole planes and the row scan's [G, 8, W] stripes, each GOP at its
+    own steps."""
+    cur = rng.integers(0, 256, (g, h, w))
+    pred = np.clip(cur + rng.integers(-40, 41, (g, h, w)), 0, 255)
+    qp = rng.choice([1, 28, 63], (g, h // 8, w // 8))
+    q_blk = tables.load(cuda).QSTEP[_t(qp, cuda).long()].contiguous()
+    for qbias in (8, 5):
+        args = (_t(cur, cuda), _t(pred, cuda), q_blk, qbias, qmat)
+        got, want = plain_and_kernel(dispatch.code_plane, *args)
+        assert _same(got, want)
+        assert _same(got, _per_g(dispatch.code_plane, g, *args))
+    assert build.LAUNCHES["code_plane_qmat_g" if qmat else "code_plane_g"] > 0
+
+
+@pytest.mark.parametrize("reset_rows", [0, 2])
+def test_intra_rows_g_on_card(cuda, rng, reset_rows):
+    """The row scan of G planes in lockstep: one launch per stripe."""
+    g = 3
+    cur = _t(rng.integers(0, 256, (g, 64, 960)), cuda)
+    q_blk = tables.load(cuda).QSTEP[
+        _t(rng.choice([20, 28], (g, 8, 120)), cuda).long()]
+    dispatch.force("plain")
+    try:
+        want = dispatch.intra_rows_code_plane(cur, q_blk, 8, reset_rows, True)
+    finally:
+        dispatch.force(None)
+    build.reset_launches()
+    got = dispatch.intra_rows_code_plane(cur, q_blk, 8, reset_rows, True)
+    assert build.LAUNCHES["code_plane_qmat_g"] == 8
+    assert build.LAUNCHES["code_plane_qmat"] == 0
+    assert _same(got, want)
+    assert _same(got, _per_g(dispatch.intra_rows_code_plane, g, cur, q_blk, 8,
+                             reset_rows, True))
+
+
+@pytest.mark.parametrize("emit", ["frame", "chunks"])
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(search="diamond", rc="mb", target_kbps=300),
+    dict(format_version=2, chroma_qp_offset=4, search="diamond", rc="vbv",
+         target_kbps=300),
+    dict(format_version=3, quant_matrix=True, intra_slice_mbrows=2,
+         rc="adaptive"),
+    dict(format_version=4, quant_matrix=True, chroma_qp_offset=2),
+    dict(format_version=2, base_qp=4),                  # overflow rerun
+], ids=lambda kw: "-".join(f"{k[:6]}{v}" for k, v in kw.items()) or "default")
+def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
+    """G = 3 GOPs of 3 frames in lockstep on the card: the CPU's packets,
+    through the batched kernels only, the pack and the span merges
+    launched once per frame step."""
+    g, t = 3, 3
+    big = rng.integers(0, 256, (176, 240)).astype(np.int64)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1) + np.roll(big, (1, 1), (0, 1))) // 4
+    frames = []
+    for i in range(g * t):   # 2x2 means at an odd offset: true half-pel motion
+        o = big[3 * i:3 * i + 128, 5 * i:5 * i + 192]
+        y = (o[0::2, 0::2] + o[0::2, 1::2] + o[1::2, 0::2] + o[1::2, 1::2] + 2) // 4
+        frames.append(Frame.from_planes(
+            y.astype(np.uint8), np.full((32, 48), 100 + i, np.uint8),
+            np.full((32, 48), 150, np.uint8)))
+    gops = [frames[i * t:(i + 1) * t] for i in range(g)]
+    firsts = [i * t for i in range(g)]
+    cfg = EncoderConfig(**{**dict(width=96, height=64, gop_n=t, base_qp=24), **kw})
+    qps = [22, 24, 30] if cfg.base_qp == 24 else None
+    eng = GopEngine(cfg, device=cuda, emit=emit)
+    handle = eng.encode_gops_start(gops, firsts, qps)
+    build.reset_launches()       # count a clean first run, not a rerun
+    eng.run_batch(handle["y"], handle["cb"], handle["cr"], handle["base_qps"])
+    n = build.LAUNCHES
+    qm = "_qmat" if cfg.quant_matrix else ""
+    used = ["mc_fetch_luma_g", "mc_fetch_chroma_g", f"code_plane{qm}_g"]
+    used += ["full_search_g"] if cfg.search == "full" else ["sad_map_even_g", "sad_at_mv_g"]
+    used += ["sad_at_mv_g"] if cfg.format_version == 4 else []
+    assert all(n[k] > 0 for k in used), n
+    single = [k for k in n if not k.endswith("_g") and k.split("_v2")[0] not in (
+        "block_pack", "span_merge_mb", "span_merge")]
+    assert all(n[k] == 0 for k in single), n
+    passes = 2 if cfg.rc == "mb" else 1
+    packs = n["block_pack"] + n["block_pack_v2"]
+    assert packs == 3 * t * passes                  # per plane, not per GOP
+    assert n["span_merge_mb"] == (t if emit == "chunks" else 0)
+    got = eng.encode_gops_finish(handle)
+    want = GopEngine(cfg, device="cpu", emit=emit).encode_gops(gops, firsts, qps)
+    for (gp, _), (wp, _) in zip(got, want):
+        assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]

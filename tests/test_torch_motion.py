@@ -173,3 +173,225 @@ def test_fixed_diamond_budget_equals_stop_at_all_frozen(rng, monkeypatch):
     gold = golden.sad_diamond_search(cur, ref)   # stops at all-frozen
     for g, gg in zip(full, gold):
         assert np.array_equal(g.numpy(), gg)
+
+
+# ---------------------------------------------------------------------------
+# The G axis: planes [G, H, W] of G GOPs in lockstep, against jax.vmap of the
+# reference's dispatch functions on their jnp route (the route the
+# reference's own batched-GOP tests take on the CPU)
+# ---------------------------------------------------------------------------
+
+G = 3
+
+
+@pytest.fixture
+def jnp_route():
+    from video_encoder_tpu.ops import dispatch as jdispatch
+
+    jdispatch.force("jnp")
+    yield jdispatch
+    jdispatch.force(None)
+
+
+def _batch(rng, h, w):
+    """Three plane pairs that differ: a textured pan, an all-tied flat
+    pair, and a pair whose best match sits on the (+16, -16) corner."""
+    cur0, ref0 = _pair(rng, h, w, False)
+    cur1, ref1 = _pair(rng, h, w, True)
+    base = rng.integers(0, 256, (h + 40, w + 40)).astype(np.int32)
+    cur2 = base[20:20 + h, 20:20 + w]
+    ref2 = base[4:4 + h, 36:36 + w]          # cur2[y, x] == ref2[y+16, x-16]
+    return np.stack([cur0, cur1, cur2]), np.stack([ref0, ref1, ref2])
+
+
+def _eq(got, want):
+    return np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (48, 80)])
+def test_batched_full_search_matches_vmapped_reference(rng, jnp_route, h, w):
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    cur, ref = _batch(rng, h, w)
+    want = jax.vmap(jnp_route.full_search)(jnp.asarray(cur), jnp.asarray(ref))
+    for fn in (dispatch.full_search, ksad.full_search_g, motion.full_search):
+        got = fn(_t(cur), _t(ref))
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.int32 and g_.shape == (G, h // 16, w // 16)
+            assert _eq(g_, w_)
+    for g in range(G):   # each g is what the plane alone gives
+        alone = motion.full_search(_t(cur[g]), _t(ref[g]))
+        assert all(torch.equal(a, b[g]) for a, b in zip(alone, got))
+    assert (got[0][1, :, 0] == -16).all() and (got[1][1, :, 0] == -16).all()
+    inner = (slice(1, -1), slice(1, -1))     # the corner match, off the edges
+    assert (got[0][2][inner] == 16).all() and (got[1][2][inner] == -16).all()
+    assert not torch.equal(got[0][0], got[0][2])     # a swapped g would show
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (80, 48)])
+def test_batched_sad_map_even_matches_reference(rng, h, w):
+    from video_encoder_tpu_torch.ops import dispatch
+
+    cur, ref = _batch(rng, h, w)
+    want = np.stack([_jsad_even_map(cur[g], ref[g]) for g in range(G)])
+    for fn in (dispatch.sad_map_even, ksad.sad_map_even_g):
+        got = fn(_t(cur), _t(ref))
+        assert got.dtype == torch.int32 and got.shape == (G, h // 16, w // 16, 289)
+        assert np.array_equal(got.numpy(), want)
+    assert (got[1, :, 0] == got[1, :, 0, :1]).all()        # the tied MBs
+    assert not np.array_equal(want[0], want[2])
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_batched_sad_at_mv_matches_vmapped_reference(rng, jnp_route, k):
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = 48, 80
+    cur, ref = _batch(rng, h, w)
+    shape = (G, 3, 5) if k is None else (G, k, 3, 5)
+    dy = rng.integers(-16, 17, shape).astype(np.int32)
+    dx = rng.integers(-16, 17, shape).astype(np.int32)
+    dy[0, ..., 0, 0], dx[0, ..., 0, 0] = -16, -16
+    dy[2, ..., -1, -1], dx[2, ..., -1, -1] = 16, 16
+    one = jnp_route.sad_at_mv
+    if k is not None:
+        one = jax.vmap(one, in_axes=(None, None, 0, 0))
+    want = jax.vmap(one)(jnp.asarray(cur), jnp.asarray(ref), jnp.asarray(dy),
+                         jnp.asarray(dx))
+    for fn in (dispatch.sad_at_mv, ksad.sad_at_mv_g):
+        got = fn(_t(cur), _t(ref), _t(dy), _t(dx))
+        assert got.dtype == torch.int32 and _eq(got, want)
+    swapped = dispatch.sad_at_mv(_t(cur[::-1]), _t(ref), _t(dy), _t(dx))
+    assert not torch.equal(swapped, got)
+
+
+def test_batched_sad_at_mv_chroma_matches_vmapped_reference(rng):
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = 24, 40
+    cur = rng.integers(0, 256, (G, h, w)).astype(np.int32)
+    ref = rng.integers(0, 256, (G, h, w)).astype(np.int32)
+    dy = rng.integers(-8, 9, (G, 4, 3, 5)).astype(np.int32)
+    dx = rng.integers(-8, 9, (G, 4, 3, 5)).astype(np.int32)
+    dy[:, :, 0, 0], dx[:, :, 0, 0], dy[:, :, -1, -1], dx[:, :, -1, -1] = -8, -8, 8, 8
+
+    def one(c, r, a, b):   # the reference's sad_at at block 8, radius 8
+        pred = jmotion.mc_fetch(jmotion.pad_ref(r, 8), a, b, 8, 8)
+        return jnp.abs(jtx.blockify(c, 8) - pred).sum(axis=(2, 3))
+
+    want = jax.vmap(jax.vmap(one, in_axes=(None, None, 0, 0)))(
+        jnp.asarray(cur), jnp.asarray(ref), jnp.asarray(dy), jnp.asarray(dx))
+    for fn in (dispatch.sad_at_mv_chroma, ksad.sad_at_mv_chroma_g):
+        assert _eq(fn(_t(cur), _t(ref), _t(dy), _t(dx)), want)
+
+
+def test_batched_sad_at_mv_on_four_parity_planes(rng, jnp_route):
+    """Nine candidates, each on the parity plane of its half-pel offset, of
+    G reference stacks [G, 4, H, W], and the whole half-pel refine."""
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = 48, 64
+    cur, ref = _batch(rng, h, w)
+    uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
+    plane_of = [abs(u) * 2 + abs(v) for u, v in uv]
+    dy = rng.integers(-16, 17, (G, 9, 3, 4)).astype(np.int32)
+    dx = rng.integers(-16, 17, (G, 9, 3, 4)).astype(np.int32)
+    dy[:, :, 0, 0], dx[:, :, 0, 0], dy[:, :, -1, -1], dx[:, :, -1, -1] = -16, -16, 16, 16
+
+    def one(c, r, a, b):
+        planes = (r, *jmotion.hpel_planes(r))
+        return jnp.stack([jnp_route.sad_at_mv(c, planes[p], a[k], b[k])
+                          for k, p in enumerate(plane_of)])
+
+    want = jax.vmap(one)(jnp.asarray(cur), jnp.asarray(ref), jnp.asarray(dy),
+                         jnp.asarray(dx))
+    planes = motion.hpel_stack(_t(ref))
+    assert planes.shape == (G, 4, h, w)
+    for fn in (dispatch.sad_at_mv, ksad.sad_at_mv_g):
+        assert _eq(fn(_t(cur), planes, _t(dy), _t(dx), plane_of), want)
+
+    mv = rng.integers(-16, 17, (2, G, 3, 4)).astype(np.int32)
+    mv[:, :, 0], mv[:, :, -1] = -16, 16          # candidates beyond +-32 half-pels
+    want = jax.vmap(jnp_route.hpel_refine)(
+        jnp.asarray(cur), jnp.asarray(ref), jnp.asarray(mv[0]), jnp.asarray(mv[1]))
+    got = dispatch.hpel_refine(_t(cur), _t(ref), _t(mv[0]), _t(mv[1]))
+    assert all(_eq(a, b) for a, b in zip(got, want))
+    assert int(got[0].abs().max()) <= 32 and int(got[1].abs().max()) <= 32
+
+
+@pytest.mark.parametrize("bs,h,w", [(16, 48, 64), (8, 24, 40)])
+def test_batched_mc_fetch_matches_vmapped_reference(rng, jnp_route, bs, h, w):
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    ref = rng.integers(0, 256, (G, h, w)).astype(np.int32)
+    dy = rng.integers(-bs, bs + 1, (G, h // bs, w // bs)).astype(np.int32)
+    dx = rng.integers(-bs, bs + 1, (G, h // bs, w // bs)).astype(np.int32)
+    dy[0, 0, 0], dx[0, 0, 0], dy[2, -1, -1], dx[2, -1, -1] = -bs, -bs, bs, bs
+    jfetch, fetch, kfetch = (
+        (jnp_route.mc_fetch_luma_plane, dispatch.mc_fetch_luma_plane,
+         ksad.mc_fetch_plane_g) if bs == 16 else
+        (jnp_route.mc_fetch_chroma_plane, dispatch.mc_fetch_chroma_plane,
+         ksad.mc_fetch_plane_chroma_g))
+    want = jax.vmap(jfetch)(jnp.asarray(ref), jnp.asarray(dy), jnp.asarray(dx))
+    for fn in (fetch, kfetch):
+        got = fn(_t(ref), _t(dy), _t(dx))
+        assert got.dtype == torch.int32 and _eq(got, want)
+    swapped = fetch(_t(ref[::-1]), _t(dy), _t(dx))
+    assert not torch.equal(swapped, got)
+    # the half-pel fetch from four parity planes, selected per block
+    hp = (jnp_route.mc_fetch_luma_plane_hpel if bs == 16
+          else jnp_route.mc_fetch_chroma_plane_hpel)
+    d2y = rng.integers(-2 * bs, 2 * bs + 1, dy.shape).astype(np.int32)
+    d2x = rng.integers(-2 * bs, 2 * bs + 1, dy.shape).astype(np.int32)
+    want = jax.vmap(hp)(jnp.asarray(ref), jnp.asarray(d2y), jnp.asarray(d2x))
+    got = dispatch._hpel_mc(_t(ref), _t(d2y), _t(d2x), fetch, bs)
+    assert _eq(got, want)
+    stacked = dispatch._hpel_mc(_t(ref), _t(d2y), _t(d2x), fetch, bs,
+                                motion.hpel_stack(_t(ref)))
+    assert torch.equal(stacked, got)
+
+
+@pytest.mark.parametrize("kinds", [("pan", "flat", "frozen"),
+                                   ("texture", "pan", "pan")])
+def test_batched_diamond_search_matches_vmapped_reference(rng, jnp_route, kinds):
+    import jax
+
+    from video_encoder_tpu_torch.ops import dispatch
+
+    pairs = [_diamond_clip(rng, 48, 64, kind) for kind in kinds]
+    cur = np.stack([p[0] for p in pairs])
+    ref = np.stack([p[1] for p in pairs])
+    want = jax.vmap(jnp_route.diamond_search)(jnp.asarray(cur), jnp.asarray(ref))
+    plain = motion.diamond_search(_t(cur), _t(ref))        # sad_at route
+    mapped = dispatch.diamond_search(_t(cur), _t(ref))     # even-map route
+    for got in (plain, mapped):
+        assert all(_eq(a, b) for a, b in zip(got, want))
+    for g in range(G):
+        alone = dispatch.diamond_search(_t(cur[g]), _t(ref[g]))
+        assert all(torch.equal(a, b[g]) for a, b in zip(alone, mapped))
+
+
+def test_batched_intra_cost_and_adaptive_qp(rng):
+    import jax
+
+    cur = rng.integers(0, 256, (G, 48, 80)).astype(np.int32)
+    cur[1, :16, :16] = 200
+    dc_w, cost_w = jax.vmap(jmotion.intra_cost_and_dc)(jnp.asarray(cur))
+    dc, cost = motion.intra_cost_and_dc(_t(cur))
+    assert _eq(dc, dc_w) and _eq(cost, cost_w) and int(cost[1, 0, 0]) == 0
+    qps = np.array([22, 26, 61], np.int32)
+    want = jax.vmap(jmotion.adaptive_qp)(jnp.asarray(qps), cost_w)
+    got = motion.adaptive_qp(_t(qps), cost)
+    assert got.dtype == torch.int32 and _eq(got, want)
+    alone = motion.adaptive_qp(torch.tensor(26, dtype=torch.int32), cost[1])
+    assert torch.equal(alone, got[1])

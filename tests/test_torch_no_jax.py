@@ -1,7 +1,9 @@
 """The port runs where JAX and the JAX package are absent: no file of the
 port or of chip_smoke.py imports `jax` or `video_encoder_tpu`, every
 module of the package imports, and a small format-4 clip encodes on the
-CPU with both blocked from import, to the golden model's bytes."""
+CPU with both blocked from import, to the golden model's bytes; so do a
+batched-GOP encode and a two-pass encode, to the bytes the port gives
+in this process."""
 
 import io
 import os
@@ -88,6 +90,7 @@ def test_port_sources_never_import_jax():
         r"^\s*(import|from)\s+(jax|video_encoder_tpu)(\.|\s|$)", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert PKG / "pipeline" / "encoder.py" in files   # the two-pass module
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert offenders == []
@@ -96,3 +99,52 @@ def test_port_sources_never_import_jax():
     assert pat.search("    import video_encoder_tpu\n")
     assert pat.search("import jax.numpy as jnp\n")
     assert not pat.search("from video_encoder_tpu_torch.codec import spec\n")
+
+
+_BATCH_SCRIPT = _SCRIPT[:_SCRIPT.index("rng = ")] + r"""
+from video_encoder_tpu_torch.pipeline.encoder import encode_clip_twopass
+rng = np.random.default_rng(8)
+clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(6)]
+cfg = EncoderConfig(width=48, height=32, gop_n=3, rc="bitrate", target_kbps=200)
+eng = GopEngine(cfg, device="cpu")
+frames = [Frame.from_planes(*p) for p in clip]
+out = eng.encode_gops([frames[:3], frames[3:]], [0, 3], [24, 30])
+buf = io.BytesIO()
+encode_clip_twopass(cfg, lambda: iter(clip), buf, 6, engine=eng)
+leaked = [k for k in sys.modules
+          if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
+          and sys.modules[k] is not None]
+assert not leaked, leaked
+print("BATCH " + b"".join(p.to_bytes() for pk, _ in out for p in pk).hex())
+print("TWOPASS " + buf.getvalue().hex())
+"""
+
+
+def test_batched_and_two_pass_encodes_run_without_jax():
+    from video_encoder_tpu_torch.codec.config import EncoderConfig
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.pipeline.encoder import encode_clip_twopass
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _BATCH_SCRIPT], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = dict(ln.split(" ", 1) for ln in r.stdout.splitlines()
+                 if ln.startswith(("BATCH ", "TWOPASS ")))
+    rng = np.random.default_rng(8)
+    clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(6)]
+    cfg = EncoderConfig(width=48, height=32, gop_n=3, rc="bitrate",
+                        target_kbps=200)
+    eng = GopEngine(cfg, device="cpu")
+    frames = [Frame.from_planes(*p) for p in clip]
+    seq = [eng.encode_gop(frames[:3], 0, 24), eng.encode_gop(frames[3:], 3, 30)]
+    want = b"".join(p.to_bytes() for pk, _ in seq for p in pk)
+    assert bytes.fromhex(lines["BATCH"]) == want
+    buf = io.BytesIO()
+    encode_clip_twopass(cfg, lambda: iter(clip), buf, 6, engine=eng)
+    assert bytes.fromhex(lines["TWOPASS"]) == buf.getvalue()

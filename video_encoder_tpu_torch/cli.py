@@ -13,14 +13,22 @@ to 4, every rc mode) on `--device` (default cuda):
         -o out.tvc --search diamond --rc mb --kbps 12000
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --format 4 --quant-matrix --chroma-qp-offset 2
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --gop-batch 4
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --two-pass --kbps 12000
 
-Its streams are byte-identical to the reference CLI's. Decoding uses the
-C++ parser of `oracle/oracle.cpp` through ctypes (`codec/native.py`).
+`--gop-batch G` encodes G full GOPs in lockstep, every kernel launching
+once for G frames; `--two-pass` allocates one qp per GOP from a first
+pass at constant qp. Its streams are byte-identical to the reference
+CLI's. Decoding uses the C++ parser of `oracle/oracle.cpp` through ctypes
+(`codec/native.py`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import sys
@@ -33,14 +41,15 @@ from .codec.bitstream import OrderedMux, read_stream_header
 from .codec.config import EncoderConfig
 from .codec.frame import Frame
 from .io import yuv
+from .pipeline.encoder import encode_clip_twopass
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
 
 # Encode flags of the reference CLI that the port does not take yet, with
 # the ROADMAP.md item that ports them.
 NOT_PORTED = {
-    "--two-pass": "A10", "--engine": "A11", "--gop-batch": "A12",
-    "--devices": "A13", "--tile": "A13", "--multiprocess": "A13",
+    "--engine": "A11", "--devices": "A13", "--tile": "A13",
+    "--multiprocess": "A13",
     "--failover": "A14", "--checkpoint": "A14", "--trace": "A14",
     "--stage-timers": "A14",
 }
@@ -52,15 +61,20 @@ def _add_dims(p):
 
 
 def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
-                        n_frames: int, verbose: bool = False) -> RunSummary:
+                        n_frames: int, verbose: bool = False,
+                        gop_batch: int = 1) -> RunSummary:
     """GOP-resident encode + ordered mux: GOP k+1 is read and uploaded while
-    GOP k runs on the device."""
+    GOP k runs on the device.
+
+    gop_batch = G > 1 groups G full GOPs into one lockstep encode
+    (`GopEngine.encode_gops_start`), byte-identical to G = 1. Of the tail,
+    leftover full GOPs are batched if there is more than one of them, and
+    a single one or a short last GOP goes through the single-GOP encode."""
     mux = OrderedMux(fo, cfg, n_frames)
     summary = RunSummary()
-    pending = None
+    pending = None   # double buffer: batch k runs while k+1 is read
 
-    def drain(handle):
-        packets, stats = eng.encode_gop_finish(handle)
+    def emit(packets, stats):
         for p in packets:
             mux.push(p)
         for s in stats:
@@ -68,27 +82,49 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
             if verbose:
                 print(s.to_json(), file=sys.stderr)
 
-    def launch(gop, start):
+    def drain(batched, handle):
+        if batched:
+            for packets, stats in eng.encode_gops_finish(handle):
+                emit(packets, stats)
+        else:
+            emit(*eng.encode_gop_finish(handle))
+
+    def launch(batched, *args):
         nonlocal pending
-        handle = eng.encode_gop_start(gop, start)
+        start_fn = eng.encode_gops_start if batched else eng.encode_gop_start
+        handle = (batched, start_fn(*args))
         if pending is not None:
-            drain(pending)
+            drain(*pending)
         pending = handle
 
     gop: list[Frame] = []
+    batch: list[list[Frame]] = []
+    batch_firsts: list[int] = []
     start = 0
     for count, planes in enumerate(frames):
         if count >= n_frames:
             break
         gop.append(Frame.from_planes(*planes))
         if len(gop) == cfg.gop_n:
-            launch(gop, start)
+            if gop_batch > 1:
+                batch.append(gop)
+                batch_firsts.append(start)
+                if len(batch) == gop_batch:
+                    launch(True, batch, batch_firsts)
+                    batch, batch_firsts = [], []
+            else:
+                launch(False, gop, start)
             start += len(gop)
             gop = []
+    # the tail: leftover full GOPs, then the short GOP
+    if len(batch) > 1:
+        launch(True, batch, batch_firsts)
+    elif batch:
+        launch(False, batch[0], batch_firsts[0])
     if gop:
-        launch(gop, start)
+        launch(False, gop, start)
     if pending is not None:
-        drain(pending)
+        drain(*pending)
     mux.close()
     return summary
 
@@ -102,6 +138,20 @@ def cmd_encode(a) -> int:
         quant_bias=a.quant_bias, vbv_kbits=a.vbv_kbits,
         quant_matrix=a.quant_matrix, intra_slice_mbrows=a.intra_slice,
     )
+    # preconditions, checked before the output file is truncated
+    if a.gop_batch < 1:
+        print("error: --gop-batch must be >= 1", file=sys.stderr)
+        return 2
+    if a.two_pass:
+        if a.kbps <= 0:
+            print("error: --two-pass requires --kbps", file=sys.stderr)
+            return 2
+        if cfg.rc == "adaptive":
+            print("error: --two-pass allocates qp at the GOP level; "
+                  "use --rc none|bitrate|vbv", file=sys.stderr)
+            return 2
+        if cfg.rc == "none":
+            cfg = dataclasses.replace(cfg, rc="bitrate")
     eng = GopEngine(cfg, device=a.device)
     n_frames = a.frames
     if n_frames == 0:
@@ -111,9 +161,16 @@ def cmd_encode(a) -> int:
         n_frames = yuv.count_yuv_frames(a.input, w, h)
 
     t0 = time.perf_counter()
+    on_frame = ((lambda st: print(st.to_json(), file=sys.stderr))
+                if a.verbose else None)
     with open(a.output, "wb") as fo:
-        summary = encode_gop_resident(cfg, eng, frames, fo, n_frames,
-                                      a.verbose)
+        if a.two_pass:   # GOP-resident, both passes; takes no --gop-batch
+            summary = encode_clip_twopass(
+                cfg, lambda: yuv.open_clip(a.input, a.width, a.height)[3],
+                fo, n_frames, engine=eng, on_frame=on_frame)
+        else:
+            summary = encode_gop_resident(cfg, eng, frames, fo, n_frames,
+                                          a.verbose, a.gop_batch)
     wall = time.perf_counter() - t0
     out = json.loads(summary.to_json())
     out["device"] = str(eng.device)
@@ -217,6 +274,12 @@ def main(argv=None) -> int:
                         "lower=deadzone (fewer bits, encoder-side only)")
     e.add_argument("--chroma-qp-offset", type=int, default=0,
                    help="v2+: chroma QP offset in [-12, 12]")
+    e.add_argument("--gop-batch", type=int, default=1,
+                   help="encode G full GOPs in lockstep, each kernel "
+                        "launching once for G frames; byte-identical to 1")
+    e.add_argument("--two-pass", action="store_true",
+                   help="GOP-level two-pass rate allocation toward --kbps "
+                        "(constant qp within a GOP)")
     e.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:N or cpu)")
     e.add_argument("-v", "--verbose", action="store_true")

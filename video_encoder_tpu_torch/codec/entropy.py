@@ -14,6 +14,13 @@ the bytes equal the reference's `tree_concat`.
 
 Words are int64 tensors holding 32-bit values: torch has no uint32
 shifts on the CPU.
+
+Every frame-level function also takes the arrays of G GOPs encoded in
+lockstep, with a leading G axis on each (levels [G, by, bx, 64], headers
+[G, nby, nbx]), and gives for each g what it gives for that frame alone.
+Left-neighbour predictors are taken on the [G, ...] grids; then G is
+folded into the row axis of `block_pack` and of the span merges, so each
+still launches once.
 """
 
 from __future__ import annotations
@@ -129,16 +136,16 @@ def _dc_pred_left(levels: torch.Tensor) -> torch.Tensor:
 
 def _header_slots(qp_delta, is_p_frame: bool, is_inter, dy, dx,
                   fmt: int = 1):
-    """Per-MB header symbols, slot axis leading: ([4, nby, nbx] values,
+    """Per-MB header symbols, slot axis leading: ([4, ..., nby, nbx] values,
     lengths) for mode, se(dx), se(dy), se(qp_delta). From format 2 on the
     vectors code as differences from the left MB's when both MBs are
     inter (zero at column 0; SPEC.md §12.3)."""
     mode_val, mode_len = ue_code(torch.where(is_inter, 0, 1))
     inter_p = is_inter & is_p_frame
     if fmt >= 2:
-        both = is_inter & torch.nn.functional.pad(is_inter[:, :-1], (1, 0))
-        dx = dx - torch.where(both, torch.nn.functional.pad(dx[:, :-1], (1, 0)), 0)
-        dy = dy - torch.where(both, torch.nn.functional.pad(dy[:, :-1], (1, 0)), 0)
+        both = is_inter & torch.nn.functional.pad(is_inter[..., :-1], (1, 0))
+        dx = dx - torch.where(both, torch.nn.functional.pad(dx[..., :-1], (1, 0)), 0)
+        dy = dy - torch.where(both, torch.nn.functional.pad(dy[..., :-1], (1, 0)), 0)
     dx_val, dx_len = se_code(dx)
     dy_val, dy_len = se_code(dy)
     qpd_val, qpd_len = se_code(qp_delta)
@@ -192,10 +199,11 @@ def pack_header(values: torch.Tensor, lengths: torch.Tensor,
 
 
 def _pack_blocks(levels: torch.Tensor, block_words: int, fmt: int = 1):
-    """Per-block pack of a plane's [by, bx, 64] zigzag level array through
-    the dispatch rule (block_pack kernel on the GPU): ([by, bx, W] words,
-    [by, bx] bits, overflow). From format 2 on each block's DC codes
-    against its left neighbour's."""
+    """Per-block pack of a plane's [..., by, bx, 64] zigzag level array
+    through the dispatch rule (block_pack kernel on the GPU, one launch
+    on all the leading axes' blocks): ([..., by, bx, W] words, [..., by,
+    bx] bits, overflow). From format 2 on each block's DC codes against
+    its left neighbour's in the same plane."""
     from ..ops import dispatch  # lazy: dispatch imports this module
 
     lead = levels.shape[:-1]
@@ -209,66 +217,78 @@ def _pack_blocks(levels: torch.Tensor, block_words: int, fmt: int = 1):
 
 def _mb_sources(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
                 is_inter, dy, dx, block_words: int, fmt: int = 1):
-    """Per-MB piece sources: words (hw [n_mbs, 2], yw [n_mbs, 4, W], cbw,
-    crw [n_mbs, W]), piece bit counts [n_mbs, 7] int32 in the order
-    header, Y00, Y01, Y10, Y11, Cb, Cr, and the block overflow flag."""
-    nby, nbx = qp_delta.shape
+    """Per-MB piece sources: words (hw [..., n_mbs, 2], yw [..., n_mbs, 4,
+    W], cbw, crw [..., n_mbs, W]), piece bit counts [..., n_mbs, 7] int32
+    in the order header, Y00, Y01, Y10, Y11, Cb, Cr, and the block
+    overflow flag (one for all leading axes)."""
+    *lead, nby, nbx = qp_delta.shape
     n_mbs = nby * nbx
 
     hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
     hwords, hbits, ovf_h = pack_header(hv, hl)
 
     ywords, ybits, ovf_y = _pack_blocks(levels_y8, block_words, fmt)
-    ywords = ywords.reshape(nby, 2, nbx, 2, block_words).permute(0, 2, 1, 3, 4)
-    ybits = ybits.reshape(nby, 2, nbx, 2).permute(0, 2, 1, 3)
+    ywords = ywords.reshape(*lead, nby, 2, nbx, 2, block_words).transpose(-4, -3)
+    ybits = ybits.reshape(*lead, nby, 2, nbx, 2).transpose(-3, -2)
     cbwords, cbbits, ovf_cb = _pack_blocks(levels_cb, block_words, fmt)
     crwords, crbits, ovf_cr = _pack_blocks(levels_cr, block_words, fmt)
 
-    words = (hwords.reshape(n_mbs, HEADER_WORDS),
-             ywords.reshape(n_mbs, 4, block_words),
-             cbwords.reshape(n_mbs, block_words),
-             crwords.reshape(n_mbs, block_words))
+    words = (hwords.reshape(*lead, n_mbs, HEADER_WORDS),
+             ywords.reshape(*lead, n_mbs, 4, block_words),
+             cbwords.reshape(*lead, n_mbs, block_words),
+             crwords.reshape(*lead, n_mbs, block_words))
     piece_bits = torch.cat([
-        hbits.reshape(n_mbs, 1), ybits.reshape(n_mbs, 4),
-        cbbits.reshape(n_mbs, 1), crbits.reshape(n_mbs, 1),
-    ], 1)
+        hbits.reshape(*lead, n_mbs, 1), ybits.reshape(*lead, n_mbs, 4),
+        cbbits.reshape(*lead, n_mbs, 1), crbits.reshape(*lead, n_mbs, 1),
+    ], -1)
     return words, piece_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
 
 
 def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
                   is_inter, dy, dx, block_words: int, fmt: int = 1):
-    """Per-MB piece strings [n_mbs, 7, W] and bit counts [n_mbs, 7] in the
-    order header, Y00, Y01, Y10, Y11, Cb, Cr."""
+    """Per-MB piece strings [..., n_mbs, 7, W] and bit counts [..., n_mbs,
+    7] in the order header, Y00, Y01, Y10, Y11, Cb, Cr."""
     (hw, yw, cbw, crw), piece_bits, ovf = _mb_sources(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
         dy, dx, block_words, fmt)
-    hpad = torch.nn.functional.pad(hw[:, None], (0, block_words - HEADER_WORDS))
-    piece_words = torch.cat([hpad, yw, cbw[:, None], crw[:, None]], 1)
+    hpad = torch.nn.functional.pad(hw.unsqueeze(-2),
+                                   (0, block_words - HEADER_WORDS))
+    piece_words = torch.cat([hpad, yw, cbw.unsqueeze(-2), crw.unsqueeze(-2)],
+                            -2)
     return piece_words, piece_bits, ovf
 
 
 def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
                  n_words: int):
-    """Concatenate n MSB-first bit strings [n, W] of lengths [n] into one
-    [n_words] string (words past n_words dropped). Returns (words int64,
-    total_bits int64 scalar tensor).
+    """Concatenate n MSB-first bit strings [..., n, W] of lengths [..., n]
+    into one [..., n_words] string per leading index (words past n_words
+    dropped). Returns (words int64, total_bits int64 [...]).
 
-    Piece p starts at bit off_p (exclusive prefix sum); its word j lands
-    shifted right by off_p % 32 in word off_p // 32 + j, and its low bits
-    spill into the next word."""
-    n, w = piece_words.shape
+    Piece p starts at bit off_p (exclusive prefix sum, restarting at
+    every leading index); its word j lands shifted right by off_p % 32 in
+    word off_p // 32 + j, and its low bits spill into the next word.
+    String g of G adds into its own n_words + 1 slots of one flat
+    buffer, the last of them the spill slot."""
+    *lead, n, w = piece_words.shape
+    dev = piece_words.device
     bits = piece_bits.long()
-    off = torch.cumsum(bits, 0) - bits
-    total = off[-1] + bits[-1]
-    s = (off & 31)[:, None]
-    target = (off >> 5)[:, None] + torch.arange(w, device=off.device)
+    off = torch.cumsum(bits, -1) - bits
+    total = off[..., -1] + bits[..., -1]
+    s = (off & 31)[..., None]
+    target = (off >> 5)[..., None] + torch.arange(w, device=dev)
     hi = piece_words >> s
     lo = (piece_words << (32 - s)) & MASK32   # 0 where s == 0
-    out = torch.zeros(n_words + 1, dtype=torch.int64, device=off.device)
-    out.index_add_(0, target.clamp(max=n_words).reshape(-1), hi.reshape(-1))
-    out.index_add_(0, (target + 1).clamp(max=n_words).reshape(-1),
+    n_out = 1
+    for d in lead:
+        n_out *= d
+    base = (torch.arange(n_out, device=dev) * (n_words + 1)).reshape(
+        *lead, 1, 1) if lead else 0
+    out = torch.zeros(n_out * (n_words + 1), dtype=torch.int64, device=dev)
+    out.index_add_(0, (base + target.clamp(max=n_words)).reshape(-1),
+                   hi.reshape(-1))
+    out.index_add_(0, (base + (target + 1).clamp(max=n_words)).reshape(-1),
                    lo.reshape(-1))
-    return out[:n_words], total
+    return out.reshape(*lead, n_words + 1)[..., :n_words], total
 
 
 def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
@@ -277,30 +297,33 @@ def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
     """Frame payload from per-plane zigzag levels ([2nby, 2nbx, 64] luma,
     [nby, nbx, 64] chroma) in the format-1 syntax, or the format-2 syntax
     for fmt >= 2. Returns (words int64 [n_words], total_bits, mb_bits
-    [nby, nbx], overflow)."""
-    nby, nbx = qp_delta.shape
+    [nby, nbx], overflow). With a leading G axis on every array: words
+    [G, n_words], total_bits [G], mb_bits [G, nby, nbx], and one overflow
+    flag for the batch."""
+    *lead, nby, nbx = qp_delta.shape
     piece_words, piece_bits, ovf = _frame_pieces(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
         dy, dx, block_words, fmt,
     )
     words, total = frame_concat(
-        piece_words.reshape(-1, block_words), piece_bits.reshape(-1), n_words)
-    mb_bits = piece_bits.sum(1, dtype=torch.int32).reshape(nby, nbx)
-    return words, total, mb_bits, ovf | (total > 32 * n_words)
+        piece_words.reshape(*lead, -1, block_words),
+        piece_bits.reshape(*lead, -1), n_words)
+    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
+    return words, total, mb_bits, ovf | (total > 32 * n_words).any()
 
 
 def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
                   is_p_frame: bool, is_inter, dy, dx, block_words: int,
                   fmt: int = 1):
-    """Per-MB bit counts [nby, nbx] int32 (header symbols plus the six
-    block strings) with no payload assembled: the rc=mb pass-1 estimate,
-    which uses nothing else of the pack."""
-    nby, nbx = qp_delta.shape
+    """Per-MB bit counts [..., nby, nbx] int32 (header symbols plus the
+    six block strings) with no payload assembled: the rc=mb pass-1
+    estimate, which uses nothing else of the pack."""
+    *lead, nby, nbx = qp_delta.shape
     _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
     _, ybits, _ = _pack_blocks(levels_y8, block_words, fmt)
     _, cbbits, _ = _pack_blocks(levels_cb, block_words, fmt)
     _, crbits, _ = _pack_blocks(levels_cr, block_words, fmt)
-    ysum = ybits.reshape(nby, 2, nbx, 2).sum((1, 3))
+    ysum = ybits.reshape(*lead, nby, 2, nbx, 2).sum((-3, -1))
     return (hl.sum(0) + ysum + cbbits + crbits).int()
 
 
@@ -324,24 +347,47 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
     the same bytes as pack_frame_planes. The span merge runs through the
     dispatch rule (span_merge_mb, then span_merge in the two-stage shape)
     straight from the per-MB sources; no [n_mbs, 8, W] piece array is
-    made."""
+    made.
+
+    With a leading G axis on every array the G frames fold into the row
+    axis of both merges, which still launch once each: every frame's MB
+    axis is first padded with empty MBs to the plan's n1 * m1 pieces, so
+    that no string spans two frames. Returns chunk_words [G, C, cw],
+    chunk_bits [G, C], mb_bits [G, nby, nbx] and one flag for the batch."""
     from ..ops import dispatch  # lazy: dispatch imports this module
     from . import pack
 
-    nby, nbx = qp_delta.shape
+    *lead, nby, nbx = qp_delta.shape
     n_mbs = nby * nbx
     (hw, yw, cbw, crw), bits7, ovf = _mb_sources(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
         dy, dx, block_words, fmt)
-    piece_bits = torch.nn.functional.pad(bits7, (0, 1)).reshape(-1)
+    piece_bits = torch.nn.functional.pad(bits7, (0, 1))
     plan = pack.span_plan(n_mbs, block_words)
+    n_strings = plan.n1
+    if lead:
+        g = lead[0]
+        extra = plan.n1 * plan.m1 // 8 - n_mbs   # empty MBs up to the plan
+
+        def fold(a):   # [G, n_mbs, ...] -> [G * (n_mbs + extra), ...]
+            if extra:
+                a = torch.nn.functional.pad(
+                    a, [0, 0] * (a.ndim - 2) + [0, extra])
+            return a.reshape(-1, *a.shape[2:])
+
+        hw, yw, cbw, crw = fold(hw), fold(yw), fold(cbw), fold(crw)
+        piece_bits = fold(piece_bits)
+        n_strings = g * plan.n1
     words, bits, ovf_m = dispatch.span_merge_mb(
         hw.contiguous(), yw.contiguous(), cbw.contiguous(), crw.contiguous(),
-        piece_bits, plan.m1, plan.cw1, plan.n1)
+        piece_bits.reshape(-1), plan.m1, plan.cw1, n_strings)
     if plan.two_stage:
         words, bits, ovf_2 = dispatch.span_merge(words, bits, plan.g,
                                                  plan.stop, plan.cwf)
         ovf_m = ovf_m | ovf_2
-    mb_bits = bits7.sum(1, dtype=torch.int32).reshape(nby, nbx)
+    if lead:
+        words = words.reshape(g, -1, words.shape[-1])
+        bits = bits.reshape(g, -1)
+    mb_bits = bits7.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
     return words, bits, mb_bits, ovf | ovf_m
 

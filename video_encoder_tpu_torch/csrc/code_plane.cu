@@ -3,7 +3,13 @@
 //
 // Replaces: video_encoder_tpu/ops/pallas/codec.py, _make_code_plane_kernel
 // (launched by _code_plane_call, public code_plane), plus the zigzag that
-// the reference's dispatch.code_plane applies after it.
+// the reference's dispatch.code_plane applies after it. Also replaces
+// _code_plane_call_g, the vmap rule of code_plane on cur, pred [G, H, W]
+// and q_blk [G, H/8, W/8] of G GOPs in lockstep (whole planes, and the
+// [G, 8, W] stripes of the I-frame row scan, whose pred is each GOP's
+// previous recon row). The TPU needed the twin because vmap could not
+// batch the kernel's broadcast constants; here the GOP is blockIdx.z and
+// a plane stride (the single-plane entry launches with G = 1).
 //
 // Bound on this card: device memory, barely. Per pixel it reads cur and
 // pred and writes a level and a recon value (16 bytes) against 32 integer
@@ -70,7 +76,10 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
   const int nbx = w >> 3;
   const int bx = blockIdx.x * SUB + sub, by = blockIdx.y;
   const bool active = bx < nbx;  // the row's last thread block may be ragged
-  const int o = (by * 8 + r) * w + bx * 8 + c;
+  // 64-bit offsets: g * h * w passes int32 for a large batch
+  const size_t g = blockIdx.z;
+  const size_t o = g * h * w + (by * 8 + r) * w + bx * 8 + c;
+  const size_t blk = g * (h >> 3) * nbx + by * nbx + bx;
 
   int p = 0;
   if (active) {
@@ -90,12 +99,12 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
   for (int j = 0; j < 8; ++j) acc += sb[sub][r][j] * kB[c][j];
   const int coef = rshift_round(acc);
 
-  int q = active ? q_blk[by * nbx + bx] : 1;
+  int q = active ? q_blk[blk] : 1;
   if (qmat) q = max(1, (q * kQmat[r][c] + 8) >> 4);
   const int bias = (r == 0 && c == 0) ? 8 : qbias;
   const int mag = (16 * abs(coef) + bias * q) / (16 * q);
   const int lv = coef < 0 ? -mag : mag;
-  if (active) levels[(by * nbx + bx) * 64 + kUnzigzag[r * 8 + c]] = lv;
+  if (active) levels[blk * 64 + kUnzigzag[r * 8 + c]] = lv;
   sa[sub][r][c] = lv * q;  // sa is no longer read: safe without a barrier
   __syncthreads();
 
@@ -111,6 +120,16 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
   if (active) rec[o] = min(max(rshift_round(acc) + p, 0), 255);
 }
 
+int launch(const int* cur, const int* pred, const int* q_blk, int g, int h,
+           int w, int qbias, int qmat, int* levels, int* rec, void* stream) {
+  if (g < 1 || g > 65535 || h / 8 > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 block(64, SUB);
+  const dim3 grid((w / 8 + SUB - 1) / SUB, h / 8, g);
+  code_plane_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      cur, pred, q_blk, h, w, qbias, qmat, levels, rec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cur, pred, rec: [h, w] int32 (h, w multiples of 8); q_blk: [h/8, w/8]
@@ -119,9 +138,14 @@ code_plane_kernel(const int* __restrict__ cur, const int* __restrict__ pred,
 extern "C" int tvc_code_plane(const int* cur, const int* pred,
                               const int* q_blk, int h, int w, int qbias,
                               int qmat, int* levels, int* rec, void* stream) {
-  const dim3 block(64, SUB);
-  const dim3 grid((w / 8 + SUB - 1) / SUB, h / 8);
-  code_plane_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cur, pred, q_blk, h, w, qbias, qmat, levels, rec);
-  return (int)cudaGetLastError();
+  return launch(cur, pred, q_blk, 1, h, w, qbias, qmat, levels, rec, stream);
+}
+
+// The G-batched form: cur, pred, rec [g, h, w]; q_blk [g, h/8, w/8];
+// levels [g, h/8, w/8, 64]; plane g is coded at its own steps.
+extern "C" int tvc_code_plane_g(const int* cur, const int* pred,
+                                const int* q_blk, int g, int h, int w,
+                                int qbias, int qmat, int* levels, int* rec,
+                                void* stream) {
+  return launch(cur, pred, q_blk, g, h, w, qbias, qmat, levels, rec, stream);
 }

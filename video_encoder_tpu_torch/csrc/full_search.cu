@@ -6,6 +6,12 @@
 // minimum) and by _sad_map_call with stride 2 (public sad_map_even: the
 // 289 SADs of the even-even mvs). The TPU builds both from one kernel
 // factory; here one template does, on stride and on min-versus-map.
+// Also replaces its G-batched twins _full_search_call_batch and
+// _sad_map_call_batch (the vmap rules of full_search and sad_map_even on
+// [G, H, W] planes of G GOPs in lockstep): the TPU needed separate calls
+// because vmap could not batch a pallas_call with an ANY-space operand;
+// here the GOP is blockIdx.z and a plane stride, in the same kernel (the
+// single-plane entries launch it with G = 1).
 //
 // Bound on this card: integer ALU and shared-memory loads. A 1088x1920
 // frame has 8160 MBs x 1089 candidates x 256 pixels, about 2.3e9
@@ -52,7 +58,11 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   const int bx = blockIdx.x, by = blockIdx.y;
   const int y0 = by * MB, x0 = bx * MB;
   const int tid = threadIdx.x;
-  const int o = by * gridDim.x + bx;
+  // 64-bit: g * h * w passes int32 for a large batch of large planes
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
+  cur += plane;
+  ref += plane;
 
   for (int i = tid; i < WIN * WIN; i += THREADS) {
     const int r = i / WIN, c = i % WIN;
@@ -78,7 +88,7 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
       }
     }
     if constexpr (EMIT_MAP) {
-      map_out[(size_t)o * NCAND + k] = (int)s;
+      map_out[o * NCAND + k] = (int)s;
     } else {
       best = min(best, (int)(s << 11) | k);
     }
@@ -100,23 +110,44 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   }
 }
 
+// One block per (g, MB); gridDim.z is limited to 65535.
+template <int STRIDE, bool EMIT_MAP>
+int launch(const int* cur, const int* ref, int g, int h, int w, int* dy,
+           int* dx, int* sad, int* map, void* stream) {
+  if (g < 1 || g > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(w / MB, h / MB, g);
+  search_kernel<STRIDE, EMIT_MAP><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      cur, ref, h, w, dy, dx, sad, map);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); dy, dx, sad: [h/16, w/16].
 extern "C" int tvc_full_search(const int* cur, const int* ref, int h, int w,
                                int* dy, int* dx, int* sad, void* stream) {
-  const dim3 grid(w / MB, h / MB);
-  search_kernel<1, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, dy, dx, sad, nullptr);
-  return (int)cudaGetLastError();
+  return launch<1, false>(cur, ref, 1, h, w, dy, dx, sad, nullptr, stream);
 }
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 289]
 // int32, candidate ((dy+16)/2)*17 + (dx+16)/2.
 extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
                                 int* map, void* stream) {
-  const dim3 grid(w / MB, h / MB);
-  search_kernel<2, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, nullptr, nullptr, nullptr, map);
-  return (int)cudaGetLastError();
+  return launch<2, true>(cur, ref, 1, h, w, nullptr, nullptr, nullptr, map,
+                         stream);
+}
+
+// The G-batched search: cur, ref [g, h, w] int32, plane g of cur against
+// plane g of ref; dy, dx, sad: [g, h/16, w/16].
+extern "C" int tvc_full_search_g(const int* cur, const int* ref, int g, int h,
+                                 int w, int* dy, int* dx, int* sad,
+                                 void* stream) {
+  return launch<1, false>(cur, ref, g, h, w, dy, dx, sad, nullptr, stream);
+}
+
+// The G-batched even map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 289].
+extern "C" int tvc_sad_map_even_g(const int* cur, const int* ref, int g,
+                                  int h, int w, int* map, void* stream) {
+  return launch<2, true>(cur, ref, g, h, w, nullptr, nullptr, nullptr, map,
+                         stream);
 }

@@ -2,7 +2,12 @@
 //
 // Replaces: video_encoder_tpu/ops/pallas/sad.py, make_mc_kernels -> mc_kernel
 // (public mc_fetch_plane with 16x16 blocks and radius 16, and
-// mc_fetch_plane_chroma with 8x8 blocks and radius 8).
+// mc_fetch_plane_chroma with 8x8 blocks and radius 8), and mc_kernel_g
+// launched through tile_call_g, the vmap rule of both on [G, H, W]
+// reference planes with per-GOP vectors [G, nby, nbx]. The TPU needed the
+// twin because vmap could not batch a pallas_call whose reference sits in
+// ANY space; here the GOP is blockIdx.z and a plane stride (the
+// single-plane entry launches with G = 1).
 //
 // Bound on this card: device memory. Each output pixel is one 4-byte read
 // and one 4-byte write (16 MB for a 1088x1920 luma plane), with no
@@ -27,10 +32,23 @@ __global__ void mc_fetch_kernel(const int* __restrict__ ref,
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  const int b = (y / bs) * (w / bs) + x / bs;
+  // 64-bit plane offsets: g * h * w passes int32 for a large batch
+  const size_t g = blockIdx.z;
+  const size_t plane = g * h * w;
+  const size_t b = g * (h / bs) * (w / bs) + (y / bs) * (w / bs) + x / bs;
   const int sy = min(max(y + dy[b], 0), h - 1);
   const int sx = min(max(x + dx[b], 0), w - 1);
-  out[y * w + x] = ref[sy * w + sx];
+  out[plane + y * w + x] = ref[plane + sy * w + sx];
+}
+
+int launch(const int* ref, const int* dy, const int* dx, int g, int h, int w,
+           int bs, int* out, void* stream) {
+  if (g < 1 || g > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 block(32, 8);
+  const dim3 grid((w + 31) / 32, (h + 7) / 8, g);
+  mc_fetch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(ref, dy, dx, h, w,
+                                                            bs, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -38,9 +56,13 @@ __global__ void mc_fetch_kernel(const int* __restrict__ ref,
 // ref, out: [h, w] int32; dy, dx: [h/bs, w/bs] int32.
 extern "C" int tvc_mc_fetch(const int* ref, const int* dy, const int* dx,
                             int h, int w, int bs, int* out, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((w + 31) / 32, (h + 7) / 8);
-  mc_fetch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(ref, dy, dx, h, w,
-                                                            bs, out);
-  return (int)cudaGetLastError();
+  return launch(ref, dy, dx, 1, h, w, bs, out, stream);
+}
+
+// The G-batched fetch: ref, out [g, h, w] int32; dy, dx [g, h/bs, w/bs]
+// int32; plane g is fetched from ref[g] at its own vectors.
+extern "C" int tvc_mc_fetch_g(const int* ref, const int* dy, const int* dx,
+                              int g, int h, int w, int bs, int* out,
+                              void* stream) {
+  return launch(ref, dy, dx, g, h, w, bs, out, stream);
 }

@@ -5,6 +5,11 @@ its plain PyTorch version for a CPU tensor; nothing falls back from the
 kernel to the plain version. `force("plain")` routes CUDA tensors to the
 plain versions too, so a kernel can be compared with its plain version on
 the card (chip_smoke.py); it mirrors the reference's `force("jnp")`.
+
+Planes with a leading G axis ([G, H, W]: G GOPs encoded in lockstep) go to
+the G-batched kernels, one launch for all G, or on the CPU to the same
+plain versions, which take the axis as it is. The block pack and the span
+merges have no batched twin: their callers fold G into the row axis.
 """
 
 from __future__ import annotations
@@ -29,24 +34,31 @@ def force(mode: str | None) -> None:
 
 
 def full_search(cur_y, ref_y):
+    """(dy, dx, sad) [(G,) nby, nbx] of planes [(G,) H, W]."""
     if _FORCE == "plain":
         return motion.full_search(cur_y, ref_y)
+    if cur_y.ndim == 3:
+        return ksad.full_search_g(cur_y, ref_y)
     return ksad.full_search(cur_y, ref_y)
 
 
 def sad_map_even(cur_y, ref_y):
-    """[nby, nbx, 289] SADs of the even-even mvs."""
+    """[(G,) nby, nbx, 289] SADs of the even-even mvs."""
     if _FORCE == "plain":
         return motion.sad_map_even(cur_y, ref_y)
+    if cur_y.ndim == 3:
+        return ksad.sad_map_even_g(cur_y, ref_y)
     return ksad.sad_map_even(cur_y, ref_y)
 
 
 def sad_at_mv(cur_y, ref_y, dy, dx, plane_of=None):
-    """Per-MB SADs at mvs [..., nby, nbx]. With plane_of (K ints) ref_y is
-    a stack [P, H, W] and candidate k of [K, nby, nbx] reads
-    ref_y[plane_of[k]]: still one launch."""
+    """Per-MB SADs at mvs [(G,) (K,) nby, nbx]. With plane_of (K ints)
+    ref_y is a stack [(G,) P, H, W] and candidate k of [(G,) K, nby, nbx]
+    reads ref_y[(g,) plane_of[k]]: still one launch."""
     if _FORCE == "plain":
         return motion.sad_at(cur_y, ref_y, dy, dx, plane_of=plane_of)
+    if cur_y.ndim == 3:
+        return ksad.sad_at_mv_g(cur_y, ref_y, dy, dx, plane_of)
     return ksad.sad_at_mv(cur_y, ref_y, dy, dx, plane_of)
 
 
@@ -54,6 +66,8 @@ def sad_at_mv_chroma(cur_c, ref_c, dy, dx):
     """Per-8x8-block SADs of a chroma plane at chroma mvs (|mv| <= 8)."""
     if _FORCE == "plain":
         return motion.sad_at(cur_c, ref_c, dy, dx, 8)
+    if cur_c.ndim == 3:
+        return ksad.sad_at_mv_chroma_g(cur_c, ref_c, dy, dx)
     return ksad.sad_at_mv_chroma(cur_c, ref_c, dy, dx)
 
 
@@ -63,15 +77,15 @@ def diamond_search(cur_y, ref_y):
     torch.gather from the map (the loop only visits even-even mvs), and
     the final ±1 step is one sad_at_mv launch for its four candidates. The
     descent is motion.diamond_search_with on both routes; only the two SAD
-    sources switch. Returns (dy, dx, sad) int32."""
+    sources switch. Returns (dy, dx, sad) int32, [(G,) nby, nbx]."""
     meven = sad_map_even(cur_y, ref_y)
-    nby, nbx, _ = meven.shape
     r = motion.R
 
     def sad_even(dy, dx):
-        k = ((dy + r) >> 1) * motion.NE + ((dx + r) >> 1)
-        kk = k.reshape(-1, nby, nbx).permute(1, 2, 0).long()
-        return torch.gather(meven, 2, kk).permute(2, 0, 1).reshape(k.shape)
+        k = (((dy + r) >> 1) * motion.NE + ((dx + r) >> 1)).long()
+        if k.ndim < meven.ndim:                   # no candidate axis
+            return torch.gather(meven, -1, k[..., None])[..., 0]
+        return torch.gather(meven, -1, k.movedim(-3, -1)).movedim(-1, -3)
 
     def sad_small(dy, dx):
         return sad_at_mv(cur_y, ref_y, dy, dx)
@@ -80,16 +94,20 @@ def diamond_search(cur_y, ref_y):
 
 
 def mc_fetch_luma_plane(ref_y, dy, dx):
-    """[H, W] luma predictor plane from per-MB mvs."""
+    """[(G,) H, W] luma predictor plane from per-MB mvs."""
     if _FORCE == "plain":
         return motion.mc_fetch_plane(ref_y, dy, dx, 16)
+    if ref_y.ndim == 3:
+        return ksad.mc_fetch_plane_g(ref_y, dy, dx)
     return ksad.mc_fetch_plane(ref_y, dy, dx)
 
 
 def mc_fetch_chroma_plane(ref_c, cdy, cdx):
-    """[H/2, W/2] chroma predictor plane from per-MB chroma mvs."""
+    """[(G,) H/2, W/2] chroma predictor plane from per-MB chroma mvs."""
     if _FORCE == "plain":
         return motion.mc_fetch_plane(ref_c, cdy, cdx, 8)
+    if ref_c.ndim == 3:
+        return ksad.mc_fetch_plane_chroma_g(ref_c, cdy, cdx)
     return ksad.mc_fetch_plane_chroma(ref_c, cdy, cdx)
 
 
@@ -99,8 +117,9 @@ def hpel_refine(cur_y, ref_y, dy, dx, planes=None):
     Candidate (u, v) has parity (|u|, |v|), so its SAD is an integer-mv
     SAD on that parity plane: one sad_at_mv launch for all nine. A
     candidate beyond ±32 half-pels is invalid (its integer part is
-    clipped for the SAD). `planes` is motion.hpel_stack(ref_y), made here
-    unless given. Returns (d2y, d2x, sad) int32, vectors in half-pels."""
+    clipped for the SAD). `planes` is motion.hpel_stack(ref_y),
+    [(G,) 4, H, W], made here unless given. Returns (d2y, d2x, sad) int32
+    [(G,) nby, nbx], vectors in half-pels."""
     if planes is None:
         planes = motion.hpel_stack(ref_y)
     r, r2 = motion.R, 2 * motion.R
@@ -108,28 +127,33 @@ def hpel_refine(cur_y, ref_y, dy, dx, planes=None):
     k = torch.arange(9, device=cur_y.device)[:, None, None]
     u = torch.div(k, 3, rounding_mode="floor").int() - 1
     v = (k % 3).int() - 1
-    d2y, d2x = 2 * dy + u, 2 * dx + v                     # [9, nby, nbx]
+    d2y = 2 * dy.unsqueeze(-3) + u                     # [(G,) 9, nby, nbx]
+    d2x = 2 * dx.unsqueeze(-3) + v
     valid = (d2y.abs() <= r2) & (d2x.abs() <= r2)
     sads = sad_at_mv(
         cur_y, planes, (d2y >> 1).clamp(-r, r), (d2x >> 1).clamp(-r, r),
         [abs(a) * 2 + abs(b) for a, b in uv])
     # packed int64 key cost * 16 + index: its minimum is the first minimum
     key = torch.where(valid, sads, motion.BIG).long() * 16 + k
-    best = key.amin(0)
-    pick = (best & 15)[None]
-    return (d2y.gather(0, pick)[0], d2x.gather(0, pick)[0],
+    best = key.amin(-3)
+    pick = (best & 15).unsqueeze(-3)
+    return (d2y.gather(-3, pick).squeeze(-3), d2x.gather(-3, pick).squeeze(-3),
             (best >> 4).int())
 
 
 def _hpel_mc(plane, d2y, d2x, fetch, px: int, planes=None):
     """Half-pel MC (SPEC.md §14.2): an integer fetch from each of the four
     parity planes, then a per-block select by (d2y & 1) * 2 + (d2x & 1)
-    expanded to pixels."""
+    expanded to pixels. `planes` is the four parity planes, each
+    [(G,) H, W]: a sequence, or their stack [(G,) 4, H, W]; made here
+    unless given."""
     if planes is None:
-        planes = motion.hpel_stack(plane)
+        planes = (plane, *motion.hpel_planes(plane))
+    elif isinstance(planes, torch.Tensor):
+        planes = [p.contiguous() for p in planes.unbind(-3)]
     iy, ix = d2y >> 1, d2x >> 1
     sel = (d2y & 1) * 2 + (d2x & 1)
-    sel_px = sel.repeat_interleave(px, 0).repeat_interleave(px, 1)
+    sel_px = sel.repeat_interleave(px, -2).repeat_interleave(px, -1)
     fetched = torch.stack([fetch(p, iy, ix) for p in planes])
     return fetched.gather(0, sel_px.long()[None])[0]
 
@@ -145,17 +169,21 @@ def mc_fetch_chroma_plane_hpel(ref_c, cd2y, cd2x, planes=None):
 
 
 def code_plane(cur, pred, q_blk, qbias: int = 8, qmat: bool = False):
-    """(levels [H/8, W/8, 64] zigzag order, recon [H, W]) of one plane;
-    qmat applies the v3 quant matrix."""
+    """(levels [(G,) H/8, W/8, 64] zigzag order, recon [(G,) H, W]) of
+    one plane, or of the planes of G GOPs; qmat applies the v3 quant
+    matrix."""
     if _FORCE == "plain":
         return transform.code_plane(cur, pred, q_blk, qbias, qmat)
+    if cur.ndim == 3:
+        return kcodec.code_plane_g(cur, pred, q_blk, qbias, qmat)
     return kcodec.code_plane(cur, pred, q_blk, qbias, qmat)
 
 
 def intra_rows_code_plane(cur, q_blk, qbias: int = 8, reset_rows: int = 0,
                           qmat: bool = False):
     """v3 I-frame row scan of one plane, each [8, W] stripe through
-    code_plane (one kernel launch per stripe on the GPU)."""
+    code_plane (one kernel launch per stripe on the GPU); with a G axis
+    the G planes advance in lockstep, one launch per [G, 8, W] stripe."""
     return transform.intra_rows_code_plane(cur, q_blk, qbias, reset_rows,
                                            qmat, code=code_plane)
 

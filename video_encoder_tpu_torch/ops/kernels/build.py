@@ -39,7 +39,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "sad_at_mv_chroma": 0, "mc_fetch_luma": 0, "mc_fetch_chroma": 0,
             "code_plane": 0, "code_plane_qmat": 0, "block_pack": 0,
-            "block_pack_v2": 0, "span_merge_mb": 0, "span_merge": 0}
+            "block_pack_v2": 0, "span_merge_mb": 0, "span_merge": 0,
+            # the G-batched kernels (G GOPs in lockstep, one launch)
+            "full_search_g": 0, "sad_map_even_g": 0, "sad_at_mv_g": 0,
+            "sad_at_mv_chroma_g": 0, "mc_fetch_luma_g": 0,
+            "mc_fetch_chroma_g": 0, "code_plane_g": 0, "code_plane_qmat_g": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,7 +52,7 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "tvc_full_search": [_P, _P, _I, _I, _P, _P, _P, _P],
     "tvc_sad_map_even": [_P, _P, _I, _I, _P, _P],
-    "tvc_sad_at_mv": [_P, _P, _P, _P, _I, _I, _I, _U64, _P, _P],
+    "tvc_sad_at_mv": [_P, _P, _P, _P, _I, _I, _I, _I, _U64, _P, _P],
     "tvc_sad_at_mv_chroma": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "tvc_mc_fetch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "tvc_code_plane": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -56,6 +60,12 @@ _SIGNATURES = {
     "tvc_span_merge_mb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P],
     "tvc_span_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tvc_full_search_g": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tvc_sad_map_even_g": [_P, _P, _I, _I, _I, _P, _P],
+    "tvc_sad_at_mv_g": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U64, _P, _P],
+    "tvc_sad_at_mv_chroma_g": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "tvc_mc_fetch_g": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "tvc_code_plane_g": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

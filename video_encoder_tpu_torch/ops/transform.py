@@ -66,15 +66,15 @@ def dequantize(level: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def blockify(plane: torch.Tensor, n: int) -> torch.Tensor:
-    """[H, W] -> [H/n, W/n, n, n]."""
-    h, w = plane.shape
-    return plane.reshape(h // n, n, w // n, n).permute(0, 2, 1, 3)
+    """[..., H, W] -> [..., H/n, W/n, n, n]."""
+    *lead, h, w = plane.shape
+    return plane.reshape(*lead, h // n, n, w // n, n).transpose(-3, -2)
 
 
 def unblockify(blocks: torch.Tensor) -> torch.Tensor:
-    """[by, bx, n, n] -> [by*n, bx*n]."""
-    by, bx, n, _ = blocks.shape
-    return blocks.permute(0, 2, 1, 3).reshape(by * n, bx * n)
+    """[..., by, bx, n, n] -> [..., by*n, bx*n]."""
+    *lead, by, bx, n, _ = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, by * n, bx * n)
 
 
 def zigzag(levels_8x8: torch.Tensor) -> torch.Tensor:
@@ -105,7 +105,9 @@ def code_plane(cur: torch.Tensor, pred: torch.Tensor, q_blk: torch.Tensor,
     plane. cur, pred [H, W] int32; q_blk [H/8, W/8] int32 steps, scaled
     per position by the v3 quant matrix when qmat. Returns (levels [H/8,
     W/8, 64] zigzag order, recon [H, W]) as the reference's
-    `dispatch.code_plane` does."""
+    `dispatch.code_plane` does. With a leading G axis on all three
+    (planes of G GOPs) each g is coded on its own: the plain version of
+    the `code_plane_g` kernel."""
     q = qsteps_pos(q_blk, qmat)
     coefs = forward_transform(blockify(cur - pred, 8))
     lz = zigzag(quantize(coefs, q, qbias))
@@ -124,16 +126,22 @@ def intra_rows_code_plane(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int,
     row, §13.3). The rows are the format's one serial chain: each stripe
     is `code` (a code_plane) on an [8, W] plane whose pred is that row
     broadcast to eight rows. cur [H, W] int32, q_blk [H/8, W/8] int32.
-    Returns (levels [H/8, W/8, 64] zigzag order, recon [H, W])."""
-    h, w = cur.shape
-    flat = torch.full((8, w), 128, dtype=cur.dtype, device=cur.device)
+    Returns (levels [H/8, W/8, 64] zigzag order, recon [H, W]). With a
+    leading G axis the G planes advance in lockstep, one [G, 8, W] stripe
+    per step, each GOP's pred its own previous recon row."""
+    *lead, h, w = cur.shape
+    flat = torch.full((*lead, 8, w), 128, dtype=cur.dtype, device=cur.device)
+    # stripe axis leading, so that each step's [..., 8, W] stripe and its
+    # [..., 1, W/8] steps are contiguous (no copy without a G axis)
+    stripes = cur.reshape(*lead, h // 8, 8, w).movedim(-3, 0).contiguous()
+    steps = q_blk.unsqueeze(-2).movedim(-3, 0).contiguous()
     levels, recs = [], []
     pred = flat
     for j in range(h // 8):
         if j == 0 or (reset_rows and j % reset_rows == 0):
             pred = flat
-        lv, rec = code(cur[8 * j:8 * j + 8], pred, q_blk[j:j + 1], qbias, qmat)
-        pred = rec[-1].expand(8, w).contiguous()
+        lv, rec = code(stripes[j], pred, steps[j], qbias, qmat)
+        pred = rec[..., -1:, :].expand(*lead, 8, w).contiguous()
         levels.append(lv)
         recs.append(rec)
-    return torch.cat(levels), torch.cat(recs)
+    return torch.cat(levels, -3), torch.cat(recs, -2)

@@ -10,6 +10,14 @@ on the current stream. The host waits once per GOP, for the overflow
 flag: payload capacity is budgeted, and a GOP whose pack overflows any
 budget is encoded again at the exact worst-case capacities (the bytes are
 the same either way, SPEC.md §11 invariant 2).
+
+The batched path (`run_batch`, `encode_gops*`; twin of
+`encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
+same loop over frames, every tensor with a G axis before its plane axes
+([G, H, W] planes, [G] qp and fullness), so that each kernel launches
+once for G frames. The I/P decision is the loop index; the host waits
+once per batch, and any frame's overflow reruns the whole batch. The
+packets are byte-identical to G single-GOP encodes.
 """
 
 from __future__ import annotations
@@ -56,8 +64,8 @@ def resolve_device(device) -> torch.device:
 
 def mb_rc_offsets(est: torch.Tensor) -> torch.Tensor:
     """rc=mb per-MB qp offsets (SPEC.md §10.4) from pass-1 per-MB bits
-    [nby, nbx]: the integer program of spec.mb_rc_offsets, in int64, with
-    floor division and the arithmetic >> 7 (floor by 128 for either
+    [..., nby, nbx]: the integer program of spec.mb_rc_offsets, in int64,
+    with floor division and the arithmetic >> 7 (floor by 128 for either
     sign). Returns int32 in [-2, 2]."""
     est = est.long()
     nbx = est.shape[-1]
@@ -74,10 +82,11 @@ def rc_carry_step(rc: str, target_bits: int, vbv_bits: int,
                   bits: torch.Tensor):
     """Frame-level rate-control carry (SPEC.md §10): the next frame's qp
     and vbv fullness from this frame's payload bits, on the device (0-dim
-    tensors, int32 qp and int64 fullness), so the GOP loop never waits on
-    the host. rc=bitrate and rc=mb share the proportional term; rc=vbv is
-    spec.vbv_next, adding the buffer-pressure term. All in int64: (bits -
-    target) * 4 passes int32 at high rates."""
+    tensors or, elementwise, [G] vectors; int32 qp and int64 fullness),
+    so the GOP loop never waits on the host. rc=bitrate and rc=mb share
+    the proportional term; rc=vbv is spec.vbv_next, adding the
+    buffer-pressure term. All in int64: (bits - target) * 4 passes int32
+    at high rates."""
     if rc not in ("bitrate", "mb", "vbv") or target_bits <= 0:
         return qp, fullness
     bits = bits.long()
@@ -96,19 +105,21 @@ def predict_p_traced(cur_y, ref_y, ref_cb, ref_cr, icost, search: str,
     half-pel refine of format 4), mode decision (sad <= intra cost), luma
     and chroma MC; intra MBs predict flat 128. Returns (dy, dx, is_inter,
     pred_y, pred_cb, pred_cr); for fmt >= 4 the vectors are in half-pels
-    (SPEC.md §14), the chroma vector dy >> 1 in chroma half-pels."""
+    (SPEC.md §14), the chroma vector dy >> 1 in chroma half-pels. Planes
+    [H, W] or, for G GOPs, [G, H, W]."""
     search_fn = {"full": dispatch.full_search,
                  "diamond": dispatch.diamond_search}[search]
     dy, dx, best_sad = search_fn(cur_y, ref_y)
     if fmt >= 4:
-        planes_y = motion.hpel_stack(ref_y)
-        dy, dx, best_sad = dispatch.hpel_refine(cur_y, ref_y, dy, dx, planes_y)
+        parity_y = (ref_y, *motion.hpel_planes(ref_y))
+        dy, dx, best_sad = dispatch.hpel_refine(cur_y, ref_y, dy, dx,
+                                                torch.stack(parity_y, -3))
     is_inter = best_sad <= icost
-    m_y = is_inter.repeat_interleave(tables.MB, 0).repeat_interleave(tables.MB, 1)
-    m_c = is_inter.repeat_interleave(tables.BLK, 0).repeat_interleave(tables.BLK, 1)
+    m_y = is_inter.repeat_interleave(tables.MB, -2).repeat_interleave(tables.MB, -1)
+    m_c = is_inter.repeat_interleave(tables.BLK, -2).repeat_interleave(tables.BLK, -1)
     cdy, cdx = dy >> 1, dx >> 1   # arithmetic shift, SPEC.md §2
     if fmt >= 4:
-        fetched = (dispatch.mc_fetch_luma_plane_hpel(ref_y, dy, dx, planes_y),
+        fetched = (dispatch.mc_fetch_luma_plane_hpel(ref_y, dy, dx, parity_y),
                    dispatch.mc_fetch_chroma_plane_hpel(ref_cb, cdy, cdx),
                    dispatch.mc_fetch_chroma_plane_hpel(ref_cr, cdy, cdx))
     else:
@@ -123,15 +134,17 @@ def predict_p_traced(cur_y, ref_y, ref_cb, ref_cr, icost, search: str,
 
 def predict_i_traced(cur_y, cur_cb, cur_cr):
     """I-frame 'prediction': flat 128 planes, zero vectors, all intra."""
-    nby, nbx = cur_y.shape[0] // tables.MB, cur_y.shape[1] // tables.MB
-    z = torch.zeros((nby, nbx), dtype=torch.int32, device=cur_y.device)
+    *lead, h, w = cur_y.shape
+    z = torch.zeros((*lead, h // tables.MB, w // tables.MB),
+                    dtype=torch.int32, device=cur_y.device)
     return (z, z.clone(), z.bool(), torch.full_like(cur_y, 128),
             torch.full_like(cur_cb, 128), torch.full_like(cur_cr, 128))
 
 
 def _sse(a, b):
+    """Sum of squared differences over the plane axes, int64 [...]."""
     d = (a - b).long()
-    return (d * d).sum()
+    return (d * d).sum((-2, -1))
 
 
 def _plane_qsteps(qp_mb, cqpo: int):
@@ -139,7 +152,7 @@ def _plane_qsteps(qp_mb, cqpo: int):
     luma on its [2 nby, 2 nbx] grid, chroma at clip(qp + cqpo) (SPEC.md
     §12.2; cqpo 0 is format 1's)."""
     qs = tx.qstep(qp_mb)
-    qy = qs.repeat_interleave(2, 0).repeat_interleave(2, 1).contiguous()
+    qy = qs.repeat_interleave(2, -2).repeat_interleave(2, -1).contiguous()
     qc = qs if cqpo == 0 else tx.qstep(
         (qp_mb + cqpo).clamp(tables.QP_MIN, tables.QP_MAX))
     return qy, qc.contiguous(), qc.contiguous()
@@ -179,43 +192,52 @@ def code_pack_traced(cur, pred, dy, dx, is_inter, is_p: bool,
     prediction. emit="frame" assembles the payload (words [cap_words]);
     emit="chunks" stops at span strings (words [C, cw], cbits [C]).
     Returns a dict of device tensors: words, (cbits,) bits, ovf, n_inter,
-    rec (three planes) and sse [3] int64."""
-    nby, nbx = dy.shape
+    rec (three planes) and sse [3] int64.
+
+    For G GOPs in lockstep every plane and MB array leads with G, qp is
+    [G], and so do the results (words [G, ...], bits, n_inter [G], sse
+    [G, 3]); ovf stays one flag, set by any frame of the batch."""
+    nby, nbx = dy.shape[-2:]
     cqpo = cqpo if fmt >= 2 else 0
+    qp_mbs = qp[..., None, None]          # [(G,) 1, 1] against MB grids
 
     def code(qps):
         if fmt >= 3 and not is_p:
             return _code_intra3(cur, qps, cqpo, qbias, qmat, islice)
         return _code_frame(cur, pred, qps, cqpo, qbias, qmat)
 
-    flat = qp.reshape(1, 1).expand(nby, nbx)
+    flat = qp_mbs.expand(*qp.shape, nby, nbx)
     if rc == "adaptive":
         qp_mb = motion.adaptive_qp(qp, icost)
     elif rc == "mb":
         levels, _ = code(flat)
-        est = entropy.frame_mb_bits(*levels, flat - qp, is_p, is_inter,
+        est = entropy.frame_mb_bits(*levels, flat - qp_mbs, is_p, is_inter,
                                     dy, dx, block_words, fmt)
-        qp_mb = (qp + mb_rc_offsets(est)).clamp(tables.QP_MIN, tables.QP_MAX)
+        qp_mb = (qp_mbs + mb_rc_offsets(est)).clamp(tables.QP_MIN,
+                                                    tables.QP_MAX)
     else:
         qp_mb = flat
     levels, rec = code(qp_mb)
-    args = (*levels, qp_mb - qp, is_p, is_inter, dy, dx, block_words)
+    args = (*levels, qp_mb - qp_mbs, is_p, is_inter, dy, dx, block_words)
     if emit == "chunks":
         words, cbits, _, ovf = entropy.pack_frame_chunks(*args, fmt=fmt)
-        out = dict(words=words, cbits=cbits, bits=cbits.sum(dtype=torch.int64))
+        out = dict(words=words, cbits=cbits,
+                   bits=cbits.sum(-1, dtype=torch.int64))
     else:
         words, bits, _, ovf = entropy.pack_frame_planes(*args, cap_words,
                                                         fmt=fmt)
         out = dict(words=words, bits=bits)
-    out.update(ovf=ovf, n_inter=is_inter.sum(), rec=rec,
-               sse=torch.stack([_sse(c, r) for c, r in zip(cur, rec)]))
+    out.update(ovf=ovf, n_inter=is_inter.sum((-2, -1)), rec=rec,
+               sse=torch.stack([_sse(c, r) for c, r in zip(cur, rec)], -1))
     return out
 
 
 class GopEngine:
     """Host driver of the GOP-resident path on one device.
 
-    encode_gop(frames, first_index) -> (packets, stats). `device` is
+    encode_gop(frames, first_index) -> (packets, stats);
+    encode_gops(gops, first_indices, base_qps) -> one such pair per GOP,
+    from one lockstep encode of G equal-length GOPs. `device` is
     explicit and defaults to "cuda"; nothing moves to the CPU on its own.
     `emit` is "frame" (the device assembles each payload) or "chunks"
     (span strings glued on the host); both give the same bytes. The
@@ -239,23 +261,22 @@ class GopEngine:
         self.emit = emit or self.emit
         self.device = resolve_device(device)
 
-    def run(self, y, cb, cr, base_qp: int, xl: bool = False):
-        """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
-        on the engine's device; launches only, no host wait. xl selects the
-        worst-case block and frame capacities. The frame qp and the vbv
-        fullness are device scalars carried from frame to frame. Returns stacked
-        per-frame device tensors: words, bits, ovf, n_inter, qp, sse, and
-        cbits [T, C] under chunk emit."""
-        cfg = self.cfg
-        n_mbs = (y.shape[1] // tables.MB) * (y.shape[2] // tables.MB)
+    def _capacities(self, n_mbs: int, base_qp: int, xl: bool):
+        """(block words, frame capacity words): budgeted for base_qp, or
+        with xl the exact worst case."""
         if xl:
-            bw, cap = entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
-        else:
-            bw, cap = block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
+            return entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
+        return block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
+
+    def _run(self, y, cb, cr, qp, bw: int, cap: int):
+        """The loop over a GOP's frames: y [T, H, W] with a 0-dim qp, or
+        for G GOPs in lockstep y [T, G, H, W] with qp [G]. Launches only,
+        no host wait; the frame qp and the vbv fullness are device
+        tensors carried from frame to frame."""
+        cfg = self.cfg
         target_bits, vbv_bits = cfg.target_bits_per_frame(), cfg.vbv_bits()
-        qp = torch.full((), base_qp, dtype=torch.int32, device=y.device)
-        fullness = torch.full((), spec.vbv_init(vbv_bits), dtype=torch.int64,
-                              device=y.device)
+        fullness = torch.full_like(qp, spec.vbv_init(vbv_bits),
+                                   dtype=torch.int64)
         ref = None
         outs = []
         for t in range(y.shape[0]):
@@ -287,50 +308,80 @@ class GopEngine:
             keys.append("cbits")
         return {k: torch.stack([o[k] for o in outs]) for k in keys}
 
+    def run(self, y, cb, cr, base_qp: int, xl: bool = False):
+        """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
+        on the engine's device; launches only, no host wait. xl selects the
+        worst-case block and frame capacities. Returns stacked per-frame
+        device tensors: words, bits, ovf, n_inter, qp, sse, and cbits
+        [T, C] under chunk emit."""
+        n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
+        qp = torch.full((), base_qp, dtype=torch.int32, device=y.device)
+        return self._run(y, cb, cr, qp, *self._capacities(n_mbs, base_qp, xl))
+
+    def run_batch(self, y, cb, cr, base_qps, xl: bool = False):
+        """Encode G GOPs of T frames in lockstep: [T, G, H, W] /
+        [T, G, H/2, W/2] uint8 planes on the engine's device (the frame
+        axis leads, so each step's [G, H, W] planes are contiguous), one
+        base qp per GOP. The block budget is that of the smallest qp of
+        the batch. Returns run()'s tensors with the axes [T, G, ...]; ovf
+        stays [T], a frame step's flag being any GOP's."""
+        n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
+        qp = torch.tensor([int(q) for q in base_qps], dtype=torch.int32).to(
+            y.device)
+        return self._run(y, cb, cr, qp, *self._capacities(
+            n_mbs, min(int(q) for q in base_qps), xl))
+
+    def _upload(self, planes, lead: tuple) -> torch.Tensor:
+        """uint8 device tensor [*lead, H, W] of equal-shaped planes given
+        in row-major order of `lead`; one pass over them on the host."""
+        out = np.empty((len(planes), *planes[0].shape), np.uint8)
+        for i, p in enumerate(planes):
+            out[i] = p
+        return torch.from_numpy(out.reshape(*lead, *planes[0].shape)).to(
+            self.device)
+
     def encode_gop_start(self, frames: list[Frame], first_index: int,
                          base_qp: int | None = None):
         """Upload a GOP and launch its encode without waiting for it."""
         base_qp = self.cfg.base_qp if base_qp is None else base_qp
         t0 = time.perf_counter()
-
-        def up(planes):
-            a = np.stack(planes).astype(np.uint8)
-            return torch.from_numpy(a).to(self.device)
-
-        y = up([f.y for f in frames])
-        cb = up([f.cb for f in frames])
-        cr = up([f.cr for f in frames])
+        lead = (len(frames),)
+        y = self._upload([f.y for f in frames], lead)
+        cb = self._upload([f.cb for f in frames], lead)
+        cr = self._upload([f.cr for f in frames], lead)
         outs = self.run(y, cb, cr, base_qp)
         return dict(frames=frames, first_index=first_index, base_qp=base_qp,
                     y=y, cb=cb, cr=cr, outs=outs, t0=t0)
 
-    def encode_gop_finish(self, handle) -> tuple[list[FramePacket],
-                                                 list[FrameStats]]:
-        frames = handle["frames"]
-        first_index = handle["first_index"]
-        outs = handle["outs"]
-        if bool(outs["ovf"].any()):   # the GOP's one wait on the device
-            outs = self.run(handle["y"], handle["cb"], handle["cr"],
-                            handle["base_qp"], xl=True)
+    def _download(self, outs):
+        """The host's copy of an encode's results, as numpy arrays with
+        the device tensors' leading axes ([T] or [T, G]): bits, n_inter,
+        qp, sse [..., 3], under chunk emit cbits [..., C], and words cut
+        to the longest payload (frame emit) or span string (chunk emit,
+        as the low 32 bits of each int64 word)."""
         chunked = "cbits" in outs
-        cols = [outs["bits"][:, None], outs["n_inter"][:, None],
-                outs["qp"][:, None], outs["sse"]]
+        cols = [outs["bits"][..., None], outs["n_inter"][..., None],
+                outs["qp"][..., None], outs["sse"]]
         if chunked:
             cols.append(outs["cbits"])
-        small = torch.cat(cols, 1).cpu().numpy()
-        bits, n_inter, qps, sse = small[:, 0], small[:, 1], small[:, 2], small[:, 3:6]
+        small = torch.cat(cols, -1).cpu().numpy()
+        host = dict(bits=small[..., 0], n_inter=small[..., 1],
+                    qp=small[..., 2], sse=small[..., 3:6], cbits=None)
         if chunked:
-            # only the words up to the GOP's longest span string, as the
-            # low 32 bits of each int64 word
-            cbits = small[:, 6:]
-            maxw = max(int(cbits.max() + 31) // 32, 1)
-            words = (outs["words"][:, :, :maxw].contiguous()
-                     .view(torch.int32)[..., ::2].cpu().numpy().view(np.uint32))
+            host["cbits"] = small[..., 6:]
+            maxw = max(int(host["cbits"].max() + 31) // 32, 1)
+            host["words"] = (
+                outs["words"][..., :maxw].contiguous().view(torch.int32)
+                [..., ::2].cpu().numpy().view(np.uint32))
         else:
-            maxw = int(bits.max() + 31) // 32
-            words = outs["words"][:, :maxw].cpu().numpy()
-        ms_total = (time.perf_counter() - handle["t0"]) * 1e3
+            maxw = int(host["bits"].max() + 31) // 32
+            host["words"] = outs["words"][..., :maxw].cpu().numpy()
+        return host
 
+    @staticmethod
+    def _gop_packets(frames, first_index: int, host, ms_per_frame: float):
+        """(packets, stats) of one GOP from its [T, ...] host arrays."""
+        bits, cbits, words = host["bits"], host["cbits"], host["words"]
         n_mbs = (frames[0].y.shape[0] // tables.MB) * (frames[0].y.shape[1] // tables.MB)
         npix_y, npix_c = frames[0].y.size, frames[0].cb.size
 
@@ -339,7 +390,7 @@ class GopEngine:
 
         packets, stats = [], []
         for t in range(len(frames)):
-            if chunked:
+            if cbits is not None:
                 payload, nbits = bit_concat(
                     [(words[t, c], int(b)) for c, b in enumerate(cbits[t]) if b])
                 if nbits != int(bits[t]):
@@ -350,23 +401,86 @@ class GopEngine:
                 nw = (int(bits[t]) + 31) // 32
                 payload = words[t, :nw].astype(">u4").tobytes()
             ftype = 0 if t == 0 else 1
-            qp = int(qps[t])
+            qp = int(host["qp"][t])
+            n_inter = int(host["n_inter"][t])
+            sse = host["sse"][t]
             packets.append(FramePacket(first_index + t, ftype, qp,
                                        int(bits[t]), payload))
             stats.append(FrameStats(
                 index=first_index + t, frame_type=ftype, base_qp=qp,
                 bits=int(bits[t]),
-                psnr_y=psnr(sse[t, 0], npix_y),
-                psnr_cb=psnr(sse[t, 1], npix_c),
-                psnr_cr=psnr(sse[t, 2], npix_c),
-                ms=ms_total / len(frames),
-                n_intra_mb=n_mbs - int(n_inter[t]) if ftype else n_mbs,
-                n_inter_mb=int(n_inter[t]) if ftype else 0,
+                psnr_y=psnr(sse[0], npix_y),
+                psnr_cb=psnr(sse[1], npix_c),
+                psnr_cr=psnr(sse[2], npix_c),
+                ms=ms_per_frame,
+                n_intra_mb=n_mbs - n_inter if ftype else n_mbs,
+                n_inter_mb=n_inter if ftype else 0,
             ))
         return packets, stats
+
+    def encode_gop_finish(self, handle) -> tuple[list[FramePacket],
+                                                 list[FrameStats]]:
+        frames = handle["frames"]
+        outs = handle["outs"]
+        if bool(outs["ovf"].any()):   # the GOP's one wait on the device
+            outs = self.run(handle["y"], handle["cb"], handle["cr"],
+                            handle["base_qp"], xl=True)
+        host = self._download(outs)
+        ms_total = (time.perf_counter() - handle["t0"]) * 1e3
+        return self._gop_packets(frames, handle["first_index"], host,
+                                 ms_total / len(frames))
 
     def encode_gop(self, frames: list[Frame], first_index: int,
                    base_qp: int | None = None):
         """Synchronous upload, encode and download of one GOP."""
         return self.encode_gop_finish(
             self.encode_gop_start(frames, first_index, base_qp))
+
+    # ---- batched-GOP path: G equal-length GOPs in one lockstep encode ----
+
+    def encode_gops_start(self, gops: list[list[Frame]],
+                          first_indices: list[int],
+                          base_qps: list[int] | None = None):
+        """Upload G equal-length GOPs and launch one lockstep encode of
+        them (run_batch) without waiting for it. The packets are
+        byte-identical to per-GOP encodes."""
+        n = len(gops[0])
+        if any(len(g) != n for g in gops):
+            raise ValueError("batched GOPs must be of equal length")
+        if base_qps is None:
+            base_qps = [self.cfg.base_qp] * len(gops)
+        t0 = time.perf_counter()
+
+        def up(plane):   # [T, G, H, W]: the frame axis leads
+            return self._upload([getattr(g[t], plane) for t in range(n)
+                                 for g in gops], (n, len(gops)))
+
+        y, cb, cr = up("y"), up("cb"), up("cr")
+        outs = self.run_batch(y, cb, cr, base_qps)
+        return dict(gops=gops, first_indices=first_indices, base_qps=base_qps,
+                    y=y, cb=cb, cr=cr, outs=outs, t0=t0)
+
+    def encode_gops_finish(self, handle) -> list[tuple[list[FramePacket],
+                                                       list[FrameStats]]]:
+        """Per-GOP (packets, stats), in the order given to
+        encode_gops_start."""
+        gops = handle["gops"]
+        outs = handle["outs"]
+        if bool(outs["ovf"].any()):   # the batch's one wait on the device
+            outs = self.run_batch(handle["y"], handle["cb"], handle["cr"],
+                                  handle["base_qps"], xl=True)
+        host = self._download(outs)
+        ms_total = (time.perf_counter() - handle["t0"]) * 1e3
+        ms = ms_total / sum(len(g) for g in gops)
+        return [
+            self._gop_packets(
+                frames, first_index,
+                {k: v if v is None else v[:, gi] for k, v in host.items()}, ms)
+            for gi, (frames, first_index)
+            in enumerate(zip(gops, handle["first_indices"]))]
+
+    def encode_gops(self, gops: list[list[Frame]], first_indices: list[int],
+                    base_qps: list[int] | None = None):
+        """Synchronous batched encode of G equal-length GOPs."""
+        return self.encode_gops_finish(
+            self.encode_gops_start(gops, first_indices, base_qps))
