@@ -21,7 +21,15 @@ Phases, each of which raises on failure (exit code not 0):
    on the same shapes ([4, 1088, 1920], [4, 544, 960], K = 4 and K = 9 on
    four planes, the [4, 8, 1920] and [4, 8, 960] stripes): each equal to
    its plain batched version and to G launches of the single-plane
-   kernel, whose time stands beside its own.
+   kernel, whose time stands beside its own. Then the pre-haloed kernels
+   of the tile-sharded encode (full search, MC fetch luma and chroma, and
+   sad_at_mv on four halo-extended parity planes): a 1088x1920 frame's
+   four row shards (cur [4, 272, 1920] against ref_ext [4, 304, 1920];
+   chroma [4, 136, 960] from [4, 152, 960]) and its 2 x 2 tiles
+   ([4, 544, 960] against [4, 576, 992]) as one batch, each equal to its
+   plain version and, the shards' results put together, to the unsharded
+   kernel on the whole frame; the odd 368x640 grid as one unbatched shard
+   in both geometries.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
    1; on a smoother texture, diamond search, rc mb and --kbps 12000
@@ -49,7 +57,13 @@ Phases, each of which raises on failure (exit code not 0):
    per plane and frame step, not G times. Then two-pass: 640x360,
    `--two-pass --kbps 3000`, equal to the port's own `--device cpu`
    stream, decoded by the oracle above the PSNR floor, its per-GOP qps
-   printed.
+   printed. Then the tile-sharded paths, every shard on the one card:
+   `--tile 4` on the full-search clip, `--gop 10 --gop-batch 3 --tile 2`,
+   and the format-4 clip with `--intra-slice 17 --tile 2` (whose unsharded
+   stream at `--intra-slice 17` is held against one more oracle encode),
+   each equal to the port's unsharded stream. The pre-haloed kernels must
+   have launched once per P step and plane, and no unsharded search or
+   fetch at all.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
@@ -58,7 +72,9 @@ Phases, each of which raises on failure (exit code not 0):
    own, and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
    GOPs in lockstep (G = 1 is the single-GOP path), in turns within this
    one run: device-resident fps, device ops per frame and busy share
-   (the G = 1 trace is the one taken of that GOP just before).
+   (the G = 1 trace is the one taken of that GOP just before). Then the
+   full-search cell with every frame in S = 1, 2 and 4 row shards, in
+   turns, all under the tile path's emit.
 
 The last two lines of standard output are the kernel table and
 {"ok": true, "device": {...}}. Builds go to build/ (gitignored).
@@ -687,6 +703,158 @@ def phase_kernels(dev, card: str):
                    "video_encoder_tpu/ops/pallas/codec.py:230", shape_name,
                    dispatch.code_plane, (t32(tex), t32(pred), q_flat, 8, qmat),
                    g4 * ph * pw * (4 * 16 + 10), main=main)
+
+    # ---- the pre-haloed kernels of the tile-sharded encode: one frame's
+    # four row shards (and its 2 x 2 tiles) as one batch, each kernel equal
+    # to its plain version AND, the shards' results put together, to the
+    # unsharded kernel on the whole frame; then an odd 23-row grid as one
+    # unbatched shard with a row halo, and with both halos
+    from video_encoder_tpu_torch.parallel import tiles
+
+    def rows_of(p):            # [.., H, W] -> [4, .., H / 4, W], row shards
+        return torch.stack(p.chunk(4, -2)).contiguous()
+
+    def unrows(t):
+        return torch.cat(list(t), -2)
+
+    def grid_of(p):            # [.., H, W] -> [4, .., H / 2, W / 2], row-major
+        return torch.stack([q for half in p.chunk(2, -2)
+                            for q in half.chunk(2, -1)]).contiguous()
+
+    def ungrid(t):
+        return torch.cat([torch.cat([t[0], t[1]], -1),
+                          torch.cat([t[2], t[3]], -1)], -2)
+
+    def ext_rows(p, halo):     # [H, W] -> [4, H / 4 + 2 halo, W]
+        return tiles.exchange_halo(rows_of(p), halo).contiguous()
+
+    def ext_grid(p, halo):     # [H, W] -> [4, H / 2 + 2 halo, W / 2 + 2 halo]
+        return tiles.exchange_halo_2d(grid_of(p).unflatten(0, (2, 2)), halo
+                                      ).flatten(0, 1).contiguous()
+
+    geometries = (("rows", rows_of, unrows, ext_rows),
+                  ("grid", grid_of, ungrid, ext_grid))
+
+    def shape_of(*ts):
+        return " / ".join(str(list(t.shape)) for t in ts)
+
+    def held_haloed(name, src, replaces, geo, fn, args, whole, join, ops,
+                    library=None):
+        """One pre-haloed kernel at one geometry: equal to plain and, put
+        together, to the unsharded kernel's result on the whole frame."""
+        got, want = both(fn, *args)
+        err = max_abs_err(tensors(got), tensors(want))
+        max_abs_err([join(g) for g in tensors(got)], tensors(whole))
+        timing = (*timed(fn, *args), bound(tensors(args), tensors(got), ops),
+                  None if library is None else time_ms(library))
+        shape = f"{geo} {shape_of(*tensors(args)[:2])}"
+        if geo == "rows":
+            record(name, src, replaces, err, timing, shards=4)
+        else:
+            record(name, src, replaces, err, also=(shape, timing))
+        log(f"kernel {name} {shape}: equal to plain and to the unsharded "
+            f"kernel on the whole frame" + shown(timing))
+        return got
+
+    def take_indices(ref_ext, dy, dx, bs):
+        """Flat indices of the pre-haloed fetch, for one torch.take."""
+        b, rh, rw = ref_ext.shape
+        ph, pw = dy.shape[-2] * bs, dx.shape[-1] * bs
+        oy, ox = (rh - ph) // 2, (rw - pw) // 2
+        px = [a.repeat_interleave(bs, -2).repeat_interleave(bs, -1)
+              for a in (dy, dx)]
+        sy = (torch.arange(ph, device=dev)[:, None] + px[0] + oy).clamp(0, rh - 1)
+        sx = (torch.arange(pw, device=dev)[None, :] + px[1] + ox).clamp(0, rw - 1)
+        return ((torch.arange(b, device=dev)[:, None, None] * rh + sy) * rw + sx)
+
+    cur1, ref1 = cur_t[1], ref_t[1]   # the plane with the all-tied region
+    whole = dispatch.full_search(cur1, ref1)
+    for geo, split, join, ext in geometries:
+        got = held_haloed(
+            "full_search_haloed", "full_search.cu",
+            "video_encoder_tpu/ops/pallas/sad.py:536", geo,
+            dispatch.full_search_pre_haloed, (split(cur1), ext(ref1, 16)),
+            whole, join, n_mbs * 1089 * 256 * 2)
+    if (int(whole[0][0, 0]), int(whole[1][0, 0])) != (-16, -16):
+        raise AssertionError("full_search_haloed: the tied MB should take "
+                             "the first candidate")
+
+    for name, (ph, pw), bs, fn in (
+            ("mc_fetch_haloed_luma", (h, w), 16, dispatch.mc_fetch_luma_plane),
+            ("mc_fetch_haloed_chroma", (ch, cw), 8, dispatch.mc_fetch_chroma_plane)):
+        plane = t32(rng.integers(0, 256, (ph, pw)))
+        dy = rng.integers(-bs, bs + 1, (ph // bs, pw // bs))
+        dx = rng.integers(-bs, bs + 1, (ph // bs, pw // bs))
+        for yy, xx, sy, sx in ((0, 0, -1, -1), (0, -1, -1, 1),
+                               (-1, 0, 1, -1), (-1, -1, 1, 1)):
+            dy[yy, xx], dx[yy, xx] = sy * bs, sx * bs
+        dy, dx = t32(dy), t32(dx)
+        whole = fn(plane, dy, dx)
+        for geo, split, join, ext in geometries:
+            args = (ext(plane, bs), split(dy), split(dx), bs, bs)
+            flat = take_indices(*args[:3], bs)
+            got = held_haloed(
+                name, "mc_fetch.cu", "video_encoder_tpu/ops/pallas/sad.py:1038",
+                geo, dispatch.mc_fetch_pre_haloed, args, whole, join, 0,
+                library=lambda: torch.take(args[0], flat))
+            max_abs_err([torch.take(args[0], flat)], [got])
+
+    # format 4 on tiles: the refine's nine candidates on four halo-extended
+    # parity planes (parity first, then the halo), one launch; then the
+    # whole refine on the shards against the whole frame's
+    planes4 = motion.hpel_stack(ref1)                      # [4, H, W]
+    dy0, dx0, _ = dispatch.full_search(cur1, ref1)
+    iy9 = torch.stack([((2 * dy0 + u) >> 1).clamp(-16, 16) for u, _ in uv])
+    ix9 = torch.stack([((2 * dx0 + v) >> 1).clamp(-16, 16) for _, v in uv])
+    whole = dispatch.sad_at_mv(cur1, planes4, iy9, ix9, plane_of)
+    whole_refine = dispatch.hpel_refine(cur1, ref1, dy0, dx0, planes4)
+    for geo, split, join, ext in geometries:
+        planes_ext = torch.stack([ext(q, 16) for q in planes4], 1).contiguous()
+        if geo == "rows":      # the exchange of the encode gives the same planes
+            sh = rows_of(ref1)
+            for mode_ in ("halo", "allgather"):
+                max_abs_err(
+                    [torch.stack((tiles.exchange_halo(sh, 16),
+                                  *tiles._parity_ext(sh, 16, mode_)), 1)],
+                    [planes_ext])
+        args = (split(cur1), planes_ext, split(iy9), split(ix9), plane_of)
+        held_haloed(
+            "sad_at_mv_haloed", "sad_at.cu",
+            "video_encoder_tpu/parallel/tiles.py:179", geo,
+            dispatch.sad_at_mv_pre_haloed, args, whole, join,
+            iy9.numel() * 256 * 2)
+        got = dispatch.hpel_refine(split(cur1), None, split(dy0), split(dx0),
+                                   planes_ext,
+                                   sad_fn=dispatch.sad_at_mv_pre_haloed)
+        max_abs_err([join(g) for g in got], whole_refine)
+        log(f"kernel sad_at_mv_haloed in hpel_refine {geo}: the shards' "
+            f"vectors equal the whole frame's")
+
+    # the odd grid (368 x 640, 23 MB rows) as one unbatched shard
+    oh, ow = luma[1]
+    tex = texture(rng, oh, ow)
+    cur_o = t32(tex[64:64 + oh, 64:64 + ow])
+    ref_o = t32(np.clip(tex[59:59 + oh, 71:71 + ow]
+                        + rng.integers(-3, 4, (oh, ow)), 0, 255))
+    whole = dispatch.full_search(cur_o, ref_o)
+    fetched = dispatch.mc_fetch_luma_plane(ref_o, whole[0], whole[1])
+    for geo, ref_ext in (
+            ("rows", tiles.exchange_halo(ref_o[None], 16)[0].contiguous()),
+            ("grid", tiles.exchange_halo_2d(ref_o[None, None], 16)[0, 0].contiguous())):
+        got, want = both(dispatch.full_search_pre_haloed, cur_o, ref_ext)
+        err = max_abs_err(got, want)
+        max_abs_err(got, whole)
+        record("full_search_haloed", "full_search.cu",
+               "video_encoder_tpu/ops/pallas/sad.py:536", err)
+        got, want = both(dispatch.mc_fetch_pre_haloed, ref_ext, whole[0],
+                         whole[1], 16, 16)
+        err = max_abs_err([got], [want])
+        max_abs_err([got], [fetched])
+        record("mc_fetch_haloed_luma", "mc_fetch.cu",
+               "video_encoder_tpu/ops/pallas/sad.py:1038", err)
+        log(f"kernels full_search_haloed, mc_fetch_haloed_luma {geo} "
+            f"{shape_of(cur_o, ref_ext)} (one shard, no batch): equal to "
+            f"plain and to the unsharded kernels")
     return rows
 
 
@@ -763,6 +931,9 @@ CONFIG3 = mode("config3", search="diamond", rc="mb", kbps=12000, passes=4)
 # quant-matrix paths are band-limited (scale): on the noise-like texture
 # of the paths above it costs 5 dB and the stream decodes below the floor
 V4 = mode("v4", fmt=4, qmat=True, cqpo=2, clip="halfpel", scale=16)
+# the format-4 path once more with intra slices of 17 MB rows: two row
+# shards of 34 MB rows each restart the I frame's row scan where a slice does
+V4_ISLICE = dict(V4, tag="v4i17", islice=17)
 V2_SMALL = mode("v2", fmt=2, cqpo=4, search="diamond", rc="vbv", kbps=1500,
                 passes=4, scale=4)
 V3_SMALL = mode("v3", fmt=3, qmat=True, islice=2, rc="adaptive", scale=16)
@@ -1011,7 +1182,7 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     emit = GopEngine.emit
-    paths = []
+    paths, plains = [], {}
 
     def batched(job, g, tail=False):
         steps = job["gop"]
@@ -1038,6 +1209,7 @@ def phase_batched(tmp, jobs, batched_oracle, card):
             "gop30", "gop10"))
         _, plain_summary, plain = run_cli(
             job, os.path.join(tmp, f"plain_{job['tag']}.tvc"))
+        plains[name] = (job, plain)
         launches, summary, stream, _ = batched(job, 3)
         same_stream(job["tag"] + " batched", stream, plain,
                     "the port's unbatched stream")
@@ -1078,6 +1250,69 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     log(f"batched {job['tag']} --gop-batch 2 (two GOPs in lockstep, then a "
         f"short GOP of 6): == the unbatched stream ({len(stream)} bytes), "
         f"launches {launches}")
+    return paths, plains
+
+
+SEARCH_AND_FETCH = ("full_search", "sad_map_even", "sad_at_mv", "mc_fetch_luma",
+                    "mc_fetch_chroma")
+
+
+def check_tiled_launches(what, launches, m, emit, p_steps):
+    """A tile-sharded run's counters (no tail): the pre-haloed search once
+    per P step, the pre-haloed fetches once per plane (four times under
+    format 4, once per parity plane), the refine once per P step under
+    format 4; no unsharded search, SAD or fetch, single-plane or batched;
+    the shards' planes coded by the batched code_plane."""
+    planes = 4 if m["fmt"] >= 4 else 1
+    want = dict(full_search_haloed=p_steps,
+                mc_fetch_haloed_luma=planes * p_steps,
+                mc_fetch_haloed_chroma=2 * planes * p_steps,
+                sad_at_mv_haloed=p_steps if m["fmt"] >= 4 else 0)
+    got = {k: launches[k] for k in want}
+    unsharded = [k for base in SEARCH_AND_FETCH for k in (base, base + "_g")
+                 if launches[k]]
+    if got != want or unsharded:
+        raise AssertionError(f"{what}: pre-haloed launches {got}, want {want}; "
+                             f"unsharded kernels that ran: {unsharded}")
+    ks = ["code_plane_qmat_g" if m["qmat"] else "code_plane_g",
+          "block_pack_v2" if m["fmt"] >= 2 else "block_pack"]
+    check_launches(what, launches, ks + (
+        ["span_merge_mb", "span_merge"] if emit == "chunks" else []))
+
+
+def phase_tiled(tmp, jobs, streams, plains, card):
+    """The tile-sharded paths through the port CLI at 1920x1080, every
+    shard on the one card: `--tile 4` (GOP 30, full search), `--gop 10
+    --gop-batch 3 --tile 2` and the format-4 clip with `--intra-slice 17
+    --tile 2`, each equal to the port's unsharded stream of the same
+    configuration, with a PSNR from the shards' summed sse above the
+    floor. Returns the launch counts of each path."""
+    from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
+
+    paths = []
+    for job, extra, plain, p_steps, held in (
+            (jobs["full"], ["--tile", "4"], streams["full"], 29,
+             "held against the oracle's"),
+            (plains["full"][0], ["--gop-batch", "3", "--tile", "2"],
+             plains["full"][1], 9, "of --gop 10"),
+            (jobs["v4i17"], ["--tile", "2"], streams["v4i17"], 29,
+             "held against the oracle's")):
+        flags = " ".join(extra)
+        out = os.path.join(tmp, f"tiled_{job['tag']}_{len(paths)}.tvc")
+        launches, summary, stream = run_cli(job, out, extra)
+        same_stream(f"{job['tag']} {flags}", stream, plain,
+                    "the port's unsharded stream")
+        check_tiled_launches(f"{job['tag']} {flags}", launches, job["mode"],
+                             ShardedGopEncoder.emit, p_steps)
+        psnr = summary["mean_psnr_y"]
+        if not (np.isfinite(psnr) and psnr > PSNR_FLOOR):
+            raise AssertionError(f"{job['tag']} {flags}: mean PSNR-Y {psnr}")
+        paths.append(launches)
+        log(f"tiled {job['tag']} {flags}: == the port's unsharded stream "
+            f"({len(stream)} bytes, {held}), CLI wall {summary['wall_fps']} fps, "
+            f"mean PSNR-Y {summary['mean_psnr_y']} dB [{card}], launches "
+            f"{launches}")
+
     return paths
 
 
@@ -1179,6 +1414,66 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
                 f"device busy {busy if busy is None else round(100 * busy, 1)}"
                 f" % [{card}]")
             log(f"  device ms per batch by name (launches, ms): {top[:6]}")
+    return results
+
+
+def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
+    """Device-resident 1080p GOP-30 fps of one cell with every frame in S
+    row shards on the one card, for S in shards, in turns (1, 2, 4, 4, 2,
+    1), each with its device ops per frame and busy share from one traced
+    GOP. Every S packs under the tile path's emit, so only the sharding
+    differs: S = 1 is the single-device engine's lockstep run of a batch
+    of one GOP, S > 1 the sharded encoder's of its S planes per step."""
+    from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
+    from video_encoder_tpu_torch.parallel.mesh import make_codec_mesh
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    ys, cbs, crs = clip
+    h, w = ys[0].shape
+    n = len(ys)
+    cfg = config_of(m, w, h, n)
+    emit = ShardedGopEncoder.emit
+    y, cb, cr = up(ys, 16), up(cbs, 8), up(crs, 8)
+    batch1 = (y[:, None], cb[:, None], cr[:, None])        # [T, 1, H, W]
+    launchers = {}
+    for s in shards:
+        if s == 1:
+            eng = GopEngine(cfg, device=DEVICE, emit=emit)
+            launchers[s] = lambda xl=False, eng=eng: eng.run_batch(
+                *batch1, [28], xl=xl)
+        else:
+            senc = ShardedGopEncoder(cfg, make_codec_mesh(1, s, DEVICE))
+            launchers[s] = lambda xl=False, senc=senc: senc.run(
+                *batch1, 28, xl=xl)
+    # the encoders rerun a GOP that overflows its budgets
+    reruns = {s: bool(launchers[s]()["ovf"].any()) for s in shards}
+
+    def gop(s):
+        launchers[s]()
+        if reruns[s]:
+            launchers[s](xl=True)
+
+    times = {s: 0.0 for s in shards}
+    for s in (*shards, *shards[::-1]):
+        gop(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gop(s)
+        torch.cuda.synchronize()
+        times[s] += time.perf_counter() - t0
+    results = {}
+    for s in shards:
+        fps = 2 * n / times[s]
+        ops, busy, top = device_ops(lambda: gop(s), n)
+        results[f"{m['tag']}/S{s}"] = dict(resident=fps, ops_per_frame=ops,
+                                           busy=busy)
+        log(f"speed: tiled {w}x{h} GOP {n} {m['tag']} S={s} emit {emit}: "
+            f"{fps:.3f} fps device-resident ({1e3 / fps:.3f} ms/frame, 2 GOPs, "
+            f"rerun {reruns[s]}); one GOP traced: "
+            f"{ops if ops is None else round(ops, 1)} device ops/frame, "
+            f"device busy {busy if busy is None else round(100 * busy, 1)}"
+            f" % [{card}]")
+        log(f"  device ms per GOP by name (launches, ms): {top[:6]}")
     return results
 
 
@@ -1343,6 +1638,9 @@ def main() -> int:
         # the batched path's referee: config 3 again at GOP 10
         batched_oracle = start_job(tmp, CONFIG3, 1920, 1080, 30, 10,
                                    like=jobs["config3"])
+        # the tile path's referee under format 4: intra slices of 17 MB rows
+        jobs["v4i17"] = start_job(tmp, V4_ISLICE, 1920, 1080, 30, 30,
+                                  like=jobs["v4"])
         wait_oracles([*jobs.values(), batched_oracle])
         log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s")
         summaries, streams = {}, {}
@@ -1353,7 +1651,10 @@ def main() -> int:
             path_launches.append(
                 phase_other_emit(jobs[name], streams[name], card))
         log(f"single-GOP paths done at {time.perf_counter() - t_start:.1f} s")
-        path_launches += phase_batched(tmp, jobs, batched_oracle, card)
+        batched_paths, plains = phase_batched(tmp, jobs, batched_oracle, card)
+        path_launches += batched_paths
+        path_launches += phase_tiled(tmp, jobs, streams, plains, card)
+        log(f"tiled paths done at {time.perf_counter() - t_start:.1f} s")
         twopass_job = dict(jobs["v2"], gop=4, mode=TWOPASS_SMALL,
                            tag="640x360_gop4_twopass")
         path_launches.append(phase_twopass(tmp, twopass_job, card))
@@ -1374,6 +1675,9 @@ def main() -> int:
     lockstep = phase_speed_batched(
         [(m, jobs[k]["clip"]) for m, k in ((FULL, "full"), (CONFIG3, "config3"),
                                            (V4, "v4"))], traces, card)
+    log(f"lockstep speed done at {time.perf_counter() - t_start:.1f} s")
+    tiled = phase_speed_tiled(FULL, jobs["full"]["clip"], card)
+    log(f"result: 1080p GOP-30 tiled {json.dumps(tiled)} [{card}]")
     log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "
         + ", ".join(f"{k} {summaries[k]['wall_fps']} fps"

@@ -65,7 +65,7 @@ def test_decode_info_psnr_roundtrip(clip_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--two-pass"], ["--tile=2"], ["--search", "hier"],
+    ["--two-pass"], ["--tile=2", "--search", "diamond"], ["--search", "hier"],
     ["--format", "5"], ["--multiprocess", "2"], ["--devices", "2"],
     ["--engine", "golden"], ["--gop-batch=0"], ["--no-such-flag"],
 ])
@@ -83,7 +83,7 @@ def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
 
 def test_not_ported_flags_are_the_remaining_ones():
     assert set(cli.NOT_PORTED) == {
-        "--engine", "--devices", "--tile", "--multiprocess", "--failover",
+        "--engine", "--devices", "--multiprocess", "--failover",
         "--checkpoint", "--trace", "--stage-timers"}
 
 

@@ -506,3 +506,203 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     want = GopEngine(cfg, device="cpu", emit=emit).encode_gops(gops, firsts, qps)
     for (gp, _), (wp, _) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
+
+
+# ---- the pre-haloed kernels of the tile-sharded encode ---------------------
+
+from video_encoder_tpu_torch.ops import motion  # noqa: E402
+from video_encoder_tpu_torch.parallel import tiles  # noqa: E402
+from video_encoder_tpu_torch.parallel.gop_parallel import (  # noqa: E402
+    ShardedGopEncoder)
+from video_encoder_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_codec_mesh, make_tile_mesh_2d)
+
+
+def _split(p, sr, sc):
+    """[.., H, W] -> [Sr * Sc, .., H / Sr, W / Sc], row-major tiles."""
+    return torch.stack([q for band in p.chunk(sr, -2)
+                        for q in band.chunk(sc, -1)]).contiguous()
+
+
+def _join(t, sr, sc):
+    return torch.cat([torch.cat(list(t[r * sc:(r + 1) * sc]), -1)
+                      for r in range(sr)], -2)
+
+
+def _ext(p, sr, sc, halo):
+    """The tiles' pre-haloed references: a row halo alone when the frame is
+    not split by columns, else both halos."""
+    t = _split(p, sr, sc)
+    if sc == 1:
+        return tiles.exchange_halo(t, halo).contiguous()
+    return tiles.exchange_halo_2d(t.unflatten(0, (sr, sc)), halo
+                                  ).flatten(0, 1).contiguous()
+
+
+_HALOED_SHAPES = [(4, 1, 1088, 1920), (2, 2, 1088, 1920), (2, 1, 1088, 1920),
+                  (1, 1, 368, 640), (1, 3, 368, 624), (2, 1, 64, 80)]
+
+
+@pytest.mark.parametrize("sr,sc,h,w", _HALOED_SHAPES)
+def test_full_search_haloed_kernel(cuda, plain_and_kernel, rng, sr, sc, h, w):
+    """The shards' search equals its plain version and, put together, the
+    unsharded kernel's on the whole frame; a single shard also without the
+    batch axis."""
+    cur = rng.integers(0, 256, (h, w))
+    ref = np.roll(cur, (5, -9), (0, 1)) + rng.integers(-2, 3, (h, w))
+    cur[:32, :32] = 9
+    ref[:48, :48] = 9
+    cur, ref = _t(cur, cuda), _t(np.clip(ref, 0, 255), cuda)
+    args = (_split(cur, sr, sc), _ext(ref, sr, sc, 16))
+    got, want = plain_and_kernel(dispatch.full_search_pre_haloed, *args)
+    assert _same(got, want)
+    whole = dispatch.full_search(cur, ref)
+    assert _same(tuple(_join(g, sr, sc) for g in got), whole)
+    one = dispatch.full_search_pre_haloed(args[0][0], args[1][0])
+    assert _same(one, tuple(g[0] for g in got))
+    assert build.LAUNCHES["full_search_haloed"] > 0
+
+
+@pytest.mark.parametrize("bs", [16, 8])
+@pytest.mark.parametrize("sr,sc,h,w", _HALOED_SHAPES)
+def test_mc_fetch_haloed_kernel(cuda, plain_and_kernel, rng, sr, sc, h, w, bs):
+    if bs == 8:
+        h, w = h // 2, w // 2
+    ref = _t(rng.integers(0, 256, (h, w)), cuda)
+    dy = rng.integers(-bs, bs + 1, (h // bs, w // bs))
+    dx = rng.integers(-bs, bs + 1, (h // bs, w // bs))
+    dy[0, 0], dx[0, 0], dy[-1, -1], dx[-1, -1] = -bs, -bs, bs, bs
+    dy[0, -1], dx[0, -1], dy[-1, 0], dx[-1, 0] = -bs, bs, bs, -bs
+    dy, dx = _t(dy, cuda), _t(dx, cuda)
+    args = (_ext(ref, sr, sc, bs), _split(dy, sr, sc), _split(dx, sr, sc), bs, bs)
+    got, want = plain_and_kernel(dispatch.mc_fetch_pre_haloed, *args)
+    assert torch.equal(got, want)
+    fn = dispatch.mc_fetch_luma_plane if bs == 16 else dispatch.mc_fetch_chroma_plane
+    assert torch.equal(_join(got, sr, sc), fn(ref, dy, dx))
+    one = dispatch.mc_fetch_pre_haloed(args[0][0], args[1][0], args[2][0], bs, bs)
+    assert torch.equal(one, got[0])
+    assert build.LAUNCHES["mc_fetch_haloed_" + ("luma" if bs == 16 else "chroma")] > 0
+
+
+@pytest.mark.parametrize("sr,sc,h,w", _HALOED_SHAPES)
+def test_sad_at_mv_haloed_kernel(cuda, plain_and_kernel, rng, sr, sc, h, w):
+    """Nine candidates on four halo-extended parity planes (parity first,
+    then the halo): the plain version's SADs and the unsharded kernel's on
+    the whole frame; then the whole refine on the shards."""
+    plane_of = [3, 2, 3, 1, 0, 1, 3, 2, 3]
+    cur = _t(rng.integers(0, 256, (h, w)), cuda)
+    ref = _t(rng.integers(0, 256, (h, w)), cuda)
+    planes = motion.hpel_stack(ref)                        # [4, H, W]
+    dy = rng.integers(-16, 17, (9, h // 16, w // 16))
+    dx = rng.integers(-16, 17, (9, h // 16, w // 16))
+    dy[:, 0, 0], dx[:, 0, 0], dy[:, -1, -1], dx[:, -1, -1] = -16, -16, 16, 16
+    dy, dx = _t(dy, cuda), _t(dx, cuda)
+    planes_ext = torch.stack([_ext(q, sr, sc, 16) for q in planes], 1).contiguous()
+    if sc == 1:       # the encode's own exchange gives these planes
+        sh = _split(ref, sr, 1)
+        for ref_mode in ("halo", "allgather"):
+            assert torch.equal(planes_ext, torch.stack(
+                (tiles.exchange_halo(sh, 16),
+                 *tiles._parity_ext(sh, 16, ref_mode)), 1))
+    args = (_split(cur, sr, sc), planes_ext, _split(dy, sr, sc),
+            _split(dx, sr, sc), plane_of)
+    got, want = plain_and_kernel(dispatch.sad_at_mv_pre_haloed, *args)
+    assert torch.equal(got, want)
+    assert torch.equal(_join(got, sr, sc),
+                       dispatch.sad_at_mv(cur, planes, dy, dx, plane_of))
+    one = dispatch.sad_at_mv_pre_haloed(args[0][0], planes_ext[0, 0],
+                                        args[2][0, 4], args[3][0, 4])
+    assert torch.equal(one, got[0, 4])                     # one plane, no K
+    mv = dispatch.full_search(cur, ref)
+    refined = dispatch.hpel_refine(
+        args[0], None, _split(mv[0], sr, sc), _split(mv[1], sr, sc), planes_ext,
+        sad_fn=dispatch.sad_at_mv_pre_haloed)
+    assert _same(tuple(_join(g, sr, sc) for g in refined),
+                 dispatch.hpel_refine(cur, ref, mv[0], mv[1], planes))
+
+
+def _pan_frames(rng, n, h=128, w=96):
+    """2x2 means at an odd offset: true half-pel motion, textured chroma."""
+    big = rng.integers(0, 256, (2 * h + 64, 2 * w + 64)).astype(np.int64)
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1) + np.roll(big, (1, 1), (0, 1))) // 4
+    frames = []
+    for i in range(n):
+        o = big[3 * i:3 * i + 2 * h, 5 * i:5 * i + 2 * w]
+        y = (o[0::2, 0::2] + o[0::2, 1::2] + o[1::2, 0::2] + o[1::2, 1::2] + 2) // 4
+        c = y.reshape(h // 2, 2, w // 2, 2).sum((1, 3)) // 4
+        frames.append(Frame.from_planes(y.astype(np.uint8), c.astype(np.uint8),
+                                        (255 - c).astype(np.uint8)))
+    return frames
+
+
+@pytest.mark.parametrize("g,s", [(1, 4), (3, 2)])
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(rc="mb", target_kbps=300),
+    dict(format_version=2, chroma_qp_offset=4, rc="vbv", target_kbps=300),
+    dict(format_version=3, quant_matrix=True, intra_slice_mbrows=2,
+         rc="adaptive"),
+    dict(format_version=4, quant_matrix=True, chroma_qp_offset=2,
+         intra_slice_mbrows=1),
+    dict(base_qp=28),                                   # overflow rerun
+], ids=lambda kw: "-".join(f"{k[:6]}{v}" for k, v in kw.items()) or "default")
+def test_sharded_encoder_on_card_matches_cpu(cuda, rng, kw, g, s):
+    """G GOPs of S row shards each on the card: the CPU's unsharded
+    packets and stats, through the pre-haloed kernels only."""
+    t = 3
+    frames = _pan_frames(rng, g * t)
+    if kw == dict(base_qp=28):    # black-and-white luma overflows 16-word blocks
+        frames = [Frame.from_planes(
+            (rng.integers(0, 2, f.y.shape) * 255).astype(np.uint8), f.cb, f.cr)
+            for f in frames]
+    gops = [frames[i * t:(i + 1) * t] for i in range(g)]
+    firsts = [i * t for i in range(g)]
+    cfg = EncoderConfig(**{**dict(width=96, height=128, gop_n=t, base_qp=24), **kw})
+    senc = ShardedGopEncoder(cfg, make_codec_mesh(g, s, cuda))
+    runs, run = [], senc.run
+    senc.run = lambda *a, xl=False: runs.append(xl) or run(*a, xl=xl)
+    build.reset_launches()
+    got = senc.encode_gop_batch(gops, firsts)
+    n = build.LAUNCHES
+    reruns = len(runs)          # 2 where a shard overflowed its budget
+    assert runs == [False, True][:reruns]
+    if cfg.base_qp == 28:
+        assert reruns == 2
+    planes = 4 if cfg.format_version == 4 else 1
+    assert n["full_search_haloed"] == (t - 1) * reruns
+    assert n["mc_fetch_haloed_luma"] == planes * (t - 1) * reruns
+    assert n["mc_fetch_haloed_chroma"] == 2 * planes * (t - 1) * reruns
+    assert n["sad_at_mv_haloed"] == (planes == 4) * (t - 1) * reruns
+    assert not any(n[k] for k in ("full_search", "full_search_g", "mc_fetch_luma",
+                                  "mc_fetch_luma_g", "mc_fetch_chroma",
+                                  "mc_fetch_chroma_g", "sad_at_mv", "sad_at_mv_g"))
+    want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+    for (gp, gs), (wp, ws) in zip(got, want):
+        assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
+        assert [st.psnr_y for st in gs] == [st.psnr_y for st in ws]
+
+
+@pytest.mark.parametrize("rc", ["none", "vbv", "mb"])
+@pytest.mark.parametrize("sr,sc", [(2, 2), (1, 3), (4, 1)])
+def test_tile2d_on_card_matches_cpu(cuda, rng, sr, sc, rc):
+    """The 2-D tile grid on the card (both halos in the kernels): the CPU's
+    unsharded payloads."""
+    t = 3
+    frames = _pan_frames(rng, t)
+    kw = dict(rc=rc, target_kbps=300) if rc != "none" else {}
+    cfg = EncoderConfig(width=96, height=128, gop_n=t, base_qp=26, **kw)
+    y, cb, cr = (torch.from_numpy(np.stack([getattr(f, p) for f in frames])).to(cuda)
+                 for p in ("y", "cb", "cr"))
+    build.reset_launches()
+    outs = tiles.encode_gop_tiled2d(
+        y, cb, cr, 26, mesh=make_tile_mesh_2d(sr, sc, cuda), rc=cfg.rc,
+        block_words=entropy.BLOCK_WORDS_MAX,
+        row_words=entropy.max_words(96 // 16 // sc),
+        target_bits=cfg.target_bits_per_frame(), vbv_bits=cfg.vbv_bits())
+    assert build.LAUNCHES["full_search_haloed"] == t - 1
+    assert build.LAUNCHES["mc_fetch_haloed_chroma"] == 2 * (t - 1)
+    assert not bool(outs["ovf"].any())
+    words, row_bits = outs["words"].cpu().numpy(), outs["row_bits"].cpu().numpy()
+    got = [tiles.assemble_frame_2d(words, row_bits, k) for k in range(t)]
+    want, _ = GopEngine(cfg, device="cpu").encode_gop(frames, 0)
+    assert got == [(p.payload, p.payload_bits) for p in want]

@@ -148,3 +148,49 @@ def test_batched_and_two_pass_encodes_run_without_jax():
     buf = io.BytesIO()
     encode_clip_twopass(cfg, lambda: iter(clip), buf, 6, engine=eng)
     assert bytes.fromhex(lines["TWOPASS"]) == buf.getvalue()
+
+
+_TILE_SCRIPT = _SCRIPT[:_SCRIPT.index("rng = ")] + r"""
+from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
+from video_encoder_tpu_torch.parallel.mesh import make_codec_mesh
+rng = np.random.default_rng(8)
+clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(6)]
+cfg = EncoderConfig(width=48, height=32, gop_n=3, format_version=4,
+                    intra_slice_mbrows=1, rc="vbv", target_kbps=200)
+frames = [Frame.from_planes(*p) for p in clip]
+senc = ShardedGopEncoder(cfg, make_codec_mesh(2, 2, "cpu"))
+out = senc.encode_gop_batch([frames[:3], frames[3:]], [0, 3])
+leaked = [k for k in sys.modules
+          if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
+          and sys.modules[k] is not None]
+assert not leaked, leaked
+print("TILED " + b"".join(p.to_bytes() for pk, _ in out for p in pk).hex())
+"""
+
+
+def test_tiled_encode_runs_without_jax():
+    """The tile-sharded encoder (parallel/) with jax and the JAX package
+    blocked: the unsharded engine's packets."""
+    from video_encoder_tpu_torch.codec.config import EncoderConfig
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    assert PKG / "parallel" / "tiles.py" in PKG.rglob("*.py")   # in the scan
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _TILE_SCRIPT], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("TILED ")][-1]
+    rng = np.random.default_rng(8)
+    clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(6)]
+    cfg = EncoderConfig(width=48, height=32, gop_n=3, format_version=4,
+                        intra_slice_mbrows=1, rc="vbv", target_kbps=200)
+    frames = [Frame.from_planes(*p) for p in clip]
+    want = GopEngine(cfg, device="cpu").encode_gops(
+        [frames[:3], frames[3:]], [0, 3])
+    assert bytes.fromhex(line.split()[1]) == b"".join(
+        p.to_bytes() for pk, _ in want for p in pk)

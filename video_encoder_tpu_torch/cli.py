@@ -17,10 +17,14 @@ to 4, every rc mode) on `--device` (default cuda):
         -o out.tvc --gop-batch 4
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --two-pass --kbps 12000
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --tile 4 --gop-batch 2
 
 `--gop-batch G` encodes G full GOPs in lockstep, every kernel launching
 once for G frames; `--two-pass` allocates one qp per GOP from a first
-pass at constant qp. Its streams are byte-identical to the reference
+pass at constant qp; `--tile S` encodes every frame as S row shards with
+a halo exchange between them (full search only; with `--gop-batch G`, G
+GOPs of S shards per step), all on the one device. Its streams are byte-identical to the reference
 CLI's. Decoding uses the C++ parser of `oracle/oracle.cpp` through ctypes
 (`codec/native.py`).
 """
@@ -41,6 +45,8 @@ from .codec.bitstream import OrderedMux, read_stream_header
 from .codec.config import EncoderConfig
 from .codec.frame import Frame
 from .io import yuv
+from .parallel.gop_parallel import ShardedGopEncoder
+from .parallel.mesh import make_codec_mesh
 from .pipeline.encoder import encode_clip_twopass
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
@@ -48,9 +54,8 @@ from .utils.metrics import RunSummary, psnr
 # Encode flags of the reference CLI that the port does not take yet, with
 # the ROADMAP.md item that ports them.
 NOT_PORTED = {
-    "--engine": "A11", "--devices": "A13", "--tile": "A13",
-    "--multiprocess": "A13",
-    "--failover": "A14", "--checkpoint": "A14", "--trace": "A14",
+    "--engine": "A11", "--devices": "A13b", "--multiprocess": "A13b",
+    "--failover": "A13b", "--checkpoint": "A14", "--trace": "A14",
     "--stage-timers": "A14",
 }
 
@@ -129,6 +134,55 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
     return summary
 
 
+def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
+                 frames, fo, n_frames: int, verbose: bool = False
+                 ) -> RunSummary:
+    """Tile-sharded encode + ordered mux: every batch of as many full GOPs
+    as the mesh's 'gop' axis goes through `senc`; full GOPs short of a
+    batch and the clip's short last GOP go through the single-device
+    engine, GOP by GOP. Same bytes as the unsharded encode."""
+    mux = OrderedMux(fo, cfg, n_frames)
+    summary = RunSummary()
+
+    def emit(packets, stats):
+        for p in packets:
+            mux.push(p)
+        for s in stats:
+            summary.add(s)
+            if verbose:
+                print(s.to_json(), file=sys.stderr)
+
+    def flush(batch, firsts):
+        if len(batch) == senc.n_gop_devices:
+            for packets, stats in senc.encode_gop_batch(batch, firsts):
+                emit(packets, stats)
+        else:
+            for gop, first in zip(batch, firsts):
+                emit(*eng.encode_gop(gop, first))
+
+    gop: list[Frame] = []
+    batch: list[list[Frame]] = []
+    firsts: list[int] = []
+    start = 0
+    for count, planes in enumerate(frames):
+        if count >= n_frames:
+            break
+        gop.append(Frame.from_planes(*planes))
+        if len(gop) == cfg.gop_n:
+            batch.append(gop)
+            firsts.append(start)
+            start += len(gop)
+            gop = []
+            if len(batch) == senc.n_gop_devices:
+                flush(batch, firsts)
+                batch, firsts = [], []
+    flush(batch, firsts)
+    if gop:
+        emit(*eng.encode_gop(gop, start))
+    mux.close()
+    return summary
+
+
 def cmd_encode(a) -> int:
     w, h, fps, frames = yuv.open_clip(a.input, a.width, a.height)
     cfg = EncoderConfig(
@@ -152,7 +206,22 @@ def cmd_encode(a) -> int:
             return 2
         if cfg.rc == "none":
             cfg = dataclasses.replace(cfg, rc="bitrate")
-    eng = GopEngine(cfg, device=a.device)
+    if a.tile < 1:
+        print("error: --tile must be >= 1", file=sys.stderr)
+        return 2
+    senc = None
+    if a.tile > 1:
+        if a.two_pass or cfg.search != "full":
+            print("error: --tile needs a single pass and --search full (the "
+                  "pre-haloed full search)", file=sys.stderr)
+            return 2
+        try:
+            senc = ShardedGopEncoder(
+                cfg, make_codec_mesh(a.gop_batch, a.tile, a.device))
+        except ValueError as e:   # the frame or its slices do not divide
+            print(f"error: --tile {a.tile}: {e}", file=sys.stderr)
+            return 2
+    eng = senc.engine if senc else GopEngine(cfg, device=a.device)
     n_frames = a.frames
     if n_frames == 0:
         if a.input.endswith(".y4m"):
@@ -168,6 +237,9 @@ def cmd_encode(a) -> int:
             summary = encode_clip_twopass(
                 cfg, lambda: yuv.open_clip(a.input, a.width, a.height)[3],
                 fo, n_frames, engine=eng, on_frame=on_frame)
+        elif senc is not None:
+            summary = encode_tiled(cfg, senc, eng, frames, fo, n_frames,
+                                   a.verbose)
         else:
             summary = encode_gop_resident(cfg, eng, frames, fo, n_frames,
                                           a.verbose, a.gop_batch)
@@ -277,6 +349,11 @@ def main(argv=None) -> int:
     e.add_argument("--gop-batch", type=int, default=1,
                    help="encode G full GOPs in lockstep, each kernel "
                         "launching once for G frames; byte-identical to 1")
+    e.add_argument("--tile", type=int, default=1,
+                   help="encode every frame as S row shards with a halo "
+                        "exchange (needs --search full, MB rows divisible "
+                        "by S; format >= 3 also --intra-slice dividing a "
+                        "shard's MB rows); byte-identical to 1")
     e.add_argument("--two-pass", action="store_true",
                    help="GOP-level two-pass rate allocation toward --kbps "
                         "(constant qp within a GOP)")

@@ -312,6 +312,26 @@ def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
     return words, total, mb_bits, ovf | (total > 32 * n_words).any()
 
 
+def pack_frame_rows(levels_y8, levels_cb, levels_cr, qp_delta,
+                    is_p_frame: bool, is_inter, dy, dx, block_words: int,
+                    row_words: int):
+    """Format-1 pack emitting one bit string per MB row: (row strings
+    [..., nby, row_words] int64, row_bits [..., nby] int64, mb_bits
+    [..., nby, nbx], overflow). The frame payload is the in-order
+    bit-concatenation of the row strings, the bytes of pack_frame_planes.
+    The 2-D tile grid needs this granularity: a frame's MB raster order
+    interleaves the column shards within each MB row."""
+    *lead, nby, nbx = qp_delta.shape
+    piece_words, piece_bits, ovf = _frame_pieces(
+        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
+        dy, dx, block_words)
+    words, row_bits = frame_concat(
+        piece_words.reshape(*lead, nby, -1, block_words),
+        piece_bits.reshape(*lead, nby, -1), row_words)
+    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
+    return words, row_bits, mb_bits, ovf | (row_bits > 32 * row_words).any()
+
+
 def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
                   is_p_frame: bool, is_inter, dy, dx, block_words: int,
                   fmt: int = 1):

@@ -12,6 +12,16 @@
 // because vmap could not batch a pallas_call with an ANY-space operand;
 // here the GOP is blockIdx.z and a plane stride, in the same kernel (the
 // single-plane entries launch it with G = 1).
+// Also replaces full_search_pre_haloed (sad.py:536), the tile-sharded
+// encode's search of a row shard cur [h, w] against a reference
+// ref_ext [h + 32, w] or [h + 32, w + 32] that already carries the
+// neighbour shards' rows (and, on a 2-D tile grid, columns). The TPU wrapper
+// padded ref_ext once more to tile multiples and copied windows out of it;
+// here the reference has extents, an origin and a plane stride of its own:
+// window pixel (y, x) reads ref[clamp(y + oy)][clamp(x + ox)] with (oy, ox)
+// the offset of cur's origin inside ref_ext, so where a halo is present the
+// clamp never acts and where it is absent the clamp is pad_ref's edge
+// replication. The other entries pass cur's extents and origin (0, 0).
 //
 // Bound on this card: integer ALU and shared-memory loads. A 1088x1920
 // frame has 8160 MBs x 1089 candidates x 256 pixels, about 2.3e9
@@ -46,7 +56,8 @@ constexpr int THREADS = 256;
 template <int STRIDE, bool EMIT_MAP>
 __global__ void __launch_bounds__(THREADS)
 search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
-              int h, int w, int* __restrict__ dy_out,
+              int h, int w, int rh, int rw, int oy, int ox,
+              int* __restrict__ dy_out,
               int* __restrict__ dx_out, int* __restrict__ sad_out,
               int* __restrict__ map_out) {
   constexpr int NDS = (ND + STRIDE - 1) / STRIDE;  // 33 or 17 per axis
@@ -58,17 +69,17 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   const int bx = blockIdx.x, by = blockIdx.y;
   const int y0 = by * MB, x0 = bx * MB;
   const int tid = threadIdx.x;
-  // 64-bit: g * h * w passes int32 for a large batch of large planes
-  const size_t plane = (size_t)blockIdx.z * h * w;
+  // 64-bit: g * h * w passes int32 for a large batch of large planes; the
+  // reference's planes are rh * rw apart
   const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
-  cur += plane;
-  ref += plane;
+  cur += (size_t)blockIdx.z * h * w;
+  ref += (size_t)blockIdx.z * rh * rw;
 
   for (int i = tid; i < WIN * WIN; i += THREADS) {
     const int r = i / WIN, c = i % WIN;
-    const int y = min(max(y0 - R + r, 0), h - 1);
-    const int x = min(max(x0 - R + c, 0), w - 1);
-    win[r][c] = ref[y * w + x];
+    const int y = min(max(y0 - R + r + oy, 0), rh - 1);
+    const int x = min(max(x0 - R + c + ox, 0), rw - 1);
+    win[r][c] = ref[y * rw + x];
   }
   {
     const int r = tid / MB, c = tid % MB;
@@ -110,14 +121,19 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   }
 }
 
-// One block per (g, MB); gridDim.z is limited to 65535.
+// One block per (g, MB); gridDim.z is limited to 65535. The reference is
+// [g, rh, rw] with cur's origin at its row (rh - h) / 2, column (rw - w) / 2:
+// each extent is cur's own (no halo on that axis) or cur's plus 2 R.
 template <int STRIDE, bool EMIT_MAP>
-int launch(const int* cur, const int* ref, int g, int h, int w, int* dy,
-           int* dx, int* sad, int* map, void* stream) {
+int launch(const int* cur, const int* ref, int g, int h, int w, int rh, int rw,
+           int* dy, int* dx, int* sad, int* map, void* stream) {
   if (g < 1 || g > 65535) return (int)cudaErrorInvalidValue;
+  if ((rh != h && rh != h + 2 * R) || (rw != w && rw != w + 2 * R)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dim3 grid(w / MB, h / MB, g);
   search_kernel<STRIDE, EMIT_MAP><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, dy, dx, sad, map);
+      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, map);
   return (int)cudaGetLastError();
 }
 
@@ -126,15 +142,16 @@ int launch(const int* cur, const int* ref, int g, int h, int w, int* dy,
 // cur, ref: [h, w] int32 (h, w multiples of 16); dy, dx, sad: [h/16, w/16].
 extern "C" int tvc_full_search(const int* cur, const int* ref, int h, int w,
                                int* dy, int* dx, int* sad, void* stream) {
-  return launch<1, false>(cur, ref, 1, h, w, dy, dx, sad, nullptr, stream);
+  return launch<1, false>(cur, ref, 1, h, w, h, w, dy, dx, sad, nullptr,
+                          stream);
 }
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 289]
 // int32, candidate ((dy+16)/2)*17 + (dx+16)/2.
 extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
                                 int* map, void* stream) {
-  return launch<2, true>(cur, ref, 1, h, w, nullptr, nullptr, nullptr, map,
-                         stream);
+  return launch<2, true>(cur, ref, 1, h, w, h, w, nullptr, nullptr, nullptr,
+                         map, stream);
 }
 
 // The G-batched search: cur, ref [g, h, w] int32, plane g of cur against
@@ -142,12 +159,25 @@ extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
 extern "C" int tvc_full_search_g(const int* cur, const int* ref, int g, int h,
                                  int w, int* dy, int* dx, int* sad,
                                  void* stream) {
-  return launch<1, false>(cur, ref, g, h, w, dy, dx, sad, nullptr, stream);
+  return launch<1, false>(cur, ref, g, h, w, h, w, dy, dx, sad, nullptr,
+                          stream);
 }
 
 // The G-batched even map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 289].
 extern "C" int tvc_sad_map_even_g(const int* cur, const int* ref, int g,
                                   int h, int w, int* map, void* stream) {
-  return launch<2, true>(cur, ref, g, h, w, nullptr, nullptr, nullptr, map,
-                         stream);
+  return launch<2, true>(cur, ref, g, h, w, h, w, nullptr, nullptr, nullptr,
+                         map, stream);
+}
+
+// The pre-haloed search of g row shards (or 2-D tiles): cur [g, h, w] int32,
+// ref_ext [g, rh, rw] int32 with rh = h + 32 and rw = w (columns replicate
+// at the edge) or w + 32 (column halo present); dy, dx, sad [g, h/16, w/16].
+extern "C" int tvc_full_search_haloed(const int* cur, const int* ref_ext,
+                                      int g, int h, int w, int rh, int rw,
+                                      int* dy, int* dx, int* sad,
+                                      void* stream) {
+  if (rh != h + 2 * R) return (int)cudaErrorInvalidValue;
+  return launch<1, false>(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, nullptr,
+                          stream);
 }

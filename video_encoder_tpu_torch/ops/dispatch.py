@@ -10,6 +10,10 @@ Planes with a leading G axis ([G, H, W]: G GOPs encoded in lockstep) go to
 the G-batched kernels, one launch for all G, or on the CPU to the same
 plain versions, which take the axis as it is. The block pack and the span
 merges have no batched twin: their callers fold G into the row axis.
+
+The `_pre_haloed` functions serve the tile-sharded encode
+(`parallel/tiles.py`): the reference plane of a shard already carries its
+neighbours' pixels as a halo of rows (and, on a 2-D tile grid, columns).
 """
 
 from __future__ import annotations
@@ -40,6 +44,30 @@ def full_search(cur_y, ref_y):
     if cur_y.ndim == 3:
         return ksad.full_search_g(cur_y, ref_y)
     return ksad.full_search(cur_y, ref_y)
+
+
+def full_search_pre_haloed(cur_y, ref_ext):
+    """(dy, dx, sad) [(B,) nby, nbx] of a shard [(B,) h, w] against its
+    pre-haloed reference [(B,) h + 32, w or w + 32]."""
+    if _FORCE == "plain":
+        return motion.full_search_pre_haloed(cur_y, ref_ext)
+    return ksad.full_search_pre_haloed(cur_y, ref_ext)
+
+
+def mc_fetch_pre_haloed(ref_ext, dy, dx, bs: int, r: int):
+    """[(B,) h, w] predictor of a shard from its pre-haloed reference
+    [(B,) h + 2r, w or w + 2r]: (bs, r) = (16, 16) luma, (8, 8) chroma."""
+    if _FORCE == "plain":
+        return motion.mc_fetch_pre_haloed(ref_ext, dy, dx, bs, r)
+    return ksad.mc_fetch_pre_haloed(ref_ext, dy, dx, bs, r)
+
+
+def sad_at_mv_pre_haloed(cur_y, ref_ext, dy, dx, plane_of=None):
+    """Per-MB SADs of a luma shard at mvs [(B,) (K,) nby, nbx] against a
+    pre-haloed reference, or with plane_of a stack [(B,) P, h + 32, .]."""
+    if _FORCE == "plain":
+        return motion.sad_at_pre_haloed(cur_y, ref_ext, dy, dx, plane_of)
+    return ksad.sad_at_mv_pre_haloed(cur_y, ref_ext, dy, dx, plane_of)
 
 
 def sad_map_even(cur_y, ref_y):
@@ -111,17 +139,20 @@ def mc_fetch_chroma_plane(ref_c, cdy, cdx):
     return ksad.mc_fetch_plane_chroma(ref_c, cdy, cdx)
 
 
-def hpel_refine(cur_y, ref_y, dy, dx, planes=None):
+def hpel_refine(cur_y, ref_y, dy, dx, planes=None, sad_fn=None):
     """Half-pel refinement of format 4 (SPEC.md §14.4): the nine
     candidates (2dy+u, 2dx+v), u, v in -1..1 row-major, first minimum.
     Candidate (u, v) has parity (|u|, |v|), so its SAD is an integer-mv
     SAD on that parity plane: one sad_at_mv launch for all nine. A
     candidate beyond ±32 half-pels is invalid (its integer part is
     clipped for the SAD). `planes` is motion.hpel_stack(ref_y),
-    [(G,) 4, H, W], made here unless given. Returns (d2y, d2x, sad) int32
-    [(G,) nby, nbx], vectors in half-pels."""
+    [(G,) 4, H, W], made here unless given; `sad_fn` (default sad_at_mv)
+    evaluates the candidates on them: the tile-sharded encode passes
+    sad_at_mv_pre_haloed with halo-extended planes. Returns (d2y, d2x,
+    sad) int32 [(G,) nby, nbx], vectors in half-pels."""
     if planes is None:
         planes = motion.hpel_stack(ref_y)
+    sad_fn = sad_fn or sad_at_mv
     r, r2 = motion.R, 2 * motion.R
     uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
     k = torch.arange(9, device=cur_y.device)[:, None, None]
@@ -130,7 +161,7 @@ def hpel_refine(cur_y, ref_y, dy, dx, planes=None):
     d2y = 2 * dy.unsqueeze(-3) + u                     # [(G,) 9, nby, nbx]
     d2x = 2 * dx.unsqueeze(-3) + v
     valid = (d2y.abs() <= r2) & (d2x.abs() <= r2)
-    sads = sad_at_mv(
+    sads = sad_fn(
         cur_y, planes, (d2y >> 1).clamp(-r, r), (d2x >> 1).clamp(-r, r),
         [abs(a) * 2 + abs(b) for a, b in uv])
     # packed int64 key cost * 16 + index: its minimum is the first minimum

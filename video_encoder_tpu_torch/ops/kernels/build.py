@@ -43,7 +43,10 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             # the G-batched kernels (G GOPs in lockstep, one launch)
             "full_search_g": 0, "sad_map_even_g": 0, "sad_at_mv_g": 0,
             "sad_at_mv_chroma_g": 0, "mc_fetch_luma_g": 0,
-            "mc_fetch_chroma_g": 0, "code_plane_g": 0, "code_plane_qmat_g": 0}
+            "mc_fetch_chroma_g": 0, "code_plane_g": 0, "code_plane_qmat_g": 0,
+            # the pre-haloed kernels of the tile-sharded encode
+            "full_search_haloed": 0, "mc_fetch_haloed_luma": 0,
+            "mc_fetch_haloed_chroma": 0, "sad_at_mv_haloed": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +69,10 @@ _SIGNATURES = {
     "tvc_sad_at_mv_chroma_g": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "tvc_mc_fetch_g": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "tvc_code_plane_g": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tvc_full_search_haloed": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tvc_mc_fetch_haloed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tvc_sad_at_mv_haloed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U64,
+                             _P, _P],
 }
 
 _lib = None

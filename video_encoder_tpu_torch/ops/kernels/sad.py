@@ -7,6 +7,13 @@ the planes of G GOPs encoded in lockstep, [G, H, W], and launch one
 G-batched kernel for all of them. Each kernel has one private launcher
 for both forms: `lead` is () for a single plane and (G,) for a batch, and
 stands in front of every shape and, as the entry's `g`, in its arguments.
+
+The `_pre_haloed` wrappers are the tile-sharded encode's: the current
+plane is a shard [h, w] (or B shards, [B, h, w]) and the reference
+`ref_ext` already carries the neighbour shards' pixels, [.., h + 2r, w]
+(row halo; the columns edge-replicate) or [.., h + 2r, w + 2r] (both
+halos, a 2-D tile grid). They go through the same private launchers
+with `halo` = r; a single shard launches the batched entry with B = 1.
 """
 
 from __future__ import annotations
@@ -30,17 +37,33 @@ def _require_plane(t, batched: bool, mult: int, name: str):
     return tuple(lead), h, w
 
 
+def _require_ref(ref, lead, h: int, w: int, halo: int, name: str,
+                 planes: int | None = None):
+    """Checks a contiguous int32 CUDA reference [*lead, (planes,) rh, rw]
+    for an [h, w] plane and returns the arguments its entry takes for it:
+    () with halo 0, where (rh, rw) must be (h, w); else (rh, rw), with rh
+    = h + 2 halo and rw = w or w + 2 halo."""
+    rh, rw = ref.shape[-2:]
+    if rh != h + 2 * halo or rw not in (w, w + 2 * halo):
+        raise ValueError(f"{name}: a reference of {rh}x{rw} is not a "
+                         f"{h}x{w} plane with a halo of {halo}")
+    mid = () if planes is None else (planes,)
+    build.require(ref, torch.int32, (*lead, *mid, rh, rw), name)
+    return (rh, rw) if halo else ()
+
+
 def _launch(name: str, *args) -> None:
     """Launch entry tvc_<name>; raises unless it returns 0."""
     build.check(getattr(build.lib(), "tvc_" + name)(*args), name)
 
 
-def _full_search(cur_y, ref_y, name: str, batched: bool):
+def _full_search(cur_y, ref_y, name: str, batched: bool, halo: int = 0):
     lead, h, w = _require_plane(cur_y, batched, 16, f"{name} cur")
-    build.require(ref_y, torch.int32, (*lead, h, w), f"{name} ref")
+    ext = _require_ref(ref_y, lead, h, w, halo, f"{name} ref")
     dy, dx, sad = (torch.empty((*lead, h // 16, w // 16), dtype=torch.int32,
                                device=cur_y.device) for _ in range(3))
-    _launch(name, cur_y.data_ptr(), ref_y.data_ptr(), *lead, h, w,
+    _launch(name, cur_y.data_ptr(), ref_y.data_ptr(),
+            *(lead or (1,) if halo else lead), h, w, *ext,
             dy.data_ptr(), dx.data_ptr(), sad.data_ptr(),
             build.stream_ptr(cur_y.device))
     build.LAUNCHES[name] += 1
@@ -104,24 +127,23 @@ def _require_mvs(dy, dx, lead, h: int, w: int, bs: int, name: str):
     return shape, rest[0] if len(rest) == 3 else 1
 
 
-def _sad_at_mv(cur_y, ref_y, dy, dx, plane_of, name: str, batched: bool):
+def _sad_at_mv(cur_y, ref_y, dy, dx, plane_of, name: str, batched: bool,
+               halo: int = 0):
     lead, h, w = _require_plane(cur_y, batched, 16, f"{name} cur")
     shape, k = _require_mvs(dy, dx, lead, h, w, 16, name)
-    code, p = 0, 1
-    if plane_of is None:
-        build.require(ref_y, torch.int32, (*lead, h, w), f"{name} ref")
-    else:
+    code, p = 0, None
+    if plane_of is not None:
         p = ref_y.shape[-3]
-        build.require(ref_y, torch.int32, (*lead, p, h, w), f"{name} planes")
         if (len(shape) != len(lead) + 3 or k != len(plane_of) or k > 16
                 or not all(0 <= q < min(p, 16) for q in plane_of)):
             raise ValueError(f"{name}: planes {list(plane_of)} for {k} "
                              f"candidates on {p} planes")
         code = sum(q << (4 * j) for j, q in enumerate(plane_of))
+    ext = _require_ref(ref_y, lead, h, w, halo, f"{name} ref", p)
     sad = torch.empty(shape, dtype=torch.int32, device=cur_y.device)
     _launch(name, cur_y.data_ptr(), ref_y.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), *lead, k, p, h, w, code, sad.data_ptr(),
-            build.stream_ptr(cur_y.device))
+            dx.data_ptr(), *(lead or (1,) if halo else lead), k, p or 1, h, w,
+            *ext, code, sad.data_ptr(), build.stream_ptr(cur_y.device))
     build.LAUNCHES[name] += 1
     return sad
 
@@ -179,15 +201,24 @@ def sad_at_mv_chroma_g(cur_c: torch.Tensor, ref_c: torch.Tensor,
     return _sad_at_mv_chroma(cur_c, ref_c, dy, dx, "sad_at_mv_chroma_g", True)
 
 
-def _mc_fetch(ref, dy, dx, bs: int, counter: str, batched: bool):
-    """Entry tvc_mc_fetch(_g) at block size bs, counted under `counter`."""
-    name = "mc_fetch_g" if batched else "mc_fetch"
-    lead, h, w = _require_plane(ref, batched, bs, f"{name} ref")
-    build.require(dy, torch.int32, (*lead, h // bs, w // bs), f"{name} dy")
-    build.require(dx, torch.int32, (*lead, h // bs, w // bs), f"{name} dx")
-    out = torch.empty_like(ref)
-    _launch(name, ref.data_ptr(), dy.data_ptr(), dx.data_ptr(), *lead, h, w,
-            bs, out.data_ptr(), build.stream_ptr(ref.device))
+def _mc_fetch(ref, dy, dx, bs: int, counter: str, batched: bool,
+              halo: int = 0):
+    """Entry tvc_mc_fetch(_g) or, with a halo, tvc_mc_fetch_haloed at
+    block size bs, counted under `counter`. The predictor's extents are
+    the mv grid's times bs."""
+    name = "mc_fetch_haloed" if halo else "mc_fetch_g" if batched else "mc_fetch"
+    *lead, nby, nbx = dy.shape
+    if len(lead) != int(batched):
+        raise ValueError(f"{name}: expected mvs of {2 + int(batched)} "
+                         f"dimensions, got shape {tuple(dy.shape)}")
+    lead, h, w = tuple(lead), nby * bs, nbx * bs
+    ext = _require_ref(ref, lead, h, w, halo, f"{name} ref")
+    build.require(dy, torch.int32, (*lead, nby, nbx), f"{name} dy")
+    build.require(dx, torch.int32, (*lead, nby, nbx), f"{name} dx")
+    out = torch.empty((*lead, h, w), dtype=torch.int32, device=ref.device)
+    _launch(name, ref.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            *(lead or (1,) if halo else lead), h, w, *ext, bs, out.data_ptr(),
+            build.stream_ptr(ref.device))
     build.LAUNCHES[counter] += 1
     return out
 
@@ -222,3 +253,41 @@ def mc_fetch_plane_chroma_g(ref_c: torch.Tensor, cdy: torch.Tensor,
     if ref_c.device.type == "cpu":
         return motion.mc_fetch_plane(ref_c, cdy, cdx, 8)
     return _mc_fetch(ref_c, cdy, cdx, 8, "mc_fetch_chroma_g", True)
+
+
+def full_search_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor):
+    """full_search of a shard against its pre-haloed reference: cur_y
+    [h, w] or [B, h, w] int32, ref_ext [.., h + 32, w or w + 32] int32 ->
+    (dy, dx, sad) [.., h/16, w/16] int32, one launch."""
+    if cur_y.device.type == "cpu":
+        return motion.full_search_pre_haloed(cur_y, ref_ext)
+    return _full_search(cur_y, ref_ext, "full_search_haloed", cur_y.ndim == 3,
+                        motion.R)
+
+
+def mc_fetch_pre_haloed(ref_ext: torch.Tensor, dy: torch.Tensor,
+                        dx: torch.Tensor, bs: int, r: int):
+    """[.., h, w] predictor of a shard from its pre-haloed reference
+    ref_ext [h + 2r, w or w + 2r] or [B, ...] int32 at mvs dy, dx
+    [.., h/bs, w/bs] int32 (|mv| <= r): luma (bs, r) = (16, 16), chroma
+    (8, 8); one launch."""
+    if ref_ext.device.type == "cpu":
+        return motion.mc_fetch_pre_haloed(ref_ext, dy, dx, bs, r)
+    if (bs, r) not in ((16, 16), (8, 8)):
+        raise ValueError(f"mc_fetch_haloed: block {bs} with radius {r}")
+    return _mc_fetch(ref_ext, dy, dx, bs,
+                     "mc_fetch_haloed_" + ("luma" if bs == 16 else "chroma"),
+                     dy.ndim == 3, r)
+
+
+def sad_at_mv_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor,
+                         dy: torch.Tensor, dx: torch.Tensor, plane_of=None):
+    """sad_at_mv of a luma shard against pre-haloed planes: cur_y [h, w]
+    or [B, h, w] int32; ref_ext [.., h + 32, w or w + 32] or, with
+    plane_of (K <= 16 ints), a stack [.., P, h + 32, .], P <= 16; dy, dx
+    [.., K, h/16, w/16] or [.., h/16, w/16] int32 (|mv| <= 16). One
+    launch for all K candidates."""
+    if cur_y.device.type == "cpu":
+        return motion.sad_at_pre_haloed(cur_y, ref_ext, dy, dx, plane_of)
+    return _sad_at_mv(cur_y, ref_ext, dy, dx, plane_of, "sad_at_mv_haloed",
+                      cur_y.ndim == 3, motion.R)

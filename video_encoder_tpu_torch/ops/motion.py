@@ -41,6 +41,21 @@ def _mb_sums(x: torch.Tensor, n: int) -> torch.Tensor:
                                                       dtype=torch.int32)
 
 
+def pad_cols(ref_ext: torch.Tensor, cur_w: int, r: int) -> torch.Tensor:
+    """A pre-haloed reference [..., h + 2r, w or w + 2r] as the fully
+    padded plane [..., h + 2r, w + 2r] of a [.., h, cur_w] shard: where the
+    column halo is absent (row sharding) the columns edge-replicate, as
+    pad_ref's do."""
+    w = ref_ext.shape[-1]
+    if w == cur_w + 2 * r:
+        return ref_ext
+    if w != cur_w:
+        raise ValueError(f"pre-haloed reference of width {w} for a plane of "
+                         f"width {cur_w} and radius {r}")
+    cols = torch.arange(-r, w + r, device=ref_ext.device).clamp(0, w - 1)
+    return ref_ext[..., cols]
+
+
 def full_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     """Exhaustive ±16 SAD search. Returns (dy, dx, best_sad) per MB, int32.
 
@@ -48,8 +63,23 @@ def full_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     the packed key sad*2048 + k is the strict-< first minimum of the
     reference (sad <= 65280 and k < 2048, so the key fits int32). One dy
     row of 33 candidates is evaluated per step."""
+    return _full_search_padded(cur_y, pad_ref(ref_y, R))
+
+
+def full_search_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor):
+    """full_search of a shard cur_y [..., h, w] whose reference ref_ext
+    [..., h + 32, w] (row halo; columns edge-replicate) or [..., h + 32,
+    w + 32] (both halos, a 2-D tile) already carries its neighbours'
+    pixels: the halo replaces pad_ref's replication. Same first minimum."""
     h, w = cur_y.shape[-2:]
-    refpad = pad_ref(ref_y, R)
+    if ref_ext.shape[-2] != h + 2 * R:
+        raise ValueError(f"pre-haloed reference of {ref_ext.shape[-2]} rows "
+                         f"for a shard of {h}")
+    return _full_search_padded(cur_y, pad_cols(ref_ext, w, R))
+
+
+def _full_search_padded(cur_y: torch.Tensor, refpad: torch.Tensor):
+    h, w = cur_y.shape[-2:]
     best = None
     for ky in range(ND):
         rows = refpad[..., ky:ky + h, :]
@@ -89,11 +119,30 @@ def sad_at(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
             sad_at(cur_y, ref_y[..., p, :, :], dy[..., k, :, :],
                    dx[..., k, :, :], bs)
             for k, p in enumerate(plane_of)], -3)
+    return _sad_at_padded(cur_y, pad_ref(ref_y, bs), dy, dx, bs)
+
+
+def sad_at_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor,
+                      dy: torch.Tensor, dx: torch.Tensor, plane_of=None):
+    """sad_at of a luma shard cur_y [..., h, w] against a pre-haloed
+    reference [..., h + 32, w or w + 32] (or, with plane_of, a stack of
+    such planes [..., P, h + 32, .]): the halo replaces pad_ref's
+    replication."""
+    if plane_of is not None:
+        return torch.stack([
+            sad_at_pre_haloed(cur_y, ref_ext[..., p, :, :], dy[..., k, :, :],
+                              dx[..., k, :, :])
+            for k, p in enumerate(plane_of)], -3)
+    return _sad_at_padded(cur_y, pad_cols(ref_ext, cur_y.shape[-1], R), dy,
+                          dx, tables.MB)
+
+
+def _sad_at_padded(cur_y, refpad, dy, dx, bs: int):
     lead = cur_y.shape[:-2]
     cand = [1] * (dy.ndim - 2 - len(lead))
     cur_b = blockify(cur_y, bs)
     cur_b = cur_b.reshape(*lead, *cand, *cur_b.shape[-4:])
-    pred = mc_fetch(pad_ref(ref_y, bs), dy, dx, bs, bs)
+    pred = mc_fetch(refpad, dy, dx, bs, bs)
     return (cur_b - pred).abs().sum(dim=(-2, -1), dtype=torch.int32)
 
 
@@ -183,6 +232,19 @@ def mc_fetch_plane(ref: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     """[..., H, W] predictor plane from per-block mvs; |mv| <= bs, the pad
     radius (16 for luma MBs, 8 for chroma blocks)."""
     return unblockify(mc_fetch(pad_ref(ref, bs), dy, dx, bs, bs))
+
+
+def mc_fetch_pre_haloed(ref_ext: torch.Tensor, dy: torch.Tensor,
+                        dx: torch.Tensor, bs: int, r: int) -> torch.Tensor:
+    """[..., h, w] predictor plane of a shard from its pre-haloed reference
+    ref_ext [..., h + 2r, w] (columns edge-replicate) or [..., h + 2r,
+    w + 2r], at per-block mvs [..., h/bs, w/bs] with |mv| <= r (16 for luma
+    MBs, 8 for chroma blocks)."""
+    w = dy.shape[-1] * bs
+    if ref_ext.shape[-2] != dy.shape[-2] * bs + 2 * r:
+        raise ValueError(f"pre-haloed reference of {ref_ext.shape[-2]} rows "
+                         f"for {dy.shape[-2]} block rows of {bs}")
+    return unblockify(mc_fetch(pad_cols(ref_ext, w, r), dy, dx, bs, r))
 
 
 def intra_cost_and_dc(cur_y: torch.Tensor):

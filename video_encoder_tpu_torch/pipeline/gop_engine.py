@@ -254,7 +254,9 @@ class GopEngine:
                 "diamond); hier is golden/oracle-only")
         if cfg.gop_devices != 1 or cfg.tile_devices != 1:
             raise NotImplementedError(
-                "multi-device encode is not ported yet (ROADMAP.md A13)")
+                "an encode over several devices is not ported yet "
+                "(ROADMAP.md A13b); the tile-sharded encode on one device "
+                "is parallel.gop_parallel.ShardedGopEncoder")
         if emit not in (None, "frame", "chunks"):
             raise ValueError(f"unknown emit {emit!r} (frame, chunks)")
         self.cfg = cfg
@@ -331,7 +333,7 @@ class GopEngine:
         return self._run(y, cb, cr, qp, *self._capacities(
             n_mbs, min(int(q) for q in base_qps), xl))
 
-    def _upload(self, planes, lead: tuple) -> torch.Tensor:
+    def upload(self, planes, lead: tuple) -> torch.Tensor:
         """uint8 device tensor [*lead, H, W] of equal-shaped planes given
         in row-major order of `lead`; one pass over them on the host."""
         out = np.empty((len(planes), *planes[0].shape), np.uint8)
@@ -346,14 +348,14 @@ class GopEngine:
         base_qp = self.cfg.base_qp if base_qp is None else base_qp
         t0 = time.perf_counter()
         lead = (len(frames),)
-        y = self._upload([f.y for f in frames], lead)
-        cb = self._upload([f.cb for f in frames], lead)
-        cr = self._upload([f.cr for f in frames], lead)
+        y = self.upload([f.y for f in frames], lead)
+        cb = self.upload([f.cb for f in frames], lead)
+        cr = self.upload([f.cr for f in frames], lead)
         outs = self.run(y, cb, cr, base_qp)
         return dict(frames=frames, first_index=first_index, base_qp=base_qp,
                     y=y, cb=cb, cr=cr, outs=outs, t0=t0)
 
-    def _download(self, outs):
+    def download(self, outs):
         """The host's copy of an encode's results, as numpy arrays with
         the device tensors' leading axes ([T] or [T, G]): bits, n_inter,
         qp, sse [..., 3], under chunk emit cbits [..., C], and words cut
@@ -379,7 +381,7 @@ class GopEngine:
         return host
 
     @staticmethod
-    def _gop_packets(frames, first_index: int, host, ms_per_frame: float):
+    def gop_packets(frames, first_index: int, host, ms_per_frame: float):
         """(packets, stats) of one GOP from its [T, ...] host arrays."""
         bits, cbits, words = host["bits"], host["cbits"], host["words"]
         n_mbs = (frames[0].y.shape[0] // tables.MB) * (frames[0].y.shape[1] // tables.MB)
@@ -425,9 +427,9 @@ class GopEngine:
         if bool(outs["ovf"].any()):   # the GOP's one wait on the device
             outs = self.run(handle["y"], handle["cb"], handle["cr"],
                             handle["base_qp"], xl=True)
-        host = self._download(outs)
+        host = self.download(outs)
         ms_total = (time.perf_counter() - handle["t0"]) * 1e3
-        return self._gop_packets(frames, handle["first_index"], host,
+        return self.gop_packets(frames, handle["first_index"], host,
                                  ms_total / len(frames))
 
     def encode_gop(self, frames: list[Frame], first_index: int,
@@ -452,7 +454,7 @@ class GopEngine:
         t0 = time.perf_counter()
 
         def up(plane):   # [T, G, H, W]: the frame axis leads
-            return self._upload([getattr(g[t], plane) for t in range(n)
+            return self.upload([getattr(g[t], plane) for t in range(n)
                                  for g in gops], (n, len(gops)))
 
         y, cb, cr = up("y"), up("cb"), up("cr")
@@ -469,11 +471,11 @@ class GopEngine:
         if bool(outs["ovf"].any()):   # the batch's one wait on the device
             outs = self.run_batch(handle["y"], handle["cb"], handle["cr"],
                                   handle["base_qps"], xl=True)
-        host = self._download(outs)
+        host = self.download(outs)
         ms_total = (time.perf_counter() - handle["t0"]) * 1e3
         ms = ms_total / sum(len(g) for g in gops)
         return [
-            self._gop_packets(
+            self.gop_packets(
                 frames, first_index,
                 {k: v if v is None else v[:, gi] for k, v in host.items()}, ms)
             for gi, (frames, first_index)
