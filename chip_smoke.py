@@ -30,6 +30,18 @@ Phases, each of which raises on failure (exit code not 0):
    plain version and, the shards' results put together, to the unsharded
    kernel on the whole frame; the odd 368x640 grid as one unbatched shard
    in both geometries.
+   Then the kernels no encode path runs by default: the whole SAD map
+   (1089 candidates per MB) at 1088x1920 and 368x640, single and G = 4,
+   each equal to its plain version, its packed-key first minimum equal to
+   full_search's and its even sublattice to sad_map_even's; the SEA full
+   search's three entries (single with its row counts, G = 4, four row
+   shards) against three references of the 1080p pan's frame 1 (the clean
+   source frame 0, the port's own qp-28 recon of it, noise), each equal to
+   its plain version and the exhaustive kernel, with its mean rows per MB,
+   its time beside the exhaustive kernel's and a bound from this run's
+   rows; chunk_merge on the pieces of a real 1080p frame at 24 words
+   (65536 pieces, k = 1024) and on dense random pieces; the hierarchical
+   search at 1088x1920 against plain, with its two sad_at_mv launches.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
    1; on a smoother texture, diamond search, rc mb and --kbps 12000
@@ -63,7 +75,10 @@ Phases, each of which raises on failure (exit code not 0):
    stream at `--intra-slice 17` is held against one more oracle encode),
    each equal to the port's unsharded stream. The pre-haloed kernels must
    have launched once per P step and plane, and no unsharded search or
-   fetch at all.
+   fetch at all. Then TVC_SEA=1 on the full-search clip (GOP 30; `--gop 10
+   --gop-batch 3`; `--tile 4`), each byte-identical to the port's stream
+   without it (the first also to the oracle's), each through its SEA entry
+   once per P step and no exhaustive search.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
@@ -74,10 +89,13 @@ Phases, each of which raises on failure (exit code not 0):
    one run: device-resident fps, device ops per frame and busy share
    (the G = 1 trace is the one taken of that GOP just before). Then the
    full-search cell with every frame in S = 1, 2 and 4 row shards, in
-   turns, all under the tile path's emit.
+   turns, all under the tile path's emit. Then the full-search cell with
+   TVC_SEA 0 and 1 in turns, with the search's device time of each.
 
-The last two lines of standard output are the kernel table and
-{"ok": true, "device": {...}}. Builds go to build/ (gitignored).
+The last lines of standard output are the card's name and power limit,
+the kernel table (one entry per launch counter, each with the row of
+PERF.md's table it ports; all sixteen rows) and {"ok": true, "device":
+{...}}. Builds go to build/ (gitignored).
 """
 
 from __future__ import annotations
@@ -107,6 +125,20 @@ INT32_OPS_PER_S = 33.5e12
 LUMA = [(1088, 1920), (368, 640)]
 CHROMA = [(544, 960), (184, 320)]
 PSNR_FLOOR = 30.0   # dB, luma, of every path's decoded stream
+# the row of PERF.md's kernel table (the reference's TPU kernels, each
+# function that reaches pl.pallas_call) that each launch counter ports
+TABLE_ROW = {
+    "full_search": "1", "full_search_haloed": "2", "full_search_sea": "3",
+    "full_search_sea_g": "3", "full_search_sea_haloed": "3",
+    "full_search_g": "4", "sad_map": "5", "sad_map_even": "5",
+    "sad_map_g": "6", "sad_map_even_g": "6", "mc_fetch_luma": "7",
+    "mc_fetch_chroma": "7", "sad_at_mv": "8", "sad_at_mv_chroma": "8c",
+    "sad_at_mv_haloed": "8h", "mc_fetch_luma_g": "9m",
+    "mc_fetch_chroma_g": "9m", "sad_at_mv_g": "9s", "sad_at_mv_chroma_g": "9s",
+    "mc_fetch_haloed_luma": "10", "mc_fetch_haloed_chroma": "10",
+    "code_plane": "11", "code_plane_qmat": "11q", "code_plane_g": "12",
+    "code_plane_qmat_g": "12", "block_pack": "13", "block_pack_v2": "13v",
+    "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16"}
 ORACLE_SRC = os.path.join(ROOT, "oracle", "oracle.cpp")
 ORACLE_BIN = os.path.join(ROOT, "build", "oracle", "oracle")
 
@@ -233,6 +265,116 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def both(fn, *args):
+    """fn(*args) through the kernels, then with every wrapper forced to its
+    plain version: (got, want)."""
+    from video_encoder_tpu_torch.ops import dispatch
+
+    dispatch.force(None)
+    got = fn(*args)
+    dispatch.force("plain")
+    want = fn(*args)
+    dispatch.force(None)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def timed(fn, *args):
+    """(ms, plain_ms): time_ms of fn(*args) through the kernels and forced
+    to the plain versions."""
+    from video_encoder_tpu_torch.ops import dispatch
+
+    dispatch.force(None)
+    ms = time_ms(lambda: fn(*args))
+    dispatch.force("plain")
+    plain_ms = time_ms(lambda: fn(*args))
+    dispatch.force(None)
+    return ms, plain_ms
+
+
+def tensors(x):
+    """The tensors of a result or argument list, in order."""
+    return [t for t in (x if isinstance(x, (tuple, list)) else [x])
+            if isinstance(t, torch.Tensor)]
+
+
+class KernelTable:
+    """The kernels line: one row per launch counter, with the largest error
+    against the plain version, the timing at the kernel's first launch
+    shape on the main paths and, in the row's "also" list, at further
+    shapes."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.rows = {}
+
+    def record(self, name, src, replaces, err, timing=None, also=None, **extra):
+        """timing: (ms, plain_ms, (bound_ms, bound_by), library_ms); also:
+        (shape name, timing), the library call left out. extra: further
+        fields of the also entry where there is one, else of the row."""
+        row = self.rows.setdefault(name, dict(
+            name=name, row=TABLE_ROW[name], route="cuda",
+            source=f"video_encoder_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=0, max_abs_err=0, ms=None,
+            plain_ms=None, bound_ms=None, bound_by=None, library_ms=None))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if timing is not None:
+            ms, plain_ms, (bound_ms, bound_by), library_ms = timing
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+        if also is None:
+            row.update(extra)
+        else:
+            shape, (ms, plain_ms, (bound_ms, bound_by), _) = also
+            row.setdefault("also", []).append(dict(
+                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, **extra))
+
+    def shown(self, timing):
+        """The timing as the log line's tail, beside the card."""
+        if timing is None:
+            return ""
+        ms, plain_ms, (bound_ms, bound_by), library_ms = timing
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        return (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}, library call {lib} "
+                f"[{self.card}]")
+
+
+# a frame's shards as one batch: four row shards, or a 2 x 2 tile grid in
+# row-major order, each with its halo-extended reference as the tile
+# path's exchange makes it
+def rows_of(p):                # [.., H, W] -> [4, .., H / 4, W]
+    return torch.stack(p.chunk(4, -2)).contiguous()
+
+
+def unrows(t):
+    return torch.cat(list(t), -2)
+
+
+def grid_of(p):                # [.., H, W] -> [4, .., H / 2, W / 2]
+    return torch.stack([q for half in p.chunk(2, -2)
+                        for q in half.chunk(2, -1)]).contiguous()
+
+
+def ungrid(t):
+    return torch.cat([torch.cat([t[0], t[1]], -1),
+                      torch.cat([t[2], t[3]], -1)], -2)
+
+
+def ext_rows(p, halo):         # [H, W] -> [4, H / 4 + 2 halo, W]
+    from video_encoder_tpu_torch.parallel import tiles
+
+    return tiles.exchange_halo(rows_of(p), halo).contiguous()
+
+
+def ext_grid(p, halo):         # [H, W] -> [4, H / 2 + 2 halo, W / 2 + 2 halo]
+    from video_encoder_tpu_torch.parallel import tiles
+
+    return tiles.exchange_halo_2d(grid_of(p).unflatten(0, (2, 2)), halo
+                                  ).flatten(0, 1).contiguous()
+
+
 def phase_kernels(dev, card: str):
     """Each kernel against its plain version, exact; returns the table."""
     from video_encoder_tpu_torch.codec import entropy, tables
@@ -241,61 +383,11 @@ def phase_kernels(dev, card: str):
 
     rng = np.random.default_rng(7)
 
-    def both(fn, *args):
-        dispatch.force(None)
-        got = fn(*args)
-        dispatch.force("plain")
-        want = fn(*args)
-        dispatch.force(None)
-        torch.cuda.synchronize()
-        return got, want
-
-    def timed(fn, *args):
-        dispatch.force(None)
-        ms = time_ms(lambda: fn(*args))
-        dispatch.force("plain")
-        plain_ms = time_ms(lambda: fn(*args))
-        dispatch.force(None)
-        return ms, plain_ms
-
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    def tensors(x):
-        return [t for t in (x if isinstance(x, (tuple, list)) else [x])
-                if isinstance(t, torch.Tensor)]
-
-    rows = {}
-
-    def record(name, src, replaces, err, timing=None, also=None, **extra):
-        """timing: (ms, plain_ms, (bound_ms, bound_by), library_ms), at the
-        kernel's first launch shape on the main paths; also: the same
-        (without a library call) at a further launch shape, kept in the
-        row's "also" list under the shape's name."""
-        row = rows.setdefault(name, dict(
-            name=name, route="cuda", source=f"video_encoder_tpu_torch/csrc/{src}",
-            replaces=replaces, launches=0, max_abs_err=0, ms=None,
-            plain_ms=None, bound_ms=None, bound_by=None, library_ms=None))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row.update(extra)
-        if timing is not None:
-            ms, plain_ms, (bound_ms, bound_by), library_ms = timing
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
-        if also is not None:
-            shape, (ms, plain_ms, (bound_ms, bound_by), _) = also
-            row.setdefault("also", []).append(dict(
-                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by))
-
-    def shown(timing):
-        if timing is None:
-            return ""
-        ms, plain_ms, (bound_ms, bound_by), library_ms = timing
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        return (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms by {bound_by}, library call {lib} [{card}]")
-
+    table = KernelTable(card)
+    record, shown = table.record, table.shown
     luma, chroma = LUMA, CHROMA
 
     # full search: a pan that puts the best match at the (+16, -16) corner,
@@ -536,16 +628,17 @@ def phase_kernels(dev, card: str):
         args = (cur_t, ref_t, t32(dy), t32(dx), planes4)
         got, want = both(dispatch.hpel_refine, *args)
         err = max_abs_err(got, want)
-        record("sad_at_mv", "sad_at.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:852", err)
         odd = float(((got[0] & 1) | (got[1] & 1)).float().mean())
         line = (f"kernel sad_at_mv in hpel_refine {h}x{w} K=9 on 4 planes: "
                 f"equal, {100 * odd:.1f} % of MBs pick a half-pel vector")
+        extra = {}
         if (h, w) == luma[0]:
             ms, plain_ms = timed(dispatch.hpel_refine, *args)
-            rows["sad_at_mv"]["hpel_refine_ms"] = ms
+            extra = dict(hpel_refine_ms=ms)
             line += (f"; the whole refine {ms:.4f} ms vs plain "
                      f"{plain_ms:.4f} ms [{card}]")
+        record("sad_at_mv", "sad_at.cu",
+               "video_encoder_tpu/ops/pallas/sad.py:852", err, **extra)
         log(line)
 
     # span merges: the pieces of real frames (1080p: two stages at 16
@@ -616,8 +709,8 @@ def phase_kernels(dev, card: str):
             record(name, src, replaces, err, timing, g=g4,
                    single_launches_ms=singles_ms, **extra)
         else:
-            record(name, src, replaces, err, also=(shape_name, timing))
-            rows[name]["also"][-1]["single_launches_ms"] = singles_ms
+            record(name, src, replaces, err, also=(shape_name, timing),
+                   single_launches_ms=singles_ms)
         log(f"kernel {name} {shape_name}: equal to plain and to {g4} single "
             f"launches ({singles_ms:.4f} ms)" + shown(timing))
         return got
@@ -710,27 +803,6 @@ def phase_kernels(dev, card: str):
     # unsharded kernel on the whole frame; then an odd 23-row grid as one
     # unbatched shard with a row halo, and with both halos
     from video_encoder_tpu_torch.parallel import tiles
-
-    def rows_of(p):            # [.., H, W] -> [4, .., H / 4, W], row shards
-        return torch.stack(p.chunk(4, -2)).contiguous()
-
-    def unrows(t):
-        return torch.cat(list(t), -2)
-
-    def grid_of(p):            # [.., H, W] -> [4, .., H / 2, W / 2], row-major
-        return torch.stack([q for half in p.chunk(2, -2)
-                            for q in half.chunk(2, -1)]).contiguous()
-
-    def ungrid(t):
-        return torch.cat([torch.cat([t[0], t[1]], -1),
-                          torch.cat([t[2], t[3]], -1)], -2)
-
-    def ext_rows(p, halo):     # [H, W] -> [4, H / 4 + 2 halo, W]
-        return tiles.exchange_halo(rows_of(p), halo).contiguous()
-
-    def ext_grid(p, halo):     # [H, W] -> [4, H / 2 + 2 halo, W / 2 + 2 halo]
-        return tiles.exchange_halo_2d(grid_of(p).unflatten(0, (2, 2)), halo
-                                      ).flatten(0, 1).contiguous()
 
     geometries = (("rows", rows_of, unrows, ext_rows),
                   ("grid", grid_of, ungrid, ext_grid))
@@ -855,7 +927,280 @@ def phase_kernels(dev, card: str):
         log(f"kernels full_search_haloed, mc_fetch_haloed_luma {geo} "
             f"{shape_of(cur_o, ref_ext)} (one shard, no batch): equal to "
             f"plain and to the unsharded kernels")
-    return rows
+
+    last_kernels(dev, rng, table)
+    return table.rows
+
+
+@contextlib.contextmanager
+def sea(on: bool):
+    """TVC_SEA set to 1 (the full search wrappers launch the SEA entries)
+    or 0 for the duration, then restored."""
+    old = os.environ.get("TVC_SEA")
+    os.environ["TVC_SEA"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TVC_SEA", None)
+        else:
+            os.environ["TVC_SEA"] = old
+
+
+def sea_ops(rows) -> int:
+    """int32 operations that the search's result needs, given the dy rows
+    each MB evaluated (rows, one count per MB). Per MB, the least of the
+    exhaustive search (1089 x 256 abs-diff-accumulates) and the SEA
+    search: the block's 16 column sums (256 adds), the window's 16-row
+    column sums as a sliding sum (16 adds for each of its 48 columns at the
+    first row offset, an add and a subtract at each of the other 32), the
+    1089 bounds of 16 abs-diff-accumulates each, and 33 x 256
+    abs-diff-accumulates for every row evaluated exactly (an
+    abs-diff-accumulate counts 2)."""
+    sums = 256 + 48 * 16 + 32 * 48 * 2
+    sea = sums + 1089 * 16 * 2 + rows.long() * 33 * 256 * 2
+    return int(sea.clamp(max=1089 * 256 * 2).sum())
+
+
+def frame_levels(rng, dev, h, w):
+    """Quantized levels of a textured frame's three planes at qp 28 (Y
+    [h/8, w/8, 64], Cb and Cr at half size), from the code_plane kernel."""
+    from video_encoder_tpu_torch.codec import tables
+    from video_encoder_tpu_torch.ops import dispatch
+
+    q28 = int(tables.load(dev).QSTEP[28])
+    levels = []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        tex = texture(rng, ph, pw)
+        cur = torch.from_numpy(tex[:ph, :pw].astype(np.int32)).to(dev)
+        pred = np.clip(tex[:ph, :pw] + rng.integers(-3, 4, (ph, pw)), 0, 255)
+        pred = torch.from_numpy(pred.astype(np.int32)).to(dev)
+        q = torch.full((ph // 8, pw // 8), q28, dtype=torch.int32, device=dev)
+        levels.append(dispatch.code_plane(cur, pred, q, 8)[0])
+    return levels
+
+
+def last_kernels(dev, rng, table: KernelTable):
+    """The kernels that no encode path runs by default: the whole SAD map
+    (stride 1) and its batched twin, the SEA full search's three entries
+    (TVC_SEA=1) on three references, chunk_merge, and the hierarchical
+    search's refine through sad_at_mv."""
+    from video_encoder_tpu_torch.codec import entropy, pack, tables
+    from video_encoder_tpu_torch.ops import dispatch, motion
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    record, shown, card = table.record, table.shown, table.card
+    g4 = 4
+
+    # ---- sad_map: all 1089 SADs per MB, single and G = 4, at both grids.
+    # Held three ways: against its plain version, its packed-key first
+    # minimum against full_search, its even sublattice against sad_map_even
+    for h, w in LUMA:
+        nby, nbx = h // 16, w // 16
+        n_mbs = nby * nbx
+        tex = texture(rng, h, w)
+        cur = np.stack([np.roll(tex[64:64 + h, 64:64 + w], (3 * i, -4 * i), (0, 1))
+                        for i in range(g4)])
+        ref = np.stack([tex[48:48 + h, 80:80 + w]] * g4) + rng.integers(-3, 4, cur.shape)
+        cur[:, :128, :256] = 100
+        ref[:, :160, :288] = 100
+        cur_t, ref_t = t32(cur), t32(np.clip(ref, 0, 255))
+        got, want = both(dispatch.sad_map, cur_t[0], ref_t[0])
+        err = max_abs_err([got], [want])
+        key = (got.long() * 2048 + torch.arange(1089, device=dev)).amin(-1)
+        fs = dispatch.full_search(cur_t[0], ref_t[0])
+        max_abs_err([((key & 2047) // 33 - 16).int(), ((key & 2047) % 33 - 16).int(),
+                     (key >> 11).int()], fs)
+        even = got.reshape(nby, nbx, 33, 33)[..., ::2, ::2].reshape(nby, nbx, 289)
+        max_abs_err([even], [dispatch.sad_map_even(cur_t[0], ref_t[0])])
+        ties = int((got == got[..., :1]).all(-1).sum())
+        timing = None
+        if (h, w) == LUMA[0]:
+            timing = (*timed(dispatch.sad_map, cur_t[0], ref_t[0]),
+                      bound([cur_t[0], ref_t[0]], [got], n_mbs * 1089 * 256 * 2),
+                      None)
+        record("sad_map", "full_search.cu", "video_encoder_tpu/ops/pallas/sad.py:594",
+               err, timing)
+        log(f"kernel sad_map {h}x{w}: equal to plain; its first minimum is "
+            f"full_search's, its even sublattice sad_map_even's; {ties} MBs "
+            f"with all 1089 tied" + shown(timing))
+
+        got, want = both(dispatch.sad_map, cur_t, ref_t)
+        err = max_abs_err([got], [want])
+        max_abs_err([got], [torch.stack([dispatch.sad_map(cur_t[i], ref_t[i])
+                                          for i in range(g4)])])
+        timing, singles_ms = None, None
+        if (h, w) == LUMA[0]:
+            timing = (*timed(dispatch.sad_map, cur_t, ref_t),
+                      bound([cur_t, ref_t], [got], g4 * n_mbs * 1089 * 256 * 2),
+                      None)
+            singles_ms = time_ms(lambda: [dispatch.sad_map(cur_t[i], ref_t[i])
+                                          for i in range(g4)])
+        record("sad_map_g", "full_search.cu", "video_encoder_tpu/ops/pallas/sad.py:632",
+               err, timing, **({"g": g4, "single_launches_ms": singles_ms}
+                               if timing else {}))
+        log(f"kernel sad_map_g [{g4}, {h}, {w}]: equal to plain and to {g4} "
+            f"single launches" + (f" ({singles_ms:.4f} ms)" if singles_ms else "")
+            + shown(timing))
+
+    # ---- the SEA search (TVC_SEA=1) against three references of the
+    # 1080p pan's frame 1: the clean source frame 0, the port's own qp-28
+    # recon of it (the I frame: flat-128 prediction, what the engine
+    # searches) and noise. Each entry against its plain version and the
+    # exhaustive kernel; its rows per MB and its time beside full_search's,
+    # both in this call. The bound counts this run's rows.
+    h, w = LUMA[0]
+    nby, nbx = h // 16, w // 16
+    n_mbs = nby * nbx
+    src = [t32(y) for y in synth_clip(2, h, w, seed=11)[0]]
+    q28 = torch.full((h // 8, w // 8), int(tables.load(dev).QSTEP[28]),
+                     dtype=torch.int32, device=dev)
+    recon = dispatch.code_plane(src[0], torch.full_like(src[0], 128), q28, 8)[1]
+    refs = {"recon": recon.contiguous(), "clean": src[0],
+            "noise": t32(rng.integers(0, 256, (h, w)))}
+    cur_t = src[1]
+    for name, ref_t in refs.items():
+        with sea(True):
+            got = dispatch.full_search_sea_stats(cur_t, ref_t)
+            plain = motion.full_search_sea(cur_t, ref_t)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain)
+            sea_ms = time_ms(lambda: dispatch.full_search(cur_t, ref_t))
+        max_abs_err(got[:3], dispatch.full_search(cur_t, ref_t))
+        fs_ms = time_ms(lambda: dispatch.full_search(cur_t, ref_t))
+        plain_ms = time_ms(lambda: motion.full_search_sea(cur_t, ref_t))
+        mean_rows = float(got[3].float().mean())
+        timing = (sea_ms, plain_ms,
+                  bound([cur_t, ref_t], got[:3], sea_ops(got[3])), None)
+        if name == "recon":
+            record("full_search_sea", "full_search.cu",
+                   "video_encoder_tpu/ops/pallas/sad.py:68", err, timing,
+                   rows_per_mb=mean_rows, full_search_ms=fs_ms, reference=name)
+        else:
+            record("full_search_sea", "full_search.cu",
+                   "video_encoder_tpu/ops/pallas/sad.py:68", err,
+                   also=(f"{name} reference", timing), rows_per_mb=mean_rows,
+                   full_search_ms=fs_ms)
+        log(f"kernel full_search_sea {h}x{w}, {name} reference: equal to plain "
+            f"(vectors and rows) and to full_search; {mean_rows:.3f} of 33 rows "
+            f"per MB, full_search {fs_ms:.4f} ms in this call" + shown(timing))
+    # the odd grid, clean and noise: the stats entry against plain
+    oh, ow = LUMA[1]
+    for name in ("clean", "noise"):
+        a = (cur_t[:oh, :ow].contiguous(), refs[name][:oh, :ow].contiguous())
+        got, want = both(dispatch.full_search_sea_stats, *a)
+        record("full_search_sea", "full_search.cu",
+               "video_encoder_tpu/ops/pallas/sad.py:68", max_abs_err(got, want))
+        log(f"kernel full_search_sea {oh}x{ow}, {name} reference: equal to plain, "
+            f"{float(got[3].float().mean()):.3f} rows per MB")
+
+    # G = 4: frame 1 against the recon, the clean frame, noise and the recon
+    # again, one launch, against plain, four single SEA launches and the
+    # exhaustive batched kernel
+    order = ("recon", "clean", "noise", "recon")
+    cur4 = torch.stack([cur_t] * g4)
+    ref4 = torch.stack([refs[n] for n in order])
+    with sea(True):
+        got = dispatch.full_search(cur4, ref4)
+        torch.cuda.synchronize()
+        singles = [dispatch.full_search(cur_t, refs[n]) for n in order]
+        sea_ms = time_ms(lambda: dispatch.full_search(cur4, ref4))
+        singles_ms = time_ms(lambda: [dispatch.full_search(cur4[i], ref4[i])
+                                      for i in range(g4)])
+    plain = motion.full_search_sea(cur4, ref4)
+    err = max_abs_err(got, plain[:3])
+    max_abs_err(got, [torch.stack(o) for o in zip(*singles)])
+    max_abs_err(got, dispatch.full_search(cur4, ref4))
+    fs_ms = time_ms(lambda: dispatch.full_search(cur4, ref4))
+    timing = (sea_ms, time_ms(lambda: motion.full_search_sea(cur4, ref4)),
+              bound([cur4, ref4], got, sea_ops(plain[3])), None)
+    record("full_search_sea_g", "full_search.cu",
+           "video_encoder_tpu/ops/pallas/sad.py:420", err, timing, g=g4,
+           single_launches_ms=singles_ms, full_search_g_ms=fs_ms,
+           rows_per_mb=float(plain[3].float().mean()), references=list(order))
+    log(f"kernel full_search_sea_g [{g4}, {h}, {w}] ({', '.join(order)}): equal "
+        f"to plain, to {g4} single SEA launches ({singles_ms:.4f} ms) and to "
+        f"full_search_g ({fs_ms:.4f} ms in this call)" + shown(timing))
+
+    # the tile path: the frame's four row shards against the recon
+    sh_cur, sh_ref = rows_of(cur_t), ext_rows(refs["recon"], 16)
+    with sea(True):
+        got = dispatch.full_search_pre_haloed(sh_cur, sh_ref)
+        torch.cuda.synchronize()
+        sea_ms = time_ms(lambda: dispatch.full_search_pre_haloed(sh_cur, sh_ref))
+    plain = motion.full_search_sea_pre_haloed(sh_cur, sh_ref)
+    err = max_abs_err(got, plain[:3])
+    max_abs_err([unrows(g) for g in got], dispatch.full_search(cur_t, refs["recon"]))
+    max_abs_err(got, dispatch.full_search_pre_haloed(sh_cur, sh_ref))
+    fs_ms = time_ms(lambda: dispatch.full_search_pre_haloed(sh_cur, sh_ref))
+    timing = (sea_ms, time_ms(lambda: motion.full_search_sea_pre_haloed(sh_cur, sh_ref)),
+              bound([sh_cur, sh_ref], got, sea_ops(plain[3])), None)
+    record("full_search_sea_haloed", "full_search.cu",
+           "video_encoder_tpu/ops/pallas/sad.py:536", err, timing, shards=4,
+           full_search_haloed_ms=fs_ms, rows_per_mb=float(plain[3].float().mean()))
+    log(f"kernel full_search_sea_haloed {list(sh_cur.shape)} / {list(sh_ref.shape)}"
+        f", recon reference: equal to plain, to the whole frame's search and to "
+        f"full_search_haloed ({fs_ms:.4f} ms in this call)" + shown(timing))
+
+    # ---- chunk_merge at the reference micro-bench's shape: a 1080p frame's
+    # 8160 x 8 pieces of 24 words (header, four luma blocks, Cb, Cr and an
+    # empty piece per MB), padded with empty pieces to 65536 (a multiple of
+    # 1024), k = 1024; then dense random pieces (every piece full) at the
+    # same shape
+    bw = 24
+    levels = frame_levels(rng, dev, h, w)
+    qpd = t32(rng.integers(-2, 3, (nby, nbx)))
+    inter = torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev)
+    mvy, mvx = (t32(rng.integers(-16, 17, (nby, nbx))) for _ in range(2))
+    pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, bw)
+    n = -(-8 * n_mbs // 1024) * 1024
+    words = torch.zeros((n, bw), dtype=torch.int64, device=dev)
+    bits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    words.view(-1, 8, bw)[:n_mbs, :7] = pw_
+    bits.view(-1, 8)[:n_mbs, :7] = pb_
+    kc = pack.pick_chunk_k(n, bw)
+    full = torch.from_numpy(rng.integers(0, 2**32, (n, bw), dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    for name, a in (("1080p frame", (words, bits, kc)),
+                    ("dense pieces", (full, torch.full_like(bits, 32 * bw), kc))):
+        got, want = both(dispatch.chunk_merge, *a)
+        err = max_abs_err(got, want)
+        if not torch.equal(got[1].long(), a[1].view(-1, kc // 2).sum(-1)):
+            raise AssertionError(f"chunk_merge {name}: bit counts")
+        # per piece word: two shifts and two ors into the string
+        timing = (*timed(dispatch.chunk_merge, *a),
+                  bound(a[:2], got, 4 * a[0].numel()), None)
+        if name == "1080p frame":
+            record("chunk_merge", "span_merge.cu",
+                   "video_encoder_tpu/ops/pallas/pack.py:102", err, timing)
+        else:
+            record("chunk_merge", "span_merge.cu",
+                   "video_encoder_tpu/ops/pallas/pack.py:102", err,
+                   also=(name, timing))
+        log(f"kernel chunk_merge {name}: {n} pieces of {bw} words, k {kc} -> "
+            f"{got[0].shape[0]} strings of {got[0].shape[1]} words, "
+            f"{int(got[1].sum())} bits: equal" + shown(timing))
+
+    # ---- the hierarchical search: the plain coarse search, then each of
+    # the two refine steps' 25 candidates in one sad_at_mv launch
+    n0 = build.LAUNCHES["sad_at_mv"]
+    got, want = both(dispatch.hier_search, cur_t, src[0])
+    launches = build.LAUNCHES["sad_at_mv"] - n0
+    err = max_abs_err(got, want)
+    if launches != 2:
+        raise AssertionError(f"hier_search: {launches} sad_at_mv launches, not 2")
+    ms, plain_ms = timed(dispatch.hier_search, cur_t, src[0])
+    record("sad_at_mv", "sad_at.cu", "video_encoder_tpu/ops/pallas/sad.py:852",
+           err, hier_search_ms=ms, hier_search_plain_ms=plain_ms)
+    found = float(((got[0] == 2) & (got[1] == 3)).float().mean())
+    log(f"hier_search {h}x{w} (clean reference): equal to plain, {launches} "
+        f"sad_at_mv launches (K = 25), {100 * found:.1f} % of MBs at the pan's "
+        f"(2, 3); {ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]")
+    if found < 0.5:
+        raise AssertionError("hier_search: the pan was not found")
 
 
 def span_sources(rng, dev, h, w, dense):
@@ -863,11 +1208,9 @@ def span_sources(rng, dev, h, w, dense):
     frame's (code_plane at qp 28, block_pack at 16 words, random
     vectors), or pieces of 300 bits that fit their 512-bit blocks but
     overflow the budgeted span width (tests/test_merge_budget_overflow.py)."""
-    from video_encoder_tpu_torch.codec import entropy, pack, tables
-    from video_encoder_tpu_torch.ops import dispatch
+    from video_encoder_tpu_torch.codec import entropy, pack
 
     nby, nbx = h // 16, w // 16
-    q28 = int(tables.load(dev).QSTEP[28])
     if dense:
         def lv(bh, bw_):    # ~36 nonzero ±1..2 levels: 250-350 bits a block
             a = np.zeros((bh, bw_, 64), np.int32)
@@ -876,14 +1219,7 @@ def span_sources(rng, dev, h, w, dense):
             return torch.from_numpy(a).to(dev)
         levels = (lv(2 * nby, 2 * nbx), lv(nby, nbx), lv(nby, nbx))
     else:
-        levels = []
-        for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
-            tex = texture(rng, ph, pw)
-            cur = torch.from_numpy(tex[:ph, :pw].astype(np.int32)).to(dev)
-            pred = np.clip(tex[:ph, :pw] + rng.integers(-3, 4, (ph, pw)), 0, 255)
-            pred = torch.from_numpy(pred.astype(np.int32)).to(dev)
-            q = torch.full((ph // 8, pw // 8), q28, dtype=torch.int32, device=dev)
-            levels.append(dispatch.code_plane(cur, pred, q, 8)[0])
+        levels = frame_levels(rng, dev, h, w)
 
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -1316,6 +1652,47 @@ def phase_tiled(tmp, jobs, streams, plains, card):
     return paths
 
 
+EXHAUSTIVE = ("full_search", "full_search_g", "full_search_haloed")
+
+
+def phase_sea(tmp, jobs, streams, plains, card):
+    """TVC_SEA=1 on the full-search clip through the port CLI: the single
+    GOP path (whose stream must also equal the oracle's), `--gop 10
+    --gop-batch 3` and `--tile 4`, each byte-identical to the port's
+    stream without it, through its SEA entry and no exhaustive search.
+    Returns the launch counts of each path."""
+    paths = []
+    full, gop10 = jobs["full"], plains["full"][0]
+    with sea(True):
+        for job, extra, plain, entry, steps in (
+                (full, [], streams["full"], "full_search_sea", 29),
+                (gop10, ["--gop-batch", "3"], plains["full"][1],
+                 "full_search_sea_g", 9),
+                (full, ["--tile", "4"], streams["full"],
+                 "full_search_sea_haloed", 29)):
+            flags = " ".join(["TVC_SEA=1", *extra])
+            out = os.path.join(tmp, f"sea_{job['tag']}_{len(paths)}.tvc")
+            launches, summary, stream = run_cli(job, out, extra)
+            same_stream(f"{job['tag']} {flags}", stream, plain,
+                        "the port's stream without TVC_SEA")
+            if not extra:
+                with open(job["theirs"], "rb") as f:
+                    same_stream(f"{job['tag']} {flags}", stream, f.read(),
+                                "the oracle's")
+            ran = {k: launches[k] for k in EXHAUSTIVE if launches[k]}
+            if launches[entry] != steps or ran:
+                raise AssertionError(f"{job['tag']} {flags}: {entry} launched "
+                                     f"{launches[entry]} times (want {steps}), "
+                                     f"exhaustive searches {ran}")
+            paths.append(launches)
+            held = "" if extra else ", == the oracle's"
+            log(f"sea {job['tag']} {flags}: == the port's stream without it "
+                f"({len(stream)} bytes{held}), {entry} {launches[entry]} "
+                f"launches, no exhaustive search; CLI wall "
+                f"{summary['wall_fps']} fps [{card}]")
+    return paths
+
+
 def phase_twopass(tmp, job, card):
     """Two-pass at 640x360 through the port CLI on the card: the stream of
     the port's own CPU run, decodable above the PSNR floor."""
@@ -1474,6 +1851,49 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
             f"device busy {busy if busy is None else round(100 * busy, 1)}"
             f" % [{card}]")
         log(f"  device ms per GOP by name (launches, ms): {top[:6]}")
+    return results
+
+
+def phase_speed_sea(m, clip, card):
+    """The full-search cell device-resident with TVC_SEA 0 and 1 in turns
+    (0, 1, 1, 0), one GOP a turn, and the search's device time per GOP of
+    each from a trace: a finding, not a claim."""
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    ys, cbs, crs = clip
+    h, w = ys[0].shape
+    n = len(ys)
+    eng = GopEngine(config_of(m, w, h, n), device=DEVICE)
+    y, cb, cr = up(ys, 16), up(cbs, 8), up(crs, 8)
+    rerun = bool(eng.run(y, cb, cr, 28)["ovf"].any())
+
+    def gop():
+        eng.run(y, cb, cr, 28)
+        if rerun:
+            eng.run(y, cb, cr, 28, xl=True)
+
+    times = {False: 0.0, True: 0.0}
+    for on in (False, True, True, False):
+        with sea(on):
+            gop()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gop()
+            torch.cuda.synchronize()
+            times[on] += time.perf_counter() - t0
+    results = {}
+    for on in (False, True):
+        with sea(on):
+            ops, busy, top = device_ops(gop, n)
+        search = [(name, cnt, ms) for name, cnt, ms in top
+                  if "search" in name or "sea" in name]
+        fps = 2 * n / times[on]
+        results[f"TVC_SEA={int(on)}"] = dict(resident=fps, search=search)
+        log(f"speed: {w}x{h} GOP {n} {m['tag']} TVC_SEA={int(on)}: {fps:.3f} "
+            f"fps device-resident (2 GOPs, rerun {rerun}); one GOP traced: "
+            f"{ops if ops is None else round(ops, 1)} device ops/frame, busy "
+            f"{busy if busy is None else round(100 * busy, 1)} %, search "
+            f"(launches, ms per GOP) {search} [{card}]")
     return results
 
 
@@ -1655,19 +2075,27 @@ def main() -> int:
         path_launches += batched_paths
         path_launches += phase_tiled(tmp, jobs, streams, plains, card)
         log(f"tiled paths done at {time.perf_counter() - t_start:.1f} s")
+        path_launches += phase_sea(tmp, jobs, streams, plains, card)
+        log(f"TVC_SEA=1 paths done at {time.perf_counter() - t_start:.1f} s")
         twopass_job = dict(jobs["v2"], gop=4, mode=TWOPASS_SMALL,
                            tag="640x360_gop4_twopass")
         path_launches.append(phase_twopass(tmp, twopass_job, card))
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
-    # the chroma twin of sad_at_mv has no caller on any encode path (nor in
-    # the reference), and neither has its batched form: they are held
-    # against their plain versions above only
-    rows["sad_at_mv_chroma"]["on_path"] = False
-    rows["sad_at_mv_chroma_g"]["on_path"] = False
+    # the chroma twin of sad_at_mv, the whole SAD map and chunk_merge have
+    # no caller on any encode path (nor in the reference), and neither have
+    # their batched forms: they are held against their plain versions above
+    # only
+    for name in ("sad_at_mv_chroma", "sad_at_mv_chroma_g", "sad_map",
+                 "sad_map_g", "chunk_merge"):
+        rows[name]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])
+    table = {r["row"].rstrip("cqvhms") for r in rows.values()}
+    if table != {str(i) for i in range(1, 17)} or set(rows) != set(TABLE_ROW):
+        raise AssertionError(f"kernel table rows {sorted(table)}, counters "
+                             f"{sorted(set(TABLE_ROW) ^ set(rows))} unheld")
     fps, traces = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),
                        (CONFIG3, jobs["config3"]["clip"], ["frame", "chunks"]),
                        (V4, jobs["v4"]["clip"], [GopEngine.emit])], card)
@@ -1678,6 +2106,9 @@ def main() -> int:
     log(f"lockstep speed done at {time.perf_counter() - t_start:.1f} s")
     tiled = phase_speed_tiled(FULL, jobs["full"]["clip"], card)
     log(f"result: 1080p GOP-30 tiled {json.dumps(tiled)} [{card}]")
+    sea_fps = phase_speed_sea(FULL, jobs["full"]["clip"], card)
+    log(f"result: 1080p GOP-30 full search with and without TVC_SEA "
+        f"{json.dumps(sea_fps)} [{card}]")
     log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "
         + ", ".join(f"{k} {summaries[k]['wall_fps']} fps"

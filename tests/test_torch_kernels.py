@@ -706,3 +706,212 @@ def test_tile2d_on_card_matches_cpu(cuda, rng, sr, sc, rc):
     got = [tiles.assemble_frame_2d(words, row_bits, k) for k in range(t)]
     want, _ = GopEngine(cfg, device="cpu").encode_gop(frames, 0)
     assert got == [(p.payload, p.payload_bits) for p in want]
+
+
+# ---- the whole SAD map, the SEA full search (TVC_SEA=1), chunk_merge and
+# the hierarchical search's refine ------------------------------------------
+
+@pytest.mark.parametrize("h,w", [(368, 640), (144, 208)])
+def test_sad_map_kernel(cuda, plain_and_kernel, rng, h, w):
+    """All 1089 SADs per MB; the all-tied flat region of _gop_planes' GOP
+    1; the first minimum of the packed key is full_search's and the even
+    sublattice is sad_map_even's."""
+    cur, ref = _gop_planes(rng, 2, h, w)
+    args = (_t(cur[1], cuda), _t(ref[1], cuda))
+    got, want = plain_and_kernel(dispatch.sad_map, *args)
+    assert torch.equal(got, want) and got.shape == (h // 16, w // 16, 1089)
+    assert (got[0, 0] == got[0, 0, 0]).all()
+    key = (got.long() * 2048 + torch.arange(1089, device=cuda)).amin(-1)
+    dy, dx, sad = dispatch.full_search(*args)
+    assert torch.equal((key >> 11).int(), sad)
+    assert torch.equal(((key & 2047) // 33 - 16).int(), dy)
+    assert torch.equal(((key & 2047) % 33 - 16).int(), dx)
+    even = got.reshape(h // 16, w // 16, 33, 33)[..., ::2, ::2]
+    assert torch.equal(even.reshape(h // 16, w // 16, 289),
+                       dispatch.sad_map_even(*args))
+    assert build.LAUNCHES["sad_map"] > 0
+
+
+@pytest.mark.parametrize("g,h,w", [(3, 368, 640), (2, 144, 208)])
+def test_sad_map_g_kernel(cuda, plain_and_kernel, rng, g, h, w):
+    cur, ref = _gop_planes(rng, g, h, w)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.sad_map, *args)
+    assert torch.equal(got, want)
+    assert torch.equal(got, _per_g(dispatch.sad_map, g, *args))
+    assert build.LAUNCHES["sad_map_g"] > 0
+
+
+def _sea_pair(rng, kind, h, w):
+    """pan: a smooth clean pan by (+2, -3), on which the bound prunes;
+    noise: i.i.d. planes, on which it prunes nothing; tied: textured
+    planes with a flat region where every candidate ties; flat: two flat
+    planes of different levels (every candidate ties, every bound equals
+    its SAD)."""
+    if kind == "flat":
+        return np.full((h, w), 77), np.full((h, w), 100)
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w)), rng.integers(0, 256, (h, w))
+    base = rng.integers(0, 256, (h + 16, w + 16))
+    for _ in range(2):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    cur, ref = base[2:2 + h, :w].copy(), base[:h, 3:3 + w].copy()
+    if kind == "tied":
+        cur[:64, :64] = 9
+        ref[:96, :96] = 9
+    return cur, ref
+
+
+@pytest.mark.parametrize("kind", ["pan", "noise", "tied", "flat"])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (368, 640), (144, 208)])
+def test_full_search_sea_kernel(cuda, rng, monkeypatch, kind, h, w):
+    """The stats entry against the plain SEA (vectors and rows per MB);
+    with TVC_SEA=1 the full_search wrapper launches the SEA entry and not
+    the exhaustive one, with the exhaustive search's result."""
+    args = tuple(_t(a, cuda) for a in _sea_pair(rng, kind, h, w))
+    dispatch.force("plain")
+    try:
+        want = dispatch.full_search_sea_stats(*args)
+    finally:
+        dispatch.force(None)
+    n = dict(build.LAUNCHES)
+    got = dispatch.full_search_sea_stats(*args)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    exhaustive = dispatch.full_search(*args)
+    assert _same(got[:3], exhaustive)
+    monkeypatch.setenv("TVC_SEA", "1")
+    assert _same(dispatch.full_search(*args), exhaustive)
+    assert build.LAUNCHES["full_search_sea"] == n["full_search_sea"] + 2
+    assert build.LAUNCHES["full_search"] == n["full_search"] + 1
+    rows = got[3]
+    assert int(rows.min()) >= 1 and int(rows.max()) <= 33
+    if kind == "pan":
+        assert rows.float().mean() < 20
+    elif kind == "noise":
+        assert (rows == 33).all()
+    elif kind == "flat":       # ties: `<=` evaluates every row, first minimum
+        assert (rows == 33).all() and (got[0] == -16).all() and (got[1] == -16).all()
+    else:
+        assert (rows[:4, :4] == 33).all() and (got[0][:4, :4] == -16).all()
+
+
+@pytest.mark.parametrize("g,h,w", [(4, 1088, 1920), (3, 368, 640), (2, 144, 208)])
+def test_full_search_sea_g_kernel(cuda, rng, monkeypatch, g, h, w):
+    cur, ref = _gop_planes(rng, g, h, w)
+    cur[0], ref[0] = _sea_pair(rng, "pan", h, w)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    want = dispatch.full_search(*args)
+    monkeypatch.setenv("TVC_SEA", "1")
+    n = dict(build.LAUNCHES)
+    got = dispatch.full_search(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["full_search_sea_g"] == n["full_search_sea_g"] + 1
+    assert build.LAUNCHES["full_search_g"] == n["full_search_g"]
+    assert _same(got, want)
+    assert _same(got, motion.full_search_sea(*args)[:3])
+    assert _same(got, _per_g(dispatch.full_search, g, *args))
+
+
+@pytest.mark.parametrize("sr,sc,h,w", _HALOED_SHAPES)
+def test_full_search_sea_haloed_kernel(cuda, rng, monkeypatch, sr, sc, h, w):
+    """The shards' SEA search equals the plain pre-haloed search (and the
+    plain pre-haloed SEA) and, put together, the whole frame's search."""
+    cur, ref = _sea_pair(rng, "tied", h, w)
+    cur, ref = _t(cur, cuda), _t(ref, cuda)
+    args = (_split(cur, sr, sc), _ext(ref, sr, sc, 16))
+    want = dispatch.full_search_pre_haloed(*args)
+    monkeypatch.setenv("TVC_SEA", "1")
+    n = dict(build.LAUNCHES)
+    got = dispatch.full_search_pre_haloed(*args)
+    one = dispatch.full_search_pre_haloed(args[0][0], args[1][0])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["full_search_sea_haloed"] == n["full_search_sea_haloed"] + 2
+    assert build.LAUNCHES["full_search_haloed"] == n["full_search_haloed"]
+    assert _same(got, want)
+    assert _same(got, motion.full_search_sea_pre_haloed(*args)[:3])
+    assert _same(tuple(_join(g, sr, sc) for g in got), dispatch.full_search(cur, ref))
+    assert _same(one, tuple(g[0] for g in got))
+
+
+def _pieces(rng, lead, n, w, kind):
+    """Piece strings [*lead, n, w] int64 and bits [*lead, n] int32: every
+    piece full (dense), every piece empty, or random lengths with every
+    ninth piece empty; words past each length zero."""
+    shape = (*lead, n)
+    bits = {"dense": np.full(shape, 32 * w), "empty": np.zeros(shape, np.int64),
+            "random": rng.integers(0, 32 * w + 1, shape)}[kind]
+    if kind == "random":
+        bits[..., ::9] = 0
+    keep = np.clip(bits[..., None] - np.arange(w) * 32, 0, 32).astype(np.uint64)
+    vals = rng.integers(0, 2**32, (*shape, w), dtype=np.uint64)
+    words = np.where(keep > 0, vals >> (32 - keep) << (32 - keep), 0)
+    return words.astype(np.int64), bits.astype(np.int32)
+
+
+@pytest.mark.parametrize("lead,n,w,k,kind", [
+    ((), 65536, 24, 1024, "dense"), ((), 65536, 24, 1024, "empty"),
+    ((), 65536, 24, 1024, "random"), ((), 256, 8, 32, "random"),
+    ((3,), 4096, 16, 1024, "random"), ((2,), 64, 4, 2, "dense")])
+def test_chunk_merge_kernel(cuda, plain_and_kernel, rng, lead, n, w, k, kind):
+    """Half-chunk strings at the exact worst-case width; at a 1080p frame's
+    65536 pieces of 24 words each block's string takes 51 KB of shared
+    memory, over the 48 KB a launch gets without opting in."""
+    from video_encoder_tpu_torch.codec import pack
+
+    words, bits = _pieces(rng, lead, n, w, kind)
+    args = (torch.from_numpy(words).to(cuda), _t(bits, cuda), k)
+    assert pack.pick_chunk_k(n, w) == k or n < 1024
+    got, want = plain_and_kernel(dispatch.chunk_merge, *args)
+    assert _same(got, want)
+    assert got[0].shape == (*lead, 2 * n // k, (k // 2) * w + 1)
+    total = bits.reshape(*lead, -1, k // 2).sum(-1)
+    assert np.array_equal(got[1].cpu().numpy(), total)
+    assert build.LAUNCHES["chunk_merge"] > 0
+
+
+@pytest.mark.parametrize("g", [None, 3])
+def test_hier_search_on_card_matches_cpu(cuda, rng, g):
+    """The coarse search in plain ops on the card, each refine step's 25
+    candidates in one sad_at_mv launch: the CPU's vectors."""
+    lead = () if g is None else (g,)
+    cur, ref = zip(*[_sea_pair(rng, "pan", 368, 640) for _ in range(g or 1)])
+    cur, ref = np.stack(cur).reshape(*lead, 368, 640), np.stack(ref).reshape(*lead, 368, 640)
+    name = "sad_at_mv" if g is None else "sad_at_mv_g"
+    n = build.LAUNCHES[name]
+    got = dispatch.hier_search(_t(cur, cuda), _t(ref, cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n + 2
+    want = dispatch.hier_search(_t(cur, "cpu"), _t(ref, "cpu"))
+    assert _same(tuple(a.cpu() for a in got), want)
+
+
+@pytest.mark.parametrize("path", ["single", "batched", "tiled"])
+def test_encode_with_sea_on_card_matches_cpu(cuda, rng, monkeypatch, path):
+    """TVC_SEA=1 reaches the engine's search on each route (the single
+    GOP, G GOPs in lockstep, S row shards) through the SEA entries only,
+    with the CPU's packets."""
+    t = 3
+    frames = _pan_frames(rng, 2 * t)
+    gops, firsts = [frames[:t], frames[t:]], [0, t]
+    cfg = EncoderConfig(width=96, height=128, gop_n=t, base_qp=24)
+    monkeypatch.setenv("TVC_SEA", "1")
+    build.reset_launches()
+    if path == "single":
+        got = [GopEngine(cfg, device=cuda).encode_gop(gops[0], 0)]
+        want = [GopEngine(cfg, device="cpu").encode_gop(gops[0], 0)]
+        sea, plain = "full_search_sea", "full_search"
+    elif path == "batched":
+        got = GopEngine(cfg, device=cuda).encode_gops(gops, firsts)
+        want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+        sea, plain = "full_search_sea_g", "full_search_g"
+    else:
+        got = ShardedGopEncoder(cfg, make_codec_mesh(1, 4, cuda)).encode_gop_batch(
+            gops[:1], firsts[:1])
+        want = GopEngine(cfg, device="cpu").encode_gops(gops[:1], firsts[:1])
+        sea, plain = "full_search_sea_haloed", "full_search_haloed"
+    n = build.LAUNCHES
+    assert n[sea] >= t - 1 and n[plain] == 0, n
+    assert not any(n[k] for k in ("full_search", "full_search_g", "full_search_haloed"))
+    for (gp, _), (wp, _) in zip(got, want):
+        assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]

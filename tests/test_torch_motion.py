@@ -395,3 +395,109 @@ def test_batched_intra_cost_and_adaptive_qp(rng):
     assert got.dtype == torch.int32 and _eq(got, want)
     alone = motion.adaptive_qp(torch.tensor(26, dtype=torch.int32), cost[1])
     assert torch.equal(alone, got[1])
+
+
+# ---------------------------------------------------------------------------
+# The whole SAD map (stride 1) against the reference's Pallas sad_map in TPU
+# interpret mode, and the hierarchical search against the reference's jnp
+# hier_search and the golden model
+# ---------------------------------------------------------------------------
+
+def test_sad_map_matches_pallas_kernel(rng):
+    """The plain map equals psad.sad_map and, for G = 2, the vmap of it
+    (the batched kernel); its even sublattice is sad_map_even and the
+    first minimum of sad << 11 | k is full_search's."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+
+    from video_encoder_tpu.ops.pallas import sad as psad
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = 48, 64
+    cur, ref = _batch(rng, h, w)
+    cur, ref = cur[1:], ref[1:]           # the all-tied pair and the corner pair
+    with pltpu.force_tpu_interpret_mode():
+        one = psad.sad_map(jnp.asarray(cur[1]), jnp.asarray(ref[1]))
+        both = jax.vmap(psad.sad_map)(jnp.asarray(cur), jnp.asarray(ref))
+    for fn in (dispatch.sad_map, ksad.sad_map_g, motion.sad_map):
+        got = fn(_t(cur), _t(ref))
+        assert got.dtype == torch.int32 and got.shape == (2, 3, 4, 1089)
+        assert _eq(got, both)
+    single = ksad.sad_map(_t(cur[1]), _t(ref[1]))
+    assert _eq(single, one) and torch.equal(single, got[1])
+    even = got.reshape(2, 3, 4, 33, 33)[..., ::2, ::2].reshape(2, 3, 4, 289)
+    assert torch.equal(even, motion.sad_map_even(_t(cur), _t(ref)))
+    key = (got.long() * 2048 + torch.arange(1089)).amin(-1)
+    k = key & 2047
+    want = motion.full_search(_t(cur), _t(ref))
+    assert torch.equal((k // 33 - 16).int(), want[0])
+    assert torch.equal((k % 33 - 16).int(), want[1])
+    assert torch.equal((key >> 11).int(), want[2])
+    assert (got[0, :, 0] == got[0, :, 0, :1]).all()       # the tied MBs
+
+
+def test_down2_matches_reference(rng):
+    from video_encoder_tpu.codec import spec as jspec
+
+    p = rng.integers(0, 256, (2, 32, 48)).astype(np.int32)
+    want = np.stack([jspec.down2(q) for q in p])
+    assert _eq(motion.down2(_t(p)), want)
+    assert _eq(motion.down2(_t(p[0])), jmotion.down2(jnp.asarray(p[0])))
+    assert int(motion.down2(_t([[0, 1], [0, 2]]))[0, 0]) == (0 + 1 + 0 + 2 + 2) >> 2
+
+
+def _hier_pair(rng, sy, sx, h=160, w=192):
+    """tests/test_hier_search.py's translation case: a heavily low-passed
+    field, ref = cur shifted by (sy, sx)."""
+    base = rng.integers(0, 256, (h + 64, w + 64)).astype(np.float64)
+    for k in (1, 2, 4, 8):
+        base = (base + np.roll(base, k, 0) + np.roll(base, -k, 0)
+                + np.roll(base, k, 1) + np.roll(base, -k, 1)) / 5
+    base = base - base.min()
+    base = (base / base.max() * 255).astype(np.int32)
+    return (base[32:32 + h, 32:32 + w],
+            base[32 - sy:32 - sy + h, 32 - sx:32 - sx + w])
+
+
+@pytest.mark.parametrize("shift", [(0, 0), (3, -5), (-14, 15), (9, 9)])
+def test_hier_search_matches_reference(rng, shift):
+    """The plain hier search with its default (batched) refine, with a
+    refine of one candidate per call, and through dispatch (each refine
+    step's 25 candidates in one sad_at_mv call) against the reference's
+    jnp hier_search and golden.sad_hier_search."""
+    from video_encoder_tpu.codec import golden
+    from video_encoder_tpu_torch.ops import dispatch
+
+    cur, ref = _hier_pair(rng, *shift)
+    gold = golden.sad_hier_search(cur, ref)
+    want = jmotion.hier_search(jnp.asarray(cur), jnp.asarray(ref))
+    for a, b in zip(gold, want):
+        assert np.array_equal(a, np.asarray(b))
+    calls = []
+
+    def one_at_a_time(dy, dx):
+        calls.append(dy.shape)
+        return motion.sad_at(_t(cur), _t(ref), dy, dx)
+
+    for got in (motion.hier_search(_t(cur), _t(ref)),
+                motion.hier_search(_t(cur), _t(ref), one_at_a_time),
+                dispatch.hier_search(_t(cur), _t(ref))):
+        assert all(g.dtype == torch.int32 and _eq(g, w_)
+                   for g, w_ in zip(got, want))
+    assert calls == [(10, 12)] * 50          # two steps of 25 candidates
+    inner = np.s_[2:-2, 2:-2]
+    assert ((gold[0][inner] == shift[0]) & (gold[1][inner] == shift[1])).mean() > 0.85
+
+
+def test_batched_hier_search_is_per_plane(rng):
+    from video_encoder_tpu_torch.ops import dispatch
+
+    pairs = [_hier_pair(rng, *s, h=64, w=96) for s in ((3, -5), (-9, 12))]
+    cur = np.stack([c for c, _ in pairs])
+    ref = np.stack([r for _, r in pairs])
+    got = dispatch.hier_search(_t(cur), _t(ref))
+    for g in range(2):
+        alone = motion.hier_search(_t(cur[g]), _t(ref[g]))
+        assert all(torch.equal(a, b[g]) for a, b in zip(alone, got))
+        want = jmotion.hier_search(jnp.asarray(cur[g]), jnp.asarray(ref[g]))
+        assert all(_eq(a[g], b) for a, b in zip(got, want))

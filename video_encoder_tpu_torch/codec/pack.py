@@ -16,6 +16,9 @@ compared with `super_merge_mb`'s one for one:
 kernels in `csrc/span_merge.cu`: each string is the concatenation of its
 pieces, placed by an exclusive prefix sum of the piece bit lengths and a
 shifted add of each piece word, as `entropy.frame_concat` does.
+`chunk_merge` (with `pick_chunk_k`) is the plain version of the third
+kernel there, the reference's `chunk_merge` (ops/pallas/pack.py:200): no
+encode path calls it, here or in the reference.
 
 Overflow rule: `ovf` is set when any OUTPUT string's true bit count
 exceeds 32 * its width (cw1, cwf or cap). The reference also checks the
@@ -172,3 +175,34 @@ def span_merge(strings, bits, g: int, stop: int, cw: int):
     gi = torch.arange(n, device=strings.device)
     _place(out, cw, gi // m, off[:n], strings)
     return _finish(out, totals, n_strings, cw)
+
+
+def pick_chunk_k(n: int, w: int) -> int:
+    """Pieces per chunk of chunk_merge for n pieces of w words (the
+    reference's choice: <= 1024 and <= 32768 words of input, <= n)."""
+    k = 1024
+    while k * w > 32768 and k > 16:
+        k //= 2
+    while k > n:
+        k //= 2
+    return max(k, 2)
+
+
+def chunk_merge(words, bits, k: int):
+    """Each run of k consecutive piece strings -> two half-chunk strings,
+    in piece order: words [(G,) n, w] int64, bits [(G,) n] int32, n a
+    multiple of k. Returns (words [(G,) 2n/k, (k/2) * w + 1] int64, bits
+    [(G,) 2n/k] int32). The width is the exact worst case, so no string
+    overflows; a leading G folds into the chunk axis."""
+    *lead, n, w = words.shape
+    m = k // 2
+    n_strings = words[..., 0].numel() // m
+    cw = m * w + 1
+    off, totals = _offsets(bits.reshape(-1), m, n_strings)
+    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int64,
+                      device=words.device)
+    gi = torch.arange(n_strings * m, device=words.device)
+    _place(out, cw, gi // m, off, words.reshape(-1, w))
+    strings, nbits, _ = _finish(out, totals, n_strings, cw)
+    return (strings.reshape(*lead, 2 * n // k, cw),
+            nbits.reshape(*lead, 2 * n // k))

@@ -3,11 +3,12 @@
 //
 // Replaces: video_encoder_tpu/ops/pallas/sad.py, _make_full_search_kernel,
 // launched by _full_search_call (public full_search: stride 1, packed
-// minimum) and by _sad_map_call with stride 2 (public sad_map_even: the
-// 289 SADs of the even-even mvs). The TPU builds both from one kernel
-// factory; here one template does, on stride and on min-versus-map.
+// minimum) and by _sad_map_call with stride 1 (public sad_map: all 1089
+// SADs of an MB) or 2 (public sad_map_even: the 289 SADs of the even-even
+// mvs). The TPU builds all three from one kernel factory; here one
+// template does, on stride and on min-versus-map.
 // Also replaces its G-batched twins _full_search_call_batch and
-// _sad_map_call_batch (the vmap rules of full_search and sad_map_even on
+// _sad_map_call_batch (the vmap rules of full_search and the maps on
 // [G, H, W] planes of G GOPs in lockstep): the TPU needed separate calls
 // because vmap could not batch a pallas_call with an ANY-space operand;
 // here the GOP is blockIdx.z and a plane stride, in the same kernel (the
@@ -41,6 +42,30 @@
 //   - map (sad_map_even): thread k writes SAD k of the MB's [289] row, so
 //     a warp's stores are contiguous.
 // Packing four pixels per __vsadu4 is later work.
+//
+// Also replaces the factory's sea=True variant (sad.py:224-325, opted into
+// with TVC_SEA=1 by full_search, its batched twin and
+// full_search_pre_haloed; full_search_sea_stats also returns the count of
+// dy rows evaluated exactly): successive elimination, in sea_kernel. Its
+// bound on this card is the same ALU work, less the rows it prunes, plus
+// 1089 x 16 bound terms per MB. Design: one block per MB on the same staged
+// window. Up front, all integer: the 16 column sums of the block, the
+// 16-row column sums of the window at each of the 33 row offsets, the
+// lower bound LB = sum_c |curc[c] - winc[ky][kx + c]| of all 1089
+// candidates and its minimum per dy row (none of it depends on the running
+// best). Then the dy rows in the reference's centre-out order (dy = 0, -1,
+// +1, -2, ...): a row is evaluated exactly iff its smallest bound is <= the
+// best SAD so far. The best key sits in shared memory and is read after the
+// previous row's barrier, so the branch is uniform over the block. An
+// evaluated row is 33 candidates x 256 pixels spread over all 256 threads:
+// 8 threads per candidate, each holding two rows of the block in
+// registers, then a shuffle reduction of the 8 partial sums. `<=` and not
+// `<`: a pruned candidate has SAD >= LB > best >= the final SAD, so the
+// packed-key first minimum, ties included, is the exhaustive search's. The
+// reference counts rows per tile of MBs (a tile evaluates a row iff one of
+// its MBs needs it); here each MB counts its own, and the reference's count
+// of a tile is the OR of its MBs' row masks, because a row an MB would
+// prune cannot lower that MB's best.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -52,6 +77,42 @@ constexpr int R = 16;
 constexpr int ND = 2 * R + 1;     // 33
 constexpr int WIN = MB + 2 * R;   // 48
 constexpr int THREADS = 256;
+
+// Stages the MB's clamped 48x48 reference window and its 16x16 block; the
+// caller synchronises. cur and ref point at the block's plane.
+__device__ __forceinline__ void stage(const int* __restrict__ cur,
+                                      const int* __restrict__ ref, int w,
+                                      int rh, int rw, int oy, int ox, int y0,
+                                      int x0, int (*win)[WIN + 1],
+                                      int (*blk)[MB]) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < WIN * WIN; i += THREADS) {
+    const int r = i / WIN, c = i % WIN;
+    const int y = min(max(y0 - R + r + oy, 0), rh - 1);
+    const int x = min(max(x0 - R + c + ox, 0), rw - 1);
+    win[r][c] = ref[y * rw + x];
+  }
+  {
+    const int r = tid / MB, c = tid % MB;
+    blk[r][c] = cur[(y0 + r) * w + x0 + c];
+  }
+}
+
+// The minimum of v over the block, combined with *best; the result is in
+// *best for every thread after the call (two barriers).
+__device__ __forceinline__ void block_min(int v, int* best, int* warp_best) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = min(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int b = *best;
+    for (int i = 0; i < THREADS / 32; ++i) b = min(b, warp_best[i]);
+    *best = b;
+  }
+  __syncthreads();
+}
 
 template <int STRIDE, bool EMIT_MAP>
 __global__ void __launch_bounds__(THREADS)
@@ -65,26 +126,16 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   __shared__ int win[WIN][WIN + 1];
   __shared__ int blk[MB][MB];
   __shared__ int warp_best[THREADS / 32];
+  __shared__ int best_s;
 
   const int bx = blockIdx.x, by = blockIdx.y;
-  const int y0 = by * MB, x0 = bx * MB;
   const int tid = threadIdx.x;
   // 64-bit: g * h * w passes int32 for a large batch of large planes; the
   // reference's planes are rh * rw apart
   const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
-  cur += (size_t)blockIdx.z * h * w;
-  ref += (size_t)blockIdx.z * rh * rw;
-
-  for (int i = tid; i < WIN * WIN; i += THREADS) {
-    const int r = i / WIN, c = i % WIN;
-    const int y = min(max(y0 - R + r + oy, 0), rh - 1);
-    const int x = min(max(x0 - R + c + ox, 0), rw - 1);
-    win[r][c] = ref[y * rw + x];
-  }
-  {
-    const int r = tid / MB, c = tid % MB;
-    blk[r][c] = cur[(y0 + r) * w + x0 + c];
-  }
+  stage(cur + (size_t)blockIdx.z * h * w, ref + (size_t)blockIdx.z * rh * rw,
+        w, rh, rw, oy, ox, by * MB, bx * MB, win, blk);
+  if (tid == 0) best_s = INT_MAX;
   __syncthreads();
 
   int best = INT_MAX;
@@ -105,35 +156,132 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
     }
   }
   if constexpr (!EMIT_MAP) {
-    for (int off = 16; off > 0; off >>= 1) {
-      best = min(best, __shfl_down_sync(0xffffffffu, best, off));
-    }
-    if ((tid & 31) == 0) warp_best[tid >> 5] = best;
-    __syncthreads();
+    block_min(best, &best_s, warp_best);
     if (tid == 0) {
-      int b = warp_best[0];
-      for (int i = 1; i < THREADS / 32; ++i) b = min(b, warp_best[i]);
-      const int k = b & 2047;
+      const int k = best_s & 2047;
       dy_out[o] = k / ND - R;
       dx_out[o] = k % ND - R;
-      sad_out[o] = b >> 11;
+      sad_out[o] = best_s >> 11;
     }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+sea_kernel(const int* __restrict__ cur, const int* __restrict__ ref, int h,
+           int w, int rh, int rw, int oy, int ox, int* __restrict__ dy_out,
+           int* __restrict__ dx_out, int* __restrict__ sad_out,
+           int* __restrict__ rows_out) {
+  __shared__ int win[WIN][WIN + 1];
+  __shared__ int blk[MB][MB];
+  __shared__ int curc[MB];         // column sums of the block
+  __shared__ int winc[ND][WIN];    // 16-row column sums of the window
+  __shared__ int rowmin[ND];       // the smallest bound of each dy row
+  __shared__ int warp_best[THREADS / 32];
+  __shared__ int best_s;           // the running best key sad << 11 | k
+
+  const int bx = blockIdx.x, by = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
+  stage(cur + (size_t)blockIdx.z * h * w, ref + (size_t)blockIdx.z * rh * rw,
+        w, rh, rw, oy, ox, by * MB, bx * MB, win, blk);
+  if (tid < ND) rowmin[tid] = INT_MAX;
+  if (tid == 0) best_s = INT_MAX;
+  __syncthreads();
+
+  if (tid < MB) {
+    int s = 0;
+    for (int r = 0; r < MB; ++r) s += blk[r][tid];
+    curc[tid] = s;
+  }
+  for (int i = tid; i < ND * WIN; i += THREADS) {
+    const int ky = i / WIN, x = i % WIN;
+    int s = 0;
+    for (int r = 0; r < MB; ++r) s += win[ky + r][x];
+    winc[ky][x] = s;
+  }
+  __syncthreads();
+  for (int k = tid; k < ND * ND; k += THREADS) {
+    const int ky = k / ND, kx = k % ND;
+    int lb = 0;
+#pragma unroll
+    for (int c = 0; c < MB; ++c) lb += abs(curc[c] - winc[ky][kx + c]);
+    atomicMin(&rowmin[ky], lb);
+  }
+
+  // this thread's share of an exact row: candidate kx = tid / 8 (and, in
+  // warp 0, kx = 32 + tid / 8 for tid < 8), block rows 2 (tid % 8) and
+  // 2 (tid % 8) + 1, held in registers
+  const int r0 = 2 * (tid & 7);
+  int b[2][MB];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+    for (int c = 0; c < MB; ++c) b[rr][c] = blk[r0 + rr][c];
+  }
+  __syncthreads();
+
+  int n_rows = 0;
+  for (int s = 0; s < ND; ++s) {
+    const int ky = R + ((s + 1) >> 1) * (1 - 2 * (s & 1));
+    // uniform over the block: rowmin and best_s were written before the
+    // last barrier
+    if (rowmin[ky] > (best_s >> 11)) continue;
+    ++n_rows;
+    int key = INT_MAX;
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 1 && tid >= 32) break;  // kx = 32 is warp 0's alone
+      const int kx = (tid >> 3) + pass * (THREADS / 8);
+      unsigned int acc = 0;
+      if (kx < ND) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int c = 0; c < MB; ++c) {
+            acc = __sad(b[rr][c], win[ky + r0 + rr][kx + c], acc);
+          }
+        }
+      }
+      // whole warps: the 8 threads of a candidate are aligned lanes
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (kx < ND) key = min(key, (int)(acc << 11) | (ky * ND + kx));
+    }
+    block_min(key, &best_s, warp_best);
+  }
+  if (tid == 0) {
+    const int k = best_s & 2047;
+    dy_out[o] = k / ND - R;
+    dx_out[o] = k % ND - R;
+    sad_out[o] = best_s >> 11;
+    if (rows_out != nullptr) rows_out[o] = n_rows;
   }
 }
 
 // One block per (g, MB); gridDim.z is limited to 65535. The reference is
 // [g, rh, rw] with cur's origin at its row (rh - h) / 2, column (rw - w) / 2:
 // each extent is cur's own (no halo on that axis) or cur's plus 2 R.
+bool bad_extents(int g, int h, int w, int rh, int rw) {
+  return g < 1 || g > 65535 || (rh != h && rh != h + 2 * R) ||
+         (rw != w && rw != w + 2 * R);
+}
+
 template <int STRIDE, bool EMIT_MAP>
 int launch(const int* cur, const int* ref, int g, int h, int w, int rh, int rw,
            int* dy, int* dx, int* sad, int* map, void* stream) {
-  if (g < 1 || g > 65535) return (int)cudaErrorInvalidValue;
-  if ((rh != h && rh != h + 2 * R) || (rw != w && rw != w + 2 * R)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
   const dim3 grid(w / MB, h / MB, g);
   search_kernel<STRIDE, EMIT_MAP><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, map);
+  return (int)cudaGetLastError();
+}
+
+int launch_sea(const int* cur, const int* ref, int g, int h, int w, int rh,
+               int rw, int* dy, int* dx, int* sad, int* rows, void* stream) {
+  if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(w / MB, h / MB, g);
+  sea_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, rows);
   return (int)cudaGetLastError();
 }
 
@@ -154,6 +302,14 @@ extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
                          map, stream);
 }
 
+// cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 1089]
+// int32, candidate (dy+16)*33 + (dx+16).
+extern "C" int tvc_sad_map(const int* cur, const int* ref, int h, int w,
+                           int* map, void* stream) {
+  return launch<1, true>(cur, ref, 1, h, w, h, w, nullptr, nullptr, nullptr,
+                         map, stream);
+}
+
 // The G-batched search: cur, ref [g, h, w] int32, plane g of cur against
 // plane g of ref; dy, dx, sad: [g, h/16, w/16].
 extern "C" int tvc_full_search_g(const int* cur, const int* ref, int g, int h,
@@ -170,6 +326,13 @@ extern "C" int tvc_sad_map_even_g(const int* cur, const int* ref, int g,
                          map, stream);
 }
 
+// The G-batched whole map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 1089].
+extern "C" int tvc_sad_map_g(const int* cur, const int* ref, int g, int h,
+                             int w, int* map, void* stream) {
+  return launch<1, true>(cur, ref, g, h, w, h, w, nullptr, nullptr, nullptr,
+                         map, stream);
+}
+
 // The pre-haloed search of g row shards (or 2-D tiles): cur [g, h, w] int32,
 // ref_ext [g, rh, rw] int32 with rh = h + 32 and rw = w (columns replicate
 // at the edge) or w + 32 (column halo present); dy, dx, sad [g, h/16, w/16].
@@ -180,4 +343,29 @@ extern "C" int tvc_full_search_haloed(const int* cur, const int* ref_ext,
   if (rh != h + 2 * R) return (int)cudaErrorInvalidValue;
   return launch<1, false>(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, nullptr,
                           stream);
+}
+
+// The SEA search of tvc_full_search's operands; rows [h/16, w/16] int32,
+// the dy rows each MB evaluated exactly, or null.
+extern "C" int tvc_full_search_sea(const int* cur, const int* ref, int h,
+                                   int w, int* dy, int* dx, int* sad,
+                                   int* rows, void* stream) {
+  return launch_sea(cur, ref, 1, h, w, h, w, dy, dx, sad, rows, stream);
+}
+
+// The SEA search of tvc_full_search_g's operands.
+extern "C" int tvc_full_search_sea_g(const int* cur, const int* ref, int g,
+                                     int h, int w, int* dy, int* dx, int* sad,
+                                     void* stream) {
+  return launch_sea(cur, ref, g, h, w, h, w, dy, dx, sad, nullptr, stream);
+}
+
+// The SEA search of tvc_full_search_haloed's operands.
+extern "C" int tvc_full_search_sea_haloed(const int* cur, const int* ref_ext,
+                                          int g, int h, int w, int rh, int rw,
+                                          int* dy, int* dx, int* sad,
+                                          void* stream) {
+  if (rh != h + 2 * R) return (int)cudaErrorInvalidValue;
+  return launch_sea(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, nullptr,
+                    stream);
 }

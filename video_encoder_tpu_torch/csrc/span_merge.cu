@@ -6,7 +6,16 @@
 //     (header, Y00..Y11, Cb, Cr word strings and the piece bit counts) ->
 //     stage-1 strings of m pieces each: tvc_span_merge_mb;
 //   - _make_reduce_kernel -> _reduce (public super_merge): groups of
-//     stage-1 strings -> the frame's span strings: tvc_span_merge.
+//     stage-1 strings -> the frame's span strings: tvc_span_merge;
+//   - _make_chunk_kernel -> _chunk_call (public chunk_merge, pack.py:102,
+//     121, 200): each run of k piece strings -> two half-chunk strings of
+//     k/2 pieces, at the exact worst-case width (k/2) w + 1, so no string
+//     can overflow: tvc_chunk_merge, with no overflow flag. No encode path
+//     calls it, here or in the reference (its tests and pack micro-bench
+//     do); at a 1080p frame's 65536 pieces of 24 words (k = 1024) it
+//     writes 128 strings of 12289 words, and each block's string takes
+//     (512 + 12289) x 4 = 51,204 bytes of shared memory, over the 48 KB a
+//     launch gets without opting in (launch() below opts in).
 //
 // Bound on this card: neither ALU nor bandwidth at 1080p. Stage 1 reads
 // 8160 MBs x 7 pieces x 16 words (7 MB of int64) and writes 512 strings of
@@ -136,14 +145,15 @@ merge_kernel(Source src, int m, int cw, long long* __restrict__ out,
   if (tid == 0) {
     const int total = warp_tot[THREADS / 32 - 1];
     bits_out[s] = total;
-    if ((long long)total > 32LL * cw) *ovf = 1;
+    if (ovf != nullptr && (long long)total > 32LL * cw) *ovf = 1;
   }
 }
 
+// ovf may be null where no string can be longer than cw words.
 template <class Source>
 int launch(const Source& src, int m, int cw, int n_out, long long* out,
            int* bits, unsigned char* ovf, cudaStream_t stream) {
-  cudaMemsetAsync(ovf, 0, 1, stream);
+  if (ovf != nullptr) cudaMemsetAsync(ovf, 0, 1, stream);
   const size_t smem = (size_t)(m + cw) * sizeof(unsigned int);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(merge_kernel<Source>,
@@ -181,4 +191,17 @@ extern "C" int tvc_span_merge(const long long* strings, const int* bits_in,
                               void* stream) {
   const FlatSource src{strings, bits_in, n, w};
   return launch(src, m, cw, n_out, out, bits, ovf, (cudaStream_t)stream);
+}
+
+// chunk_merge: words [n, w] int64, bits_in [n] int32, n a multiple of k
+// (k even); output string s concatenates pieces [s*k/2, (s+1)*k/2): out
+// [2n/k, (k/2) w + 1] int64, bits [2n/k] int32.
+extern "C" int tvc_chunk_merge(const long long* words, const int* bits_in,
+                               int n, int w, int k, long long* out,
+                               int* bits, void* stream) {
+  if (k < 2 || k % 2 != 0 || n % k != 0) return (int)cudaErrorInvalidValue;
+  const FlatSource src{words, bits_in, n, w};
+  const int m = k / 2;
+  return launch(src, m, m * w + 1, n / m, out, bits, nullptr,
+                (cudaStream_t)stream);
 }

@@ -14,6 +14,13 @@ merges have no batched twin: their callers fold G into the row axis.
 The `_pre_haloed` functions serve the tile-sharded encode
 (`parallel/tiles.py`): the reference plane of a shard already carries its
 neighbours' pixels as a halo of rows (and, on a 2-D tile grid, columns).
+
+The successive-elimination full search (TVC_SEA=1) is chosen inside the
+kernel wrappers, as the reference chooses it inside its Pallas wrappers:
+nothing here reads the variable, and the plain route is the exhaustive
+search either way. `sad_map`, `chunk_merge`, `full_search_sea_stats` and
+`hier_search` have no caller on an encode path, in the port as in the
+reference (`GopEngine` refuses search="hier").
 """
 
 from __future__ import annotations
@@ -77,6 +84,36 @@ def sad_map_even(cur_y, ref_y):
     if cur_y.ndim == 3:
         return ksad.sad_map_even_g(cur_y, ref_y)
     return ksad.sad_map_even(cur_y, ref_y)
+
+
+def sad_map(cur_y, ref_y):
+    """[(G,) nby, nbx, 1089] SADs of every mv, candidate (dy+16)*33 + dx+16."""
+    if _FORCE == "plain":
+        return motion.sad_map(cur_y, ref_y)
+    if cur_y.ndim == 3:
+        return ksad.sad_map_g(cur_y, ref_y)
+    return ksad.sad_map(cur_y, ref_y)
+
+
+def full_search_sea_stats(cur_y, ref_y):
+    """(dy, dx, sad, rows) [nby, nbx] of the SEA search of planes [H, W]:
+    rows counts the dy rows each MB evaluated exactly."""
+    if _FORCE == "plain":
+        return motion.full_search_sea(cur_y, ref_y)
+    return ksad.full_search_sea_stats(cur_y, ref_y)
+
+
+def hier_search(cur_y, ref_y):
+    """The hierarchical search (SPEC.md §9 "hier") of planes [(G,) H, W]:
+    the plain coarse search, then each refine step's 25 candidates in one
+    sad_at_mv launch. Returns (dy, dx, sad) int32 [(G,) nby, nbx]."""
+    if _FORCE == "plain":
+        return motion.hier_search(cur_y, ref_y)
+
+    def refine(dy, dx):
+        return sad_at_mv(cur_y, ref_y, dy, dx)
+    refine.batched = True
+    return motion.hier_search(cur_y, ref_y, refine)
 
 
 def sad_at_mv(cur_y, ref_y, dy, dx, plane_of=None):
@@ -242,3 +279,11 @@ def span_merge(strings, bits, g: int, stop: int, cw: int):
     if _FORCE == "plain":
         return pack.span_merge(strings, bits, g, stop, cw)
     return kspan.span_merge(strings, bits, g, stop, cw)
+
+
+def chunk_merge(words, bits, k: int):
+    """Runs of k piece strings [(G,) n, w] -> two half-chunk strings each,
+    [(G,) 2n/k, (k/2) * w + 1] and bits [(G,) 2n/k]."""
+    if _FORCE == "plain":
+        return pack.chunk_merge(words, bits, k)
+    return kspan.chunk_merge(words, bits, k)

@@ -46,7 +46,12 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "mc_fetch_chroma_g": 0, "code_plane_g": 0, "code_plane_qmat_g": 0,
             # the pre-haloed kernels of the tile-sharded encode
             "full_search_haloed": 0, "mc_fetch_haloed_luma": 0,
-            "mc_fetch_haloed_chroma": 0, "sad_at_mv_haloed": 0}
+            "mc_fetch_haloed_chroma": 0, "sad_at_mv_haloed": 0,
+            # the SEA full search (TVC_SEA=1) in each form; the whole
+            # SAD map; the chunk merge
+            "full_search_sea": 0, "full_search_sea_g": 0,
+            "full_search_sea_haloed": 0, "sad_map": 0, "sad_map_g": 0,
+            "chunk_merge": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +78,13 @@ _SIGNATURES = {
     "tvc_mc_fetch_haloed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tvc_sad_at_mv_haloed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U64,
                              _P, _P],
+    "tvc_full_search_sea": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "tvc_full_search_sea_g": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tvc_full_search_sea_haloed": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _P],
+    "tvc_sad_map": [_P, _P, _I, _I, _P, _P],
+    "tvc_sad_map_g": [_P, _P, _I, _I, _I, _P, _P],
+    "tvc_chunk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Wrappers of the span-merge kernels (csrc/span_merge.cu).
+"""Wrappers of the span-merge and chunk-merge kernels (csrc/span_merge.cu).
 
 A CPU tensor takes the plain version in `codec/pack.py`; a CUDA tensor
 launches the kernel, which is built at first use.
@@ -64,3 +64,31 @@ def span_merge(strings, bits_in, g: int, stop: int, cw: int):
     build.check(err, "span_merge")
     build.LAUNCHES["span_merge"] += 1
     return words, bits, ovf
+
+
+def chunk_merge(words, bits_in, k: int):
+    """Each run of k piece strings -> two half-chunk strings of k/2
+    pieces at the exact worst-case width (k/2) * w + 1: words [(G,) n, w]
+    int64, bits [(G,) n] int32, n a multiple of k (k even). Returns (words
+    [(G,) 2n/k, (k/2) * w + 1] int64, bits [(G,) 2n/k] int32); a leading
+    G folds into the chunk axis (one launch)."""
+    if words.device.type == "cpu":
+        return pack.chunk_merge(words, bits_in, k)
+    *lead, n, w = words.shape
+    if len(lead) > 1 or k < 2 or k % 2 or n % k:
+        raise ValueError(f"chunk_merge: {tuple(words.shape)} pieces in "
+                         f"chunks of {k}")
+    build.require(words, torch.int64, (*lead, n, w), "chunk_merge words")
+    build.require(bits_in, torch.int32, (*lead, n), "chunk_merge bits")
+    total = n * (lead[0] if lead else 1)
+    cw = (k // 2) * w + 1
+    out = torch.empty((*lead, 2 * n // k, cw), dtype=torch.int64,
+                      device=words.device)
+    bits = torch.empty((*lead, 2 * n // k), dtype=torch.int32,
+                       device=words.device)
+    err = build.lib().tvc_chunk_merge(
+        words.data_ptr(), bits_in.data_ptr(), total, w, k, out.data_ptr(),
+        bits.data_ptr(), build.stream_ptr(words.device))
+    build.check(err, "chunk_merge")
+    build.LAUNCHES["chunk_merge"] += 1
+    return out, bits

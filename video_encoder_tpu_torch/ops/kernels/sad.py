@@ -14,9 +14,18 @@ plane is a shard [h, w] (or B shards, [B, h, w]) and the reference
 (row halo; the columns edge-replicate) or [.., h + 2r, w + 2r] (both
 halos, a 2-D tile grid). They go through the same private launchers
 with `halo` = r; a single shard launches the batched entry with B = 1.
+
+With TVC_SEA=1 in the environment, read at every call, the three full
+search wrappers (`full_search`, `full_search_g`, `full_search_pre_haloed`)
+launch the successive-elimination entry of their form instead of the
+exhaustive one, with the same result, as the reference's Pallas wrappers
+do (`_sea_enabled`); a CPU tensor takes the plain exhaustive search
+whatever the variable says, as the reference's jnp path does.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -57,24 +66,54 @@ def _launch(name: str, *args) -> None:
     build.check(getattr(build.lib(), "tvc_" + name)(*args), name)
 
 
-def _full_search(cur_y, ref_y, name: str, batched: bool, halo: int = 0):
+def _sea_enabled() -> bool:
+    """Successive-elimination pruning for the full search (opt-in:
+    TVC_SEA=1), read at every call as the reference reads it.
+
+    Both variants give identical (dy, dx, sad): SEA only skips dy rows
+    whose exact column-sum lower bound already exceeds the best SAD found,
+    so the packed-key minimum (and the spec's first-occurrence tie-break)
+    is unchanged. Off by default, as in the reference, whose TPU
+    measurement found that on clean panning references it prunes most
+    rows, but that against the previous recon, which the engine searches,
+    the quantization noise puts a floor under the best SAD while the
+    column-sum bound cancels that noise, so it pruned nothing and cost its
+    bound. On an H100 the port's kernel pruned about half the rows against
+    a qp-28 recon and cut the engine's search time by about a third, and
+    was slower than the exhaustive kernel on noise (PERF.md, sections 6
+    and 7); the default stays the reference's until content of several
+    kinds has been measured."""
+    return os.environ.get("TVC_SEA", "0") == "1"
+
+
+def _full_search(cur_y, ref_y, name: str, batched: bool, halo: int = 0,
+                 rows: bool | None = None):
+    """Entry tvc_<name> (full_search, full_search_g, full_search_haloed or
+    their SEA twins full_search_sea, _sea_g, _sea_haloed), counted under
+    its name. rows: None for an entry without a rows output; for
+    tvc_full_search_sea, whether to fill it with the dy rows each MB
+    evaluated (the stats form) or pass null."""
     lead, h, w = _require_plane(cur_y, batched, 16, f"{name} cur")
     ext = _require_ref(ref_y, lead, h, w, halo, f"{name} ref")
-    dy, dx, sad = (torch.empty((*lead, h // 16, w // 16), dtype=torch.int32,
-                               device=cur_y.device) for _ in range(3))
+    outs = [torch.empty((*lead, h // 16, w // 16), dtype=torch.int32,
+                        device=cur_y.device) for _ in range(3 + bool(rows))]
+    rows_arg = () if rows is None else (outs[3].data_ptr() if rows else None,)
     _launch(name, cur_y.data_ptr(), ref_y.data_ptr(),
             *(lead or (1,) if halo else lead), h, w, *ext,
-            dy.data_ptr(), dx.data_ptr(), sad.data_ptr(),
+            *(t.data_ptr() for t in outs[:3]), *rows_arg,
             build.stream_ptr(cur_y.device))
     build.LAUNCHES[name] += 1
-    return dy, dx, sad
+    return tuple(outs)
 
 
 def full_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     """Exhaustive ±16 SAD search: (dy, dx, sad) per 16x16 MB, int32.
-    cur_y, ref_y: [H, W] int32 with H, W multiples of 16."""
+    cur_y, ref_y: [H, W] int32 with H, W multiples of 16. With TVC_SEA=1
+    a CUDA tensor launches the SEA kernel: the same result."""
     if cur_y.device.type == "cpu":
         return motion.full_search(cur_y, ref_y)
+    if _sea_enabled():
+        return _full_search(cur_y, ref_y, "full_search_sea", False, rows=False)
     return _full_search(cur_y, ref_y, "full_search", False)
 
 
@@ -83,13 +122,28 @@ def full_search_g(cur_y: torch.Tensor, ref_y: torch.Tensor):
     [G, H, W] int32 -> (dy, dx, sad) [G, H/16, W/16] int32."""
     if cur_y.device.type == "cpu":
         return motion.full_search(cur_y, ref_y)
-    return _full_search(cur_y, ref_y, "full_search_g", True)
+    return _full_search(cur_y, ref_y, "full_search_sea_g" if _sea_enabled()
+                        else "full_search_g", True)
 
 
-def _sad_map_even(cur_y, ref_y, name: str, batched: bool):
+def full_search_sea_stats(cur_y: torch.Tensor, ref_y: torch.Tensor):
+    """The SEA full search whatever TVC_SEA says, with the count of dy
+    rows each MB evaluated exactly: (dy, dx, sad, rows) [H/16, W/16] int32
+    of planes [H, W] int32; (dy, dx, sad) equal full_search's. The
+    reference counts per tile of MBs: its count of a tile is the number of
+    rows in the OR of its MBs' masks (motion.full_search_sea's mask)."""
+    if cur_y.device.type == "cpu":
+        return motion.full_search_sea(cur_y, ref_y)
+    return _full_search(cur_y, ref_y, "full_search_sea", False, rows=True)
+
+
+def _sad_map(cur_y, ref_y, name: str, batched: bool):
+    """Entry tvc_<name>: sad_map(_g) (1089 candidates per MB) or
+    sad_map_even(_g) (289)."""
+    nds = motion.NE if "even" in name else motion.ND
     lead, h, w = _require_plane(cur_y, batched, 16, f"{name} cur")
     build.require(ref_y, torch.int32, (*lead, h, w), f"{name} ref")
-    out = torch.empty((*lead, h // 16, w // 16, motion.NE * motion.NE),
+    out = torch.empty((*lead, h // 16, w // 16, nds * nds),
                       dtype=torch.int32, device=cur_y.device)
     _launch(name, cur_y.data_ptr(), ref_y.data_ptr(), *lead, h, w,
             out.data_ptr(), build.stream_ptr(cur_y.device))
@@ -102,7 +156,7 @@ def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
     candidate ((dy+16)/2)*17 + (dx+16)/2. cur_y, ref_y: [H, W] int32."""
     if cur_y.device.type == "cpu":
         return motion.sad_map_even(cur_y, ref_y)
-    return _sad_map_even(cur_y, ref_y, "sad_map_even", False)
+    return _sad_map(cur_y, ref_y, "sad_map_even", False)
 
 
 def sad_map_even_g(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
@@ -110,7 +164,23 @@ def sad_map_even_g(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
     int32 -> [G, H/16, W/16, 289] int32."""
     if cur_y.device.type == "cpu":
         return motion.sad_map_even(cur_y, ref_y)
-    return _sad_map_even(cur_y, ref_y, "sad_map_even_g", True)
+    return _sad_map(cur_y, ref_y, "sad_map_even_g", True)
+
+
+def sad_map(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
+    """SADs of all 1089 mvs per MB, [H/16, W/16, 1089] int32, candidate
+    (dy+16)*33 + (dx+16). cur_y, ref_y: [H, W] int32."""
+    if cur_y.device.type == "cpu":
+        return motion.sad_map(cur_y, ref_y)
+    return _sad_map(cur_y, ref_y, "sad_map", False)
+
+
+def sad_map_g(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
+    """sad_map of each of G plane pairs in one launch: [G, H, W] int32 ->
+    [G, H/16, W/16, 1089] int32."""
+    if cur_y.device.type == "cpu":
+        return motion.sad_map(cur_y, ref_y)
+    return _sad_map(cur_y, ref_y, "sad_map_g", True)
 
 
 def _require_mvs(dy, dx, lead, h: int, w: int, bs: int, name: str):
@@ -261,8 +331,9 @@ def full_search_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor):
     (dy, dx, sad) [.., h/16, w/16] int32, one launch."""
     if cur_y.device.type == "cpu":
         return motion.full_search_pre_haloed(cur_y, ref_ext)
-    return _full_search(cur_y, ref_ext, "full_search_haloed", cur_y.ndim == 3,
-                        motion.R)
+    return _full_search(cur_y, ref_ext, "full_search_sea_haloed"
+                        if _sea_enabled() else "full_search_haloed",
+                        cur_y.ndim == 3, motion.R)
 
 
 def mc_fetch_pre_haloed(ref_ext: torch.Tensor, dy: torch.Tensor,

@@ -1,9 +1,9 @@
 """Motion estimation and compensation in plain PyTorch (SPEC.md §9).
 
-Twin of `video_encoder_tpu/ops/motion.py` for the full and diamond
-searches. These are the plain versions the `full_search`, `sad_map_even`,
-`sad_at_mv` and `mc_fetch` kernels are held against, and the CPU path of
-the port.
+Twin of `video_encoder_tpu/ops/motion.py` for the full, diamond and
+hierarchical searches. These are the plain versions the `full_search`
+(exhaustive and SEA), `sad_map`, `sad_map_even`, `sad_at_mv` and
+`mc_fetch` kernels are held against, and the CPU path of the port.
 
 Every function takes planes [H, W] or, for G GOPs encoded in lockstep,
 [G, H, W], and gives for each g exactly what it gives for that plane
@@ -92,18 +92,111 @@ def _full_search_padded(cur_y: torch.Tensor, refpad: torch.Tensor):
     return k // ND - R, k % ND - R, best >> 11
 
 
-def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
-    """SADs of every even-even mv, [nby, nbx, 289] int32: candidate
-    kE = ((dy+R)/2)*17 + (dx+R)/2, the values full_search sees there (same
-    edge padding). One even dy row of 17 candidates per step."""
+def _sad_map_padded(cur_y: torch.Tensor, refpad: torch.Tensor,
+                    stride: int) -> torch.Tensor:
+    """SADs of every mv whose components are multiples of `stride`,
+    [..., nby, nbx, nds * nds] int32 with nds = ceil(33 / stride):
+    candidate ((dy+R)/stride)*nds + (dx+R)/stride. One dy row of nds
+    candidates per step."""
     h, w = cur_y.shape[-2:]
-    refpad = pad_ref(ref_y, R)
+    nds = -(-ND // stride)
     rows_of_sads = []
-    for ky in range(NE):
-        rows = refpad[..., 2 * ky:2 * ky + h, :]
-        shifted = torch.stack([rows[..., 2 * kx:2 * kx + w] for kx in range(NE)])
+    for ky in range(nds):
+        rows = refpad[..., stride * ky:stride * ky + h, :]
+        shifted = torch.stack([rows[..., stride * kx:stride * kx + w]
+                               for kx in range(nds)])
         rows_of_sads.append(_mb_sums((cur_y - shifted).abs(), tables.MB))
     return torch.cat(rows_of_sads).movedim(0, -1).contiguous()
+
+
+def sad_map(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
+    """The whole ±16 SAD volume, [..., nby, nbx, 1089] int32: candidate
+    k = (dy+R)*33 + (dx+R), the values full_search sees there (same edge
+    padding), so the first minimum of sad*2048 + k is full_search's."""
+    return _sad_map_padded(cur_y, pad_ref(ref_y, R), 1)
+
+
+def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
+    """SADs of every even-even mv, [..., nby, nbx, 289] int32: candidate
+    kE = ((dy+R)/2)*17 + (dx+R)/2, the values full_search sees there."""
+    return _sad_map_padded(cur_y, pad_ref(ref_y, R), 2)
+
+
+# Successive elimination (SEA): the order in which the search visits its dy
+# rows, centre-out as the reference's kernel does: row index ky = dy + R
+# for dy = 0, -1, +1, -2, +2, ... (sad.py, sea_body).
+SEA_ORDER = tuple(R + ((s + 1) >> 1) * (1 - 2 * (s & 1)) for s in range(ND))
+
+
+def full_search_sea(cur_y: torch.Tensor, ref_y: torch.Tensor,
+                    with_mask: bool = False):
+    """full_search with successive elimination: (dy, dx, sad, rows) int32
+    [..., nby, nbx], where rows counts the dy rows each MB evaluated
+    exactly (1..33). (dy, dx, sad) equal full_search's bit for bit.
+
+    with_mask: also the rows themselves, [33, ..., nby, nbx] bool, whether
+    the search evaluates dy row ky = dy + R of each MB exactly. The
+    reference counts rows per tile of MBs, where a tile evaluates a row
+    iff one of its MBs needs it: its count is the number of rows set in
+    the OR of its MBs' masks."""
+    dy, dx, sad, mask = _sea_padded(cur_y, pad_ref(ref_y, R))
+    rows = mask.sum(0, dtype=torch.int32)
+    return (dy, dx, sad, rows, mask) if with_mask else (dy, dx, sad, rows)
+
+
+def full_search_sea_pre_haloed(cur_y: torch.Tensor, ref_ext: torch.Tensor):
+    """full_search_sea of a shard against its pre-haloed reference (the
+    geometry of full_search_pre_haloed): the column-sum bound reads the
+    same halo'd and edge-replicated pixels as the exact SADs."""
+    h, w = cur_y.shape[-2:]
+    if ref_ext.shape[-2] != h + 2 * R:
+        raise ValueError(f"pre-haloed reference of {ref_ext.shape[-2]} rows "
+                         f"for a shard of {h}")
+    dy, dx, sad, mask = _sea_padded(cur_y, pad_cols(ref_ext, w, R))
+    return dy, dx, sad, mask.sum(0, dtype=torch.int32)
+
+
+def _sea_padded(cur_y: torch.Tensor, refpad: torch.Tensor):
+    """The SEA search against a padded reference [..., h + 32, w + 32].
+
+    The lower bound of candidate (dy, dx) is the column-sum one,
+    LB = sum_c |sum_r cur[y0+r, x0+c] - sum_r refpad[y0+dy+r, x0+dx+c]|
+    over the MB's 16 columns c and rows r, which SAD >= LB by the triangle
+    inequality. Rows are visited in SEA_ORDER; a row is evaluated iff its
+    smallest LB is <= the MB's best SAD so far (the first row always:
+    the best starts at the largest key). A pruned candidate then has
+    SAD >= LB > best >= the final SAD, so the packed-key first minimum,
+    ties included, is full_search's. Integer arithmetic throughout."""
+    h, w = cur_y.shape[-2:]
+    nby, nbx = h // tables.MB, w // tables.MB
+    smap = _sad_map_padded(cur_y, refpad, 1).movedim(-1, 0)   # [1089, ..., nby, nbx]
+    # 16-row column sums: of cur per MB row, and of the reference at every
+    # row offset (an exclusive prefix sum over rows)
+    curc = cur_y.reshape(*cur_y.shape[:-2], nby, tables.MB, w).sum(
+        -2, dtype=torch.int32)                                  # [..., nby, w]
+    cs = torch.nn.functional.pad(refpad.cumsum(-2, dtype=torch.int32),
+                                 (0, 0, 1, 0))
+    refc = cs[..., tables.MB:, :] - cs[..., :-tables.MB, :]   # [..., h + 17, w + 32]
+    key_k = torch.arange(ND, dtype=torch.int32, device=cur_y.device)
+    best = torch.full(smap.shape[1:], torch.iinfo(torch.int32).max,
+                      dtype=torch.int32, device=cur_y.device)
+    mask = torch.zeros((ND, *best.shape), dtype=torch.bool, device=cur_y.device)
+    for ky in SEA_ORDER:
+        rows = refc[..., ky:ky + h:tables.MB, :]                # [..., nby, w + 32]
+        lb = torch.stack([_col_sums((curc - rows[..., kx:kx + w]).abs())
+                          for kx in range(ND)])                 # [33, ..., nby, nbx]
+        need = lb.amin(0) <= (best >> 11)
+        kk = (ky * ND + key_k).reshape(ND, *[1] * best.ndim)
+        row_best = (smap[ky * ND:(ky + 1) * ND] * 2048 + kk).amin(0)
+        best = torch.where(need, torch.minimum(best, row_best), best)
+        mask[ky] = need
+    k = best & 2047
+    return k // ND - R, k % ND - R, best >> 11, mask
+
+
+def _col_sums(x: torch.Tensor) -> torch.Tensor:
+    """Per-MB sums of 16 consecutive columns of [..., W] -> [..., W/16]."""
+    return x.reshape(*x.shape[:-1], -1, tables.MB).sum(-1, dtype=torch.int32)
 
 
 def sad_at(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
@@ -203,6 +296,77 @@ def diamond_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     def fn(dy, dx):
         return sad_at(cur_y, ref_y, dy, dx)
     return diamond_search_with(cur_y, fn, fn)
+
+
+def down2(plane: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample of [..., H, W] (H, W even), round half up:
+    (a+b+c+d+2) >> 2 (SPEC.md §9, spec.down2)."""
+    *lead, h, w = plane.shape
+    q = plane.reshape(*lead, h // 2, 2, w // 2, 2).sum(dim=(-3, -1),
+                                                      dtype=torch.int32)
+    return (q + 2) >> 2
+
+
+def hier_coarse(cur_y: torch.Tensor, ref_y: torch.Tensor):
+    """Coarse stage of the hier search (SPEC.md §9): the ±HIER_COARSE_R
+    full search of each MB's 4x4 block on the 4x-downsampled planes,
+    row-major first minimum (packed key sad * 128 + k), scaled by 4.
+    Returns (cdy, cdx) [..., nby, nbx] int32. The 4x4 block sums are
+    integer reshape-sums."""
+    cq = down2(down2(cur_y))
+    rqpad = pad_ref(down2(down2(ref_y)), spec.HIER_COARSE_R)
+    hq, wq = cq.shape[-2:]
+    nd = 2 * spec.HIER_COARSE_R + 1
+    best = None
+    for k in range(nd * nd):     # sad <= 4080 and k < 81 < 128
+        shifted = rqpad[..., k // nd:k // nd + hq, k % nd:k % nd + wq]
+        key = _mb_sums((cq - shifted).abs(), 4) * 128 + k
+        best = key if best is None else torch.minimum(best, key)
+    k = best & 127
+    return ((k // nd - spec.HIER_COARSE_R) * 4,
+            (k % nd - spec.HIER_COARSE_R) * 4)
+
+
+def hier_search(cur_y: torch.Tensor, ref_y: torch.Tensor, refine_sad_fn=None):
+    """Hierarchical search (SPEC.md §9 "hier"), bit-exact with the
+    reference's hier_search and golden.sad_hier_search: hier_coarse, then
+    HIER_REFINE_STEPS refinements over the 25 candidates (dy+u, dx+v),
+    u, v in ±HIER_REFINE_R, row-major; a candidate beyond ±16 costs BIG
+    and each step takes the first minimum. refine_sad_fn(dy, dx) gives
+    per-MB SADs at integer mvs; with a true `batched` attribute it takes
+    all 25 candidates at once, [..., 25, nby, nbx] (one sad_at_mv launch
+    on the card, ops/dispatch.py), else one [..., nby, nbx] candidate per
+    call. The default is the plain sad_at, batched. Returns (dy, dx, sad)
+    int32 [..., nby, nbx]."""
+    dy, dx = hier_coarse(cur_y, ref_y)
+    if refine_sad_fn is None:
+        refpad = pad_ref(ref_y, R)
+
+        def refine_sad_fn(dy, dx):
+            return _sad_at_padded(cur_y, refpad, dy, dx, tables.MB)
+        refine_sad_fn.batched = True
+    nd = 2 * spec.HIER_REFINE_R + 1
+    k = torch.arange(nd * nd, device=cur_y.device)[:, None, None]
+    u = torch.div(k, nd, rounding_mode="floor").int() - spec.HIER_REFINE_R
+    v = (k % nd).int() - spec.HIER_REFINE_R
+    sad = None
+    for _ in range(spec.HIER_REFINE_STEPS):
+        ndy = dy.unsqueeze(-3) + u                         # [..., 25, nby, nbx]
+        ndx = dx.unsqueeze(-3) + v
+        valid = (ndy.abs() <= R) & (ndx.abs() <= R)
+        cdy, cdx = ndy.clamp(-R, R), ndx.clamp(-R, R)
+        if getattr(refine_sad_fn, "batched", False):
+            cc = refine_sad_fn(cdy, cdx)
+        else:
+            cc = torch.stack([refine_sad_fn(cdy[..., j, :, :], cdx[..., j, :, :])
+                              for j in range(nd * nd)], -3)
+        # packed int64 key cost * 32 + index: its minimum is the first minimum
+        best = (torch.where(valid, cc, BIG).long() * 32 + k).amin(-3)
+        pick = (best & 31).unsqueeze(-3)
+        dy = ndy.gather(-3, pick).squeeze(-3)
+        dx = ndx.gather(-3, pick).squeeze(-3)
+        sad = (best >> 5).int()
+    return dy, dx, sad
 
 
 def mc_fetch(refpad: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
