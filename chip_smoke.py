@@ -5,7 +5,8 @@
 Phases, each of which raises on failure (exit code not 0):
 
 1. Device: requires CUDA; prints the card's name and power limit.
-2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/.
+2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/ and
+   prints each kernel's registers and spill bytes (nvcc -Xptxas -v).
 3. Kernels: each kernel (the eight of formats 1, and block_pack in the
    format-2 syntax, code_plane with the quant matrix and the chroma twin
    of sad_at_mv) against its plain PyTorch version on the card at the
@@ -17,7 +18,11 @@ Phases, each of which raises on failure (exit code not 0):
    integer-only), with both times, the least time the card could take
    (bytes moved over its memory rate, or integer operations over its
    peak, whichever is larger) and, where one PyTorch call computes the
-   same function, that call's time. Then the G-batched kernels at G = 4
+   same function, that call's time. The exhaustive search and the fetches
+   also print their device time per launch (the kernel's own duration
+   under torch.profiler) and their host time per call (perf_counter over
+   calls without a sync): under ~0.05 ms the call time is the host's.
+   Then the G-batched kernels at G = 4
    on the same shapes ([4, 1088, 1920], [4, 544, 960], K = 4 and K = 9 on
    four planes, the [4, 8, 1920] and [4, 8, 960] stripes): each equal to
    its plain batched version and to G launches of the single-plane
@@ -30,6 +35,16 @@ Phases, each of which raises on failure (exit code not 0):
    plain version and, the shards' results put together, to the unsharded
    kernel on the whole frame; the odd 368x640 grid as one unbatched shard
    in both geometries.
+   Then the MC predictor, which makes a P step's three predictor planes
+   in one launch (one reference plane, or four parity planes and
+   half-pel vectors at format 4; intra MBs 128): single at 1088x1920 and
+   368x640, G = 4, and a 1088x1920 frame's four row shards and 2 x 2
+   tiles from pre-haloed stacks, formats 1 and 4, each equal to the plain
+   composition (a fetch per plane, the parity select, the mask), to one
+   torch.take of its flat indices and, sharded, to the unsharded kernel;
+   at 1088x1920 with call, device and host times, plain, bound (only
+   the inter MBs read), and that torch.take's call and device times (the
+   two call times as medians of five runs each, taken in turns).
    Then the kernels no encode path runs by default: the whole SAD map
    (1089 candidates per MB) at 1088x1920 and 368x640, single and G = 4,
    each equal to its plain version, its packed-key first minimum equal to
@@ -53,7 +68,8 @@ Phases, each of which raises on failure (exit code not 0):
    above 0. The config-3 and format-4 clips are then encoded in-process
    under the other emit and must give the same packets. Launch counts
    are zeroed before and read after each path; every kernel of a path
-   must have launched. Then 640x360: GOP 1 (odd 23-row MB grid), format 2
+   must have launched, the predictor once per P step of a run (or of a
+   lockstep or tiled step), and no single-plane fetch on any path. Then 640x360: GOP 1 (odd 23-row MB grid), format 2
    (chroma qp offset 4, diamond, rc vbv at 1500 kbps) and format 3 (quant
    matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
    each, against the oracle. The oracle's encodes run side by side on the
@@ -64,8 +80,8 @@ Phases, each of which raises on failure (exit code not 0):
    format 4 against the port's own unbatched stream, format 4 also
    in-process under the other emit; config 3 once more with a tail
    (`--gop 12 --gop-batch 2`: a batch of two and a short GOP of 6). Every
-   `_g` kernel of a path must have launched, no single-plane kernel in a
-   run without a tail, and the folded block pack and span merges once
+   `_g` kernel of a path must have launched (the batched predictor once
+   per P step), no single-plane kernel in a run without a tail, and the folded block pack and span merges once
    per plane and frame step, not G times. Then two-pass: 640x360,
    `--two-pass --kbps 3000`, equal to the port's own `--device cpu`
    stream, decoded by the oracle above the PSNR floor, its per-GOP qps
@@ -73,17 +89,18 @@ Phases, each of which raises on failure (exit code not 0):
    `--tile 4` on the full-search clip, `--gop 10 --gop-batch 3 --tile 2`,
    and the format-4 clip with `--intra-slice 17 --tile 2` (whose unsharded
    stream at `--intra-slice 17` is held against one more oracle encode),
-   each equal to the port's unsharded stream. The pre-haloed kernels must
-   have launched once per P step and plane, and no unsharded search or
-   fetch at all. Then TVC_SEA=1 on the full-search clip (GOP 30; `--gop 10
+   each equal to the port's unsharded stream. The pre-haloed search and
+   predictor must have launched once per P step, and no unsharded
+   search, predictor or fetch, nor a pre-haloed single-plane fetch. Then TVC_SEA=1 on the full-search clip (GOP 30; `--gop 10
    --gop-batch 3`; `--tile 4`), each byte-identical to the port's stream
    without it (the first also to the oracle's), each through its SEA entry
    once per P step and no exhaustive search.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
-   emit, each with its device ops per frame, busy share and top device
-   times from torch.profiler, the format-4 I frame (the row scan) on its
+   emit, each with its device ops per frame, busy share, top device
+   times and the search's device time per GOP from torch.profiler, the
+   format-4 I frame (the row scan) on its
    own, and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
    GOPs in lockstep (G = 1 is the single-GOP path), in turns within this
    one run: device-resident fps, device ops per frame and busy share
@@ -92,10 +109,30 @@ Phases, each of which raises on failure (exit code not 0):
    turns, all under the tile path's emit. Then the full-search cell with
    TVC_SEA 0 and 1 in turns, with the search's device time of each.
 
-The last lines of standard output are the card's name and power limit,
-the kernel table (one entry per launch counter, each with the row of
-PERF.md's table it ports; all sixteen rows) and {"ok": true, "device":
-{...}}. Builds go to build/ (gitignored).
+    python3 chip_smoke.py --ab ROOT [ROOT ...]
+
+times the search and MC kernels of several checkouts of the repository
+(a parent unpacked with `git archive` under build/, and this one) in
+turns, ROOT_1 .. ROOT_n then ROOT_n .. ROOT_1, each turn a child process
+that imports the port from its ROOT (building its kernels into
+ROOT/build) and this file's helpers: at 1088x1920 the exhaustive search
+(single, G = 4, four row shards), the single-plane fetches (luma and
+chroma, G = 4, pre-haloed on four row shards), the MC of one P frame step
+with its intra mask at formats 1 and 4 (single, G = 4, four row shards:
+dispatch.mc_predict(_pre_haloed) where the checkout has it, with and
+without making the chroma parity stacks, else composed as the engine
+composed it: a fetch per plane or parity plane, the select, the masks)
+beside one torch.take of its flat indices; then one traced 10-frame GOP
+of the full-search and format-4 cells. Each timing has the call time
+(time_ms), the device time (device_ms) and the host time (host_ms). Every
+turn prints one JSON line, the last line is each ROOT's means beside the
+card; it exits 1 if a result differs between ROOTs.
+
+Run with no arguments, its last lines of standard output are the card's
+name and power limit, the kernel table (one entry per launch counter,
+each with the row of PERF.md's table it ports; all sixteen rows; the
+single-plane fetches launch on no path, the predictor in their place) and
+{"ok": true, "device": {...}}. Builds go to build/ (gitignored).
 """
 
 from __future__ import annotations
@@ -138,7 +175,13 @@ TABLE_ROW = {
     "mc_fetch_haloed_luma": "10", "mc_fetch_haloed_chroma": "10",
     "code_plane": "11", "code_plane_qmat": "11q", "code_plane_g": "12",
     "code_plane_qmat_g": "12", "block_pack": "13", "block_pack_v2": "13v",
-    "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16"}
+    "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16",
+    "mc_predict": "7", "mc_predict_g": "9m", "mc_predict_haloed": "10"}
+# the single-plane fetches: held and timed in phase 3, launched by no
+# encode path (a P step's three predictors are one mc_predict launch)
+SINGLE_FETCHES = ("mc_fetch_luma", "mc_fetch_chroma", "mc_fetch_luma_g",
+                  "mc_fetch_chroma_g", "mc_fetch_haloed_luma",
+                  "mc_fetch_haloed_chroma")
 ORACLE_SRC = os.path.join(ROOT, "oracle", "oracle.cpp")
 ORACLE_BIN = os.path.join(ROOT, "build", "oracle", "oracle")
 
@@ -250,6 +293,65 @@ def time_ms(fn, budget_s: float = 0.5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def paired_ms(fa, fb, reps: int = 5):
+    """(ms_a, ms_b): the medians of `reps` time_ms runs of fa and of fb,
+    taken in turns. Below ~0.05 ms a call time is the host's, whose rate
+    drifts within a run, so two such calls are compared over the same
+    stretch of it."""
+    a, b = [], []
+    for _ in range(reps):
+        a.append(time_ms(fa))
+        b.append(time_ms(fb))
+    return float(np.median(a)), float(np.median(b))
+
+
+def device_ms(fn, n: int = 20, per_call=1, rounds: int = 5):
+    """(ms, kernels): fn()'s device time per call, its kernels' own
+    durations summed as device_ops reads them from torch.profiler, and
+    the device kernels it launches per call, over n calls after a
+    warm-up. Below ~0.05 ms time_ms reads the host's launch rate; this
+    reads the device. A trace can miss some of a window's kernels (one
+    in this script's first calls kept 2 of 20), so a window counts only
+    when it holds every kernel of its n calls: n * per_call of them, or,
+    where per_call is None (a composition whose count is not known
+    here), a multiple of n that two windows agree on with no window
+    holding more. Raises if none of `rounds` windows does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        k = len(dev)
+        counts.append(k)
+        if (k == n * per_call if per_call is not None else
+                k and k % n == 0 and k == max(counts) and counts.count(k) > 1):
+            return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n, k / n
+    raise AssertionError(
+        f"device_ms: no trace held every kernel of {n} calls (kernels per "
+        f"window {counts}, wanted {n * per_call if per_call else 'two equal'})")
+
+
+def host_ms(fn, n: int = 100) -> float:
+    """fn()'s host time per call in ms: time.perf_counter over n calls
+    with no sync between them (what the wrapper costs the host; the
+    device may still be running when the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over matching output tensors; raises unless
     they are equal (same dtype and shape, every element)."""
@@ -330,13 +432,17 @@ class KernelTable:
                 shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, **extra))
 
-    def shown(self, timing):
-        """The timing as the log line's tail, beside the card."""
+    def shown(self, timing, dh=None):
+        """The timing (and dev_host's fields) as the log line's tail,
+        beside the card."""
         if timing is None:
             return ""
         ms, plain_ms, (bound_ms, bound_by), library_ms = timing
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        return (f", {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+        dev = "" if not dh else (
+            f" (device {dh['device_ms']:.4f} ms in {dh['device_kernels']:g} "
+            f"kernels, host {dh['host_ms']:.4f} ms)")
+        return (f", {ms:.4f} ms{dev} vs plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms by {bound_by}, library call {lib} "
                 f"[{self.card}]")
 
@@ -375,6 +481,95 @@ def ext_grid(p, halo):         # [H, W] -> [4, H / 2 + 2 halo, W / 2 + 2 halo]
                                   ).flatten(0, 1).contiguous()
 
 
+def halo_windows(stack, r, sr, sc):
+    """The tiles of a reference stack [P, H, W] as the tile path has them,
+    [Sr * Sc, P, h + 2r, w (+ 2r where Sc > 1)], row-major as rows_of and
+    grid_of: windows of pad_ref of the whole stack (format 4: parity
+    first, then the pad)."""
+    from video_encoder_tpu_torch.ops import motion
+
+    _, hh, ww = stack.shape
+    h, w = hh // sr, ww // sc
+    pad = motion.pad_ref(stack, r)
+    cw, c0 = (w + 2 * r, 0) if sc > 1 else (w, r)
+    return torch.stack([pad[:, i * h:i * h + h + 2 * r, c0 + j * w:c0 + j * w + cw]
+                        for i in range(sr) for j in range(sc)]).contiguous()
+
+
+def take_of(refs, dy, dx, inter):
+    """(src, idx) with torch.take(src, idx) the MC predictor of a P step,
+    the library yardstick of the predictor kernel: the three reference
+    stacks [.., P, rh, rw] flattened into one source with a trailing 128,
+    and the flat index of every predictor pixel (luma, then cb, then cr;
+    128 for an intra MB), made outside the timed call. P = 4 stacks are
+    parity planes and the vectors half-pels."""
+    srcs, idxs, base = [], [], 0
+    for k, (s, bs) in enumerate(zip(refs, (16, 8, 8))):
+        *lead, p, rh, rw = s.shape
+        vy, vx = (dy, dx) if k == 0 else (dy >> 1, dx >> 1)
+        code = torch.zeros_like(vy)
+        if p == 4:
+            code = (vy & 1) * 2 + (vx & 1)
+            vy, vx = vy >> 1, vx >> 1
+        ph, pw = vy.shape[-2] * bs, vy.shape[-1] * bs
+        oy, ox = (rh - ph) // 2, (rw - pw) // 2
+        px = [t.repeat_interleave(bs, -2).repeat_interleave(bs, -1).long()
+              for t in (vy, vx, code)]
+        sy = (torch.arange(ph, device=s.device)[:, None] + px[0] + oy).clamp(0, rh - 1)
+        sx = (torch.arange(pw, device=s.device)[None, :] + px[1] + ox).clamp(0, rw - 1)
+        b = (torch.arange(lead[0], device=s.device).reshape(-1, 1, 1) if lead
+             else 0)
+        m = inter.repeat_interleave(bs, -2).repeat_interleave(bs, -1)
+        idxs.append(torch.where(m, base + ((b * p + px[2]) * rh + sy) * rw + sx,
+                                -1))
+        srcs.append(s.reshape(-1))
+        base += s.numel()
+    src = torch.cat([*srcs, torch.full((1,), 128, dtype=torch.int32,
+                                       device=srcs[0].device)])
+    idx = torch.cat([i.reshape(-1) for i in idxs])
+    return src, torch.where(idx < 0, base, idx)
+
+
+def predict_bound(got, dy, dx, inter):
+    """bound() of the MC predictor: each inter MB reads its 256 luma and
+    2 x 64 chroma pixels of the selected plane once (an intra MB reads
+    none), the vectors and modes are read once, the three planes written
+    once."""
+    nbytes = int(inter.sum()) * (256 + 2 * 64) * 4 + sum(
+        t.numel() * t.element_size() for t in (dy, dx, inter, *got))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def dev_host(fn):
+    """device_ms and host_ms of fn(), one kernel a call, as a row's
+    fields."""
+    ms, kernels = device_ms(fn)
+    return dict(device_ms=ms, device_kernels=kernels, host_ms=host_ms(fn))
+
+
+def ptxas_summary(log_text: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    nvcc -Xptxas -v output: each 'Compiling entry function' line is
+    followed by its spill and register lines."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return rows
+
+
 def phase_kernels(dev, card: str):
     """Each kernel against its plain version, exact; returns the table."""
     from video_encoder_tpu_torch.codec import entropy, tables
@@ -402,15 +597,16 @@ def phase_kernels(dev, card: str):
         got, want = both(dispatch.full_search, cur_t, ref_t)
         err = max_abs_err(got, want)
         corner = int(((got[0] == 16) & (got[1] == -16)).sum())
-        timing = None
+        timing, extra = None, {}
         if (h, w) == luma[0]:
             n_mbs = (h // 16) * (w // 16)
             timing = (*timed(dispatch.full_search, cur_t, ref_t),
                       bound([cur_t, ref_t], got, n_mbs * 1089 * 256 * 2), None)
+            extra = dev_host(lambda: dispatch.full_search(cur_t, ref_t))
         record("full_search", "full_search.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:68", err, timing)
+               "video_encoder_tpu/ops/pallas/sad.py:68", err, timing, **extra)
         log(f"kernel full_search {h}x{w}: equal, {corner} MBs at mv (16,-16)"
-            + shown(timing))
+            + shown(timing, extra))
 
     # MC fetch: random mvs over the whole range, corners forced to the
     # edges. Its library call is one torch.take over flat indices made
@@ -429,7 +625,7 @@ def phase_kernels(dev, card: str):
             args = (ref_t, t32(dy), t32(dx))
             got, want = both(fn, *args)
             err = max_abs_err([got], [want])
-            timing = None
+            timing, extra = None, {}
             if (ph, pw) in (luma[0], chroma[0]):
                 rows_i = (torch.arange(ph, device=dev)[:, None]
                           + args[1].repeat_interleave(bs, 0).repeat_interleave(bs, 1)
@@ -441,9 +637,11 @@ def phase_kernels(dev, card: str):
                 max_abs_err([torch.take(ref_t, flat)], [want])
                 timing = (*timed(fn, *args), bound(args, [got], 0),
                           time_ms(lambda: torch.take(ref_t, flat)))
+                extra = dev_host(lambda: fn(*args))
             record(name, "mc_fetch.cu",
-                   "video_encoder_tpu/ops/pallas/sad.py:724", err, timing)
-            log(f"kernel {name} {ph}x{pw}: equal" + shown(timing))
+                   "video_encoder_tpu/ops/pallas/sad.py:724", err, timing,
+                   **extra)
+            log(f"kernel {name} {ph}x{pw}: equal" + shown(timing, extra))
 
     # code_plane: per-block qp mixing 1, 28 and 63; midpoint and deadzone
     # bias; flat steps and the v3 quant matrix; block_pack in both
@@ -705,14 +903,15 @@ def phase_kernels(dev, card: str):
         singles_ms = time_ms(lambda: singles(fn, *args))
         timing = (ms, plain_ms, bound(tensors(args), tensors(got), ops),
                   None if library is None else time_ms(library))
+        dh = dev_host(lambda: fn(*args))
         if main:
             record(name, src, replaces, err, timing, g=g4,
-                   single_launches_ms=singles_ms, **extra)
+                   single_launches_ms=singles_ms, **dh, **extra)
         else:
             record(name, src, replaces, err, also=(shape_name, timing),
-                   single_launches_ms=singles_ms)
+                   single_launches_ms=singles_ms, **dh)
         log(f"kernel {name} {shape_name}: equal to plain and to {g4} single "
-            f"launches ({singles_ms:.4f} ms)" + shown(timing))
+            f"launches ({singles_ms:.4f} ms)" + shown(timing, dh))
         return got
 
     (h, w), (ch, cw) = luma[0], chroma[0]
@@ -819,13 +1018,14 @@ def phase_kernels(dev, card: str):
         max_abs_err([join(g) for g in tensors(got)], tensors(whole))
         timing = (*timed(fn, *args), bound(tensors(args), tensors(got), ops),
                   None if library is None else time_ms(library))
+        dh = dev_host(lambda: fn(*args))
         shape = f"{geo} {shape_of(*tensors(args)[:2])}"
         if geo == "rows":
-            record(name, src, replaces, err, timing, shards=4)
+            record(name, src, replaces, err, timing, shards=4, **dh)
         else:
-            record(name, src, replaces, err, also=(shape, timing))
+            record(name, src, replaces, err, also=(shape, timing), **dh)
         log(f"kernel {name} {shape}: equal to plain and to the unsharded "
-            f"kernel on the whole frame" + shown(timing))
+            f"kernel on the whole frame" + shown(timing, dh))
         return got
 
     def take_indices(ref_ext, dy, dx, bs):
@@ -928,8 +1128,94 @@ def phase_kernels(dev, card: str):
             f"{shape_of(cur_o, ref_ext)} (one shard, no batch): equal to "
             f"plain and to the unsharded kernels")
 
+    predictor_kernels(dev, rng, table)
     last_kernels(dev, rng, table)
     return table.rows
+
+
+def predictor_kernels(dev, rng, table: KernelTable):
+    """The MC predictor, the three planes of a P step in one launch, at
+    formats 1 and 4 (one reference plane, or four parity planes and
+    half-pel vectors) with an intra MB here and there: single (1088x1920
+    and the odd 368x640 grid), G = 4, and a 1088x1920 frame's four row
+    shards and 2 x 2 tiles from pre-haloed stacks. Each is held against
+    the plain composition (a fetch per plane or parity plane, the select,
+    the mask), against one torch.take of its flat indices and, sharded,
+    against the unsharded kernel; at 1088x1920 it is timed (call, device
+    and host times, plain, bound by bytes: predict_bound), beside that
+    torch.take."""
+    from video_encoder_tpu_torch.ops import dispatch, motion
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def case(lead, h, w, fmt):
+        r = 16 if fmt < 4 else 32
+        nby, nbx = h // 16, w // 16
+        planes = [t32(rng.integers(0, 256, (*lead, ph, pw)))
+                  for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        dy, dx = (rng.integers(-r, r + 1, (*lead, nby, nbx)) for _ in range(2))
+        dy[..., 0, :], dx[..., :, 0], dy[..., -1, :], dx[..., :, -1] = -r, -r, r, r
+        inter = torch.from_numpy(rng.random((*lead, nby, nbx)) < 0.8).to(dev)
+        refs = tuple(motion.hpel_stack(p) if fmt >= 4 else p.unsqueeze(-3)
+                     for p in planes)
+        return refs, t32(dy), t32(dx), inter
+
+    def held(name, replaces, shape, main, fn, args):
+        got, want = both(fn, *args)
+        err = max_abs_err(got, want)
+        src, idx = take_of(*args)
+        max_abs_err([torch.take(src, idx)],
+                    [torch.cat([p.reshape(-1) for p in got])])
+        if not main[0]:
+            table.record(name, "mc_fetch.cu", replaces, err)
+            log(f"kernel {name} {shape}: equal to plain and to torch.take")
+            return got
+        ms, take_ms = paired_ms(lambda: fn(*args), lambda: torch.take(src, idx))
+        timing = (ms, timed(fn, *args)[1], predict_bound(got, *args[1:]),
+                  take_ms)
+        extra = dict(dev_host(lambda: fn(*args)), library_device_ms=device_ms(
+            lambda: torch.take(src, idx), per_call=None)[0])
+        if main[1]:
+            table.record(name, "mc_fetch.cu", replaces, err, timing, format=1,
+                         **extra)
+        else:
+            table.record(name, "mc_fetch.cu", replaces, err,
+                         also=(shape, timing), library_ms=timing[3], **extra)
+        log(f"kernel {name} {shape}: equal to plain and to torch.take"
+            + table.shown(timing, extra) + f", torch.take's device time "
+            f"{extra['library_device_ms']:.4f} ms")
+        return got
+
+    (h, w), g4 = LUMA[0], 4
+    for lead, (ph, pw) in (((), LUMA[0]), ((), LUMA[1]), ((g4,), LUMA[0])):
+        name = "mc_predict_g" if lead else "mc_predict"
+        replaces = ("video_encoder_tpu/ops/pallas/sad.py:825" if lead
+                    else "video_encoder_tpu/ops/pallas/sad.py:724")
+        for fmt in (1, 4):
+            args = case(lead, ph, pw, fmt)
+            shape = f"format {fmt} {list(args[0][0].shape)}"
+            got = held(name, replaces, shape, ((ph, pw) == LUMA[0], fmt == 1),
+                       dispatch.mc_predict, args)
+            if lead:
+                for i in range(g4):
+                    one = dispatch.mc_predict(tuple(r[i] for r in args[0]),
+                                              *(a[i] for a in args[1:]))
+                    max_abs_err(one, [p[i] for p in got])
+
+    for geo, (sr, sc), split, join in (("rows", (4, 1), rows_of, unrows),
+                                       ("grid", (2, 2), grid_of, ungrid)):
+        for fmt in (1, 4):
+            refs, dy, dx, inter = case((), h, w, fmt)
+            exts = tuple(halo_windows(s, r, sr, sc)
+                         for s, r in zip(refs, (16, 8, 8)))
+            args = (exts, *(split(a) for a in (dy, dx, inter)))
+            shape = f"format {fmt} {geo} {list(exts[0].shape)}"
+            got = held("mc_predict_haloed", "video_encoder_tpu/ops/pallas/sad.py:1038",
+                       shape, (True, geo == "rows" and fmt == 1),
+                       dispatch.mc_predict_pre_haloed, args)
+            max_abs_err([join(p) for p in got],
+                        dispatch.mc_predict(refs, dy, dx, inter))
 
 
 @contextlib.contextmanager
@@ -1288,7 +1574,7 @@ def expected_kernels(m, emit, intra_only=False, batched=False):
     encode of G GOPs (the `_g` kernels, and the folded pack and merges)."""
     ks = ["code_plane_qmat" if m["qmat"] else "code_plane"]
     if not intra_only:
-        ks += ["mc_fetch_luma", "mc_fetch_chroma"]
+        ks += ["mc_predict"]
         ks += (["full_search"] if m["search"] == "full"
                else ["sad_map_even", "sad_at_mv"])
         if m["fmt"] >= 4:
@@ -1302,9 +1588,22 @@ def expected_kernels(m, emit, intra_only=False, batched=False):
 
 
 def check_launches(what, launches, expected):
+    """Every expected kernel launched, and no single-plane fetch."""
     missing = [k for k in expected if launches[k] == 0]
     if missing:
         raise AssertionError(f"{what}: kernels not launched: {missing}")
+    fetched = [k for k in SINGLE_FETCHES if launches[k]]
+    if fetched:
+        raise AssertionError(f"{what}: single-plane fetches launched: {fetched}")
+
+
+def check_per_p_step(what, launches, name, p_steps):
+    """The predictor launched once per P step of each run (a GOP or batch
+    that overflows is encoded again, so whole multiples)."""
+    n = launches[name]
+    if p_steps and (n == 0 or n % p_steps):
+        raise AssertionError(f"{what}: {name} launched {n} times for "
+                             f"{p_steps} P steps a run")
 
 
 def config_of(m, w, h, gop):
@@ -1434,6 +1733,8 @@ def phase_slice(job, card):
     launches, summary, a = run_cli(job, job["ours"])
     check_launches(f"{tag} CLI encode", launches,
                    expected_kernels(m, GopEngine.emit, gop == 1))
+    check_per_p_step(f"{tag} CLI encode", launches, "mc_predict",
+                     n - -(-n // gop))
     with open(job["theirs"], "rb") as f2:
         same_stream(tag, a, f2.read(), "the oracle's")
     psnr_y = decoded_psnr_y(job, job["theirs"])
@@ -1491,6 +1792,7 @@ def check_batched_launches(what, launches, m, emit, steps, tail=False):
     once per plane and frame step (twice under rc mb, whose first pass
     packs for its bit counts) and each span merge once per frame step."""
     check_launches(what, launches, expected_kernels(m, emit, batched=True))
+    check_per_p_step(what, launches, "mc_predict_g", steps - 1)
     if tail:
         check_launches(what + " (tail)", launches, expected_kernels(m, emit))
         return
@@ -1589,20 +1891,18 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     return paths, plains
 
 
-SEARCH_AND_FETCH = ("full_search", "sad_map_even", "sad_at_mv", "mc_fetch_luma",
-                    "mc_fetch_chroma")
+SEARCH_AND_FETCH = ("full_search", "sad_map_even", "sad_at_mv", "mc_predict",
+                    "mc_fetch_luma", "mc_fetch_chroma")
 
 
 def check_tiled_launches(what, launches, m, emit, p_steps):
-    """A tile-sharded run's counters (no tail): the pre-haloed search once
-    per P step, the pre-haloed fetches once per plane (four times under
-    format 4, once per parity plane), the refine once per P step under
-    format 4; no unsharded search, SAD or fetch, single-plane or batched;
-    the shards' planes coded by the batched code_plane."""
-    planes = 4 if m["fmt"] >= 4 else 1
-    want = dict(full_search_haloed=p_steps,
-                mc_fetch_haloed_luma=planes * p_steps,
-                mc_fetch_haloed_chroma=2 * planes * p_steps,
+    """A tile-sharded run's counters (no tail): the pre-haloed search and
+    the pre-haloed predictor once per P step, the refine once per P step
+    under format 4, no pre-haloed single-plane fetch; no unsharded
+    search, SAD, predictor or fetch, single-plane or batched; the shards'
+    planes coded by the batched code_plane."""
+    want = dict(full_search_haloed=p_steps, mc_predict_haloed=p_steps,
+                mc_fetch_haloed_luma=0, mc_fetch_haloed_chroma=0,
                 sad_at_mv_haloed=p_steps if m["fmt"] >= 4 else 0)
     got = {k: launches[k] for k in want}
     unsharded = [k for base in SEARCH_AND_FETCH for k in (base, base + "_g")
@@ -1790,7 +2090,7 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
                 f"{ops if ops is None else round(ops, 1)} device ops/frame, "
                 f"device busy {busy if busy is None else round(100 * busy, 1)}"
                 f" % [{card}]")
-            log(f"  device ms per batch by name (launches, ms): {top[:6]}")
+            log(f"  device ms per batch by name (launches, ms): {top[:7]}")
     return results
 
 
@@ -1850,7 +2150,7 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
             f"{ops if ops is None else round(ops, 1)} device ops/frame, "
             f"device busy {busy if busy is None else round(100 * busy, 1)}"
             f" % [{card}]")
-        log(f"  device ms per GOP by name (launches, ms): {top[:6]}")
+        log(f"  device ms per GOP by name (launches, ms): {top[:7]}")
     return results
 
 
@@ -1900,7 +2200,8 @@ def phase_speed_sea(m, clip, card):
 def device_ops(run_once, n_frames):
     """Device kernels (and memsets/copies) per frame, the device busy share
     and the largest device-time totals by name, of one GOP under
-    torch.profiler."""
+    torch.profiler; the first of those is ("all kernels", count, ms): the
+    GOP's whole device time, which the search's share is read against."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1920,6 +2221,7 @@ def device_ops(run_once, n_frames):
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     return len(dev) / n_frames, busy / max(span, 1), [
+        ("all kernels", len(dev), round(busy / 1e3, 3))] + [
         (name[:60], n, round(us / 1e3, 3)) for name, (n, us) in top]
 
 
@@ -1983,7 +2285,10 @@ def phase_speed(cells, card):
             ops, busy, top = device_ops(lambda: gop(emit), n)
             peak = torch.cuda.max_memory_allocated() / 2**20
             key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
-            results[key] = dict(resident=fps, with_finish=fin_fps)
+            search = [t for t in top if "search" in t[0]]
+            results[key] = dict(resident=fps, with_finish=fin_fps,
+                                ops_per_frame=ops, search=search,
+                                device_ms=top[0][2] if top else None)
             if emit == GopEngine.emit:
                 traces[m["tag"]] = (ops, busy, top)
             log(f"speed: device-resident {w}x{h} GOP {n} {key} {fps:.3f} fps "
@@ -1992,7 +2297,8 @@ def phase_speed(cells, card):
                 f"{fin_fps:.3f} fps; one GOP traced: "
                 f"{ops if ops is None else round(ops, 1)} device ops/frame, "
                 f"device busy {busy if busy is None else round(100 * busy, 1)}"
-                f" % [{card}]")
+                f" %, search (launches, ms per GOP) {search} of "
+                f"{top[0][2] if top else None} ms of device time [{card}]")
             log(f"  device ms per GOP by name (launches, ms): {top}")
         if m["fmt"] >= 3:
             eng = engines[emits[0]]
@@ -2018,11 +2324,230 @@ def phase_speed(cells, card):
     return results, traces
 
 
+# ---- --ab: the search and MC kernels of several checkouts, in turns -------
+
+AB_CELL = (1080, 1920, 10)  # height, width, frames (one GOP) of the A/B cells
+
+
+def _checksum(x) -> int:
+    ts = x if isinstance(x, (tuple, list)) else [x]
+    return int(sum(int((t.long() * (i + 1)).sum()) for i, t in enumerate(ts)
+                   if isinstance(t, torch.Tensor)))
+
+
+def ab_child(root: str) -> dict:
+    """One turn of --ab: the package of checkout `root`, this file's
+    helpers; see the module docstring."""
+    sys.path.insert(0, os.path.abspath(root))
+    from video_encoder_tpu_torch.ops import dispatch, motion
+    from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.parallel import tiles
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    dev = torch.device(DEVICE)
+    build.lib()
+    rng = np.random.default_rng(17)
+    out = {}
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def measure(name, fn):
+        res = fn()
+        torch.cuda.synchronize()
+        dev_ms, kernels = device_ms(fn, per_call=None)
+        out[name] = dict(ms=time_ms(fn), device_ms=dev_ms, kernels=kernels,
+                         host_ms=host_ms(fn), sum=_checksum(res))
+
+    (h, w), g = LUMA[0], 4
+    ch, cw = h // 2, w // 2
+    # the search: a pan with mild noise
+    tex = texture(rng, h, w)
+    cur = t32(tex[64:64 + h, 64:64 + w])
+    ref = t32(np.clip(tex[59:59 + h, 71:71 + w] + rng.integers(-3, 4, (h, w)),
+                      0, 255))
+    curg = torch.stack([torch.roll(cur, (3 * i, -5 * i), (0, 1))
+                        for i in range(g)]).contiguous()
+    refg = ref.expand(g, h, w).contiguous()
+    measure("full_search", lambda: dispatch.full_search(cur, ref))
+    measure("full_search_g", lambda: dispatch.full_search(curg, refg))
+    cur_rows, ref_rows = rows_of(cur), ext_rows(ref, 16)
+    measure("full_search_haloed",
+            lambda: dispatch.full_search_pre_haloed(cur_rows, ref_rows))
+
+    def mvs(lead, nby, nbx, r):
+        return (t32(rng.integers(-r, r + 1, (*lead, nby, nbx))),
+                t32(rng.integers(-r, r + 1, (*lead, nby, nbx))))
+
+    # single-plane fetches
+    for name, lead, (ph, pw), bs in (
+            ("fetch_luma", (), (h, w), 16), ("fetch_chroma", (), (ch, cw), 8),
+            ("fetch_luma_g", (g,), (h, w), 16),
+            ("fetch_chroma_g", (g,), (ch, cw), 8)):
+        plane = t32(rng.integers(0, 256, (*lead, ph, pw)))
+        dy, dx = mvs(lead, ph // bs, pw // bs, bs)
+        fn = (dispatch.mc_fetch_luma_plane if bs == 16
+              else dispatch.mc_fetch_chroma_plane)
+        measure(name, lambda fn=fn, a=(plane, dy, dx): fn(*a))
+    for name, (ph, pw), bs in (("fetch_haloed_luma", (h, w), 16),
+                               ("fetch_haloed_chroma", (ch, cw), 8)):
+        plane = t32(rng.integers(0, 256, (ph, pw)))
+        dy, dx = mvs((), ph // bs, pw // bs, bs)
+        a = (ext_rows(plane, bs), rows_of(dy), rows_of(dx), bs, bs)
+        measure(name, lambda a=a: dispatch.mc_fetch_pre_haloed(*a))
+
+    # the MC of one P frame step
+    new = hasattr(dispatch, "mc_predict")
+    for geo, lead in (("", ()), ("_g4", (g,)), ("_rows", None)):
+        ry, rcb, rcr = (t32(rng.integers(0, 256, (*(lead or ()), ph, pw)))
+                        for ph, pw in ((h, w), (ch, cw), (ch, cw)))
+        for fmt in (1, 4):
+            r = 16 if fmt == 1 else 32
+            dy, dx = mvs(lead or (), h // 16, w // 16, r)
+            inter = torch.from_numpy(
+                rng.random((*(lead or ()), h // 16, w // 16)) < 0.8).to(dev)
+            if lead is None:       # four row shards with their halos
+                dy, dx, inter = (rows_of(t) for t in (dy, dx, inter))
+                shards = [rows_of(p) for p in (ry, rcb, rcr)]
+                if fmt == 1:
+                    planes = [(ext_rows(p, hl),)
+                              for p, hl in zip((ry, rcb, rcr), (16, 8, 8))]
+                else:
+                    planes = [(tiles.exchange_halo(s, hl).contiguous(),
+                               *tiles._parity_ext(s, hl, "halo"))
+                              for s, hl in zip(shards, (16, 8, 8))]
+            elif fmt == 1:
+                planes = [(p,) for p in (ry, rcb, rcr)]
+            else:
+                planes = [(p, *motion.hpel_planes(p)) for p in (ry, rcb, rcr)]
+            stack_y = torch.stack(planes[0], -3)
+            if fmt == 1:                  # one plane each: a view, no copy
+                def refs(planes=planes):
+                    return tuple(p[0].unsqueeze(-3) for p in planes)
+            elif lead is None:            # parity planes made by the exchange
+                def refs(planes=planes, stack_y=stack_y):
+                    return (stack_y, *(torch.stack(p, -3) for p in planes[1:]))
+            else:                         # chroma parity planes made here
+                def refs(stack_y=stack_y, rcb=rcb, rcr=rcr):
+                    return (stack_y, motion.hpel_stack(rcb), motion.hpel_stack(rcr))
+            if new:
+                fn = (dispatch.mc_predict if lead is not None
+                      else dispatch.mc_predict_pre_haloed)
+                ready = refs()
+                measure(f"mc_predict_f{fmt}{geo}",
+                        lambda fn=fn, a=(ready, dy, dx, inter): fn(*a))
+
+                def step(fn=fn, refs=refs, dy=dy, dx=dx, inter=inter):
+                    return fn(refs(), dy, dx, inter)
+            else:
+                step = _engine_mc(dispatch, tiles, planes, dy, dx, inter,
+                                  fmt, lead is None)
+            measure(f"mc_step_f{fmt}{geo}", step)
+            # the yardstick: one torch.take of the flat indices of all three
+            src, idx = take_of(tuple(torch.stack(p, -3) for p in planes),
+                               dy, dx, inter)
+            if not torch.equal(torch.take(src, idx),
+                               torch.cat([p.reshape(-1) for p in step()])):
+                raise AssertionError(f"torch.take differs from the MC step "
+                                     f"at format {fmt}{geo}")
+            measure(f"take_f{fmt}{geo}", lambda src=src, idx=idx: torch.take(src, idx))
+
+    # the cells: device ops per frame and the search's device time per GOP
+    ph, pw, n = AB_CELL
+    for m in (FULL, V4):
+        clip = (synth_clip_halfpel if m["clip"] == "halfpel" else synth_clip)(
+            n, ph, pw, 11, m["passes"], m["scale"])
+        eng = GopEngine(config_of(m, pw, ph, n), device=dev)
+        y, cb, cr = up(clip[0], 16), up(clip[1], 8), up(clip[2], 8)
+        o = eng.run(y, cb, cr, 28)
+        ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n)
+        out[f"cell_{m['tag']}"] = dict(
+            ops_per_frame=ops, busy=busy, top=top,
+            search=[t for t in top if "search" in t[0]],
+            sum=_checksum([o["words"], o["bits"]]))
+    out["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
+    return out
+
+
+def _engine_mc(dispatch, tiles, planes, dy, dx, inter, fmt, haloed):
+    """The MC of a P frame step as the engine composed it before it had
+    one predictor launch (a checkout from before the predictor): a fetch
+    per plane, under format 4 one per parity plane and a per-block
+    select, then the masks."""
+    def step():
+        m_y = inter.repeat_interleave(16, -2).repeat_interleave(16, -1)
+        m_c = inter.repeat_interleave(8, -2).repeat_interleave(8, -1)
+        cdy, cdx = dy >> 1, dx >> 1
+        if haloed and fmt >= 4:
+            f = (tiles._hpel_mc_haloed(planes[0], dy, dx, 16, 16),
+                 tiles._hpel_mc_haloed(planes[1], cdy, cdx, 8, 8),
+                 tiles._hpel_mc_haloed(planes[2], cdy, cdx, 8, 8))
+        elif haloed:
+            f = (dispatch.mc_fetch_pre_haloed(planes[0][0], dy, dx, 16, 16),
+                 dispatch.mc_fetch_pre_haloed(planes[1][0], cdy, cdx, 8, 8),
+                 dispatch.mc_fetch_pre_haloed(planes[2][0], cdy, cdx, 8, 8))
+        elif fmt >= 4:
+            f = (dispatch.mc_fetch_luma_plane_hpel(planes[0][0], dy, dx,
+                                                   planes[0]),
+                 dispatch.mc_fetch_chroma_plane_hpel(planes[1][0], cdy, cdx),
+                 dispatch.mc_fetch_chroma_plane_hpel(planes[2][0], cdy, cdx))
+        else:
+            f = (dispatch.mc_fetch_luma_plane(planes[0][0], dy, dx),
+                 dispatch.mc_fetch_chroma_plane(planes[1][0], cdy, cdx),
+                 dispatch.mc_fetch_chroma_plane(planes[2][0], cdy, cdx))
+        return (torch.where(m_y, f[0], 128), torch.where(m_c, f[1], 128),
+                torch.where(m_c, f[2], 128))
+    return step
+
+
+def ab_main(roots) -> int:
+    """--ab: ab_child of each root in a child process, in the turns
+    roots, then roots reversed; prints each turn's JSON line, then a
+    summary (each root's mean per timing) beside the card; 1 if a result
+    differs between roots."""
+    card = card_line()
+    results = {r: [] for r in roots}
+    t0 = time.perf_counter()
+    for root in roots + roots[::-1]:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--ab-child", root], capture_output=True, text=True)
+        sys.stderr.write(r.stderr[-4000:])
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("AB ")]
+        if r.returncode != 0 or not line:
+            print(r.stdout[-4000:])
+            raise SystemExit(f"chip_smoke --ab: the turn of {root} failed "
+                             f"({r.returncode})")
+        results[root].append(json.loads(line[-1][3:]))
+        print(line[-1], flush=True)
+    summary, sums = {}, {}
+    for root, runs in results.items():
+        keys = [k for k, v in runs[0].items() if isinstance(v, dict) and "ms" in v]
+        summary[root] = {k: {f: sum(r[k][f] for r in runs) / len(runs)
+                             for f in ("ms", "device_ms", "host_ms", "kernels")}
+                         for k in keys}
+        summary[root].update({k: runs[0][k] for k in runs[0] if k.startswith("cell_")})
+        for r in runs:
+            for k, v in r.items():
+                if isinstance(v, dict) and "sum" in v:
+                    sums.setdefault(k, set()).add(v["sum"])
+    differ = sorted(k for k, v in sums.items() if len(v) > 1)
+    print(json.dumps(dict(card=card, seconds=time.perf_counter() - t0,
+                          results_differ=differ, summary=summary)))
+    return 1 if differ else 0
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--ab-child"]:
+        print("AB " + json.dumps(dict(root=args[1], **ab_child(args[1]))),
+              flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs one GPU",
               file=sys.stderr)
         return 1
+    if args[:1] == ["--ab"]:
+        return ab_main(args[1:] or [ROOT])
     from video_encoder_tpu_torch.ops.kernels import build
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
@@ -2038,9 +2563,9 @@ def main() -> int:
     build.lib()
     log(f"build: kernels in {time.perf_counter() - t0:.2f} s (nvcc "
         f"{build.build_seconds:.2f} s)")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, regs, spill_st, spill_ld in ptxas_summary(build.build_log):
+        log(f"  ptxas: {name}: {regs} registers, {spill_st} bytes spill "
+            f"stores, {spill_ld} bytes spill loads")
 
     rows = phase_kernels(dev, card)
     log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
@@ -2085,10 +2610,11 @@ def main() -> int:
         row["launches"] = sum(p[name] for p in path_launches)
     # the chroma twin of sad_at_mv, the whole SAD map and chunk_merge have
     # no caller on any encode path (nor in the reference), and neither have
-    # their batched forms: they are held against their plain versions above
-    # only
+    # their batched forms; the single-plane fetches no longer have one (the
+    # predictor serves a P step): they are held against their plain
+    # versions above only
     for name in ("sad_at_mv_chroma", "sad_at_mv_chroma_g", "sad_map",
-                 "sad_map_g", "chunk_merge"):
+                 "sad_map_g", "chunk_merge", *SINGLE_FETCHES):
         rows[name]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])

@@ -353,12 +353,20 @@ def test_hpel_mc_matches_reference(rng, jnp_path, bs, h, w):
     d2y = rng.integers(-r2, r2 + 1, (h // bs, w // bs)).astype(np.int32)
     d2x = rng.integers(-r2, r2 + 1, (h // bs, w // bs)).astype(np.int32)
     d2y[0, 0], d2x[0, 0], d2y[-1, -1], d2x[-1, -1] = -r2, -r2 + 1, r2, r2 - 1
-    jfn, tfn = ((jdispatch.mc_fetch_luma_plane_hpel,
-                 dispatch.mc_fetch_luma_plane_hpel) if bs == 16 else
-                (jdispatch.mc_fetch_chroma_plane_hpel,
-                 dispatch.mc_fetch_chroma_plane_hpel))
+    jfn = (jdispatch.mc_fetch_luma_plane_hpel if bs == 16
+           else jdispatch.mc_fetch_chroma_plane_hpel)
     want = jfn(jnp.asarray(ref), jnp.asarray(d2y), jnp.asarray(d2x))
-    got = tfn(_t(ref), _t(d2y), _t(d2x))
+    # the port's predictor of a format-4 P step makes this plane from its
+    # four parity planes at MB vectors whose chroma part (>> 1) is the
+    # chroma's; the other planes are random
+    k = 16 // bs
+    planes = [rng.integers(0, 256, (h * k, w * k)),
+              rng.integers(0, 256, (h * k // 2, w * k // 2)),
+              rng.integers(0, 256, (h * k // 2, w * k // 2))]
+    planes[k - 1] = ref
+    refs = tuple(motion.hpel_stack(_t(p)) for p in planes)
+    inter = torch.ones(d2y.shape, dtype=torch.bool)
+    got = dispatch.mc_predict(refs, _t(d2y * k), _t(d2x * k), inter)[k - 1]
     assert got.dtype == torch.int32 and _eq(got, want)
 
 

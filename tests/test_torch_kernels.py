@@ -54,6 +54,13 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
 
+# the single-plane fetches, which no encode path launches since the
+# predictor serves a P step in one launch
+_SINGLE_FETCHES = ("mc_fetch_luma", "mc_fetch_chroma", "mc_fetch_luma_g",
+                   "mc_fetch_chroma_g", "mc_fetch_haloed_luma",
+                   "mc_fetch_haloed_chroma")
+
+
 @pytest.mark.parametrize("h,w", [(1088, 1920), (368, 640), (48, 80)])
 def test_full_search_kernel(cuda, plain_and_kernel, rng, h, w):
     cur = rng.integers(0, 256, (h, w))
@@ -272,10 +279,13 @@ def test_gop_engine_on_card_matches_cpu(cuda, rng, search, rc, emit):
                         search=search, rc=rc, target_kbps=300)
     build.reset_launches()
     got, _ = GopEngine(cfg, device=cuda, emit=emit).encode_gop(frames, 0)
-    used = ["mc_fetch_luma", "mc_fetch_chroma", "code_plane", "block_pack"]
+    used = ["mc_predict", "code_plane", "block_pack"]
     used += ["full_search"] if search == "full" else ["sad_map_even", "sad_at_mv"]
     used += ["span_merge_mb"] if emit == "chunks" else []
     assert all(build.LAUNCHES[k] > 0 for k in used), build.LAUNCHES
+    # once per P frame of each run (an overflow encodes the GOP again)
+    assert build.LAUNCHES["mc_predict"] in (3, 6), build.LAUNCHES
+    assert not any(build.LAUNCHES[k] for k in _SINGLE_FETCHES), build.LAUNCHES
     want, _ = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
     assert [p.to_bytes() for p in got] == [p.to_bytes() for p in want]
 
@@ -304,11 +314,12 @@ def test_gop_engine_formats_on_card_match_cpu(cuda, rng, kw, emit):
     cfg = EncoderConfig(**{**dict(width=96, height=64, gop_n=4, base_qp=24), **kw})
     build.reset_launches()
     got, _ = GopEngine(cfg, device=cuda, emit=emit).encode_gop(frames, 0)
-    used = ["mc_fetch_luma", "mc_fetch_chroma", "block_pack_v2",
+    used = ["mc_predict", "block_pack_v2",
             "code_plane_qmat" if cfg.quant_matrix else "code_plane"]
     used += ["sad_at_mv"] if cfg.format_version == 4 else []
     assert all(build.LAUNCHES[k] > 0 for k in used), build.LAUNCHES
     assert build.LAUNCHES["block_pack"] == 0
+    assert not any(build.LAUNCHES[k] for k in _SINGLE_FETCHES), build.LAUNCHES
     want, _ = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
     assert [p.to_bytes() for p in got] == [p.to_bytes() for p in want]
 
@@ -491,7 +502,7 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     eng.run_batch(handle["y"], handle["cb"], handle["cr"], handle["base_qps"])
     n = build.LAUNCHES
     qm = "_qmat" if cfg.quant_matrix else ""
-    used = ["mc_fetch_luma_g", "mc_fetch_chroma_g", f"code_plane{qm}_g"]
+    used = ["mc_predict_g", f"code_plane{qm}_g"]
     used += ["full_search_g"] if cfg.search == "full" else ["sad_map_even_g", "sad_at_mv_g"]
     used += ["sad_at_mv_g"] if cfg.format_version == 4 else []
     assert all(n[k] > 0 for k in used), n
@@ -501,6 +512,8 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     passes = 2 if cfg.rc == "mb" else 1
     packs = n["block_pack"] + n["block_pack_v2"]
     assert packs == 3 * t * passes                  # per plane, not per GOP
+    assert n["mc_predict_g"] == t - 1               # once per P step
+    assert not any(n[k] for k in _SINGLE_FETCHES), n
     assert n["span_merge_mb"] == (t if emit == "chunks" else 0)
     got = eng.encode_gops_finish(handle)
     want = GopEngine(cfg, device="cpu", emit=emit).encode_gops(gops, firsts, qps)
@@ -670,12 +683,11 @@ def test_sharded_encoder_on_card_matches_cpu(cuda, rng, kw, g, s):
         assert reruns == 2
     planes = 4 if cfg.format_version == 4 else 1
     assert n["full_search_haloed"] == (t - 1) * reruns
-    assert n["mc_fetch_haloed_luma"] == planes * (t - 1) * reruns
-    assert n["mc_fetch_haloed_chroma"] == 2 * planes * (t - 1) * reruns
+    assert n["mc_predict_haloed"] == (t - 1) * reruns   # one per P step
     assert n["sad_at_mv_haloed"] == (planes == 4) * (t - 1) * reruns
-    assert not any(n[k] for k in ("full_search", "full_search_g", "mc_fetch_luma",
-                                  "mc_fetch_luma_g", "mc_fetch_chroma",
-                                  "mc_fetch_chroma_g", "sad_at_mv", "sad_at_mv_g"))
+    assert not any(n[k] for k in ("full_search", "full_search_g", "mc_predict",
+                                  "mc_predict_g", "sad_at_mv", "sad_at_mv_g",
+                                  *_SINGLE_FETCHES))
     want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
     for (gp, gs), (wp, ws) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
@@ -700,7 +712,8 @@ def test_tile2d_on_card_matches_cpu(cuda, rng, sr, sc, rc):
         row_words=entropy.max_words(96 // 16 // sc),
         target_bits=cfg.target_bits_per_frame(), vbv_bits=cfg.vbv_bits())
     assert build.LAUNCHES["full_search_haloed"] == t - 1
-    assert build.LAUNCHES["mc_fetch_haloed_chroma"] == 2 * (t - 1)
+    assert build.LAUNCHES["mc_predict_haloed"] == t - 1
+    assert not any(build.LAUNCHES[k] for k in _SINGLE_FETCHES)
     assert not bool(outs["ovf"].any())
     words, row_bits = outs["words"].cpu().numpy(), outs["row_bits"].cpu().numpy()
     got = [tiles.assemble_frame_2d(words, row_bits, k) for k in range(t)]
@@ -915,3 +928,121 @@ def test_encode_with_sea_on_card_matches_cpu(cuda, rng, monkeypatch, path):
     assert not any(n[k] for k in ("full_search", "full_search_g", "full_search_haloed"))
     for (gp, _), (wp, _) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
+
+
+# ---- the one-launch MC predictor and the register-tiled full search -------
+
+def _mc_case(rng, dev, lead, h, w, fmt):
+    """Reference stacks (one plane, or the four parity planes at format 4),
+    vectors on the range's edges (pels, or half-pels at format 4) and
+    modes with an intra MB row."""
+    r = 16 if fmt < 4 else 32
+    nby, nbx = h // 16, w // 16
+    planes = [_t(rng.integers(0, 256, (*lead, ph, pw)), dev)
+              for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    dy, dx = (rng.integers(-r, r + 1, (*lead, nby, nbx)) for _ in range(2))
+    dy[..., 0, :], dx[..., :, 0], dy[..., -1, :], dx[..., :, -1] = -r, -r, r, r
+    dy[..., 0, -1], dx[..., -1, 0] = r - 1, 1 - r
+    inter = torch.from_numpy(rng.random((*lead, nby, nbx)) < 0.8).to(dev)
+    inter[..., 1, :] = False
+    refs = tuple(motion.hpel_stack(p) if fmt >= 4 else p.unsqueeze(-3)
+                 for p in planes)
+    return refs, _t(dy, dev), _t(dx, dev), inter
+
+
+@pytest.mark.parametrize("fmt", [1, 4])
+@pytest.mark.parametrize("lead,h,w", [((), 1088, 1920), ((), 368, 640),
+                                      ((4,), 1088, 1920), ((3,), 48, 80)])
+def test_mc_predict_kernel(cuda, plain_and_kernel, rng, lead, h, w, fmt):
+    """The three predictors of a P step in one launch, equal to the plain
+    composition; with a G axis also to G single launches. Each plane's
+    view of the one output buffer is contiguous."""
+    refs, dy, dx, inter = _mc_case(rng, cuda, lead, h, w, fmt)
+    got, want = plain_and_kernel(dispatch.mc_predict, refs, dy, dx, inter)
+    assert build.LAUNCHES["mc_predict_g" if lead else "mc_predict"] > 0
+    assert _same(got, want) and all(p.is_contiguous() for p in got)
+    if lead:
+        for i in range(lead[0]):
+            one = dispatch.mc_predict(tuple(r[i] for r in refs), dy[i], dx[i],
+                                      inter[i])
+            assert _same(one, tuple(p[i] for p in got))
+
+
+def _windows(stack, r, sr, sc):
+    """The tiles of a reference stack [P, H, W] as the pre-haloed encode
+    has them, [Sr * Sc, P, h + 2r, w (+ 2r with Sc > 1)]: windows of
+    pad_ref of the whole stack (format 4: parity first, then the pad)."""
+    _, hh, ww = stack.shape
+    h, w = hh // sr, ww // sc
+    pad = motion.pad_ref(stack, r)
+    cw, c0 = (w + 2 * r, 0) if sc > 1 else (w, r)
+    return torch.stack([pad[:, i * h:i * h + h + 2 * r, c0 + j * w:c0 + j * w + cw]
+                        for i in range(sr) for j in range(sc)]).contiguous()
+
+
+@pytest.mark.parametrize("fmt", [1, 4])
+@pytest.mark.parametrize("sr,sc,h,w", _HALOED_SHAPES)
+def test_mc_predict_haloed_kernel(cuda, plain_and_kernel, rng, sr, sc, h, w, fmt):
+    """The shards' predictors from their pre-haloed stacks: the plain
+    version's and, put together, the unsharded kernel's on the whole
+    frame; a single shard also without the batch axis."""
+    refs, dy, dx, inter = _mc_case(rng, cuda, (), h, w, fmt)
+    exts = tuple(_windows(s, r, sr, sc) for s, r in zip(refs, (16, 8, 8)))
+    sh = tuple(_split(a, sr, sc) for a in (dy, dx, inter))
+    got, want = plain_and_kernel(dispatch.mc_predict_pre_haloed, exts, *sh)
+    assert _same(got, want)
+    whole = dispatch.mc_predict(refs, dy, dx, inter)
+    assert _same(tuple(_join(g, sr, sc) for g in got), whole)
+    one = dispatch.mc_predict_pre_haloed(tuple(e[0] for e in exts),
+                                         *(a[0] for a in sh))
+    assert _same(one, tuple(g[0] for g in got))
+    assert build.LAUNCHES["mc_predict_haloed"] > 0
+
+
+_CORNERS = ((16, 16), (-16, -16), (16, -16), (-16, 16))
+
+
+@pytest.mark.parametrize("kind", ["flat", "corners"])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (368, 640)])
+def test_full_search_kernel_ties_and_corners(cuda, plain_and_kernel, rng, kind,
+                                             h, w):
+    """A flat plane, where all 1089 candidates of every MB tie and the
+    first, (-16, -16), must win; and a frame whose four quadrants pan to
+    the four corner vectors of the window."""
+    cur = rng.integers(0, 256, (h, w))
+    if kind == "flat":
+        cur[:] = 77
+        ref = cur.copy()
+    else:
+        ref = cur.copy()
+        for q, (vy, vx) in enumerate(_CORNERS):
+            ys = slice(0, h // 2) if q < 2 else slice(h // 2, h)
+            xs = slice(0, w // 2) if q % 2 == 0 else slice(w // 2, w)
+            ref[ys, xs] = np.roll(cur, (vy, vx), (0, 1))[ys, xs]
+    got, want = plain_and_kernel(dispatch.full_search, _t(cur, cuda), _t(ref, cuda))
+    assert _same(got, want)
+    dy, dx, sad = (a.cpu().numpy() for a in got)
+    if kind == "flat":
+        assert (dy == -16).all() and (dx == -16).all() and (sad == 0).all()
+        return
+    nby, nbx = h // 16, w // 16
+    for q, (vy, vx) in enumerate(_CORNERS):
+        ys = slice(0, nby // 2) if q < 2 else slice(nby // 2, nby)
+        xs = slice(0, nbx // 2) if q % 2 == 0 else slice(nbx // 2, nbx)
+        hit = (dy[ys, xs] == vy) & (dx[ys, xs] == vx) & (sad[ys, xs] == 0)
+        assert hit.mean() > 0.5, (q, hit.mean())
+
+
+def test_full_search_g_kernel_four_corners(cuda, plain_and_kernel, rng):
+    """G = 4 planes of 1088x1920, GOP g panned to corner vector g: one
+    launch equal to its plain version and to four single launches, each
+    GOP on its own corner."""
+    h, w = 1088, 1920
+    cur = rng.integers(0, 256, (4, h, w))
+    ref = np.stack([np.roll(cur[i], v, (0, 1)) for i, v in enumerate(_CORNERS)])
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.full_search, *args)
+    assert _same(got, want) and _same(got, _per_g(dispatch.full_search, 4, *args))
+    for i, (vy, vx) in enumerate(_CORNERS):
+        hit = (got[0][i] == vy) & (got[1][i] == vx)
+        assert float(hit.float().mean()) > 0.9, i

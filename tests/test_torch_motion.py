@@ -348,17 +348,24 @@ def test_batched_mc_fetch_matches_vmapped_reference(rng, jnp_route, bs, h, w):
         assert got.dtype == torch.int32 and _eq(got, want)
     swapped = fetch(_t(ref[::-1]), _t(dy), _t(dx))
     assert not torch.equal(swapped, got)
-    # the half-pel fetch from four parity planes, selected per block
+    # the half-pel fetch from four parity planes, selected per block: the
+    # plane of the predictor of G P steps (format 4) that this block size
+    # serves, at MB vectors whose chroma part (>> 1) is the chroma's
     hp = (jnp_route.mc_fetch_luma_plane_hpel if bs == 16
           else jnp_route.mc_fetch_chroma_plane_hpel)
     d2y = rng.integers(-2 * bs, 2 * bs + 1, dy.shape).astype(np.int32)
     d2x = rng.integers(-2 * bs, 2 * bs + 1, dy.shape).astype(np.int32)
     want = jax.vmap(hp)(jnp.asarray(ref), jnp.asarray(d2y), jnp.asarray(d2x))
-    got = dispatch._hpel_mc(_t(ref), _t(d2y), _t(d2x), fetch, bs)
+    k = 16 // bs                      # chroma: MB vectors twice the block's
+    lh, lw = h * k, w * k
+    planes = [rng.integers(0, 256, (G, lh, lw)),
+              rng.integers(0, 256, (G, lh // 2, lw // 2)),
+              rng.integers(0, 256, (G, lh // 2, lw // 2))]
+    planes[k - 1] = ref
+    refs = tuple(motion.hpel_stack(_t(p)) for p in planes)
+    inter = torch.ones(dy.shape, dtype=torch.bool)
+    got = dispatch.mc_predict(refs, _t(d2y * k), _t(d2x * k), inter)[k - 1]
     assert _eq(got, want)
-    stacked = dispatch._hpel_mc(_t(ref), _t(d2y), _t(d2x), fetch, bs,
-                                motion.hpel_stack(_t(ref)))
-    assert torch.equal(stacked, got)
 
 
 @pytest.mark.parametrize("kinds", [("pan", "flat", "frozen"),

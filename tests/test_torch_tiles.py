@@ -182,15 +182,17 @@ def test_tiled_v3_requires_islice():
 
 
 def test_haloed_kernels_are_the_tile_path(monkeypatch):
-    """Every P step goes through the pre-haloed search and three pre-haloed
-    fetches (twelve under format 4, plus one refine), never through the
-    unsharded ones; I frames run no search and no exchange."""
+    """Every P step goes through the pre-haloed search and one pre-haloed
+    predictor for its three planes (plus one refine under format 4), never
+    through the unsharded ones nor a single-plane fetch; I frames run no
+    search and no exchange."""
     from video_encoder_tpu_torch.ops import dispatch
 
     counts = {}
-    for name in ("full_search_pre_haloed", "mc_fetch_pre_haloed",
-                 "sad_at_mv_pre_haloed", "full_search", "mc_fetch_luma_plane",
-                 "mc_fetch_chroma_plane", "sad_at_mv"):
+    for name in ("full_search_pre_haloed", "mc_predict_pre_haloed",
+                 "mc_fetch_pre_haloed", "sad_at_mv_pre_haloed", "full_search",
+                 "mc_predict", "mc_fetch_luma_plane", "mc_fetch_chroma_plane",
+                 "sad_at_mv"):
         real = getattr(dispatch, name)
         monkeypatch.setattr(dispatch, name, lambda *a, _n=name, _f=real, **kw: (
             counts.__setitem__(_n, counts.get(_n, 0) + 1) or _f(*a, **kw)))
@@ -198,8 +200,8 @@ def test_haloed_kernels_are_the_tile_path(monkeypatch):
     real_x = tiles.exchange_halo
     monkeypatch.setattr(tiles, "exchange_halo", lambda *a, **kw: (
         exchanges.append(1) or real_x(*a, **kw)))
-    for case, want in (("v1", dict(full_search_pre_haloed=1, mc_fetch_pre_haloed=3)),
-                       ("v4", dict(full_search_pre_haloed=2, mc_fetch_pre_haloed=24,
+    for case, want in (("v1", dict(full_search_pre_haloed=1, mc_predict_pre_haloed=1)),
+                       ("v4", dict(full_search_pre_haloed=2, mc_predict_pre_haloed=2,
                                    sad_at_mv_pre_haloed=2))):
         counts.clear()
         exchanges.clear()

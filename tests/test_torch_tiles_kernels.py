@@ -260,6 +260,8 @@ def test_hpel_refine_on_haloed_planes_matches_reference_and_unsharded(
         assert torch.equal(g.flatten(0, 1), w_)
     assert bool(((got[0] & 1) | (got[1] & 1)).any())
     keys = ((0, 0), (0, 1), (1, 0), (1, 1))
+    hs, ws = cur_sh.shape[-2:]
+    stack_c = _t(rng.integers(0, 256, (4, hs // 2 + 16, ws // 2)))
     for b in range(s):
         jplanes = {k: jnp.asarray(p[b].numpy()) for k, p in zip(keys, planes)}
         want = jtiles._hpel_refine_haloed(
@@ -267,9 +269,11 @@ def test_hpel_refine_on_haloed_planes_matches_reference_and_unsharded(
             jnp.asarray(dy_sh[b].numpy()), jnp.asarray(dx_sh[b].numpy()))
         for g, w_ in zip(got, want):
             assert np.array_equal(g[b].numpy(), np.asarray(w_))
-        # and the half-pel MC from those planes
-        mc = tiles._hpel_mc_haloed(tuple(p[b] for p in planes), got[0][b],
-                                   got[1][b], 16, 16)
+        # and the half-pel MC from those planes: the luma of the format-4
+        # predictor from pre-haloed stacks (the chroma stacks are random)
+        mc = dispatch.mc_predict_pre_haloed(
+            (torch.stack([p[b] for p in planes]), stack_c, stack_c),
+            got[0][b], got[1][b], torch.ones(got[0][b].shape, dtype=torch.bool))[0]
         jmc = jtiles._hpel_mc_haloed(jplanes, jnp.asarray(got[0][b].numpy()),
                                      jnp.asarray(got[1][b].numpy()), 16, 16)
         assert np.array_equal(mc.numpy(), np.asarray(jmc))

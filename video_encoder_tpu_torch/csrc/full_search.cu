@@ -5,8 +5,9 @@
 // launched by _full_search_call (public full_search: stride 1, packed
 // minimum) and by _sad_map_call with stride 1 (public sad_map: all 1089
 // SADs of an MB) or 2 (public sad_map_even: the 289 SADs of the even-even
-// mvs). The TPU builds all three from one kernel factory; here one
-// template does, on stride and on min-versus-map.
+// mvs). The TPU builds all three from one kernel factory; here the two
+// maps share one template (on stride) and the search has a kernel of its
+// own.
 // Also replaces its G-batched twins _full_search_call_batch and
 // _sad_map_call_batch (the vmap rules of full_search and the maps on
 // [G, H, W] planes of G GOPs in lockstep): the TPU needed separate calls
@@ -24,24 +25,36 @@
 // clamp never acts and where it is absent the clamp is pad_ref's edge
 // replication. The other entries pass cur's extents and origin (0, 0).
 //
-// Bound on this card: integer ALU and shared-memory loads. A 1088x1920
-// frame has 8160 MBs x 1089 candidates x 256 pixels, about 2.3e9
-// absolute differences (a quarter of that for the 289-candidate map); the
-// frame itself is only 8 MB of int32 reads.
+// Bound on this card: integer ALU. A 1088x1920 frame has 8160 MBs x 1089
+// candidates x 256 pixels, about 2.3e9 absolute differences (a quarter of
+// that for the 289-candidate map); the frame itself is only 8 MB of int32
+// reads.
 //
-// Design: each block stages its 48x48 reference window and the 16x16
-// current block in shared memory once (global traffic about 10 KB per MB),
-// then its threads stride over the candidates, one __sad per pixel. The
-// window is read with clamped coordinates, which is exactly the
-// reference's edge-replicated pad_ref because |dy|, |dx| <= 16, so no
-// padded copy of the frame is made.
-//   - min (full_search): the winner is the minimum of the packed key
-//     sad << 11 | k (sad <= 65280, k < 1089: fits int32), which is the
-//     row-major strict-< first minimum; it is reduced by warp shuffles and
-//     then across the block's warps in shared memory.
-//   - map (sad_map_even): thread k writes SAD k of the MB's [289] row, so
-//     a warp's stores are contiguous.
-// Packing four pixels per __vsadu4 is later work.
+// Design of the exhaustive search (tiled_search_kernel; the entries
+// tvc_full_search, _g and _haloed): one block of 128 threads per MB stages
+// the MB's 48x48 reference window and its 16x16 block in shared memory
+// once (global traffic about 10 KB per MB). The window is read with
+// clamped coordinates, which is exactly the reference's edge-replicated
+// pad_ref because |dy|, |dx| <= 16, so no padded copy of the frame is made.
+// A thread then holds four rows of the block in registers and takes a
+// group of RUN = 11 horizontally adjacent candidates of one dy at a time:
+// per block row it loads one strip of 16 + 10 window pixels and makes
+// 16 x 11 abs-diffs from registers, so a shared load serves 6.8 of them
+// (the maps' loop below loads two words per abs-diff; as a search it was
+// bound by the shared-memory load issue). The four threads of a candidate
+// group are neighbouring lanes, one per four block rows, and add their
+// partial sums with two shuffles. The 99 groups of an MB go to the four
+// warps eight at a time; a warp past the last group skips, so 13
+// warp-rounds do the MB's work where 12.4 would be perfect balance. The
+// winner is the minimum of the packed key sad << 11 | k (sad <= 65280,
+// k = (dy + 16) * 33 + dx + 16 < 1089: fits int32), which is the
+// row-major strict-< first minimum, ties included.
+//
+// The maps (map_kernel<STRIDE>): each block stages the same window, then
+// its 256 threads stride over the candidates, one __sad per pixel with
+// both operands read from shared memory; thread k writes SAD k of the
+// MB's [289] or [1089] row, so a warp's stores are contiguous. Packing
+// four pixels per __vsadu4 is later work.
 //
 // Also replaces the factory's sea=True variant (sad.py:224-325, opted into
 // with TVC_SEA=1 by full_search, its batched twin and
@@ -78,22 +91,24 @@ constexpr int ND = 2 * R + 1;     // 33
 constexpr int WIN = MB + 2 * R;   // 48
 constexpr int THREADS = 256;
 
-// Stages the MB's clamped 48x48 reference window and its 16x16 block; the
-// caller synchronises. cur and ref point at the block's plane.
+// Stages the MB's clamped 48x48 reference window and its 16x16 block with
+// NT threads; the caller synchronises. cur and ref point at the block's
+// plane.
+template <int NT = THREADS>
 __device__ __forceinline__ void stage(const int* __restrict__ cur,
                                       const int* __restrict__ ref, int w,
                                       int rh, int rw, int oy, int ox, int y0,
                                       int x0, int (*win)[WIN + 1],
                                       int (*blk)[MB]) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < WIN * WIN; i += THREADS) {
+  for (int i = tid; i < WIN * WIN; i += NT) {
     const int r = i / WIN, c = i % WIN;
     const int y = min(max(y0 - R + r + oy, 0), rh - 1);
     const int x = min(max(x0 - R + c + ox, 0), rw - 1);
     win[r][c] = ref[y * rw + x];
   }
-  {
-    const int r = tid / MB, c = tid % MB;
+  for (int i = tid; i < MB * MB; i += NT) {
+    const int r = i / MB, c = i % MB;
     blk[r][c] = cur[(y0 + r) * w + x0 + c];
   }
 }
@@ -114,19 +129,94 @@ __device__ __forceinline__ void block_min(int v, int* best, int* warp_best) {
   __syncthreads();
 }
 
-template <int STRIDE, bool EMIT_MAP>
+constexpr int TILED_THREADS = 128;
+constexpr int RUN = 11;                // adjacent dx candidates of a thread
+constexpr int RUNS = ND / RUN;         // 3 runs per dy row
+constexpr int GROUPS = ND * RUNS;      // 99 candidate groups per MB
+constexpr int ROWS = 4;                // block rows of a thread
+constexpr int STRIP = MB + RUN - 1;    // window pixels per block row: 26
+
+__global__ void __launch_bounds__(TILED_THREADS)
+tiled_search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
+                    int h, int w, int rh, int rw, int oy, int ox,
+                    int* __restrict__ dy_out, int* __restrict__ dx_out,
+                    int* __restrict__ sad_out) {
+  __shared__ int win[WIN][WIN + 1];
+  __shared__ int blk[MB][MB];
+  __shared__ int warp_best[TILED_THREADS / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // 64-bit: g * h * w passes int32 for a large batch of large planes; the
+  // reference's planes are rh * rw apart
+  const size_t o =
+      ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  stage<TILED_THREADS>(cur + (size_t)blockIdx.z * h * w,
+                       ref + (size_t)blockIdx.z * rh * rw, w, rh, rw, oy, ox,
+                       blockIdx.y * MB, blockIdx.x * MB, win, blk);
+  __syncthreads();
+
+  // lane & 3 picks the four block rows this thread holds
+  const int r0 = ROWS * (lane & 3);
+  int b[ROWS][MB];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int c = 0; c < MB; ++c) b[r][c] = blk[r0 + r][c];
+  }
+
+  int best = INT_MAX;
+  // warp w takes the groups 32 i + 8 w + lane / 4; the loop bound is
+  // uniform over the warp, so the shuffles see every lane
+  for (int g0 = 8 * warp; g0 < GROUPS; g0 += TILED_THREADS / 4) {
+    const bool valid = g0 + (lane >> 2) < GROUPS;
+    const int grp = valid ? g0 + (lane >> 2) : GROUPS - 1;
+    const int ky = grp / RUNS, kx0 = (grp - ky * RUNS) * RUN;
+    unsigned int acc[RUN];
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) acc[j] = 0;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int* wr = &win[ky + r0 + r][kx0];
+      int s[STRIP];
+#pragma unroll
+      for (int i = 0; i < STRIP; ++i) s[i] = wr[i];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+#pragma unroll
+        for (int c = 0; c < MB; ++c) acc[j] = __sad(b[r][c], s[c + j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      unsigned int v = acc[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (valid) best = min(best, (int)(v << 11) | (ky * ND + kx0 + j));
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    best = min(best, __shfl_down_sync(0xffffffffu, best, off));
+  }
+  if (lane == 0) warp_best[warp] = best;
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 1; i < TILED_THREADS / 32; ++i) best = min(best, warp_best[i]);
+    const int k = best & 2047;
+    dy_out[o] = k / ND - R;
+    dx_out[o] = k % ND - R;
+    sad_out[o] = best >> 11;
+  }
+}
+
+template <int STRIDE>
 __global__ void __launch_bounds__(THREADS)
-search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
-              int h, int w, int rh, int rw, int oy, int ox,
-              int* __restrict__ dy_out,
-              int* __restrict__ dx_out, int* __restrict__ sad_out,
-              int* __restrict__ map_out) {
+map_kernel(const int* __restrict__ cur, const int* __restrict__ ref, int h,
+           int w, int rh, int rw, int oy, int ox,
+           int* __restrict__ map_out) {
   constexpr int NDS = (ND + STRIDE - 1) / STRIDE;  // 33 or 17 per axis
   constexpr int NCAND = NDS * NDS;                 // 1089 or 289
   __shared__ int win[WIN][WIN + 1];
   __shared__ int blk[MB][MB];
-  __shared__ int warp_best[THREADS / 32];
-  __shared__ int best_s;
 
   const int bx = blockIdx.x, by = blockIdx.y;
   const int tid = threadIdx.x;
@@ -135,10 +225,8 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
   stage(cur + (size_t)blockIdx.z * h * w, ref + (size_t)blockIdx.z * rh * rw,
         w, rh, rw, oy, ox, by * MB, bx * MB, win, blk);
-  if (tid == 0) best_s = INT_MAX;
   __syncthreads();
 
-  int best = INT_MAX;
   for (int k = tid; k < NCAND; k += THREADS) {
     const int ky = (k / NDS) * STRIDE, kx = (k % NDS) * STRIDE;
     unsigned int s = 0;
@@ -149,20 +237,7 @@ search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
         s = __sad(blk[r][c], win[ky + r][kx + c], s);
       }
     }
-    if constexpr (EMIT_MAP) {
-      map_out[o * NCAND + k] = (int)s;
-    } else {
-      best = min(best, (int)(s << 11) | k);
-    }
-  }
-  if constexpr (!EMIT_MAP) {
-    block_min(best, &best_s, warp_best);
-    if (tid == 0) {
-      const int k = best_s & 2047;
-      dy_out[o] = k / ND - R;
-      dx_out[o] = k % ND - R;
-      sad_out[o] = best_s >> 11;
-    }
+    map_out[o * NCAND + k] = (int)s;
   }
 }
 
@@ -266,13 +341,22 @@ bool bad_extents(int g, int h, int w, int rh, int rw) {
          (rw != w && rw != w + 2 * R);
 }
 
-template <int STRIDE, bool EMIT_MAP>
-int launch(const int* cur, const int* ref, int g, int h, int w, int rh, int rw,
-           int* dy, int* dx, int* sad, int* map, void* stream) {
+template <int STRIDE>
+int launch_map(const int* cur, const int* ref, int g, int h, int w, int* map,
+               void* stream) {
+  if (bad_extents(g, h, w, h, w)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(w / MB, h / MB, g);
+  map_kernel<STRIDE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      cur, ref, h, w, h, w, 0, 0, map);
+  return (int)cudaGetLastError();
+}
+
+int launch_tiled(const int* cur, const int* ref, int g, int h, int w, int rh,
+                 int rw, int* dy, int* dx, int* sad, void* stream) {
   if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
   const dim3 grid(w / MB, h / MB, g);
-  search_kernel<STRIDE, EMIT_MAP><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, map);
+  tiled_search_kernel<<<grid, TILED_THREADS, 0, (cudaStream_t)stream>>>(
+      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad);
   return (int)cudaGetLastError();
 }
 
@@ -290,24 +374,21 @@ int launch_sea(const int* cur, const int* ref, int g, int h, int w, int rh,
 // cur, ref: [h, w] int32 (h, w multiples of 16); dy, dx, sad: [h/16, w/16].
 extern "C" int tvc_full_search(const int* cur, const int* ref, int h, int w,
                                int* dy, int* dx, int* sad, void* stream) {
-  return launch<1, false>(cur, ref, 1, h, w, h, w, dy, dx, sad, nullptr,
-                          stream);
+  return launch_tiled(cur, ref, 1, h, w, h, w, dy, dx, sad, stream);
 }
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 289]
 // int32, candidate ((dy+16)/2)*17 + (dx+16)/2.
 extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
                                 int* map, void* stream) {
-  return launch<2, true>(cur, ref, 1, h, w, h, w, nullptr, nullptr, nullptr,
-                         map, stream);
+  return launch_map<2>(cur, ref, 1, h, w, map, stream);
 }
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 1089]
 // int32, candidate (dy+16)*33 + (dx+16).
 extern "C" int tvc_sad_map(const int* cur, const int* ref, int h, int w,
                            int* map, void* stream) {
-  return launch<1, true>(cur, ref, 1, h, w, h, w, nullptr, nullptr, nullptr,
-                         map, stream);
+  return launch_map<1>(cur, ref, 1, h, w, map, stream);
 }
 
 // The G-batched search: cur, ref [g, h, w] int32, plane g of cur against
@@ -315,22 +396,19 @@ extern "C" int tvc_sad_map(const int* cur, const int* ref, int h, int w,
 extern "C" int tvc_full_search_g(const int* cur, const int* ref, int g, int h,
                                  int w, int* dy, int* dx, int* sad,
                                  void* stream) {
-  return launch<1, false>(cur, ref, g, h, w, h, w, dy, dx, sad, nullptr,
-                          stream);
+  return launch_tiled(cur, ref, g, h, w, h, w, dy, dx, sad, stream);
 }
 
 // The G-batched even map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 289].
 extern "C" int tvc_sad_map_even_g(const int* cur, const int* ref, int g,
                                   int h, int w, int* map, void* stream) {
-  return launch<2, true>(cur, ref, g, h, w, h, w, nullptr, nullptr, nullptr,
-                         map, stream);
+  return launch_map<2>(cur, ref, g, h, w, map, stream);
 }
 
 // The G-batched whole map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 1089].
 extern "C" int tvc_sad_map_g(const int* cur, const int* ref, int g, int h,
                              int w, int* map, void* stream) {
-  return launch<1, true>(cur, ref, g, h, w, h, w, nullptr, nullptr, nullptr,
-                         map, stream);
+  return launch_map<1>(cur, ref, g, h, w, map, stream);
 }
 
 // The pre-haloed search of g row shards (or 2-D tiles): cur [g, h, w] int32,
@@ -341,8 +419,7 @@ extern "C" int tvc_full_search_haloed(const int* cur, const int* ref_ext,
                                       int* dy, int* dx, int* sad,
                                       void* stream) {
   if (rh != h + 2 * R) return (int)cudaErrorInvalidValue;
-  return launch<1, false>(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, nullptr,
-                          stream);
+  return launch_tiled(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, stream);
 }
 
 // The SEA search of tvc_full_search's operands; rows [h/16, w/16] int32,

@@ -209,31 +209,24 @@ def hpel_refine(cur_y, ref_y, dy, dx, planes=None, sad_fn=None):
             (best >> 4).int())
 
 
-def _hpel_mc(plane, d2y, d2x, fetch, px: int, planes=None):
-    """Half-pel MC (SPEC.md §14.2): an integer fetch from each of the four
-    parity planes, then a per-block select by (d2y & 1) * 2 + (d2x & 1)
-    expanded to pixels. `planes` is the four parity planes, each
-    [(G,) H, W]: a sequence, or their stack [(G,) 4, H, W]; made here
-    unless given."""
-    if planes is None:
-        planes = (plane, *motion.hpel_planes(plane))
-    elif isinstance(planes, torch.Tensor):
-        planes = [p.contiguous() for p in planes.unbind(-3)]
-    iy, ix = d2y >> 1, d2x >> 1
-    sel = (d2y & 1) * 2 + (d2x & 1)
-    sel_px = sel.repeat_interleave(px, -2).repeat_interleave(px, -1)
-    fetched = torch.stack([fetch(p, iy, ix) for p in planes])
-    return fetched.gather(0, sel_px.long()[None])[0]
+def mc_predict(refs, dy, dx, is_inter):
+    """(pred_y, pred_cb, pred_cr) of a P frame step, one kernel launch for
+    the three planes: refs (luma, cb, cr) are stacks [(G,) P, H, W] and
+    [(G,) P, H/2, W/2] of one plane (P = 1) or of the four parity planes
+    (P = 4, motion.hpel_stack order, vectors in half-pels); dy, dx
+    [(G,) nby, nbx] per MB; an intra MB (is_inter False) predicts 128."""
+    if _FORCE == "plain":
+        return motion.mc_predict(refs, dy, dx, is_inter)
+    return ksad.mc_predict(refs, dy, dx, is_inter)
 
 
-def mc_fetch_luma_plane_hpel(ref_y, d2y, d2x, planes=None):
-    """[H, W] luma predictor plane from per-MB half-pel mvs."""
-    return _hpel_mc(ref_y, d2y, d2x, mc_fetch_luma_plane, 16, planes)
-
-
-def mc_fetch_chroma_plane_hpel(ref_c, cd2y, cd2x, planes=None):
-    """[H/2, W/2] chroma predictor plane from per-MB chroma half-pel mvs."""
-    return _hpel_mc(ref_c, cd2y, cd2x, mc_fetch_chroma_plane, 8, planes)
+def mc_predict_pre_haloed(refs_ext, dy, dx, is_inter):
+    """mc_predict of shards [(B,) h, w] from pre-haloed reference stacks
+    (luma [(B,) P, h + 32, w or w + 32], chroma [(B,) P, h/2 + 16,
+    w/2 or w/2 + 16])."""
+    if _FORCE == "plain":
+        return motion.mc_predict(refs_ext, dy, dx, is_inter, halo=True)
+    return ksad.mc_predict_pre_haloed(refs_ext, dy, dx, is_inter)
 
 
 def code_plane(cur, pred, q_blk, qbias: int = 8, qmat: bool = False):

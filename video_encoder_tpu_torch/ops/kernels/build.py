@@ -51,7 +51,10 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             # SAD map; the chunk merge
             "full_search_sea": 0, "full_search_sea_g": 0,
             "full_search_sea_haloed": 0, "sad_map": 0, "sad_map_g": 0,
-            "chunk_merge": 0}
+            "chunk_merge": 0,
+            # the three predictors of a P step in one launch: single GOP,
+            # G GOPs, pre-haloed shards
+            "mc_predict": 0, "mc_predict_g": 0, "mc_predict_haloed": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +88,7 @@ _SIGNATURES = {
     "tvc_sad_map": [_P, _P, _I, _I, _P, _P],
     "tvc_sad_map_g": [_P, _P, _I, _I, _I, _P, _P],
     "tvc_chunk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "tvc_mc_predict": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -152,7 +156,13 @@ def lib() -> ctypes.CDLL:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream of a CUDA device, a
+    torch.device or its index (the call that PyTorch's own generated code
+    makes: a Stream object costs the host several microseconds a launch)."""
+    index = getattr(device, "index", device)
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, name: str) -> None:

@@ -25,6 +25,7 @@ whatever the variable says, as the reference's jnp path does.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -291,6 +292,106 @@ def _mc_fetch(ref, dy, dx, bs: int, counter: str, batched: bool,
             build.stream_ptr(ref.device))
     build.LAUNCHES[counter] += 1
     return out
+
+
+# the predictor's launch geometry by (vector shape, luma and chroma
+# reference shapes, halo): (output size, the address of the entry's
+# int[8] geometry, the three output views' as_strided arguments,
+# the counter, the int array that holds the geometry)
+_PREDICT_GEOMETRY = {}
+
+
+def _predict_geometry(key):
+    """The launch geometry of tvc_mc_predict for these shapes (see
+    _mc_predict); raises on shapes the kernel does not take."""
+    shape, y_shape, c_shape, halo = key
+    *lead, nby, nbx = shape
+    *ly, p, rh, rw = y_shape
+    *lc, pc, crh, crw = c_shape
+    h, w = nby * 16, nbx * 16
+    if not (len(lead) <= 1 and ly == lc == lead and p == pc and p in (1, 4)
+            and rh == h + 32 * halo and crh == h // 2 + 16 * halo
+            and rw in (w, w + 32 * halo) and crw == w // 2 + (rw - w) // 2):
+        raise ValueError(
+            f"mc_predict: references {tuple(y_shape)} and {tuple(c_shape)} "
+            f"are not stacks of one plane or four parity planes for "
+            f"vectors {tuple(shape)}{' with a halo' if halo else ''}")
+    b = lead[0] if lead else 1
+    n, k = b * h * w, len(lead) + 2
+    ints = (ctypes.c_int * 8)(b, p, h, w, rh, rw, crh, crw)
+    chroma = (*lead, h // 2, w // 2), (h * w // 4, w // 2, 1)[-k:]
+    geo = (n + n // 2, ctypes.addressof(ints),
+           ((*lead, h, w), (h * w, w, 1)[-k:], 0), (*chroma, n),
+           (*chroma, n + n // 4),
+           "mc_predict_haloed" if halo else "mc_predict_g" if lead
+           else "mc_predict", ints)
+    _PREDICT_GEOMETRY[key] = geo
+    return geo
+
+
+def _mc_predict(refs, dy, dx, is_inter, halo: bool):
+    """Entry tvc_mc_predict: the three predictors of a P frame step in
+    one launch, counted under mc_predict, mc_predict_g or, with a halo,
+    mc_predict_haloed. One output buffer, luma then cb then cr, each view
+    contiguous. At about 0.01 ms of device time per launch the host's
+    time per call is the cost: the geometry is kept per shape and passed
+    as one pointer, the rest is plain attribute comparisons, and the
+    stream is read once."""
+    ref_y, ref_cb, ref_cr = refs
+    shape = dy.shape
+    key = (shape, ref_y.shape, ref_cb.shape, halo)
+    size, geometry, vy, vcb, vcr, name, _ = (_PREDICT_GEOMETRY.get(key)
+                                             or _predict_geometry(key))
+    d, i32 = dy.get_device(), torch.int32     # -1 off the card
+    if not (d >= 0 and ref_cr.shape == ref_cb.shape
+            and dx.shape == shape and is_inter.shape == shape
+            and dy.dtype == i32 and dx.dtype == i32 and ref_y.dtype == i32
+            and ref_cb.dtype == i32 and ref_cr.dtype == i32
+            and is_inter.dtype == torch.bool
+            and dx.get_device() == d and is_inter.get_device() == d
+            and ref_y.get_device() == d and ref_cb.get_device() == d
+            and ref_cr.get_device() == d
+            and dy.is_contiguous() and dx.is_contiguous()
+            and is_inter.is_contiguous() and ref_y.is_contiguous()
+            and ref_cb.is_contiguous() and ref_cr.is_contiguous()):
+        raise ValueError(
+            f"mc_predict: references {[tuple(r.shape) for r in refs]} "
+            f"{[r.dtype for r in refs]} on {[str(r.device) for r in refs]}, "
+            f"vectors {tuple(shape)} {dy.dtype}/{dx.dtype}, modes "
+            f"{tuple(is_inter.shape)} {is_inter.dtype}: not contiguous int32 "
+            f"CUDA tensors of one device")
+    out = torch.empty(size, dtype=i32, device=d)
+    err = build.lib().tvc_mc_predict(
+        ref_y.data_ptr(), ref_cb.data_ptr(), ref_cr.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), is_inter.data_ptr(), geometry, out.data_ptr(),
+        build.stream_ptr(d))
+    if err:
+        build.check(err, "mc_predict")
+    build.LAUNCHES[name] += 1
+    return out.as_strided(*vy), out.as_strided(*vcb), out.as_strided(*vcr)
+
+
+def mc_predict(refs, dy: torch.Tensor, dx: torch.Tensor,
+               is_inter: torch.Tensor):
+    """(pred_y, pred_cb, pred_cr) of a P frame step in one launch: refs
+    (luma, cb, cr) are stacks [(G,) P, H, W], [(G,) P, H/2, W/2] int32
+    with P = 1, or P = 4 parity planes (motion.hpel_stack order) and the
+    vectors in half-pels; dy, dx [(G,) H/16, W/16] int32 per MB in luma
+    units (the chroma vector is dy >> 1); is_inter [(G,) H/16, W/16]
+    bool, an intra MB predicting 128."""
+    if not dy.is_cuda:
+        return motion.mc_predict(refs, dy, dx, is_inter)
+    return _mc_predict(refs, dy, dx, is_inter, False)
+
+
+def mc_predict_pre_haloed(refs_ext, dy: torch.Tensor, dx: torch.Tensor,
+                          is_inter: torch.Tensor):
+    """mc_predict of B shards [B, h, w] (or one, [h, w]) from pre-haloed
+    reference stacks: luma [.., P, h + 32, w or w + 32], chroma
+    [.., P, h/2 + 16, w/2 or w/2 + 16]; one launch."""
+    if not dy.is_cuda:
+        return motion.mc_predict(refs_ext, dy, dx, is_inter, halo=True)
+    return _mc_predict(refs_ext, dy, dx, is_inter, True)
 
 
 def mc_fetch_plane(ref_y: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor):

@@ -1,9 +1,10 @@
 """Motion estimation and compensation in plain PyTorch (SPEC.md §9).
 
 Twin of `video_encoder_tpu/ops/motion.py` for the full, diamond and
-hierarchical searches. These are the plain versions the `full_search`
-(exhaustive and SEA), `sad_map`, `sad_map_even`, `sad_at_mv` and
-`mc_fetch` kernels are held against, and the CPU path of the port.
+hierarchical searches and motion compensation. These are the plain
+versions the `full_search` (exhaustive and SEA), `sad_map`,
+`sad_map_even`, `sad_at_mv`, `mc_fetch` and `mc_predict` kernels are held
+against, and the CPU path of the port.
 
 Every function takes planes [H, W] or, for G GOPs encoded in lockstep,
 [G, H, W], and gives for each g exactly what it gives for that plane
@@ -409,6 +410,49 @@ def mc_fetch_pre_haloed(ref_ext: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"pre-haloed reference of {ref_ext.shape[-2]} rows "
                          f"for {dy.shape[-2]} block rows of {bs}")
     return unblockify(mc_fetch(pad_cols(ref_ext, w, r), dy, dx, bs, r))
+
+
+def mc_fetch_stack(ref: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
+                   bs: int, halo: bool = False) -> torch.Tensor:
+    """[..., h, w] predictor of one plane from its stack ref
+    [..., P, rh, rw] at per-block vectors dy, dx [..., h/bs, w/bs]. P = 1:
+    the integer fetch mc_fetch_plane, or with halo mc_fetch_pre_haloed
+    from a pre-haloed plane of radius bs. P = 4, the parity planes in
+    hpel_stack order and the vectors in half-pels: the half-pel MC of
+    SPEC.md §14.2, an integer fetch from each parity plane at d >> 1, then
+    a per-block select by (dy & 1) * 2 + (dx & 1)."""
+    def fetch(plane, vy, vx):
+        if halo:
+            return mc_fetch_pre_haloed(plane, vy, vx, bs, bs)
+        return mc_fetch_plane(plane, vy, vx, bs)
+
+    if ref.shape[-3] == 1:
+        return fetch(ref[..., 0, :, :], dy, dx)
+    iy, ix = dy >> 1, dx >> 1
+    sel = (dy & 1) * 2 + (dx & 1)
+    sel_px = sel.repeat_interleave(bs, -2).repeat_interleave(bs, -1)
+    fetched = torch.stack([fetch(p.contiguous(), iy, ix)
+                           for p in ref.unbind(-3)])
+    return fetched.gather(0, sel_px.long()[None])[0]
+
+
+def mc_predict(refs, dy: torch.Tensor, dx: torch.Tensor,
+               is_inter: torch.Tensor, halo: bool = False):
+    """(pred_y, pred_cb, pred_cr) of a P frame step: the plain version of
+    the predictor kernel. refs (luma, cb, cr) are stacks [..., P, rh, rw]
+    of one plane (P = 1, integer vectors) or of the four parity planes
+    (P = 4, vectors in half-pels), pre-haloed with halo; dy, dx
+    [..., nby, nbx] per MB in luma units, the chroma vector dy >> 1
+    (SPEC.md §2); an MB with is_inter False predicts 128. Each plane is
+    mc_fetch_stack of its stack."""
+    chroma = (dy >> 1, dx >> 1)
+    preds = []
+    for ref, (vy, vx), bs in zip(refs, ((dy, dx), chroma, chroma),
+                                 (tables.MB, tables.BLK, tables.BLK)):
+        mask = is_inter.repeat_interleave(bs, -2).repeat_interleave(bs, -1)
+        preds.append(torch.where(mask, mc_fetch_stack(ref, vy, vx, bs, halo),
+                                 128))
+    return tuple(preds)
 
 
 def intra_cost_and_dc(cur_y: torch.Tensor):

@@ -127,15 +127,6 @@ def _parity_ext(ref: torch.Tensor, halo: int, ref_mode: str,
                  for q in motion.hpel_planes(full))
 
 
-def _hpel_mc_haloed(planes_ext, d2y, d2x, bs: int, r: int):
-    """Half-pel MC (SPEC.md §14.2) from the four halo-extended parity
-    planes: an integer fetch per plane, a per-block select."""
-    return dispatch._hpel_mc(
-        None, d2y, d2x,
-        lambda p, iy, ix: dispatch.mc_fetch_pre_haloed(p, iy, ix, bs, r),
-        bs, planes_ext)
-
-
 def predict_p_tile_traced(cur_y, ref_y, ref_cb, ref_cr, icost, *,
                           n_tile: int, ref_mode: str, fmt: int):
     """P-frame prediction of B = G * n_tile row shards [B, h, w] (g-major):
@@ -154,35 +145,22 @@ def predict_p_tile_traced(cur_y, ref_y, ref_cb, ref_cr, icost, *,
         return over_tiles(lambda p, hl: _parity_ext(p, hl, ref_mode), plane,
                           halo)
 
-    ref_y_ext = over_tiles(fetch, ref_y, HALO_Y)
-    ref_cb_ext = over_tiles(fetch, ref_cb, HALO_C)
-    ref_cr_ext = over_tiles(fetch, ref_cr, HALO_C)
-    dy, dx, best_sad = dispatch.full_search_pre_haloed(cur_y, ref_y_ext)
+    exts = tuple(over_tiles(fetch, p, halo) for p, halo in
+                 ((ref_y, HALO_Y), (ref_cb, HALO_C), (ref_cr, HALO_C)))
+    dy, dx, best_sad = dispatch.full_search_pre_haloed(cur_y, exts[0])
     if fmt >= 4:
         # refine to half-pels against the halo-extended parity planes; the
-        # vectors are in half-pels from here on
-        planes_y = (ref_y_ext, *parity(ref_y, HALO_Y))
+        # vectors are in half-pels from here on, and MC reads those planes
+        refs = tuple(torch.stack((ext, *parity(p, halo)), -3) for ext, p, halo
+                     in zip(exts, (ref_y, ref_cb, ref_cr),
+                            (HALO_Y, HALO_C, HALO_C)))
         dy, dx, best_sad = dispatch.hpel_refine(
-            cur_y, None, dy, dx, torch.stack(planes_y, -3),
-            sad_fn=dispatch.sad_at_mv_pre_haloed)
-    is_inter = best_sad <= icost
-    m_y = is_inter.repeat_interleave(tables.MB, -2).repeat_interleave(tables.MB, -1)
-    m_c = is_inter.repeat_interleave(tables.BLK, -2).repeat_interleave(tables.BLK, -1)
-    cdy, cdx = dy >> 1, dx >> 1   # arithmetic shift, SPEC.md §2
-    if fmt >= 4:
-        planes_cb = (ref_cb_ext, *parity(ref_cb, HALO_C))
-        planes_cr = (ref_cr_ext, *parity(ref_cr, HALO_C))
-        fetched = (
-            _hpel_mc_haloed(planes_y, dy, dx, tables.MB, HALO_Y),
-            _hpel_mc_haloed(planes_cb, cdy, cdx, tables.BLK, HALO_C),
-            _hpel_mc_haloed(planes_cr, cdy, cdx, tables.BLK, HALO_C))
+            cur_y, None, dy, dx, refs[0], sad_fn=dispatch.sad_at_mv_pre_haloed)
     else:
-        fetched = (
-            dispatch.mc_fetch_pre_haloed(ref_y_ext, dy, dx, tables.MB, HALO_Y),
-            dispatch.mc_fetch_pre_haloed(ref_cb_ext, cdy, cdx, tables.BLK, HALO_C),
-            dispatch.mc_fetch_pre_haloed(ref_cr_ext, cdy, cdx, tables.BLK, HALO_C))
-    return (dy, dx, is_inter, torch.where(m_y, fetched[0], 128),
-            torch.where(m_c, fetched[1], 128), torch.where(m_c, fetched[2], 128))
+        refs = tuple(ext.unsqueeze(-3) for ext in exts)
+    is_inter = best_sad <= icost
+    return (dy, dx, is_inter,
+            *dispatch.mc_predict_pre_haloed(refs, dy, dx, is_inter))
 
 
 def encode_frame_tile_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
@@ -374,16 +352,8 @@ def encode_frame_tile2d_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
         ref_ext = (ext(ref[0], HALO_Y), ext(ref[1], HALO_C), ext(ref[2], HALO_C))
         dy, dx, best_sad = dispatch.full_search_pre_haloed(cur[0], ref_ext[0])
         is_inter = best_sad <= icost
-        m_y = is_inter.repeat_interleave(tables.MB, -2).repeat_interleave(tables.MB, -1)
-        m_c = is_inter.repeat_interleave(tables.BLK, -2).repeat_interleave(tables.BLK, -1)
-        cdy, cdx = dy >> 1, dx >> 1
-        pred = (
-            torch.where(m_y, dispatch.mc_fetch_pre_haloed(
-                ref_ext[0], dy, dx, tables.MB, HALO_Y), 128),
-            torch.where(m_c, dispatch.mc_fetch_pre_haloed(
-                ref_ext[1], cdy, cdx, tables.BLK, HALO_C), 128),
-            torch.where(m_c, dispatch.mc_fetch_pre_haloed(
-                ref_ext[2], cdy, cdx, tables.BLK, HALO_C), 128))
+        pred = dispatch.mc_predict_pre_haloed(
+            tuple(e.unsqueeze(-3) for e in ref_ext), dy, dx, is_inter)
     else:
         dy, dx, is_inter, *pred = predict_i_traced(*cur)
     nby, nbx = dy.shape[-2:]

@@ -102,34 +102,23 @@ def rc_carry_step(rc: str, target_bits: int, vbv_bits: int,
 def predict_p_traced(cur_y, ref_y, ref_cb, ref_cr, icost, search: str,
                      fmt: int = 1):
     """P-frame prediction: motion search (full or diamond, plus the
-    half-pel refine of format 4), mode decision (sad <= intra cost), luma
-    and chroma MC; intra MBs predict flat 128. Returns (dy, dx, is_inter,
-    pred_y, pred_cb, pred_cr); for fmt >= 4 the vectors are in half-pels
-    (SPEC.md §14), the chroma vector dy >> 1 in chroma half-pels. Planes
-    [H, W] or, for G GOPs, [G, H, W]."""
+    half-pel refine of format 4), mode decision (sad <= intra cost), and
+    the three predictors in one MC launch (dispatch.mc_predict; intra MBs
+    predict flat 128). Returns (dy, dx, is_inter, pred_y, pred_cb,
+    pred_cr); for fmt >= 4 the vectors are in half-pels (SPEC.md §14),
+    the chroma vector dy >> 1 in chroma half-pels, and MC reads the
+    parity planes the refine searched. Planes [H, W] or, for G GOPs,
+    [G, H, W]."""
     search_fn = {"full": dispatch.full_search,
                  "diamond": dispatch.diamond_search}[search]
     dy, dx, best_sad = search_fn(cur_y, ref_y)
     if fmt >= 4:
-        parity_y = (ref_y, *motion.hpel_planes(ref_y))
-        dy, dx, best_sad = dispatch.hpel_refine(cur_y, ref_y, dy, dx,
-                                                torch.stack(parity_y, -3))
-    is_inter = best_sad <= icost
-    m_y = is_inter.repeat_interleave(tables.MB, -2).repeat_interleave(tables.MB, -1)
-    m_c = is_inter.repeat_interleave(tables.BLK, -2).repeat_interleave(tables.BLK, -1)
-    cdy, cdx = dy >> 1, dx >> 1   # arithmetic shift, SPEC.md §2
-    if fmt >= 4:
-        fetched = (dispatch.mc_fetch_luma_plane_hpel(ref_y, dy, dx, parity_y),
-                   dispatch.mc_fetch_chroma_plane_hpel(ref_cb, cdy, cdx),
-                   dispatch.mc_fetch_chroma_plane_hpel(ref_cr, cdy, cdx))
+        refs = tuple(motion.hpel_stack(p) for p in (ref_y, ref_cb, ref_cr))
+        dy, dx, best_sad = dispatch.hpel_refine(cur_y, ref_y, dy, dx, refs[0])
     else:
-        fetched = (dispatch.mc_fetch_luma_plane(ref_y, dy, dx),
-                   dispatch.mc_fetch_chroma_plane(ref_cb, cdy, cdx),
-                   dispatch.mc_fetch_chroma_plane(ref_cr, cdy, cdx))
-    pred_y = torch.where(m_y, fetched[0], 128)
-    pred_cb = torch.where(m_c, fetched[1], 128)
-    pred_cr = torch.where(m_c, fetched[2], 128)
-    return dy, dx, is_inter, pred_y, pred_cb, pred_cr
+        refs = tuple(p.unsqueeze(-3) for p in (ref_y, ref_cb, ref_cr))
+    is_inter = best_sad <= icost
+    return (dy, dx, is_inter, *dispatch.mc_predict(refs, dy, dx, is_inter))
 
 
 def predict_i_traced(cur_y, cur_cb, cur_cr):
