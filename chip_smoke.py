@@ -7,26 +7,27 @@ Phases, each of which raises on failure (exit code not 0):
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/ and
    prints each kernel's registers and spill bytes (nvcc -Xptxas -v).
-3. Kernels: each kernel (the eight of formats 1, and block_pack in the
-   format-2 syntax, code_plane with the quant matrix and the chroma twin
-   of sad_at_mv) against its plain PyTorch version on the card at the
-   main paths' shapes (1088x1920 luma, 544x960 chroma, the odd 368x640
-   grid, the [8, W] stripes of the I-frame row scan, the half-pel
-   refine's nine candidates on four parity planes, the span strings of
-   real 1080p and 320x192 frames and dense overflowing pieces), exact
-   equality (tolerance 0: the codec is
-   integer-only), with both times, the least time the card could take
-   (bytes moved over its memory rate, or integer operations over its
-   peak, whichever is larger) and, where one PyTorch call computes the
-   same function, that call's time. The exhaustive search and the fetches
-   also print their device time per launch (the kernel's own duration
-   under torch.profiler) and their host time per call (perf_counter over
+3. Kernels: every kernel entry of the port, one per launch counter
+   (the single-plane kernels of format 1, block_pack in the format-2
+   syntax, code_plane with the quant matrix, the format-3/4 I-frame row
+   scan of a whole plane in one launch, the chroma twin of sad_at_mv),
+   against its plain PyTorch version on the card at the main paths'
+   shapes (1088x1920 luma, 544x960 chroma, the odd 368x640 grid, the row
+   scan with and without intra slices, the half-pel refine's nine
+   candidates on four parity planes, the span strings of real 1080p and
+   320x192 frames and dense overflowing pieces), exact equality
+   (tolerance 0: the codec is integer-only), with both times, the least
+   time the card could take (bytes moved over its memory rate, or integer
+   operations over its peak, whichever is larger) and, where one PyTorch
+   call computes the same function, that call's time. Each timed entry
+   also prints its device time per launch (the kernels' own duration
+   under torch.profiler) and its host time per call (perf_counter over
    calls without a sync): under ~0.05 ms the call time is the host's.
    Then the G-batched kernels at G = 4
    on the same shapes ([4, 1088, 1920], [4, 544, 960], K = 4 and K = 9 on
-   four planes, the [4, 8, 1920] and [4, 8, 960] stripes): each equal to
-   its plain batched version and to G launches of the single-plane
-   kernel, whose time stands beside its own. Then the pre-haloed kernels
+   four planes, the row scan of four planes): each equal to its plain
+   batched version and to G launches of the single-plane kernel, whose
+   time stands beside its own. Then the pre-haloed kernels
    of the tile-sharded encode (full search, MC fetch luma and chroma, and
    sad_at_mv on four halo-extended parity planes): a 1088x1920 frame's
    four row shards (cur [4, 272, 1920] against ref_ext [4, 304, 1920];
@@ -69,7 +70,10 @@ Phases, each of which raises on failure (exit code not 0):
    under the other emit and must give the same packets. Launch counts
    are zeroed before and read after each path; every kernel of a path
    must have launched, the predictor once per P step of a run (or of a
-   lockstep or tiled step), and no single-plane fetch on any path. Then 640x360: GOP 1 (odd 23-row MB grid), format 2
+   lockstep or tiled step), and no single-plane fetch on any path; at
+   formats 3 and 4 every I step one row-scan launch per plane and no
+   [8, W] stripe through code_plane, on every route (single GOP, lockstep,
+   tiled). Then 640x360: GOP 1 (odd 23-row MB grid), format 2
    (chroma qp offset 4, diamond, rc vbv at 1500 kbps) and format 3 (quant
    matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
    each, against the oracle. The oracle's encodes run side by side on the
@@ -100,8 +104,8 @@ Phases, each of which raises on failure (exit code not 0):
    (the emits timed in turns) and for the format-4 cell under the default
    emit, each with its device ops per frame, busy share, top device
    times and the search's device time per GOP from torch.profiler, the
-   format-4 I frame (the row scan) on its
-   own, and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
+   format-4 I frame on its own (its code_plane launches, device ops,
+   device ms and wall ms), and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
    GOPs in lockstep (G = 1 is the single-GOP path), in turns within this
    one run: device-resident fps, device ops per frame and busy share
    (the G = 1 trace is the one taken of that GOP just before). Then the
@@ -111,7 +115,8 @@ Phases, each of which raises on failure (exit code not 0):
 
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-times the search and MC kernels of several checkouts of the repository
+times the search, MC, code_plane and block_pack kernels of several
+checkouts of the repository
 (a parent unpacked with `git archive` under build/, and this one) in
 turns, ROOT_1 .. ROOT_n then ROOT_n .. ROOT_1, each turn a child process
 that imports the port from its ROOT (building its kernels into
@@ -122,8 +127,12 @@ with its intra mask at formats 1 and 4 (single, G = 4, four row shards:
 dispatch.mc_predict(_pre_haloed) where the checkout has it, with and
 without making the chroma parity stacks, else composed as the engine
 composed it: a fetch per plane or parity plane, the select, the masks)
-beside one torch.take of its flat indices; then one traced 10-frame GOP
-of the full-search and format-4 cells. Each timing has the call time
+beside one torch.take of its flat indices; code_plane at qp 28 on the
+luma and chroma planes and on G = 4 luma planes, flat and under the
+quant matrix; block_pack of the luma levels at 16 words in both
+syntaxes; then one traced 10-frame GOP of the full-search and format-4
+cells, and the format-4 I frame on its own (code_plane launches, device
+ops, device ms, wall ms). Each timing has the call time
 (time_ms), the device time (device_ms) and the host time (host_ms). Every
 turn prints one JSON line, the last line is each ROOT's means beside the
 card; it exits 1 if a result differs between ROOTs.
@@ -176,7 +185,8 @@ TABLE_ROW = {
     "code_plane": "11", "code_plane_qmat": "11q", "code_plane_g": "12",
     "code_plane_qmat_g": "12", "block_pack": "13", "block_pack_v2": "13v",
     "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16",
-    "mc_predict": "7", "mc_predict_g": "9m", "mc_predict_haloed": "10"}
+    "mc_predict": "7", "mc_predict_g": "9m", "mc_predict_haloed": "10",
+    "code_plane_rows": "11r", "code_plane_rows_g": "12r"}
 # the single-plane fetches: held and timed in phase 3, launched by no
 # encode path (a P step's three predictors are one mc_predict launch)
 SINGLE_FETCHES = ("mc_fetch_luma", "mc_fetch_chroma", "mc_fetch_luma_g",
@@ -540,10 +550,11 @@ def predict_bound(got, dy, dx, inter):
     return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
 
 
-def dev_host(fn):
-    """device_ms and host_ms of fn(), one kernel a call, as a row's
-    fields."""
-    ms, kernels = device_ms(fn)
+def dev_host(fn, per_call=1):
+    """device_ms and host_ms of fn() as a row's fields; per_call: the
+    device kernels fn() launches, None where a wrapper may add a memset
+    or a copy (device_ms then takes two windows that agree)."""
+    ms, kernels = device_ms(fn, per_call=per_call)
     return dict(device_ms=ms, device_kernels=kernels, host_ms=host_ms(fn))
 
 
@@ -645,8 +656,10 @@ def phase_kernels(dev, card: str):
 
     # code_plane: per-block qp mixing 1, 28 and 63; midpoint and deadzone
     # bias; flat steps and the v3 quant matrix; block_pack in both
-    # syntaxes on the levels it produces (qp 1 overflows 16 words)
+    # syntaxes on the levels it produces (qp 1 overflows 16 words). Timed
+    # at qp 28 on the 1080p luma plane and, as an also entry, on chroma.
     pack_levels = {}
+    q28_step = int(tables.load(dev).QSTEP[28])
     for h, w in [luma[0], chroma[0], luma[1]]:
         tex = texture(rng, h, w)
         cur_t = t32(tex[:h, :w])
@@ -658,19 +671,28 @@ def phase_kernels(dev, card: str):
                 got, want = both(dispatch.code_plane, cur_t, pred_t, q_blk,
                                  qbias, qmat)
                 err = max_abs_err(got, want)
-                timing = None
-                if (h, w) == luma[0] and qbias == 8:
-                    q28 = torch.full_like(q_blk, int(tables.load(dev).QSTEP[28]))
+                timing, dh = None, {}
+                if (h, w) in (luma[0], chroma[0]) and qbias == 8:
+                    q28 = torch.full_like(q_blk, q28_step)
+                    a28 = (cur_t, pred_t, q28, 8, qmat)
                     # per pixel: four 8-point passes of multiply-adds, the
                     # quantizer's multiply, divide and dequantize, roundings
-                    timing = (*timed(dispatch.code_plane, cur_t, pred_t, q28, 8, qmat),
+                    timing = (*timed(dispatch.code_plane, *a28),
                               bound([cur_t, pred_t, q28], got, h * w * (4 * 16 + 10)),
                               None)
-                    pack_levels[qmat] = dispatch.code_plane(
-                        cur_t, pred_t, q28, 8, qmat)[0]
-                record(name, "code_plane.cu",
-                       "video_encoder_tpu/ops/pallas/codec.py:96", err, timing)
-                log(f"kernel {name} {h}x{w} qbias {qbias}: equal" + shown(timing))
+                    dh = dev_host(lambda: dispatch.code_plane(*a28))
+                    if (h, w) == luma[0]:
+                        pack_levels[qmat] = dispatch.code_plane(*a28)[0]
+                if (h, w) == chroma[0] and timing:
+                    record(name, "code_plane.cu",
+                           "video_encoder_tpu/ops/pallas/codec.py:96", err,
+                           also=(f"{h}x{w}", timing), **dh)
+                else:
+                    record(name, "code_plane.cu",
+                           "video_encoder_tpu/ops/pallas/codec.py:96", err,
+                           timing, **dh)
+                log(f"kernel {name} {h}x{w} qbias {qbias}: equal"
+                    + shown(timing, dh))
                 for fmt, pname in ((1, "block_pack"), (2, "block_pack_v2")):
                     dc_pred = (entropy._dc_pred_left(got[0]).reshape(-1).contiguous()
                                if fmt >= 2 else None)
@@ -684,30 +706,48 @@ def phase_kernels(dev, card: str):
                         log(f"kernel {pname} {lv.shape[0]} blocks, {n_words} "
                             f"words: equal, {over} blocks overflow")
 
-    # the I-frame row scan's shape of code_plane (formats 3 and 4): one
-    # [8, W] stripe, a single row of the grid, whose pred is one pixel row
-    # repeated eight times; luma and chroma widths of 1080p and 640x360
-    for w in (1920, 960, 640, 320):
-        cur_t = t32(texture(rng, 8, w)[:8, :w])
-        pred_t = t32(rng.integers(0, 256, (1, w))).expand(8, w).contiguous()
-        qp = rng.choice([1, 28, 63], (1, w // 8))
+    # the I-frame row scan of formats 3 and 4 (code_plane_rows): a whole
+    # plane in one launch against the plain loop of [8, W] stripes; the
+    # luma and chroma planes of 1080p and 640x360, flat and under the
+    # quant matrix, without intra slices and with slices of 17 MB rows
+    # (34 luma block rows, 17 chroma); timed at qp 28 without slices, as
+    # the format-4 I frame codes its planes. It is an entry of the
+    # code_plane kernel; the reference scans the stripes in jnp
+    # (video_encoder_tpu/ops/transform.py:112), with no Pallas kernel
+    for (h, w), reset in ((luma[0], 34), (chroma[0], 17), (luma[1], 34),
+                          (chroma[1], 17)):
+        base = texture(rng, h + 1, w)
+        cur_t = t32((base[:h, :w] + base[1:h + 1, :w]) // 2)
+        qp = rng.choice([1, 28, 63], (h // 8, w // 8))
         q_blk = tables.load(dev).QSTEP[t32(qp).long()].contiguous()
-        for qmat, name in ((False, "code_plane"), (True, "code_plane_qmat")):
-            for qbias in (8, 5):
-                got, want = both(dispatch.code_plane, cur_t, pred_t, q_blk,
-                                 qbias, qmat)
+        q28 = torch.full_like(q_blk, q28_step)
+        for qmat in (False, True):
+            for rr in (0, reset):
+                got, want = both(dispatch.intra_rows_code_plane, cur_t, q_blk,
+                                 6, rr, qmat)
                 err = max_abs_err(got, want)
-                also = None
-                if w == 1920 and qbias == 8:
-                    q28 = torch.full_like(q_blk, int(tables.load(dev).QSTEP[28]))
-                    also = (f"stripe 8x{w}", (
-                        *timed(dispatch.code_plane, cur_t, pred_t, q28, 8, qmat),
-                        bound([cur_t, pred_t, q28], got, 8 * w * (4 * 16 + 10)),
-                        None))
-                record(name, "code_plane.cu",
-                       "video_encoder_tpu/ops/pallas/codec.py:96", err, also=also)
-                log(f"kernel {name} stripe 8x{w} qbias {qbias}: equal"
-                    + shown(also and also[1]))
+                timing, dh = None, {}
+                if (h, w) in (luma[0], chroma[0]) and rr == 0:
+                    a28 = (cur_t, q28, 8, 0, qmat)
+                    got = dispatch.intra_rows_code_plane(*a28)
+                    timing = (*timed(dispatch.intra_rows_code_plane, *a28),
+                              bound([cur_t, q28], got, h * w * (4 * 16 + 10)),
+                              None)
+                    dh = dev_host(lambda: dispatch.intra_rows_code_plane(*a28))
+                shape = f"{h}x{w}" + (" qmat" if qmat else "")
+                if timing and (h, w) == luma[0] and not qmat:
+                    record("code_plane_rows", "code_plane.cu",
+                           "video_encoder_tpu/ops/pallas/codec.py:96", err,
+                           timing, **dh)
+                elif timing:
+                    record("code_plane_rows", "code_plane.cu",
+                           "video_encoder_tpu/ops/pallas/codec.py:96", err,
+                           also=(shape, timing), **dh)
+                else:
+                    record("code_plane_rows", "code_plane.cu",
+                           "video_encoder_tpu/ops/pallas/codec.py:96", err)
+                log(f"kernel code_plane_rows {shape} reset_rows {rr}: equal"
+                    + shown(timing, dh))
 
     # dense random levels at the quantizer's extremes: every block
     # overflows; in the format-2 syntax a row of DCs alternating +-3925
@@ -736,10 +776,12 @@ def phase_kernels(dev, card: str):
         ops = flat.shape[0] * 64 + 10 * int((flat != 0).sum())
         timing = (*timed(dispatch.block_pack, flat, bw, dc_pred, fmt),
                   bound(tensors([flat, dc_pred]), got, ops), None)
+        dh = dev_host(lambda: dispatch.block_pack(flat, bw, dc_pred, fmt))
         record(pname, "block_pack.cu",
-               "video_encoder_tpu/ops/pallas/entropy_pack.py:116", 0, timing)
+               "video_encoder_tpu/ops/pallas/entropy_pack.py:116", 0, timing,
+               **dh)
         log(f"kernel {pname} dense overflow: equal; 1080p luma qp 28, {bw} "
-            f"words" + shown(timing))
+            f"words" + shown(timing, dh))
 
     # sad_map_even: the full-search pan (best even mv on the (+16, -16)
     # corner) and a flat region where all 289 candidates tie
@@ -761,10 +803,13 @@ def phase_kernels(dev, card: str):
             n_mbs = (h // 16) * (w // 16)
             timing = (*timed(dispatch.sad_map_even, cur_t, ref_t),
                       bound([cur_t, ref_t], [got], n_mbs * 289 * 256 * 2), None)
+            dh = dev_host(lambda: dispatch.sad_map_even(cur_t, ref_t), None)
         record("sad_map_even", "full_search.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:594", err, timing)
+               "video_encoder_tpu/ops/pallas/sad.py:594", err, timing,
+               **(dh if timing else {}))
         log(f"kernel sad_map_even {h}x{w}: equal, {corner} MBs best at "
-            f"(16,-16), {ties} MBs with all 289 tied" + shown(timing))
+            f"(16,-16), {ties} MBs with all 289 tied"
+            + shown(timing, dh if timing else None))
         seen = [seen[0] + corner, seen[1] + ties]
     if not all(seen):
         raise AssertionError("sad_map_even: edge or tie case not exercised")
@@ -785,13 +830,14 @@ def phase_kernels(dev, card: str):
             args = (cur_t, ref_t, t32(dy), t32(dx))
             got, want = both(fn, *args)
             err = max_abs_err([got], [want])
-            timing = None
+            timing, dh = None, {}
             if (h, w) == planes[0]:
                 timing = (*timed(fn, *args),
                           bound(args, [got], dy.size * bs * bs * 2), None)
+                dh = dev_host(lambda: fn(*args), None)
             record(name, "sad_at.cu",
-                   "video_encoder_tpu/ops/pallas/sad.py:852", err, timing)
-            log(f"kernel {name} {h}x{w} K=4: equal" + shown(timing))
+                   "video_encoder_tpu/ops/pallas/sad.py:852", err, timing, **dh)
+            log(f"kernel {name} {h}x{w} K=4: equal" + shown(timing, dh))
 
     # the half-pel refine's shape of sad_at_mv: nine candidates, each on
     # the parity plane of its vector, in one launch; vectors on the +-16
@@ -814,15 +860,16 @@ def phase_kernels(dev, card: str):
         args9 = (cur_t, planes4, iy9, ix9, plane_of)
         got9, want9 = both(dispatch.sad_at_mv, *args9)
         err = max_abs_err([got9], [want9])
-        also = None
+        also, dh = None, {}
         if (h, w) == luma[0]:
             also = (f"K=9 on 4 planes {h}x{w}", (
                 *timed(dispatch.sad_at_mv, *args9),
                 bound(args9[:4], [got9], iy9.numel() * 256 * 2), None))
+            dh = dev_host(lambda: dispatch.sad_at_mv(*args9), None)
         record("sad_at_mv", "sad_at.cu",
-               "video_encoder_tpu/ops/pallas/sad.py:852", err, also=also)
+               "video_encoder_tpu/ops/pallas/sad.py:852", err, also=also, **dh)
         log(f"kernel sad_at_mv {h}x{w} K=9 on 4 planes: all 9 SADs equal"
-            + shown(also and also[1]))
+            + shown(also and also[1], dh))
         args = (cur_t, ref_t, t32(dy), t32(dx), planes4)
         got, want = both(dispatch.hpel_refine, *args)
         err = max_abs_err(got, want)
@@ -855,11 +902,15 @@ def phase_kernels(dev, card: str):
                              plan.n1),
                       bound(srcs, got, 4 * sum(t.numel() for t in srcs[:4])),
                       None)
+            dh = dev_host(lambda: dispatch.span_merge_mb(
+                *srcs, plan.m1, plan.cw1, plan.n1), None)
         record("span_merge_mb", "span_merge.cu",
-               "video_encoder_tpu/ops/pallas/pack.py:448", err, timing)
+               "video_encoder_tpu/ops/pallas/pack.py:448", err, timing,
+               **(dh if timing else {}))
         ovf = bool(got[2])
         log(f"kernel span_merge_mb {name}: {plan.n1} strings of {plan.m1} "
-            f"pieces, {plan.cw1} words: equal, overflow {ovf}" + shown(timing))
+            f"pieces, {plan.cw1} words: equal, overflow {ovf}"
+            + shown(timing, dh if timing else None))
         if ovf != dense:
             raise AssertionError(f"span_merge_mb {name}: overflow {ovf}")
         if plan.two_stage:
@@ -868,11 +919,13 @@ def phase_kernels(dev, card: str):
             err = max_abs_err(got2, want2)
             timing = (*timed(dispatch.span_merge, *args),
                       bound(args[:2], got2, 4 * args[0].numel()), None)
+            dh2 = dev_host(lambda: dispatch.span_merge(*args), None)
             record("span_merge", "span_merge.cu",
-                   "video_encoder_tpu/ops/pallas/pack.py:296", err, timing)
+                   "video_encoder_tpu/ops/pallas/pack.py:296", err, timing,
+                   **dh2)
             log(f"kernel span_merge {name}: {plan.n_strings} strings of "
                 f"{plan.cwf} words: equal, overflow {bool(got2[2])}"
-                + shown(timing))
+                + shown(timing, dh2))
 
     # ---- the G-batched kernels at G = 4: each against its plain batched
     # version AND against G launches of the single-plane kernel; its bound
@@ -971,17 +1024,12 @@ def phase_kernels(dev, card: str):
            main=False)
 
     q28 = int(tables.load(dev).QSTEP[28])
-    # every shape a lockstep path codes: luma and chroma planes, and the
-    # luma and chroma stripes of the I-frame row scan (formats 3 and 4)
+    # every plane shape a lockstep path codes: luma and chroma
     for shape_name, (ph, pw), main in (
             (f"[{g4}, {h}, {w}]", (h, w), True),
-            (f"[{g4}, {ch}, {cw}]", (ch, cw), False),
-            (f"stripe [{g4}, 8, {w}]", (8, w), False),
-            (f"stripe [{g4}, 8, {cw}]", (8, cw), False)):
+            (f"[{g4}, {ch}, {cw}]", (ch, cw), False)):
         tex = np.stack([texture(rng, ph, pw)[:ph, :pw] for _ in range(g4)])
-        pred = (np.clip(np.roll(tex, 3, 2) + rng.integers(-20, 21, tex.shape), 0, 255)
-                if ph > 8 else
-                np.broadcast_to(rng.integers(0, 256, (g4, 1, pw)), tex.shape))
+        pred = np.clip(np.roll(tex, 3, 2) + rng.integers(-20, 21, tex.shape), 0, 255)
         qp = rng.choice([1, 28, 63], (g4, ph // 8, pw // 8))
         q_mixed = tables.load(dev).QSTEP[t32(qp).long()].contiguous()
         q_flat = torch.full_like(q_mixed, q28)
@@ -995,6 +1043,21 @@ def phase_kernels(dev, card: str):
                    "video_encoder_tpu/ops/pallas/codec.py:230", shape_name,
                    dispatch.code_plane, (t32(tex), t32(pred), q_flat, 8, qmat),
                    g4 * ph * pw * (4 * 16 + 10), main=main)
+        # the row scan of G planes in lockstep (the lockstep and tile
+        # paths' I step), mixed steps with and without slices, then timed
+        # at qp 28
+        cur_rows = t32(tex)
+        for qmat in (False, True):
+            for rr in (0, 34 if ph == h else 17):
+                a = (cur_rows, q_mixed, 6, rr, qmat)
+                gq, wq = both(dispatch.intra_rows_code_plane, *a)
+                max_abs_err(gq, wq)
+                max_abs_err(gq, per_g(dispatch.intra_rows_code_plane, *a))
+            held_g("code_plane_rows_g", "code_plane.cu",
+                   "video_encoder_tpu/ops/pallas/codec.py:230",
+                   shape_name + (" qmat" if qmat else ""),
+                   dispatch.intra_rows_code_plane, (cur_rows, q_flat, 8, 0, qmat),
+                   g4 * ph * pw * (4 * 16 + 10), main=main and not qmat)
 
     # ---- the pre-haloed kernels of the tile-sharded encode: one frame's
     # four row shards (and its 2 x 2 tiles) as one batch, each kernel equal
@@ -1303,34 +1366,36 @@ def last_kernels(dev, rng, table: KernelTable):
         even = got.reshape(nby, nbx, 33, 33)[..., ::2, ::2].reshape(nby, nbx, 289)
         max_abs_err([even], [dispatch.sad_map_even(cur_t[0], ref_t[0])])
         ties = int((got == got[..., :1]).all(-1).sum())
-        timing = None
+        timing, dh = None, {}
         if (h, w) == LUMA[0]:
             timing = (*timed(dispatch.sad_map, cur_t[0], ref_t[0]),
                       bound([cur_t[0], ref_t[0]], [got], n_mbs * 1089 * 256 * 2),
                       None)
+            dh = dev_host(lambda: dispatch.sad_map(cur_t[0], ref_t[0]), None)
         record("sad_map", "full_search.cu", "video_encoder_tpu/ops/pallas/sad.py:594",
-               err, timing)
+               err, timing, **dh)
         log(f"kernel sad_map {h}x{w}: equal to plain; its first minimum is "
             f"full_search's, its even sublattice sad_map_even's; {ties} MBs "
-            f"with all 1089 tied" + shown(timing))
+            f"with all 1089 tied" + shown(timing, dh))
 
         got, want = both(dispatch.sad_map, cur_t, ref_t)
         err = max_abs_err([got], [want])
         max_abs_err([got], [torch.stack([dispatch.sad_map(cur_t[i], ref_t[i])
                                           for i in range(g4)])])
-        timing, singles_ms = None, None
+        timing, singles_ms, dh = None, None, {}
         if (h, w) == LUMA[0]:
             timing = (*timed(dispatch.sad_map, cur_t, ref_t),
                       bound([cur_t, ref_t], [got], g4 * n_mbs * 1089 * 256 * 2),
                       None)
             singles_ms = time_ms(lambda: [dispatch.sad_map(cur_t[i], ref_t[i])
                                           for i in range(g4)])
+            dh = dict(dev_host(lambda: dispatch.sad_map(cur_t, ref_t), None),
+                      g=g4, single_launches_ms=singles_ms)
         record("sad_map_g", "full_search.cu", "video_encoder_tpu/ops/pallas/sad.py:632",
-               err, timing, **({"g": g4, "single_launches_ms": singles_ms}
-                               if timing else {}))
+               err, timing, **dh)
         log(f"kernel sad_map_g [{g4}, {h}, {w}]: equal to plain and to {g4} "
             f"single launches" + (f" ({singles_ms:.4f} ms)" if singles_ms else "")
-            + shown(timing))
+            + shown(timing, dh))
 
     # ---- the SEA search (TVC_SEA=1) against three references of the
     # 1080p pan's frame 1: the clean source frame 0, the port's own qp-28
@@ -1355,6 +1420,7 @@ def last_kernels(dev, rng, table: KernelTable):
             torch.cuda.synchronize()
             err = max_abs_err(got, plain)
             sea_ms = time_ms(lambda: dispatch.full_search(cur_t, ref_t))
+            dh = dev_host(lambda: dispatch.full_search(cur_t, ref_t), None)
         max_abs_err(got[:3], dispatch.full_search(cur_t, ref_t))
         fs_ms = time_ms(lambda: dispatch.full_search(cur_t, ref_t))
         plain_ms = time_ms(lambda: motion.full_search_sea(cur_t, ref_t))
@@ -1364,15 +1430,17 @@ def last_kernels(dev, rng, table: KernelTable):
         if name == "recon":
             record("full_search_sea", "full_search.cu",
                    "video_encoder_tpu/ops/pallas/sad.py:68", err, timing,
-                   rows_per_mb=mean_rows, full_search_ms=fs_ms, reference=name)
+                   rows_per_mb=mean_rows, full_search_ms=fs_ms, reference=name,
+                   **dh)
         else:
             record("full_search_sea", "full_search.cu",
                    "video_encoder_tpu/ops/pallas/sad.py:68", err,
                    also=(f"{name} reference", timing), rows_per_mb=mean_rows,
-                   full_search_ms=fs_ms)
+                   full_search_ms=fs_ms, **dh)
         log(f"kernel full_search_sea {h}x{w}, {name} reference: equal to plain "
             f"(vectors and rows) and to full_search; {mean_rows:.3f} of 33 rows "
-            f"per MB, full_search {fs_ms:.4f} ms in this call" + shown(timing))
+            f"per MB, full_search {fs_ms:.4f} ms in this call"
+            + shown(timing, dh))
     # the odd grid, clean and noise: the stats entry against plain
     oh, ow = LUMA[1]
     for name in ("clean", "noise"):
@@ -1396,6 +1464,7 @@ def last_kernels(dev, rng, table: KernelTable):
         sea_ms = time_ms(lambda: dispatch.full_search(cur4, ref4))
         singles_ms = time_ms(lambda: [dispatch.full_search(cur4[i], ref4[i])
                                       for i in range(g4)])
+        dh = dev_host(lambda: dispatch.full_search(cur4, ref4), None)
     plain = motion.full_search_sea(cur4, ref4)
     err = max_abs_err(got, plain[:3])
     max_abs_err(got, [torch.stack(o) for o in zip(*singles)])
@@ -1406,10 +1475,11 @@ def last_kernels(dev, rng, table: KernelTable):
     record("full_search_sea_g", "full_search.cu",
            "video_encoder_tpu/ops/pallas/sad.py:420", err, timing, g=g4,
            single_launches_ms=singles_ms, full_search_g_ms=fs_ms,
-           rows_per_mb=float(plain[3].float().mean()), references=list(order))
+           rows_per_mb=float(plain[3].float().mean()), references=list(order),
+           **dh)
     log(f"kernel full_search_sea_g [{g4}, {h}, {w}] ({', '.join(order)}): equal "
         f"to plain, to {g4} single SEA launches ({singles_ms:.4f} ms) and to "
-        f"full_search_g ({fs_ms:.4f} ms in this call)" + shown(timing))
+        f"full_search_g ({fs_ms:.4f} ms in this call)" + shown(timing, dh))
 
     # the tile path: the frame's four row shards against the recon
     sh_cur, sh_ref = rows_of(cur_t), ext_rows(refs["recon"], 16)
@@ -1417,6 +1487,8 @@ def last_kernels(dev, rng, table: KernelTable):
         got = dispatch.full_search_pre_haloed(sh_cur, sh_ref)
         torch.cuda.synchronize()
         sea_ms = time_ms(lambda: dispatch.full_search_pre_haloed(sh_cur, sh_ref))
+        dh = dev_host(lambda: dispatch.full_search_pre_haloed(sh_cur, sh_ref),
+                      None)
     plain = motion.full_search_sea_pre_haloed(sh_cur, sh_ref)
     err = max_abs_err(got, plain[:3])
     max_abs_err([unrows(g) for g in got], dispatch.full_search(cur_t, refs["recon"]))
@@ -1426,10 +1498,11 @@ def last_kernels(dev, rng, table: KernelTable):
               bound([sh_cur, sh_ref], got, sea_ops(plain[3])), None)
     record("full_search_sea_haloed", "full_search.cu",
            "video_encoder_tpu/ops/pallas/sad.py:536", err, timing, shards=4,
-           full_search_haloed_ms=fs_ms, rows_per_mb=float(plain[3].float().mean()))
+           full_search_haloed_ms=fs_ms, rows_per_mb=float(plain[3].float().mean()),
+           **dh)
     log(f"kernel full_search_sea_haloed {list(sh_cur.shape)} / {list(sh_ref.shape)}"
         f", recon reference: equal to plain, to the whole frame's search and to "
-        f"full_search_haloed ({fs_ms:.4f} ms in this call)" + shown(timing))
+        f"full_search_haloed ({fs_ms:.4f} ms in this call)" + shown(timing, dh))
 
     # ---- chunk_merge at the reference micro-bench's shape: a 1080p frame's
     # 8160 x 8 pieces of 24 words (header, four luma blocks, Cb, Cr and an
@@ -1459,16 +1532,18 @@ def last_kernels(dev, rng, table: KernelTable):
         # per piece word: two shifts and two ors into the string
         timing = (*timed(dispatch.chunk_merge, *a),
                   bound(a[:2], got, 4 * a[0].numel()), None)
+        dh = dev_host(lambda: dispatch.chunk_merge(*a), None)
         if name == "1080p frame":
             record("chunk_merge", "span_merge.cu",
-                   "video_encoder_tpu/ops/pallas/pack.py:102", err, timing)
+                   "video_encoder_tpu/ops/pallas/pack.py:102", err, timing,
+                   **dh)
         else:
             record("chunk_merge", "span_merge.cu",
                    "video_encoder_tpu/ops/pallas/pack.py:102", err,
-                   also=(name, timing))
+                   also=(name, timing), **dh)
         log(f"kernel chunk_merge {name}: {n} pieces of {bw} words, k {kc} -> "
             f"{got[0].shape[0]} strings of {got[0].shape[1]} words, "
-            f"{int(got[1].sum())} bits: equal" + shown(timing))
+            f"{int(got[1].sum())} bits: equal" + shown(timing, dh))
 
     # ---- the hierarchical search: the plain coarse search, then each of
     # the two refine steps' 25 candidates in one sad_at_mv launch
@@ -1606,6 +1681,28 @@ def check_per_p_step(what, launches, name, p_steps):
                              f"{p_steps} P steps a run")
 
 
+def check_row_scan(what, launches, m, gop, batched=False):
+    """Formats 3 and 4: each I step codes its three planes with one
+    row-scan launch each (code_plane_rows, or _g over G GOPs or G x S
+    shards), and no [8, W] stripe goes through code_plane, which codes the
+    three planes of each P step: per run of a GOP (or of a lockstep batch,
+    and again for a GOP encoded anew after an overflow, or for rc mb's
+    first pass) one I step and gop - 1 P steps, so code_plane launches
+    gop - 1 times as often as the row scan. Every GOP of the path is gop
+    frames long."""
+    if m["fmt"] < 3:
+        return
+    sfx = "_g" if batched else ""
+    rows = launches["code_plane_rows" + sfx]
+    other = launches["code_plane_rows" + ("" if batched else "_g")]
+    flat = launches[("code_plane_qmat" if m["qmat"] else "code_plane") + sfx]
+    if not rows or rows % 3 or flat != rows * (gop - 1) or other:
+        raise AssertionError(
+            f"{what}: code_plane_rows{sfx} launched {rows} times, code_plane "
+            f"{flat} (want {gop - 1} per row-scan launch: no stripe), the "
+            f"other row-scan entry {other}")
+
+
 def config_of(m, w, h, gop):
     from video_encoder_tpu_torch.codec.config import EncoderConfig
 
@@ -1735,6 +1832,7 @@ def phase_slice(job, card):
                    expected_kernels(m, GopEngine.emit, gop == 1))
     check_per_p_step(f"{tag} CLI encode", launches, "mc_predict",
                      n - -(-n // gop))
+    check_row_scan(f"{tag} CLI encode", launches, m, gop)
     with open(job["theirs"], "rb") as f2:
         same_stream(tag, a, f2.read(), "the oracle's")
     psnr_y = decoded_psnr_y(job, job["theirs"])
@@ -1770,6 +1868,8 @@ def phase_other_emit(job, stream, card):
     launches = dict(build.LAUNCHES)
     check_launches(f"{m['tag']} in-process, emit {emit}", launches,
                    expected_kernels(m, emit))
+    check_row_scan(f"{m['tag']} in-process, emit {emit}", launches, m,
+                   job["gop"])
     buf = io.BytesIO()
     mux = OrderedMux(buf, cfg, len(frames))
     for pkt in packets:
@@ -1793,6 +1893,7 @@ def check_batched_launches(what, launches, m, emit, steps, tail=False):
     packs for its bit counts) and each span merge once per frame step."""
     check_launches(what, launches, expected_kernels(m, emit, batched=True))
     check_per_p_step(what, launches, "mc_predict_g", steps - 1)
+    check_row_scan(what, launches, m, steps, batched=True)
     if tail:
         check_launches(what + " (tail)", launches, expected_kernels(m, emit))
         return
@@ -1914,6 +2015,7 @@ def check_tiled_launches(what, launches, m, emit, p_steps):
           "block_pack_v2" if m["fmt"] >= 2 else "block_pack"]
     check_launches(what, launches, ks + (
         ["span_merge_mb", "span_merge"] if emit == "chunks" else []))
+    check_row_scan(what, launches, m, p_steps + 1, batched=True)
 
 
 def phase_tiled(tmp, jobs, streams, plains, card):
@@ -2197,11 +2299,13 @@ def phase_speed_sea(m, clip, card):
     return results
 
 
-def device_ops(run_once, n_frames):
+def device_ops(run_once, n_frames, watch=()):
     """Device kernels (and memsets/copies) per frame, the device busy share
     and the largest device-time totals by name, of one GOP under
     torch.profiler; the first of those is ("all kernels", count, ms): the
-    GOP's whole device time, which the search's share is read against."""
+    GOP's whole device time, which the search's share is read against.
+    Kernels whose name holds a string of `watch` follow the largest,
+    wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2216,13 +2320,50 @@ def device_ops(run_once, n_frames):
     for e in dev:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:8] + [kv for kv in ranked[8:]
+                        if any(w in kv[0] for w in watch)]
     busy = sum(us for _, us in by_name.values())
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev))
     return len(dev) / n_frames, busy / max(span, 1), [
         ("all kernels", len(dev), round(busy / 1e3, 3))] + [
         (name[:60], n, round(us / 1e3, 3)) for name, (n, us) in top]
+
+
+# the kernels of code_plane (whole planes, the row scan) and block_pack,
+# shown in every per-GOP trace wherever they rank
+CODE_KERNELS = ("plane_kernel", "rows_kernel", "code_plane_kernel",
+                "block_pack_kernel")
+
+
+def i_frame_figures(eng, y, cb, cr):
+    """The format-3/4 I frame on its own (one frame of the clip through
+    the engine): the launches of each code_plane entry, its device ops,
+    device time and busy share from torch.profiler, and its wall ms (mean
+    of five, sync after each)."""
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    def i_frame():
+        return eng.run(y[:1], cb[:1], cr[:1], 28)
+
+    out = i_frame()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    i_frame()
+    launches = {k: v for k, v in build.LAUNCHES.items()
+                if v and k.startswith("code_plane")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        i_frame()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 5
+    ops, busy, top = device_ops(i_frame, 1, CODE_KERNELS)
+    return dict(wall_ms=wall, device_ops=ops, device_ms=top[0][2] if top else None,
+                busy=busy if busy is None else round(100 * busy, 1),
+                launches=launches, top=top,
+                sum=_checksum([out["words"], out["bits"]]))
 
 
 def phase_speed(cells, card):
@@ -2282,7 +2423,7 @@ def phase_speed(cells, card):
             fps = frames_timed / times[emit][0]
             fin_fps = frames_timed / times[emit][1]
             torch.cuda.reset_peak_memory_stats()
-            ops, busy, top = device_ops(lambda: gop(emit), n)
+            ops, busy, top = device_ops(lambda: gop(emit), n, CODE_KERNELS)
             peak = torch.cuda.max_memory_allocated() / 2**20
             key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
             search = [t for t in top if "search" in t[0]]
@@ -2301,26 +2442,14 @@ def phase_speed(cells, card):
                 f"{top[0][2] if top else None} ms of device time [{card}]")
             log(f"  device ms per GOP by name (launches, ms): {top}")
         if m["fmt"] >= 3:
-            eng = engines[emits[0]]
-
-            def i_frame():
-                eng.run(y[:1], cb[:1], cr[:1], 28)
-
-            i_frame()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                i_frame()
-            torch.cuda.synchronize()
-            i_ms = (time.perf_counter() - t0) * 1e3 / 5
-            ops, busy, top = device_ops(i_frame, 1)
-            results[f"{m['tag']}/i_frame_ms"] = i_ms
-            log(f"speed: {m['tag']} I frame alone (row scan of "
-                f"{y.shape[1] // 4} stripes, pack) {i_ms:.3f} ms, "
-                f"{ops if ops is None else round(ops, 1)} device ops, device "
-                f"busy {busy if busy is None else round(100 * busy, 1)} % "
-                f"[{card}]")
-            log(f"  device ms by name (launches, ms): {top}")
+            i_frame = i_frame_figures(engines[emits[0]], y, cb, cr)
+            results[f"{m['tag']}/i_frame"] = i_frame
+            log(f"speed: {m['tag']} I frame alone (the row scan, one launch "
+                f"per plane; the pack) {i_frame['wall_ms']:.3f} ms, "
+                f"{i_frame['device_ops']} device ops, {i_frame['device_ms']} ms "
+                f"of device time, device busy {i_frame['busy']} %, code_plane "
+                f"launches {i_frame['launches']} [{card}]")
+            log(f"  device ms by name (launches, ms): {i_frame['top']}")
     return results, traces
 
 
@@ -2452,6 +2581,30 @@ def ab_child(root: str) -> dict:
                                      f"at format {fmt}{geo}")
             measure(f"take_f{fmt}{geo}", lambda src=src, idx=idx: torch.take(src, idx))
 
+    # code_plane at qp 28: the 1080p luma and chroma planes, G = 4 luma,
+    # flat and under the quant matrix; block_pack of the luma plane's
+    # levels at 16 words in both syntaxes
+    from video_encoder_tpu_torch.codec import entropy, tables
+    q28 = int(tables.load(dev).QSTEP[28])
+    luma_levels = None
+    for name, shape in (("code_plane_luma", (h, w)),
+                        ("code_plane_chroma", (ch, cw)),
+                        ("code_plane_g4", (g, h, w))):
+        base = t32(texture(rng, *shape[-2:])[:shape[-2], :shape[-1]])
+        cur_c = base.expand(shape).contiguous()
+        pred_c = torch.roll(cur_c, (2, -3), (-2, -1)).contiguous()
+        q = torch.full((*shape[:-2], shape[-2] // 8, shape[-1] // 8), q28,
+                       dtype=torch.int32, device=dev)
+        for qmat in (False, True):
+            measure(name + ("_qmat" if qmat else ""),
+                    lambda a=(cur_c, pred_c, q, 8, qmat): dispatch.code_plane(*a))
+        if name == "code_plane_luma":
+            luma_levels = dispatch.code_plane(cur_c, pred_c, q, 8)[0]
+    flat = luma_levels.reshape(-1, 64)
+    dcp = entropy._dc_pred_left(luma_levels).reshape(-1).contiguous()
+    measure("block_pack_f1", lambda: dispatch.block_pack(flat, 16))
+    measure("block_pack_f2", lambda: dispatch.block_pack(flat, 16, dcp, 2))
+
     # the cells: device ops per frame and the search's device time per GOP
     ph, pw, n = AB_CELL
     for m in (FULL, V4):
@@ -2460,11 +2613,19 @@ def ab_child(root: str) -> dict:
         eng = GopEngine(config_of(m, pw, ph, n), device=dev)
         y, cb, cr = up(clip[0], 16), up(clip[1], 8), up(clip[2], 8)
         o = eng.run(y, cb, cr, 28)
-        ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n)
+        ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n,
+                                    CODE_KERNELS)
         out[f"cell_{m['tag']}"] = dict(
             ops_per_frame=ops, busy=busy, top=top,
             search=[t for t in top if "search" in t[0]],
             sum=_checksum([o["words"], o["bits"]]))
+        if m["fmt"] >= 3:
+            # the I frame: wall ms (ms), device time, device ops (kernels)
+            f = i_frame_figures(eng, y, cb, cr)
+            out[f"i_frame_{m['tag']}"] = dict(
+                ms=f["wall_ms"], device_ms=f["device_ms"],
+                kernels=f["device_ops"], launches=f["launches"], top=f["top"],
+                sum=f["sum"])
     out["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
     return out
 
@@ -2523,9 +2684,13 @@ def ab_main(roots) -> int:
     for root, runs in results.items():
         keys = [k for k, v in runs[0].items() if isinstance(v, dict) and "ms" in v]
         summary[root] = {k: {f: sum(r[k][f] for r in runs) / len(runs)
-                             for f in ("ms", "device_ms", "host_ms", "kernels")}
+                             for f in ("ms", "device_ms", "host_ms", "kernels")
+                             if f in runs[0][k]}
                          for k in keys}
         summary[root].update({k: runs[0][k] for k in runs[0] if k.startswith("cell_")})
+        for k in keys:         # launch counts are the same in every turn
+            if "launches" in runs[0][k]:
+                summary[root][k]["launches"] = runs[0][k]["launches"]
         for r in runs:
             for k, v in r.items():
                 if isinstance(v, dict) and "sum" in v:
@@ -2618,7 +2783,7 @@ def main() -> int:
         rows[name]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])
-    table = {r["row"].rstrip("cqvhms") for r in rows.values()}
+    table = {r["row"].rstrip("cqvhmsr") for r in rows.values()}
     if table != {str(i) for i in range(1, 17)} or set(rows) != set(TABLE_ROW):
         raise AssertionError(f"kernel table rows {sorted(table)}, counters "
                              f"{sorted(set(TABLE_ROW) ^ set(rows))} unheld")

@@ -113,7 +113,8 @@ def test_code_plane_qmat_kernel(cuda, plain_and_kernel, rng, h, w, qbias):
 
 @pytest.mark.parametrize("reset_rows", [0, 2])
 def test_intra_rows_on_card(cuda, rng, reset_rows):
-    """The v3 I-frame row scan: one code_plane launch per stripe."""
+    """The v3 I-frame row scan: one code_plane_rows launch per plane, no
+    code_plane launch."""
     cur = _t(rng.integers(0, 256, (64, 960)), cuda)
     q_blk = tables.load(cuda).QSTEP[_t(rng.choice([20, 28], (8, 120)), cuda).long()]
     dispatch.force("plain")
@@ -123,8 +124,99 @@ def test_intra_rows_on_card(cuda, rng, reset_rows):
         dispatch.force(None)
     build.reset_launches()
     got = dispatch.intra_rows_code_plane(cur, q_blk, 8, reset_rows, True)
-    assert build.LAUNCHES["code_plane_qmat"] == 8
+    assert build.LAUNCHES["code_plane_rows"] == 1
+    assert sum(build.LAUNCHES.values()) == 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _row_scan_case(rng, lead, h, w):
+    """A plane (or planes) with vertical structure, so that the recon row
+    above predicts well, and steps mixing qp 1, 12, 28 and 63."""
+    base = rng.integers(0, 256, (*lead, h + 1, w))
+    cur = (base[..., :h, :] + base[..., 1:, :]) // 2
+    qp = rng.choice([1, 12, 28, 63], (*lead, h // 8, w // 8))
+    return cur, qp
+
+
+@pytest.mark.parametrize("g", [None, 3])
+@pytest.mark.parametrize("qmat", [False, True])
+@pytest.mark.parametrize("reset_rows", [0, 17])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (544, 960), (368, 640)])
+def test_row_scan_kernel(cuda, plain_and_kernel, rng, h, w, reset_rows, qmat, g):
+    """code_plane_rows against the plain stripe loop at the main paths'
+    plane shapes; luma slices of 17 MB rows reset every 34 block rows."""
+    lead = () if g is None else (g,)
+    reset = 2 * reset_rows if h in (1088, 368) else reset_rows
+    cur, qp = _row_scan_case(rng, lead, h, w)
+    q_blk = tables.load(cuda).QSTEP[_t(qp, cuda).long()].contiguous()
+    args = (_t(cur, cuda), q_blk, 6, reset, qmat)
+    got, want = plain_and_kernel(dispatch.intra_rows_code_plane, *args)
+    assert _same(got, want)
+    assert build.LAUNCHES["code_plane_rows_g" if g else "code_plane_rows"] > 0
+
+
+@pytest.mark.parametrize("g", [None, 4])
+@pytest.mark.parametrize("qmat", [False, True])
+def test_code_plane_extremes_on_card(cuda, plain_and_kernel, rng, qmat, g):
+    """Whole planes at the arithmetic's edges: residuals of +-255, flat
+    blocks, qp 1, 28 and 63 mixed per block, both biases."""
+    lead = () if g is None else (g,)
+    h, w = 544, 960
+    cur = rng.integers(0, 256, (*lead, h, w))
+    pred = rng.integers(0, 256, (*lead, h, w))
+    cur[..., :64, :] = np.where(rng.random((*lead, 64, w)) < 0.5, 255, 0)
+    pred[..., :64, :] = 255 - cur[..., :64, :]
+    pred[..., 64:128, :] = cur[..., 64:128, :]
+    qp = rng.choice([1, 28, 63], (*lead, h // 8, w // 8))
+    q_blk = tables.load(cuda).QSTEP[_t(qp, cuda).long()].contiguous()
+    for qbias in (8, 1):
+        args = (_t(cur, cuda), _t(pred, cuda), q_blk, qbias, qmat)
+        got, want = plain_and_kernel(dispatch.code_plane, *args)
+        assert _same(got, want)
+
+
+def test_code_plane_rejects_misaligned(cuda):
+    """The kernel moves rows as 16-byte vectors: a plane that does not
+    start on a 16-byte boundary is refused, not coded."""
+    buf = torch.zeros(8 * 16 + 1, dtype=torch.int32, device=cuda)
+    cur = buf[1:].view(8, 16)
+    q_blk = torch.ones((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        dispatch.code_plane(cur, cur, q_blk)
+    with pytest.raises(ValueError, match="aligned"):
+        dispatch.intra_rows_code_plane(cur, q_blk)
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 16, entropy.BLOCK_WORDS_MAX])
+@pytest.mark.parametrize("fmt", [1, 2])
+def test_block_pack_edges_on_card(cuda, plain_and_kernel, rng, fmt, n_words):
+    """All-zero blocks, 64 nonzeros at |level| = 3925 (overflowing 1, 2
+    and 16 words, exact at BLOCK_WORDS_MAX) and dc - dc_pred = +-7850;
+    strings of up to two words take the kernel's register path."""
+    lv = np.zeros((64, 64), np.int64)
+    mask = rng.random(lv.shape) < 0.15
+    lv[mask] = rng.integers(-300, 301, mask.sum())
+    lv[0:8] = 0
+    lv[8:24] = rng.choice([-3925, 3925], (16, 64))
+    lv[24:26, 1:] = 0
+    lv[24, 0], lv[25, 0] = 3925, -3925
+    dcp = rng.integers(-40, 41, 64)
+    dcp[24], dcp[25] = -3925, 3925
+    dc_pred = _t(dcp, cuda) if fmt >= 2 else None
+    got, want = plain_and_kernel(dispatch.block_pack, _t(lv, cuda), n_words,
+                                 dc_pred, fmt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][:8].tolist() == [1] * 8
+    assert bool((got[1][8:24] > 32 * n_words).all()) == (
+        n_words < entropy.BLOCK_WORDS_MAX)
+    if fmt >= 2:
+        assert got[1][24:26].tolist() == [1 + 27 + 1] * 2
+
+
+def test_block_pack_rejects_too_many_words(cuda):
+    lv = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="n_words"):
+        dispatch.block_pack(lv, entropy.BLOCK_WORDS_MAX + 1)
 
 
 @pytest.mark.parametrize("n_words", [16, 24, entropy.BLOCK_WORDS_MAX])
@@ -317,8 +409,12 @@ def test_gop_engine_formats_on_card_match_cpu(cuda, rng, kw, emit):
     used = ["mc_predict", "block_pack_v2",
             "code_plane_qmat" if cfg.quant_matrix else "code_plane"]
     used += ["sad_at_mv"] if cfg.format_version == 4 else []
+    used += ["code_plane_rows"] if cfg.format_version >= 3 else []
     assert all(build.LAUNCHES[k] > 0 for k in used), build.LAUNCHES
     assert build.LAUNCHES["block_pack"] == 0
+    if cfg.format_version >= 3:   # the I frame: one launch per plane, and
+        # code_plane three per P frame (3 P frames to 1 I frame a run)
+        assert build.LAUNCHES[used[2]] == 3 * build.LAUNCHES["code_plane_rows"]
     assert not any(build.LAUNCHES[k] for k in _SINGLE_FETCHES), build.LAUNCHES
     want, _ = GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)
     assert [p.to_bytes() for p in got] == [p.to_bytes() for p in want]
@@ -448,7 +544,8 @@ def test_code_plane_g_kernel(cuda, plain_and_kernel, rng, g, h, w, qmat):
 
 @pytest.mark.parametrize("reset_rows", [0, 2])
 def test_intra_rows_g_on_card(cuda, rng, reset_rows):
-    """The row scan of G planes in lockstep: one launch per stripe."""
+    """The row scan of G planes in lockstep: one code_plane_rows_g launch
+    per plane stack, no code_plane launch."""
     g = 3
     cur = _t(rng.integers(0, 256, (g, 64, 960)), cuda)
     q_blk = tables.load(cuda).QSTEP[
@@ -460,8 +557,8 @@ def test_intra_rows_g_on_card(cuda, rng, reset_rows):
         dispatch.force(None)
     build.reset_launches()
     got = dispatch.intra_rows_code_plane(cur, q_blk, 8, reset_rows, True)
-    assert build.LAUNCHES["code_plane_qmat_g"] == 8
-    assert build.LAUNCHES["code_plane_qmat"] == 0
+    assert build.LAUNCHES["code_plane_rows_g"] == 1
+    assert sum(build.LAUNCHES.values()) == 1
     assert _same(got, want)
     assert _same(got, _per_g(dispatch.intra_rows_code_plane, g, cur, q_blk, 8,
                              reset_rows, True))
@@ -513,6 +610,9 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     packs = n["block_pack"] + n["block_pack_v2"]
     assert packs == 3 * t * passes                  # per plane, not per GOP
     assert n["mc_predict_g"] == t - 1               # once per P step
+    if cfg.format_version >= 3:     # one row-scan launch per plane
+        assert n["code_plane_rows_g"] == 3 * passes
+        assert n[f"code_plane{qm}_g"] == 3 * (t - 1) * passes
     assert not any(n[k] for k in _SINGLE_FETCHES), n
     assert n["span_merge_mb"] == (t if emit == "chunks" else 0)
     got = eng.encode_gops_finish(handle)
@@ -685,6 +785,11 @@ def test_sharded_encoder_on_card_matches_cpu(cuda, rng, kw, g, s):
     assert n["full_search_haloed"] == (t - 1) * reruns
     assert n["mc_predict_haloed"] == (t - 1) * reruns   # one per P step
     assert n["sad_at_mv_haloed"] == (planes == 4) * (t - 1) * reruns
+    # the I step: one row-scan launch per plane over the G x S shards
+    passes = 2 if cfg.rc == "mb" else 1
+    assert n["code_plane_rows_g"] == (
+        3 * reruns * passes if cfg.format_version >= 3 else 0)
+    assert n["code_plane_rows"] == 0
     assert not any(n[k] for k in ("full_search", "full_search_g", "mc_predict",
                                   "mc_predict_g", "sad_at_mv", "sad_at_mv_g",
                                   *_SINGLE_FETCHES))

@@ -242,11 +242,14 @@ def code_plane(cur, pred, q_blk, qbias: int = 8, qmat: bool = False):
 
 def intra_rows_code_plane(cur, q_blk, qbias: int = 8, reset_rows: int = 0,
                           qmat: bool = False):
-    """v3 I-frame row scan of one plane, each [8, W] stripe through
-    code_plane (one kernel launch per stripe on the GPU); with a G axis
-    the G planes advance in lockstep, one launch per [G, 8, W] stripe."""
-    return transform.intra_rows_code_plane(cur, q_blk, qbias, reset_rows,
-                                           qmat, code=code_plane)
+    """v3 I-frame row scan of one plane [H, W], or of B planes [B, H, W]
+    (G GOPs in lockstep, G x S shards): one kernel launch per call on the
+    GPU; the plain version walks the [(B,) 8, W] stripes through the plain
+    code_plane."""
+    if _FORCE == "plain":
+        return transform.intra_rows_code_plane(cur, q_blk, qbias, reset_rows,
+                                               qmat)
+    return kcodec.code_plane_rows(cur, q_blk, qbias, reset_rows, qmat)
 
 
 def block_pack(levels_zz, n_words: int, dc_pred=None, fmt: int = 1):

@@ -54,7 +54,10 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "chunk_merge": 0,
             # the three predictors of a P step in one launch: single GOP,
             # G GOPs, pre-haloed shards
-            "mc_predict": 0, "mc_predict_g": 0, "mc_predict_haloed": 0}
+            "mc_predict": 0, "mc_predict_g": 0, "mc_predict_haloed": 0,
+            # the format-3/4 I-frame row scan of a whole plane in one
+            # launch: one plane, and B planes (G GOPs, or G x S shards)
+            "code_plane_rows": 0, "code_plane_rows_g": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,6 +92,7 @@ _SIGNATURES = {
     "tvc_sad_map_g": [_P, _P, _I, _I, _I, _P, _P],
     "tvc_chunk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     "tvc_mc_predict": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tvc_code_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -181,3 +185,10 @@ def require(t, dtype, shape, name: str) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_aligned(t, name: str) -> None:
+    """Raise unless t starts on a 16-byte boundary (a kernel that moves
+    rows as 16-byte vectors)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")

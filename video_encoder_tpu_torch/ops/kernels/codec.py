@@ -1,9 +1,11 @@
-"""Wrapper of the fused transform/quant/recon kernel (csrc/code_plane.cu).
+"""Wrappers of the fused transform/quant/recon kernel (csrc/code_plane.cu).
 
 A CPU tensor takes the plain version in `ops/transform.py`; a CUDA tensor
 launches the kernel, which is built at first use. `code_plane_g` codes
-the planes of G GOPs, [G, H, W], in one launch. Both forms share one
-private launcher: `lead` is () for a single plane and (G,) for a batch.
+the planes of G GOPs, [G, H, W], in one launch; both share one private
+launcher: `lead` is () for a single plane and (G,) for a batch.
+`code_plane_rows` is the format-3/4 I-frame row scan of a whole plane, or
+of B planes [B, H, W], in one launch.
 """
 
 from __future__ import annotations
@@ -14,20 +16,29 @@ from .. import transform
 from . import build
 
 
-def _code_plane(cur, pred, q_blk, qbias: int, qmat: bool, name: str,
-                batched: bool):
-    """Entry tvc_<name>, counted under "code_plane[_qmat][_g]"."""
+def _check(cur, q_blk, qbias: int, name: str, batched: bool):
+    """(lead, h, w) of cur [(B,) H, W] and q_blk [(B,) H/8, W/8]; raises on
+    what the kernels do not take."""
     *lead, h, w = cur.shape
     if len(lead) != int(batched):
         raise ValueError(f"{name}: expected {2 + int(batched)} dimensions, "
                          f"got shape {tuple(cur.shape)}")
-    if h % 8 or w % 8:
+    if h % 8 or w % 8 or not h or not w:
         raise ValueError(f"{name}: {h}x{w} is not a multiple of 8")
     if not 1 <= qbias <= 8:
         raise ValueError(f"{name}: qbias {qbias} outside [1, 8]")
     build.require(cur, torch.int32, (*lead, h, w), f"{name} cur")
-    build.require(pred, torch.int32, (*lead, h, w), f"{name} pred")
+    build.require_aligned(cur, f"{name} cur")
     build.require(q_blk, torch.int32, (*lead, h // 8, w // 8), f"{name} q_blk")
+    return lead, h, w
+
+
+def _code_plane(cur, pred, q_blk, qbias: int, qmat: bool, name: str,
+                batched: bool):
+    """Entry tvc_<name>, counted under "code_plane[_qmat][_g]"."""
+    lead, h, w = _check(cur, q_blk, qbias, name, batched)
+    build.require(pred, torch.int32, (*lead, h, w), f"{name} pred")
+    build.require_aligned(pred, f"{name} pred")
     levels = torch.empty((*lead, h // 8, w // 8, 64), dtype=torch.int32,
                          device=cur.device)
     rec = torch.empty_like(cur)
@@ -57,10 +68,37 @@ def code_plane(cur: torch.Tensor, pred: torch.Tensor, q_blk: torch.Tensor,
 def code_plane_g(cur: torch.Tensor, pred: torch.Tensor, q_blk: torch.Tensor,
                  qbias: int = 8, qmat: bool = False):
     """code_plane of the planes of G GOPs in one launch: cur, pred
-    [G, H, W] int32 (whole planes, or the [G, 8, W] stripes of the I-frame
-    row scan), q_blk [G, H/8, W/8] int32, each GOP at its own steps
+    [G, H, W] int32, q_blk [G, H/8, W/8] int32, each GOP at its own steps
     (counted as "code_plane_g", or "code_plane_qmat_g" with qmat). Returns
     (levels [G, H/8, W/8, 64] int32 zigzag order, recon [G, H, W] int32)."""
     if cur.device.type == "cpu":
         return transform.code_plane(cur, pred, q_blk, qbias, qmat)
     return _code_plane(cur, pred, q_blk, qbias, qmat, "code_plane_g", True)
+
+
+def code_plane_rows(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int = 8,
+                    reset_rows: int = 0, qmat: bool = False):
+    """The v3 I-frame vertical-intra row scan (SPEC.md §13.1) of a whole
+    plane [H, W], or of B planes [B, H, W] (G GOPs in lockstep, or the
+    G x S shards of the tile path), in one launch: block row j predicts
+    from the recon's last pixel row above it, 128 at row 0 and every
+    reset_rows-th row. q_blk [(B,) H/8, W/8] int32. Counted as
+    "code_plane_rows", or "code_plane_rows_g" with the B axis. Returns
+    (levels [(B,) H/8, W/8, 64] int32 zigzag order, recon [(B,) H, W])."""
+    if cur.device.type == "cpu":
+        return transform.intra_rows_code_plane(cur, q_blk, qbias, reset_rows,
+                                               qmat)
+    batched = cur.ndim == 3
+    lead, h, w = _check(cur, q_blk, qbias, "code_plane_rows", batched)
+    if reset_rows < 0:
+        raise ValueError(f"code_plane_rows: reset_rows {reset_rows} < 0")
+    levels = torch.empty((*lead, h // 8, w // 8, 64), dtype=torch.int32,
+                         device=cur.device)
+    rec = torch.empty_like(cur)
+    err = build.lib().tvc_code_plane_rows(
+        cur.data_ptr(), q_blk.data_ptr(), *(lead or [1]), h, w, qbias,
+        int(qmat), reset_rows, levels.data_ptr(), rec.data_ptr(),
+        build.stream_ptr(cur.device))
+    build.check(err, "code_plane_rows")
+    build.LAUNCHES["code_plane_rows_g" if batched else "code_plane_rows"] += 1
+    return levels, rec

@@ -1,4 +1,5 @@
-"""Wrapper of the per-block symbol+pack kernel (csrc/block_pack.cu).
+"""Wrapper of the per-block symbol+pack kernel (csrc/block_pack.cu, one
+warp per block).
 
 A CPU tensor takes the plain version (`codec/entropy.py` block_symbols or
 block_symbols_v2, then pack_dense); a CUDA tensor launches the kernel,
@@ -31,11 +32,15 @@ def block_pack(levels_zz: torch.Tensor, n_words: int,
     syntax, whose DC codes against dc_pred [n] int32 (counted as
     "block_pack_v2"). A string longer than 32*n_words bits is truncated;
     `bits` keeps its full length so the caller can detect the overflow.
-    Levels are quantizer outputs, |level| <= 3925 (SPEC.md §4)."""
+    Levels are quantizer outputs, |level| <= 3925 (SPEC.md §4). The
+    kernel takes n_words up to BLOCK_WORDS_MAX, the exact worst case."""
     if fmt >= 2 and dc_pred is None:
         raise ValueError("block_pack: format >= 2 needs dc_pred")
     if levels_zz.device.type == "cpu":
         return plain_block_pack(levels_zz, n_words, dc_pred, fmt)
+    if not 1 <= n_words <= entropy.BLOCK_WORDS_MAX:
+        raise ValueError(f"block_pack: n_words {n_words} outside [1, "
+                         f"{entropy.BLOCK_WORDS_MAX}], the exact worst case")
     n = levels_zz.shape[0]
     build.require(levels_zz, torch.int32, (n, 64), "block_pack levels")
     if fmt >= 2:

@@ -117,22 +117,21 @@ def code_plane(cur: torch.Tensor, pred: torch.Tensor, q_blk: torch.Tensor,
 
 
 def intra_rows_code_plane(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int,
-                          reset_rows: int = 0, qmat: bool = False,
-                          code=code_plane):
+                          reset_rows: int = 0, qmat: bool = False):
     """v3 I-frame vertical intra coding of one plane (SPEC.md §13.1), twin
     of the reference's `transform.intra_rows_code_plane`: block row j
     predicts every pixel from the reconstructed pixel row above it (128
     above row 0 and, with reset_rows > 0, above every reset_rows-th block
-    row, §13.3). The rows are the format's one serial chain: each stripe
-    is `code` (a code_plane) on an [8, W] plane whose pred is that row
-    broadcast to eight rows. cur [H, W] int32, q_blk [H/8, W/8] int32.
+    row, §13.3). Each stripe is code_plane on an [8, W] plane whose pred
+    is that row broadcast to eight rows: the plain version of the
+    `code_plane_rows` kernel. cur [H, W] int32, q_blk [H/8, W/8] int32.
     Returns (levels [H/8, W/8, 64] zigzag order, recon [H, W]). With a
-    leading G axis the G planes advance in lockstep, one [G, 8, W] stripe
-    per step, each GOP's pred its own previous recon row."""
+    leading axis the planes advance in lockstep, one [B, 8, W] stripe per
+    step, each plane's pred its own previous recon row."""
     *lead, h, w = cur.shape
     flat = torch.full((*lead, 8, w), 128, dtype=cur.dtype, device=cur.device)
     # stripe axis leading, so that each step's [..., 8, W] stripe and its
-    # [..., 1, W/8] steps are contiguous (no copy without a G axis)
+    # [..., 1, W/8] steps are contiguous (no copy without a leading axis)
     stripes = cur.reshape(*lead, h // 8, 8, w).movedim(-3, 0).contiguous()
     steps = q_blk.unsqueeze(-2).movedim(-3, 0).contiguous()
     levels, recs = [], []
@@ -140,8 +139,8 @@ def intra_rows_code_plane(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int,
     for j in range(h // 8):
         if j == 0 or (reset_rows and j % reset_rows == 0):
             pred = flat
-        lv, rec = code(stripes[j], pred, steps[j], qbias, qmat)
-        pred = rec[..., -1:, :].expand(*lead, 8, w).contiguous()
+        lv, rec = code_plane(stripes[j], pred, steps[j], qbias, qmat)
+        pred = rec[..., -1:, :].expand(*lead, 8, w)
         levels.append(lv)
         recs.append(rec)
     return torch.cat(levels, -3), torch.cat(recs, -2)
