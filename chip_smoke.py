@@ -6,14 +6,17 @@ Phases, each of which raises on failure (exit code not 0):
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/ and
-   prints each kernel's registers and spill bytes (nvcc -Xptxas -v).
+   prints each kernel's registers and spill bytes (nvcc -Xptxas -v): the
+   search and the whole SAD map (tiled_kernel), the even map
+   (even_map_kernel), sad_at_kernel, and the others.
 3. Kernels: every kernel entry of the port, one per launch counter
    (the single-plane kernels of format 1, block_pack in the format-2
    syntax, code_plane with the quant matrix, the format-3/4 I-frame row
    scan of a whole plane in one launch, the chroma twin of sad_at_mv),
    against its plain PyTorch version on the card at the main paths'
    shapes (1088x1920 luma, 544x960 chroma, the odd 368x640 grid, the row
-   scan with and without intra slices, the half-pel refine's nine
+   scan with and without intra slices, the diamond's four +-1
+   candidates around even vectors, the half-pel refine's nine
    candidates on four parity planes, the span strings of real 1080p and
    320x192 frames and dense overflowing pieces), exact equality
    (tolerance 0: the codec is integer-only), with both times, the least
@@ -121,7 +124,10 @@ checkouts of the repository
 turns, ROOT_1 .. ROOT_n then ROOT_n .. ROOT_1, each turn a child process
 that imports the port from its ROOT (building its kernels into
 ROOT/build) and this file's helpers: at 1088x1920 the exhaustive search
-(single, G = 4, four row shards), the single-plane fetches (luma and
+(single, G = 4, four row shards), the even SAD map (single, G = 4) and the
+whole one, sad_at_mv (K = 4 over the whole window; the diamond's four +-1
+candidates around even vectors; the half-pel refine's nine on four parity
+planes, single, G = 4 and on four pre-haloed row shards), the single-plane fetches (luma and
 chroma, G = 4, pre-haloed on four row shards), the MC of one P frame step
 with its intra mask at formats 1 and 4 (single, G = 4, four row shards:
 dispatch.mc_predict(_pre_haloed) where the checkout has it, with and
@@ -130,8 +136,9 @@ composed it: a fetch per plane or parity plane, the select, the masks)
 beside one torch.take of its flat indices; code_plane at qp 28 on the
 luma and chroma planes and on G = 4 luma planes, flat and under the
 quant matrix; block_pack of the luma levels at 16 words in both
-syntaxes; then one traced 10-frame GOP of the full-search and format-4
-cells, and the format-4 I frame on its own (code_plane launches, device
+syntaxes; then one traced 10-frame GOP of the full-search, config-3 and
+format-4 cells (device ops per frame, the GOP's device time, the motion
+kernels' device time), and the format-4 I frame on its own (code_plane launches, device
 ops, device ms, wall ms). Each timing has the call time
 (time_ms), the device time (device_ms) and the host time (host_ms). Every
 turn prints one JSON line, the last line is each ROOT's means beside the
@@ -166,6 +173,11 @@ DEVICE = "cuda"
 # 67 TFLOP/s; a multiply-add or an abs-diff-accumulate counts 2 operations.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+# int32 operations per MB of the even SAD map: 289 candidates x 256
+# abs-diff-accumulates of 2 operations, four of them in one vabsdiff4 on
+# words of four 8-bit samples (a kernel of one __sad per pixel pair does
+# 4x this)
+EVEN_MAP_OPS = 289 * 256 * 2 // 4
 # the main paths' plane shapes: 1080p (padded to 1088 rows) and 640x360
 # (padded to 368, an odd 23-row MB grid)
 LUMA = [(1088, 1920), (368, 640)]
@@ -315,7 +327,7 @@ def paired_ms(fa, fb, reps: int = 5):
     return float(np.median(a)), float(np.median(b))
 
 
-def device_ms(fn, n: int = 20, per_call=1, rounds: int = 5):
+def device_ms(fn, n: int = 20, per_call=1, rounds: int = 10):
     """(ms, kernels): fn()'s device time per call, its kernels' own
     durations summed as device_ops reads them from torch.profiler, and
     the device kernels it launches per call, over n calls after a
@@ -802,7 +814,7 @@ def phase_kernels(dev, card: str):
         if (h, w) == luma[0]:
             n_mbs = (h // 16) * (w // 16)
             timing = (*timed(dispatch.sad_map_even, cur_t, ref_t),
-                      bound([cur_t, ref_t], [got], n_mbs * 289 * 256 * 2), None)
+                      bound([cur_t, ref_t], [got], EVEN_MAP_OPS * n_mbs), None)
             dh = dev_host(lambda: dispatch.sad_map_even(cur_t, ref_t), None)
         record("sad_map_even", "full_search.cu",
                "video_encoder_tpu/ops/pallas/sad.py:594", err, timing,
@@ -838,6 +850,24 @@ def phase_kernels(dev, card: str):
             record(name, "sad_at.cu",
                    "video_encoder_tpu/ops/pallas/sad.py:852", err, timing, **dh)
             log(f"kernel {name} {h}x{w} K=4: equal" + shown(timing, dh))
+
+    # the diamond's final step: the four +-1 candidates around even
+    # vectors, whose footprints share an 18x18 box
+    h, w = luma[0]
+    cur_t, ref_t = t32(rng.integers(0, 256, (h, w))), t32(rng.integers(0, 256, (h, w)))
+    ey = 2 * rng.integers(-8, 9, (h // 16, w // 16))
+    ex = 2 * rng.integers(-8, 9, (h // 16, w // 16))
+    unit = ((-1, 0), (0, -1), (0, 1), (1, 0))
+    args = (cur_t, ref_t, t32(np.clip(np.stack([ey + a for a, _ in unit]), -16, 16)),
+            t32(np.clip(np.stack([ex + b for _, b in unit]), -16, 16)))
+    got, want = both(dispatch.sad_at_mv, *args)
+    also = (f"K=4 diamond {h}x{w}", (*timed(dispatch.sad_at_mv, *args),
+                                     bound(args, [got], got.numel() * 256 * 2), None))
+    dh = dev_host(lambda: dispatch.sad_at_mv(*args), None)
+    record("sad_at_mv", "sad_at.cu", "video_encoder_tpu/ops/pallas/sad.py:852",
+           max_abs_err([got], [want]), also=also, **dh)
+    log(f"kernel sad_at_mv {h}x{w} K=4 around even vectors: equal"
+        + shown(also[1], dh))
 
     # the half-pel refine's shape of sad_at_mv: nine candidates, each on
     # the parity plane of its vector, in one launch; vectors on the +-16
@@ -984,7 +1014,7 @@ def phase_kernels(dev, card: str):
                              "or GOP 0 misses its (16, -16) corner")
     held_g("sad_map_even_g", "full_search.cu",
            "video_encoder_tpu/ops/pallas/sad.py:632", f"[{g4}, {h}, {w}]",
-           dispatch.sad_map_even, (cur_t, ref_t), g4 * n_mbs * 289 * 256 * 2)
+           dispatch.sad_map_even, (cur_t, ref_t), EVEN_MAP_OPS * g4 * n_mbs)
 
     for name, (ph, pw), bs, fn in (
             ("mc_fetch_luma_g", (h, w), 16, dispatch.mc_fetch_luma_plane),
@@ -2286,9 +2316,9 @@ def phase_speed_sea(m, clip, card):
     results = {}
     for on in (False, True):
         with sea(on):
-            ops, busy, top = device_ops(gop, n)
+            ops, busy, top = device_ops(gop, n, SAD_KERNELS)
         search = [(name, cnt, ms) for name, cnt, ms in top
-                  if "search" in name or "sea" in name]
+                  if any(k in name for k in SAD_KERNELS)]
         fps = 2 * n / times[on]
         results[f"TVC_SEA={int(on)}"] = dict(resident=fps, search=search)
         log(f"speed: {w}x{h} GOP {n} {m['tag']} TVC_SEA={int(on)}: {fps:.3f} "
@@ -2335,6 +2365,12 @@ def device_ops(run_once, n_frames, watch=()):
 # shown in every per-GOP trace wherever they rank
 CODE_KERNELS = ("plane_kernel", "rows_kernel", "code_plane_kernel",
                 "block_pack_kernel")
+# the motion search's kernels, by the names in a trace, in this checkout
+# and in an older one that --ab may time: the exhaustive search and the
+# whole map (tiled_kernel; tiled_search_kernel, map_kernel<1>), the even
+# map (even_map_kernel; map_kernel<2>), the SEA search, sad_at_mv
+SAD_KERNELS = ("search_kernel", "map_kernel", "tiled_kernel", "sea_kernel",
+               "sad_at_kernel")
 
 
 def i_frame_figures(eng, y, cb, cr):
@@ -2423,10 +2459,11 @@ def phase_speed(cells, card):
             fps = frames_timed / times[emit][0]
             fin_fps = frames_timed / times[emit][1]
             torch.cuda.reset_peak_memory_stats()
-            ops, busy, top = device_ops(lambda: gop(emit), n, CODE_KERNELS)
+            ops, busy, top = device_ops(lambda: gop(emit), n,
+                                        CODE_KERNELS + SAD_KERNELS)
             peak = torch.cuda.max_memory_allocated() / 2**20
             key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
-            search = [t for t in top if "search" in t[0]]
+            search = [t for t in top if any(k in t[0] for k in SAD_KERNELS)]
             results[key] = dict(resident=fps, with_finish=fin_fps,
                                 ops_per_frame=ops, search=search,
                                 device_ms=top[0][2] if top else None)
@@ -2507,6 +2544,40 @@ def ab_child(root: str) -> dict:
     def mvs(lead, nby, nbx, r):
         return (t32(rng.integers(-r, r + 1, (*lead, nby, nbx))),
                 t32(rng.integers(-r, r + 1, (*lead, nby, nbx))))
+
+    # the SAD maps: the even lattice (single, G = 4), the whole map
+    measure("sad_map_even", lambda: dispatch.sad_map_even(cur, ref))
+    measure("sad_map_even_g", lambda: dispatch.sad_map_even(curg, refg))
+    measure("sad_map", lambda: dispatch.sad_map(cur, ref))
+    # sad_at_mv: K = 4 over the whole window (phase 3's case); the
+    # diamond's final step (the four +-1 candidates around even vectors);
+    # the half-pel refine's nine on four parity planes, single, G = 4 and
+    # on four pre-haloed row shards
+    nby, nbx = h // 16, w // 16
+    dy4, dx4 = mvs((4,), nby, nbx, 16)
+    measure("sad_at_k4", lambda: dispatch.sad_at_mv(cur, ref, dy4, dx4))
+    ey, ex = (2 * t for t in mvs((), nby, nbx, 8))
+    unit = torch.tensor([[-1, 0], [0, -1], [0, 1], [1, 0]], device=dev)
+    dyd = (ey + unit[:, :1, None]).clamp(-16, 16).int().contiguous()
+    dxd = (ex + unit[:, 1:, None]).clamp(-16, 16).int().contiguous()
+    measure("sad_at_diamond", lambda: dispatch.sad_at_mv(cur, ref, dyd, dxd))
+    uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
+    plane_of = [abs(u) * 2 + abs(v) for u, v in uv]
+    for name, lead in (("sad_at_k9", ()), ("sad_at_k9_g4", (g,))):
+        c9 = cur if not lead else curg
+        p9 = motion.hpel_stack(ref if not lead else refg)
+        d0y, d0x = mvs(lead, nby, nbx, 16)
+        iy = torch.stack([((2 * d0y + u) >> 1).clamp(-16, 16) for u, _ in uv],
+                         -3).int().contiguous()
+        ix = torch.stack([((2 * d0x + v) >> 1).clamp(-16, 16) for _, v in uv],
+                         -3).int().contiguous()
+        measure(name, lambda a=(c9, p9, iy, ix, plane_of): dispatch.sad_at_mv(*a))
+        if not lead:
+            a = (rows_of(cur), torch.stack([ext_rows(q, 16) for q in p9],
+                                           1).contiguous(),
+                 rows_of(iy), rows_of(ix), plane_of)
+            measure("sad_at_haloed",
+                    lambda a=a: dispatch.sad_at_mv_pre_haloed(*a))
 
     # single-plane fetches
     for name, lead, (ph, pw), bs in (
@@ -2607,17 +2678,17 @@ def ab_child(root: str) -> dict:
 
     # the cells: device ops per frame and the search's device time per GOP
     ph, pw, n = AB_CELL
-    for m in (FULL, V4):
+    for m in (FULL, CONFIG3, V4):
         clip = (synth_clip_halfpel if m["clip"] == "halfpel" else synth_clip)(
             n, ph, pw, 11, m["passes"], m["scale"])
         eng = GopEngine(config_of(m, pw, ph, n), device=dev)
         y, cb, cr = up(clip[0], 16), up(clip[1], 8), up(clip[2], 8)
         o = eng.run(y, cb, cr, 28)
         ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n,
-                                    CODE_KERNELS)
+                                    CODE_KERNELS + SAD_KERNELS)
         out[f"cell_{m['tag']}"] = dict(
             ops_per_frame=ops, busy=busy, top=top,
-            search=[t for t in top if "search" in t[0]],
+            search=[t for t in top if any(s in t[0] for s in SAD_KERNELS)],
             sum=_checksum([o["words"], o["bits"]]))
         if m["fmt"] >= 3:
             # the I frame: wall ms (ms), device time, device ops (kernels)

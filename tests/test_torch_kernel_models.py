@@ -1,17 +1,24 @@
-"""The arithmetic of the Hopper designs of code_plane (csrc/code_plane.cu)
-and block_pack (csrc/block_pack.cu), modelled in plain torch and numpy on
-the CPU and held against the port's plain versions, which the other test
-files tie to the JAX reference, and here also against the reference's
-quotient and its Pallas block_pack in interpret mode. The kernels
-themselves run only on the card (tests/test_torch_kernels.py).
-Tolerance 0: the codec is integer-only.
+"""The arithmetic of the Hopper designs of code_plane (csrc/code_plane.cu),
+block_pack (csrc/block_pack.cu), the SAD maps (csrc/full_search.cu) and
+sad_at_mv (csrc/sad_at.cu), modelled in plain torch and numpy on the CPU
+and held against the port's plain versions, which the other test files tie
+to the JAX reference, and here also against the reference's quotient and
+its Pallas block_pack, sad_map, sad_map_even and sad_at_mv in interpret
+mode. The kernels themselves run only on the card
+(tests/test_torch_kernels.py). Tolerance 0: the codec is integer-only.
 
 The models follow the kernels step by step: the even/odd 8-point passes
 with every partial sum checked against int32, the reciprocal-and-fix-up
 quotient in f32, the arithmetic zigzag position and quant matrix, the row
 scan's per-block-column chains, and block_pack's warp placement (two
 ballot words, the previous set bit, a packed exclusive scan of the pair
-lengths, symbols ORed into the block's words, truncation).
+lengths, symbols ORed into the block's words, truncation); the maps'
+thread-to-candidate mapping (groups of lanes, runs of candidates, window
+strips, the even map's words of four pixels and their vabsdiff4, the
+xor-shuffle sums, the shared row's stores); sad_at_mv's warp
+per block for all K candidates (the lanes' pixels, the coordinate clamp in
+the reference's own extents, the xor-shuffle sums, each plane's union of
+footprints).
 """
 
 import numpy as np
@@ -393,3 +400,333 @@ def test_block_pack_placement_model(rng, fmt, n_words):
                                  fmt, n_words, interpret=True)
     assert np.array_equal(got[1].numpy(), np.asarray(pb))
     assert np.array_equal(got[0].numpy(), np.asarray(pw).astype(np.int64))
+
+
+# ---- the SAD maps: tiled_kernel and even_map_kernel in csrc/full_search.cu --
+
+# (ROWS, RUN, NT) of the whole map (the search's tiling) and the even map
+_MAP_TILING = {1: (4, 11, 128), 2: (2, 9, 288)}
+
+
+def _pack4(x):
+    """Words of four 8-bit samples along the last axis, the first in the
+    low byte (as the kernel packs them)."""
+    x = x.astype(np.int64).reshape(*x.shape[:-1], -1, 4)
+    return x[..., 0] | (x[..., 1] << 8) | (x[..., 2] << 16) | (x[..., 3] << 24)
+
+
+def _vsad4(a, b):
+    """vabsdiff4 without its add: the sum of the four bytes' |a - b|."""
+    return sum(np.abs(((a >> (8 * e)) & 255) - ((b >> (8 * e)) & 255))
+               for e in range(4))
+
+
+def _map_model(cur, ref, stride):
+    """tiled_kernel<true> (stride 1) or even_map_kernel (stride 2) on planes
+    [h, w] of 8-bit samples (numpy): the map [nby, nbx, nds * nds], and how
+    many runs computed each candidate. Lane by lane as the kernels assign
+    them: warp w takes the groups (NT / TPG) i + (32 / TPG) w + lane / TPG,
+    a group's TPG lanes hold ROWS block rows each, a lane loads one strip
+    of the window per block row (stride 2: eight words of four pixels, and
+    the words shifted by two pixels for the odd candidates, four vabsdiff4
+    per candidate row), the group's partial sums meet in xor shuffles, and
+    lane q of a group stores the candidates j with j % TPG == q."""
+    rows, run, nt = _MAP_TILING[stride]
+    h, w = cur.shape
+    nby, nbx = h // 16, w // 16
+    nds = -(-33 // stride)
+    tpg, runs = 16 // rows, -(-nds // run)
+    groups, strip = nds * runs, 16 + stride * (run - 1)
+    pad = np.pad(ref.astype(np.int64), 16, mode="edge")   # the clamped window
+    win = np.stack([np.stack([pad[16 * y:16 * y + 48, 16 * x:16 * x + 48]
+                              for x in range(nbx)]) for y in range(nby)])
+    blk = cur.astype(np.int64).reshape(nby, 16, nbx, 16).transpose(0, 2, 1, 3)
+    if stride == 2:
+        win, blk = _pack4(win), _pack4(blk)          # [.., 48, 12], [.., 16, 4]
+    row = np.full((nby, nbx, nds * nds), -1, np.int64)
+    covered = np.zeros(nds * nds, np.int64)
+    for warp in range(nt // 32):
+        for g0 in range((32 // tpg) * warp, groups, nt // tpg):
+            part = np.zeros((32, run, nby, nbx), np.int64)
+            meta = []
+            for lane in range(32):
+                valid = g0 + lane // tpg < groups
+                grp = g0 + lane // tpg if valid else groups - 1
+                ky = grp // runs
+                kx0 = min((grp - ky * runs) * run, nds - run)
+                r0 = rows * (lane % tpg)
+                assert 0 <= stride * kx0 and stride * kx0 + strip <= 48
+                for r in range(rows):
+                    assert stride * ky + r0 + r < 48
+                    if stride == 1:
+                        s = win[:, :, ky + r0 + r, kx0:kx0 + strip]
+                        for j in range(run):
+                            part[lane, j] += np.abs(
+                                blk[:, :, r0 + r] - s[..., j:j + 16]).sum(-1)
+                        continue
+                    assert kx0 % 2 == 0          # the strip starts on a word
+                    a = win[:, :, 2 * ky + r0 + r, kx0 // 2:kx0 // 2 + 8]
+                    sh = (a[..., :7] >> 16) | ((a[..., 1:] & 0xffff) << 16)
+                    for j in range(run):
+                        words = sh if j % 2 else a
+                        for m in range(4):
+                            part[lane, j] += _vsad4(blk[:, :, r0 + r, m],
+                                                    words[..., j // 2 + m])
+                meta.append((valid, ky, kx0))
+                if valid and lane % tpg == 0:
+                    covered[ky * nds + kx0:ky * nds + kx0 + run] += 1
+            off = 1
+            while off < tpg:                      # __shfl_xor_sync, all lanes
+                part = part + part[np.arange(32) ^ off]
+                off *= 2
+            for lane, (valid, ky, kx0) in enumerate(meta):
+                for j in range(run):
+                    if valid and lane % tpg == j % tpg:
+                        k = ky * nds + kx0 + j
+                        assert (row[..., k] < 0).all() or (row[..., k] == part[lane, j]).all()
+                        row[..., k] = part[lane, j]
+    assert (row >= 0).all()
+    return row, covered
+
+
+def _map_pairs(rng, h, w):
+    """Two plane pairs [2, h, w]: MB (0, 0) and its window flat (all
+    candidates tie), the rest a smooth texture matched exactly at (+16,
+    -16); and a pan with noise."""
+    base = rng.integers(0, 256, (h + 64, w + 64))
+    for _ in range(2):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    cur0, ref0 = base[32:32 + h, 32:32 + w].copy(), base[16:16 + h, 48:48 + w].copy()
+    cur0[:16, :16] = 100
+    ref0[:32, :32] = 100
+    cur1 = base[20:20 + h, 20:20 + w]
+    ref1 = np.clip(base[17:17 + h, 24:24 + w] + rng.integers(-2, 3, (h, w)), 0, 255)
+    return np.stack([cur0, cur1]).astype(np.int32), np.stack([ref0, ref1]).astype(np.int32)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("h,w", [(48, 80), (80, 48)])
+def test_map_tiling_model(rng, stride, h, w):
+    """Every candidate computed by one run (at stride 2 candidate 8 of a
+    dy row by both runs, with one value), every strip inside the window
+    row; the model's map equals the plain map and the reference's Pallas
+    map in interpret mode, with the all-tied MB and the corner MBs."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+
+    from video_encoder_tpu.ops.pallas import sad as psad
+    from video_encoder_tpu_torch.ops import motion
+
+    cur, ref = _map_pairs(rng, h, w)
+    nds = -(-33 // stride)
+    plain = (motion.sad_map if stride == 1 else motion.sad_map_even)(_t(cur), _t(ref))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = jax.vmap(psad.sad_map if stride == 1 else psad.sad_map_even)(
+            jnp.asarray(cur), jnp.asarray(ref))
+    for g in range(2):
+        got, covered = _map_model(cur[g], ref[g], stride)
+        assert np.array_equal(got, plain[g].numpy())
+        assert np.array_equal(got, np.asarray(pallas[g]))
+        twice = np.zeros((nds, nds), np.int64)
+        if stride == 2:
+            twice[:, 8] = 1
+        assert np.array_equal(covered, 1 + twice.reshape(-1))
+    assert (plain[0, 0, 0] == plain[0, 0, 0, 0]).all()            # all tied
+    corner = 16 * 17 if stride == 2 else 32 * 33                  # (16, -16)
+    assert (plain[0].argmin(-1)[1:-1, 1:-1] == corner).all()
+
+
+# ---- sad_at_mv: sad_at_kernel in csrc/sad_at.cu -----------------------------
+
+def _sad_at_model(cur, ref, dy, dx, bs, plane_of=None, stats=None):
+    """sad_at_kernel<BS> on cur [h, w] against reference planes [P, rh, rw]
+    (cur's origin at ((rh - h) / 2, (rw - w) / 2)) at vectors [K, nby, nbx]
+    (numpy): one warp per block for all K candidates. Lane l holds the
+    bs * bs / 32 pixels of cur in column l % bs, rows l / bs + (32 / bs) i;
+    the candidates go 32 at a time, lane j holding candidate j's vector
+    and plane (candidates past the 16th read plane 0); each candidate's
+    pixels are read through the reference's coordinate clamp, each lane's
+    abs-diffs summed, then the lanes' sums by xor shuffles, and lane j
+    keeps candidate j's SAD. stats["largest"]: the largest union of one
+    plane's candidate footprints in one block, the reference pixels the
+    warp reads there from L1 and L2."""
+    px, rstep = bs * bs // 32, 32 // bs
+    n_planes, rh, rw = ref.shape
+    h, w = cur.shape
+    oy, ox = (rh - h) // 2, (rw - w) // 2
+    k, nby, nbx = dy.shape
+    out = np.zeros(dy.shape, np.int64)
+    lanes = np.arange(32)
+    row, col = lanes // bs, lanes % bs       # pixels (row + rstep i, col)
+    for by in range(nby):
+        for bx in range(nbx):
+            y0, x0 = by * bs, bx * bs
+            c = np.stack([cur[y0 + row + rstep * i, x0 + col] for i in range(px)], 1)
+            for c0 in range(0, k, 32):
+                n = min(32, k - c0)
+                vy, vx = dy[c0:c0 + n, by, bx], dx[c0:c0 + n, by, bx]
+                plane = np.array([plane_of[c0 + j] if plane_of and c0 + j < 16
+                                  else 0 for j in range(n)])
+                for j in range(n):
+                    x = np.clip(x0 + col + vx[j] + ox, 0, rw - 1)
+                    part = sum(np.abs(c[:, i] - ref[plane[j], np.clip(
+                        y0 + row + rstep * i + vy[j] + oy, 0, rh - 1), x])
+                        for i in range(px))
+                    off = 1
+                    while off < 32:
+                        part = part + part[lanes ^ off]
+                        off *= 2
+                    assert (part == part[0]).all()
+                    out[c0 + j, by, bx] = part[j]
+                if stats is not None:
+                    for p in set(plane.tolist()):
+                        on = plane == p
+                        box = ((vy[on].max() - vy[on].min() + bs)
+                               * (vx[on].max() - vx[on].min() + bs))
+                        stats["largest"] = max(stats["largest"], int(box))
+    return out
+
+
+def _sad_at_sets(rng, case, h, w, bs=16):
+    """(dy, dx [K, nby, nbx], plane_of, n_planes) of a caller's candidates
+    at block size bs (radius bs): the diamond's four +-1 around even
+    vectors, the half-pel refine's nine on four parity planes, the hier
+    refine's 25, 16 candidates on 16 planes, one, random over the whole
+    window with its corners, and 40 (two rounds of 32)."""
+    r = bs
+    nby, nbx = h // bs, w // bs
+    c = rng.integers(-r, r + 1, (2, 1, nby, nbx))
+    c[:, :, 0, 0], c[:, :, -1, -1] = -r, r
+    plane_of, n_planes = None, 1
+    if case == "diamond":
+        c = c // 2 * 2
+        offs = [(-1, 0), (0, -1), (0, 1), (1, 0)]
+    elif case == "hpel":
+        offs = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
+        plane_of, n_planes = [abs(u) * 2 + abs(v) for u, v in offs], 4
+    elif case == "hier":
+        offs = [(u, v) for u in range(-2, 3) for v in range(-2, 3)]
+    elif case == "one":
+        offs = [(0, 0)]
+    else:
+        kk = {"planes16": 16, "window": 8, "many": 40}[case]
+        offs = [(0, 0)] * kk
+        c = rng.integers(-r, r + 1, (2, kk, nby, nbx))
+        if case == "planes16":
+            plane_of, n_planes = [int(q) for q in rng.permutation(16)], 16
+        if case == "window":
+            for k, (sy, sx) in enumerate(((-1, -1), (-1, 1), (1, -1), (1, 1))):
+                c[0, k], c[1, k] = r * sy, r * sx
+    u = np.array([o[0] for o in offs])[:, None, None]
+    v = np.array([o[1] for o in offs])[:, None, None]
+    if case == "hpel":        # the integer parts of 2d + u
+        dy, dx = (2 * c[0] + u) >> 1, (2 * c[1] + v) >> 1
+    else:
+        dy, dx = c[0] + u, c[1] + v
+    return np.clip(dy, -r, r), np.clip(dx, -r, r), plane_of, n_planes
+
+
+def _pallas_sad_at(cur, planes, dy, dx, plane_of, bs):
+    """The reference's Pallas sad_at_mv (sad_at_mv_chroma at bs 8) in
+    interpret mode, one vmapped call per plane's candidates."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+
+    from video_encoder_tpu.ops.pallas import sad as psad
+
+    fn = jax.vmap(psad.sad_at_mv if bs == 16 else psad.sad_at_mv_chroma,
+                  in_axes=(None, None, 0, 0))
+    of = plane_of or [0] * dy.shape[0]
+    out = np.zeros(dy.shape, np.int64)
+    with pltpu.force_tpu_interpret_mode():
+        for p in sorted(set(of)):
+            ks = [k for k, q in enumerate(of) if q == p]
+            out[ks] = np.asarray(fn(jnp.asarray(cur), jnp.asarray(planes[p]),
+                                    jnp.asarray(dy[ks], jnp.int32),
+                                    jnp.asarray(dx[ks], jnp.int32)))
+    return out
+
+
+@pytest.mark.parametrize("case", ["diamond", "hpel", "hier", "planes16", "one",
+                                  "window", "many"])
+def test_sad_at_warp_model(rng, case):
+    """The warp-per-block model equals the plain sad_at and the reference's
+    Pallas sad_at_mv at 48x80, for each caller's candidate set. The union
+    of one plane's footprints in a block, what the warp reads from L1 and
+    L2 for it: 18x18 for the diamond's four, at most 17x17 per parity plane
+    for the half-pel refine's nine, 20x20 for the hier refine's 25, the
+    whole window for the spread set."""
+    from video_encoder_tpu_torch.ops import motion
+
+    h, w = 48, 80
+    dy, dx, plane_of, n_planes = _sad_at_sets(rng, case, h, w)
+    cur = rng.integers(0, 256, (h, w))
+    ref = rng.integers(0, 256, (n_planes, h, w))
+    stats = dict(largest=0)
+    got = _sad_at_model(cur, ref, dy, dx, 16, plane_of, stats)
+    plain = motion.sad_at(_t(cur), _t(ref if plane_of else ref[0]), _t(dy),
+                          _t(dx), plane_of=plane_of)
+    assert np.array_equal(got, plain.numpy())
+    if case in ("diamond", "hpel", "hier", "window"):
+        assert np.array_equal(got, _pallas_sad_at(cur, ref, dy, dx, plane_of, 16))
+    largest = {"diamond": 18 * 18, "hpel": 17 * 17, "hier": 20 * 20,
+               "window": 48 * 48, "one": 16 * 16, "planes16": 16 * 16}
+    if case in largest:
+        assert stats["largest"] == largest[case]
+    if case == "one":         # no candidate axis
+        one = motion.sad_at(_t(cur), _t(ref[0]), _t(dy[0]), _t(dx[0]))
+        assert np.array_equal(got[0], one.numpy())
+
+
+@pytest.mark.parametrize("sr,sc", [(1, 1), (3, 1), (2, 2)])
+def test_sad_at_warp_model_pre_haloed(rng, sr, sc):
+    """The same model on pre-haloed shards, the row-haloed ([h + 32, w])
+    and the 2 x 2 haloed ([h + 32, w + 32]) extents with cur's origin
+    derived per axis: equal to sad_at_pre_haloed and, for a row halo, to
+    the reference's jnp _sad_at_haloed; joined, to the whole frame's."""
+    from video_encoder_tpu.ops import transform as jtx
+    from video_encoder_tpu.parallel import tiles as jtiles
+    from video_encoder_tpu_torch.ops import motion
+
+    h, w = 48 * sr, 64 * sc
+    dy, dx, plane_of, _ = _sad_at_sets(rng, "hpel", h, w)
+    cur = rng.integers(0, 256, (h, w))
+    planes = rng.integers(0, 256, (4, h, w))
+    pad = np.pad(planes, ((0, 0), (16, 16), (16, 16)), mode="edge")
+    whole = motion.sad_at(_t(cur), _t(planes), _t(dy), _t(dx), plane_of=plane_of)
+    hs, ws = h // sr, w // sc
+    for i in range(sr):
+        for j in range(sc):
+            cs = cur[i * hs:(i + 1) * hs, j * ws:(j + 1) * ws]
+            rows = pad[:, i * hs:(i + 1) * hs + 32]
+            ext = rows[:, :, 16:-16] if sc == 1 else rows[:, :, j * ws:(j + 1) * ws + 32]
+            sl = np.s_[:, i * hs // 16:(i + 1) * hs // 16, j * ws // 16:(j + 1) * ws // 16]
+            got = _sad_at_model(cs, ext, dy[sl], dx[sl], 16, plane_of)
+            plain = motion.sad_at_pre_haloed(_t(cs), _t(ext), _t(dy[sl]),
+                                             _t(dx[sl]), plane_of)
+            assert np.array_equal(got, plain.numpy())
+            assert np.array_equal(got, whole[sl].numpy())
+            if sc == 1:
+                cb = jtx.blockify(jnp.asarray(cs), 16)
+                want = [jtiles._sad_at_haloed(cb, jnp.asarray(ext[p]),
+                                              jnp.asarray(dy[sl][k]),
+                                              jnp.asarray(dx[sl][k]), 16)
+                        for k, p in enumerate(plane_of)]
+                assert np.array_equal(got, np.stack([np.asarray(a) for a in want]))
+
+
+@pytest.mark.parametrize("case", ["diamond", "window", "many"])
+def test_sad_at_warp_model_chroma(rng, case):
+    """BS = 8 (the chroma twin: two pixels per lane, rows four apart): the
+    model equals the plain sad_at at block 8 and the reference's Pallas
+    sad_at_mv_chroma."""
+    from video_encoder_tpu_torch.ops import motion
+
+    h, w = 24, 40
+    dy, dx, _, _ = _sad_at_sets(rng, case, h, w, bs=8)
+    cur = rng.integers(0, 256, (h, w))
+    ref = rng.integers(0, 256, (1, h, w))
+    got = _sad_at_model(cur, ref, dy, dx, 8)
+    assert np.array_equal(got, motion.sad_at(_t(cur), _t(ref[0]), _t(dy), _t(dx), 8).numpy())
+    if case != "many":
+        assert np.array_equal(got, _pallas_sad_at(cur, ref, dy, dx, None, 8))

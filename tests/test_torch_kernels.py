@@ -1151,3 +1151,162 @@ def test_full_search_g_kernel_four_corners(cuda, plain_and_kernel, rng):
     for i, (vy, vx) in enumerate(_CORNERS):
         hit = (got[0][i] == vy) & (got[1][i] == vx)
         assert float(hit.float().mean()) > 0.9, i
+
+
+# ---- the register-tiled maps and the per-block sad_at_mv:
+# the corner and all-tied MBs of the even map, and the candidate sets of
+# every caller of sad_at_mv, single and G = 4 -------------------------------
+
+def _corner_tied(rng, lead, h, w):
+    """Planes [*lead, h, w] whose interior MBs match best at the (+16, -16)
+    corner of the window (ref is cur moved by (-16, +16), a smooth texture
+    without noise) and where MB (0, 0) and its whole window are flat, so
+    every candidate of that MB ties."""
+    n = int(np.prod(lead)) if lead else 1
+    out = []
+    for _ in range(n):
+        base = rng.integers(0, 256, (h + 64, w + 64)).astype(np.int64)
+        for _ in range(2):
+            base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+        cur = base[32:32 + h, 32:32 + w].copy()
+        ref = base[16:16 + h, 48:48 + w].copy()
+        cur[:16, :16] = 100
+        ref[:32, :32] = 100
+        out.append((cur, ref))
+    cur = np.stack([c for c, _ in out]).reshape(*lead, h, w)
+    ref = np.stack([r for _, r in out]).reshape(*lead, h, w)
+    return cur, ref
+
+
+@pytest.mark.parametrize("g", [None, 4])
+@pytest.mark.parametrize("h,w", [(368, 640), (48, 80)])
+def test_sad_map_even_corner_and_ties_kernel(cuda, plain_and_kernel, rng, g, h, w):
+    """The even map where its first minimum sits on the window's corner
+    and where all 289 candidates tie: equal to the plain version, and for
+    G = 4 to four single launches."""
+    lead = () if g is None else (g,)
+    cur, ref = _corner_tied(rng, lead, h, w)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.sad_map_even, *args)
+    assert torch.equal(got, want)
+    best = got.argmin(-1)
+    assert bool((best[..., 1:-1, 1:-1] == 16 * 17).all())     # (16, -16)
+    assert bool((got[..., 0, 0, :] == got[..., 0, 0, :1]).all())
+    if g:
+        assert torch.equal(got, _per_g(dispatch.sad_map_even, g, *args))
+        assert build.LAUNCHES["sad_map_even_g"] > 0
+
+
+@pytest.mark.parametrize("g", [None, 4])
+def test_sad_map_corner_and_ties_kernel(cuda, plain_and_kernel, rng, g):
+    lead = () if g is None else (g,)
+    cur, ref = _corner_tied(rng, lead, 48, 80)
+    args = (_t(cur, cuda), _t(ref, cuda))
+    got, want = plain_and_kernel(dispatch.sad_map, *args)
+    assert torch.equal(got, want)
+    assert bool((got.argmin(-1)[..., 1:-1, 1:-1] == 32 * 33).all())
+    if g:
+        assert torch.equal(got, _per_g(dispatch.sad_map, g, *args))
+
+
+def _sad_at_case(rng, case, lead, h, w):
+    """(cur, ref or planes, dy, dx, plane_of) of one caller's candidate set
+    on planes [*lead, h, w]: diamond (the four +-1 around even vectors),
+    hpel (the half-pel refine's nine on four parity planes), hier (25 on a
+    5x5 square), planes16 (16 candidates on 16 planes), window (the four
+    corners of the window and random ones: the box is the whole window),
+    one (K = 1, no candidate axis), many (K = 40: two rounds of 32)."""
+    nby, nbx = h // 16, w // 16
+    cur = rng.integers(0, 256, (*lead, h, w))
+    n_planes = {"hpel": 4, "planes16": 16}.get(case)
+    ref = rng.integers(0, 256, (*lead, *([n_planes] if n_planes else []), h, w))
+    centre = rng.integers(-16, 17, (2, *lead, 1, nby, nbx))
+    centre[:, ..., 0, 0] = -16
+    centre[:, ..., -1, -1] = 16
+    plane_of = None
+    if case == "diamond":
+        centre = centre // 2 * 2
+        offs = [(-1, 0), (0, -1), (0, 1), (1, 0)]
+    elif case == "hpel":
+        offs = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
+        plane_of = [abs(u) * 2 + abs(v) for u, v in offs]
+        centre = 2 * centre
+    elif case == "hier":
+        offs = [(u, v) for u in range(-2, 3) for v in range(-2, 3)]
+    elif case == "planes16":
+        offs = [(0, 0)] * 16
+        plane_of = list(rng.permutation(16))
+        centre = rng.integers(-16, 17, (2, *lead, 16, nby, nbx))
+    elif case == "window":
+        offs = [(0, 0)] * 7
+        centre = rng.integers(-16, 17, (2, *lead, 7, nby, nbx))
+        for k, (sy, sx) in enumerate(((-1, -1), (-1, 1), (1, -1), (1, 1))):
+            centre[0, ..., k, :, :], centre[1, ..., k, :, :] = 16 * sy, 16 * sx
+    elif case == "one":
+        offs = [(0, 0)]
+    else:
+        offs = [(0, 0)] * 40
+        centre = rng.integers(-16, 17, (2, *lead, 40, nby, nbx))
+    u = np.array([o[0] for o in offs]).reshape(-1, 1, 1)
+    v = np.array([o[1] for o in offs]).reshape(-1, 1, 1)
+    if case == "hpel":      # integer parts of the half-pel candidates
+        dy, dx = (centre[0] + u) >> 1, (centre[1] + v) >> 1
+    else:
+        dy, dx = centre[0] + u, centre[1] + v
+    dy, dx = np.clip(dy, -16, 16), np.clip(dx, -16, 16)
+    if case == "one":
+        dy, dx = dy[..., 0, :, :], dx[..., 0, :, :]
+    return cur, ref, dy, dx, plane_of
+
+
+@pytest.mark.parametrize("g", [None, 4])
+@pytest.mark.parametrize("case", ["diamond", "hpel", "hier", "planes16",
+                                  "window", "one", "many"])
+def test_sad_at_mv_candidate_sets_kernel(cuda, plain_and_kernel, rng, case, g):
+    lead = () if g is None else (g,)
+    h, w = (368, 640) if case != "planes16" or g is None else (96, 160)
+    cur, ref, dy, dx, plane_of = _sad_at_case(rng, case, lead, h, w)
+    args = (_t(cur, cuda), _t(ref, cuda), _t(dy, cuda), _t(dx, cuda), plane_of)
+    got, want = plain_and_kernel(dispatch.sad_at_mv, *args)
+    assert torch.equal(got, want) and got.shape == dy.shape
+    assert build.LAUNCHES["sad_at_mv" if g is None else "sad_at_mv_g"] > 0
+    if g:
+        assert torch.equal(got, _per_g(dispatch.sad_at_mv, g, *args))
+
+
+@pytest.mark.parametrize("case", ["diamond", "hpel", "hier", "window"])
+@pytest.mark.parametrize("sr,sc", [(4, 1), (2, 2)])
+def test_sad_at_mv_haloed_candidate_sets_kernel(cuda, plain_and_kernel, rng,
+                                               case, sr, sc):
+    """The same sets on pre-haloed shards (a row halo; both halos): equal
+    to the plain version and, joined, to the unsharded kernel."""
+    h, w = 256, 384
+    cur, ref, dy, dx, plane_of = _sad_at_case(rng, case, (), h, w)
+    cur, dy, dx = _t(cur, cuda), _t(dy, cuda), _t(dx, cuda)
+    ref = _t(ref, cuda)
+    planes = ref if plane_of else ref[None]
+    ext = torch.stack([_ext(q, sr, sc, 16) for q in planes], 1)
+    ext = ext.contiguous() if plane_of else ext[:, 0].contiguous()
+    args = (_split(cur, sr, sc), ext, _split(dy, sr, sc), _split(dx, sr, sc),
+            plane_of)
+    got, want = plain_and_kernel(dispatch.sad_at_mv_pre_haloed, *args)
+    assert torch.equal(got, want)
+    assert torch.equal(_join(got, sr, sc),
+                       dispatch.sad_at_mv(cur, ref, dy, dx, plane_of))
+
+
+@pytest.mark.parametrize("g", [None, 4])
+@pytest.mark.parametrize("case", ["diamond", "window", "many"])
+def test_sad_at_mv_chroma_candidate_sets_kernel(cuda, plain_and_kernel, rng,
+                                               case, g):
+    """The chroma twin (8x8 blocks, radius 8) on the luma sets halved."""
+    lead = () if g is None else (g,)
+    cur, ref, dy, dx, _ = _sad_at_case(rng, case, lead, 368, 640)
+    cur, ref = cur[..., :184, :320], ref[..., :184, :320]
+    dy = np.repeat(np.repeat(dy[..., :, :], 2, -2), 2, -1)[..., :23, :40] // 2
+    dx = np.repeat(np.repeat(dx[..., :, :], 2, -2), 2, -1)[..., :23, :40] // 2
+    args = (_t(cur, cuda), _t(ref, cuda), _t(dy, cuda), _t(dx, cuda))
+    got, want = plain_and_kernel(dispatch.sad_at_mv_chroma, *args)
+    assert torch.equal(got, want)
+    if g:
+        assert torch.equal(got, _per_g(dispatch.sad_at_mv_chroma, g, *args))

@@ -3,13 +3,14 @@
 //
 // Replaces: video_encoder_tpu/ops/pallas/sad.py, _make_full_search_kernel,
 // launched by _full_search_call (public full_search: stride 1, packed
-// minimum) and by _sad_map_call with stride 1 (public sad_map: all 1089
-// SADs of an MB) or 2 (public sad_map_even: the 289 SADs of the even-even
-// mvs). The TPU builds all three from one kernel factory; here the two
-// maps share one template (on stride) and the search has a kernel of its
-// own.
+// minimum) and by _sad_map_call (sad.py:594) with stride 1 (public
+// sad_map, :709: all 1089 SADs of an MB) or 2 (public sad_map_even, :716:
+// the 289 SADs of the even-even mvs). The TPU builds all three from one
+// kernel factory; here the search and the whole map share tiled_kernel (a
+// template on map-or-minimum) and the even map, on byte-packed rows, has a
+// kernel of its own.
 // Also replaces its G-batched twins _full_search_call_batch and
-// _sad_map_call_batch (the vmap rules of full_search and the maps on
+// _sad_map_call_batch (:632; the vmap rules of full_search and the maps on
 // [G, H, W] planes of G GOPs in lockstep): the TPU needed separate calls
 // because vmap could not batch a pallas_call with an ANY-space operand;
 // here the GOP is blockIdx.z and a plane stride, in the same kernel (the
@@ -28,34 +29,49 @@
 // Bound on this card: integer ALU. A 1088x1920 frame has 8160 MBs x 1089
 // candidates x 256 pixels, about 2.3e9 absolute differences (a quarter of
 // that for the 289-candidate map); the frame itself is only 8 MB of int32
-// reads.
+// reads. The even map's vabsdiff4 makes four abs-diffs per instruction,
+// so its bound in int32 operations is a quarter of the plain count.
 //
-// Design of the exhaustive search (tiled_search_kernel; the entries
-// tvc_full_search, _g and _haloed): one block of 128 threads per MB stages
-// the MB's 48x48 reference window and its 16x16 block in shared memory
-// once (global traffic about 10 KB per MB). The window is read with
-// clamped coordinates, which is exactly the reference's edge-replicated
-// pad_ref because |dy|, |dx| <= 16, so no padded copy of the frame is made.
-// A thread then holds four rows of the block in registers and takes a
-// group of RUN = 11 horizontally adjacent candidates of one dy at a time:
-// per block row it loads one strip of 16 + 10 window pixels and makes
-// 16 x 11 abs-diffs from registers, so a shared load serves 6.8 of them
-// (the maps' loop below loads two words per abs-diff; as a search it was
-// bound by the shared-memory load issue). The four threads of a candidate
-// group are neighbouring lanes, one per four block rows, and add their
-// partial sums with two shuffles. The 99 groups of an MB go to the four
-// warps eight at a time; a warp past the last group skips, so 13
-// warp-rounds do the MB's work where 12.4 would be perfect balance. The
-// winner is the minimum of the packed key sad << 11 | k (sad <= 65280,
-// k = (dy + 16) * 33 + dx + 16 < 1089: fits int32), which is the
-// row-major strict-< first minimum, ties included.
+// Staging (every kernel here): one block per MB stages the MB's 48x48
+// reference window and its 16x16 block in shared memory once (global
+// traffic about 10 KB per MB). The window is read with clamped
+// coordinates, which is exactly the reference's edge-replicated pad_ref
+// because |dy|, |dx| <= 16, so no padded copy of the frame is made. Each
+// thread issues all its loads before its first store, so a block waits
+// for one round trip to memory, not one per element.
 //
-// The maps (map_kernel<STRIDE>): each block stages the same window, then
-// its 256 threads stride over the candidates, one __sad per pixel with
-// both operands read from shared memory; thread k writes SAD k of the
-// MB's [289] or [1089] row, so a warp's stores are contiguous. Packing
-// four pixels per __vsadu4 is later work.
+// The exhaustive search and the whole map (tiled_kernel; the entries
+// tvc_full_search, _g, _haloed and tvc_sad_map(_g)): 128 threads per MB.
+// A thread holds four rows of the block in registers and takes a group of
+// RUN = 11 horizontally adjacent candidates of one dy at a time: per block
+// row it loads one strip of 16 + 10 window pixels and makes 16 x 11
+// abs-diffs from registers, so a shared load serves 6.8 of them (the first
+// design, one __sad with both operands read from shared memory, was bound
+// by the SM's shared-load issue). The four threads of a group are
+// neighbouring lanes, one per four block rows, and add their partial sums
+// with two shuffles. The 99 groups of an MB go to the four warps eight at
+// a time; a warp past the last group skips, so 13 warp-rounds do the MB's
+// work where 12.4 would be perfect balance. The search's winner is the
+// minimum of the packed key sad << 11 | k (sad <= 65280, k = (dy + 16) *
+// 33 + dx + 16 < 1089: fits int32), the row-major strict-< first minimum,
+// ties included. The map stages each group's SADs in the MB's row of 1089
+// in shared memory, which leaves as one contiguous run of stores.
 //
+// The even map (even_map_kernel; tvc_sad_map_even(_g)), on planes of 8-bit
+// samples (0-255, as every plane of the codec holds): the window and the
+// block are staged as words of four pixels, so one vabsdiff4 makes four
+// abs-diffs and their sum. The 17 candidates of a dy row are two runs of 9
+// that start at kx0 = 0 and 8 and overlap in candidate 8 (17 is prime; the
+// overlap costs 1/18 of the work and masks nothing), both at an even
+// candidate, so a run's strip of 32 pixels is 8 aligned words: an even
+// candidate reads them as they are, an odd one the words shifted by two
+// pixels (a byte_perm of two neighbours). 288 threads of two block rows
+// each, eight threads per group: the 34 groups take one round of 36 slots.
+// A group's SADs go to the MB's row of 289 in shared memory, stored as one
+// run. The same tiling with one __sad per pixel pair was slower than a
+// loop of two shared loads per abs-diff, the even map's first design;
+// packed, it is 2.8x faster than that loop (PERF.md, the kernel table).
+
 // Also replaces the factory's sea=True variant (sad.py:224-325, opted into
 // with TVC_SEA=1 by full_search, its batched twin and
 // full_search_pre_haloed; full_search_sea_stats also returns the count of
@@ -93,23 +109,38 @@ constexpr int THREADS = 256;
 
 // Stages the MB's clamped 48x48 reference window and its 16x16 block with
 // NT threads; the caller synchronises. cur and ref point at the block's
-// plane.
+// plane. Every thread issues all its loads before its first store, so a
+// block waits for one round trip to memory, not one per element.
 template <int NT = THREADS>
 __device__ __forceinline__ void stage(const int* __restrict__ cur,
                                       const int* __restrict__ ref, int w,
                                       int rh, int rw, int oy, int ox, int y0,
                                       int x0, int (*win)[WIN + 1],
                                       int (*blk)[MB]) {
+  constexpr int NW = (WIN * WIN + NT - 1) / NT, NB = (MB * MB + NT - 1) / NT;
   const int tid = threadIdx.x;
-  for (int i = tid; i < WIN * WIN; i += NT) {
-    const int r = i / WIN, c = i % WIN;
-    const int y = min(max(y0 - R + r + oy, 0), rh - 1);
-    const int x = min(max(x0 - R + c + ox, 0), rw - 1);
-    win[r][c] = ref[y * rw + x];
+  int v[NW], u[NB];
+#pragma unroll
+  for (int q = 0; q < NW; ++q) {
+    const int i = min(tid + q * NT, WIN * WIN - 1);
+    const int y = min(max(y0 - R + i / WIN + oy, 0), rh - 1);
+    const int x = min(max(x0 - R + i % WIN + ox, 0), rw - 1);
+    v[q] = ref[y * rw + x];
   }
-  for (int i = tid; i < MB * MB; i += NT) {
-    const int r = i / MB, c = i % MB;
-    blk[r][c] = cur[(y0 + r) * w + x0 + c];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int i = min(tid + q * NT, MB * MB - 1);
+    u[q] = cur[(y0 + i / MB) * w + x0 + i % MB];
+  }
+#pragma unroll
+  for (int q = 0; q < NW; ++q) {
+    const int i = tid + q * NT;
+    if (i < WIN * WIN) win[i / WIN][i % WIN] = v[q];
+  }
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int i = tid + q * NT;
+    if (i < MB * MB) blk[i / MB][i % MB] = u[q];
   }
 }
 
@@ -136,13 +167,23 @@ constexpr int GROUPS = ND * RUNS;      // 99 candidate groups per MB
 constexpr int ROWS = 4;                // block rows of a thread
 constexpr int STRIP = MB + RUN - 1;    // window pixels per block row: 26
 
+// The register-tiled body of the exhaustive search and of the whole map.
+// A group is a run of RUN adjacent candidates of one dy row; its four
+// threads are neighbouring lanes, each holding four block rows in
+// registers, and add their partial sums with two xor shuffles, so every
+// lane of the group holds the run's SADs. MAP: the SADs go to the MB's
+// row of the map, staged in shared memory and stored as one contiguous
+// run; else the packed key sad << 11 | k is minimised over the block.
+template <bool MAP>
 __global__ void __launch_bounds__(TILED_THREADS)
-tiled_search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
-                    int h, int w, int rh, int rw, int oy, int ox,
-                    int* __restrict__ dy_out, int* __restrict__ dx_out,
-                    int* __restrict__ sad_out) {
+tiled_kernel(const int* __restrict__ cur, const int* __restrict__ ref, int h,
+             int w, int rh, int rw, int oy, int ox, int* __restrict__ dy_out,
+             int* __restrict__ dx_out, int* __restrict__ sad_out,
+             int* __restrict__ map_out) {
+  constexpr int NCAND = ND * ND;
   __shared__ int win[WIN][WIN + 1];
   __shared__ int blk[MB][MB];
+  __shared__ int row_s[MAP ? NCAND : 1];   // the MB's row of the map
   __shared__ int warp_best[TILED_THREADS / 32];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -191,8 +232,20 @@ tiled_search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
       unsigned int v = acc[j];
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (valid) best = min(best, (int)(v << 11) | (ky * ND + kx0 + j));
+      if constexpr (MAP) {
+        // the group's four lanes share its stores
+        if (valid && (lane & 3) == (j & 3)) row_s[ky * ND + kx0 + j] = (int)v;
+      } else if (valid) {
+        best = min(best, (int)(v << 11) | (ky * ND + kx0 + j));
+      }
     }
+  }
+  if constexpr (MAP) {
+    __syncthreads();
+    for (int i = tid; i < NCAND; i += TILED_THREADS) {
+      map_out[o * NCAND + i] = row_s[i];
+    }
+    return;
   }
   for (int off = 16; off > 0; off >>= 1) {
     best = min(best, __shfl_down_sync(0xffffffffu, best, off));
@@ -208,37 +261,102 @@ tiled_search_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   }
 }
 
-template <int STRIDE>
-__global__ void __launch_bounds__(THREADS)
-map_kernel(const int* __restrict__ cur, const int* __restrict__ ref, int h,
-           int w, int rh, int rw, int oy, int ox,
-           int* __restrict__ map_out) {
-  constexpr int NDS = (ND + STRIDE - 1) / STRIDE;  // 33 or 17 per axis
-  constexpr int NCAND = NDS * NDS;                 // 1089 or 289
-  __shared__ int win[WIN][WIN + 1];
-  __shared__ int blk[MB][MB];
+constexpr int EM_THREADS = 288;
+constexpr int WPITCH = WIN / 4 + 1;   // packed words per window row, padded
 
-  const int bx = blockIdx.x, by = blockIdx.y;
-  const int tid = threadIdx.x;
-  // 64-bit: g * h * w passes int32 for a large batch of large planes; the
-  // reference's planes are rh * rw apart
-  const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
-  stage(cur + (size_t)blockIdx.z * h * w, ref + (size_t)blockIdx.z * rh * rw,
-        w, rh, rw, oy, ox, by * MB, bx * MB, win, blk);
+// d = c + sum over the four bytes of |a - b| (one vabsdiff4 with add)
+__device__ __forceinline__ unsigned vsad4(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The even map (see the note at the top of the file).
+__global__ void __launch_bounds__(EM_THREADS)
+even_map_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
+                int h, int w, int* __restrict__ map_out) {
+  constexpr int NDS = 17, NCAND = NDS * NDS, ROWS = 2, TPG = MB / ROWS;
+  constexpr int RUN = 9, GROUPS = NDS * 2, NWW = WIN * WIN / 4;
+  constexpr int NW = (NWW + EM_THREADS - 1) / EM_THREADS;   // 2
+  __shared__ unsigned win[WIN][WPITCH];
+  __shared__ unsigned blk[MB][MB / 4];
+  __shared__ int row_s[NCAND];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t o =
+      ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const int* cp = cur + (size_t)blockIdx.z * h * w;
+  const int* rp = ref + (size_t)blockIdx.z * h * w;
+  const int y0 = blockIdx.y * MB, x0 = blockIdx.x * MB;
+  int v[NW][4], u[4];
+#pragma unroll
+  for (int q = 0; q < NW; ++q) {
+    const int i = min(tid + q * EM_THREADS, NWW - 1);
+    const int y = min(max(y0 - R + i / (WIN / 4), 0), h - 1);
+    const int c4 = x0 - R + (i % (WIN / 4)) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[q][e] = rp[y * w + min(max(c4 + e, 0), w - 1)];
+  }
+  const int bi = min(tid, MB * MB / 4 - 1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    u[e] = cp[(y0 + bi / 4) * w + x0 + (bi % 4) * 4 + e];
+  }
+#pragma unroll
+  for (int q = 0; q < NW; ++q) {
+    const int i = tid + q * EM_THREADS;
+    if (i < NWW) {
+      win[i / (WIN / 4)][i % (WIN / 4)] =
+          v[q][0] | (v[q][1] << 8) | (v[q][2] << 16) | (v[q][3] << 24);
+    }
+  }
+  if (tid < MB * MB / 4) {
+    blk[bi / 4][bi % 4] = u[0] | (u[1] << 8) | (u[2] << 16) | (u[3] << 24);
+  }
   __syncthreads();
 
-  for (int k = tid; k < NCAND; k += THREADS) {
-    const int ky = (k / NDS) * STRIDE, kx = (k % NDS) * STRIDE;
-    unsigned int s = 0;
-#pragma unroll 4
-    for (int r = 0; r < MB; ++r) {
+  const int r0 = ROWS * (lane % TPG);
+  unsigned b[ROWS][4];
 #pragma unroll
-      for (int c = 0; c < MB; ++c) {
-        s = __sad(blk[r][c], win[ky + r][kx + c], s);
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b[r][m] = blk[r0 + r][m];
+  }
+  // one round: warp w takes the groups 4 w + lane / 8
+  const bool valid = 4 * warp + lane / TPG < GROUPS;
+  const int grp = valid ? 4 * warp + lane / TPG : GROUPS - 1;
+  const int ky = grp / 2, kx0 = (grp % 2) * 8;
+  unsigned acc[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) acc[j] = 0;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const unsigned* wr = &win[2 * ky + r0 + r][kx0 / 2];
+    unsigned a[8], s[7];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a[q] = wr[q];
+#pragma unroll
+    for (int q = 0; q < 7; ++q) s[q] = __byte_perm(a[q], a[q + 1], 0x5432);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        acc[j] = vsad4(b[r][m], j % 2 ? s[j / 2 + m] : a[j / 2 + m], acc[j]);
       }
     }
-    map_out[o * NCAND + k] = (int)s;
   }
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    unsigned v2 = acc[j];
+#pragma unroll
+    for (int off = 1; off < TPG; off <<= 1) {
+      v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+    }
+    if (valid && lane % TPG == j % TPG) row_s[ky * NDS + kx0 + j] = (int)v2;
+  }
+  __syncthreads();
+  for (int i = tid; i < NCAND; i += EM_THREADS) map_out[o * NCAND + i] = row_s[i];
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -341,22 +459,33 @@ bool bad_extents(int g, int h, int w, int rh, int rw) {
          (rw != w && rw != w + 2 * R);
 }
 
-template <int STRIDE>
-int launch_map(const int* cur, const int* ref, int g, int h, int w, int* map,
-               void* stream) {
-  if (bad_extents(g, h, w, h, w)) return (int)cudaErrorInvalidValue;
+template <bool MAP>
+int launch_tiled(const int* cur, const int* ref, int g, int h, int w, int rh,
+                 int rw, int* dy, int* dx, int* sad, int* map, void* stream) {
+  if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
   const dim3 grid(w / MB, h / MB, g);
-  map_kernel<STRIDE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, h, w, 0, 0, map);
+  tiled_kernel<MAP><<<grid, TILED_THREADS, 0, (cudaStream_t)stream>>>(
+      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, map);
   return (int)cudaGetLastError();
 }
 
-int launch_tiled(const int* cur, const int* ref, int g, int h, int w, int rh,
-                 int rw, int* dy, int* dx, int* sad, void* stream) {
-  if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(w / MB, h / MB, g);
-  tiled_search_kernel<<<grid, TILED_THREADS, 0, (cudaStream_t)stream>>>(
-      cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad);
+int launch_search(const int* cur, const int* ref, int g, int h, int w, int rh,
+                  int rw, int* dy, int* dx, int* sad, void* stream) {
+  return launch_tiled<false>(cur, ref, g, h, w, rh, rw, dy, dx, sad, nullptr,
+                             stream);
+}
+
+int launch_map(const int* cur, const int* ref, int g, int h, int w, int* map,
+               void* stream) {
+  return launch_tiled<true>(cur, ref, g, h, w, h, w, nullptr, nullptr,
+                            nullptr, map, stream);
+}
+
+int launch_even_map(const int* cur, const int* ref, int g, int h, int w,
+                    int* map, void* stream) {
+  if (bad_extents(g, h, w, h, w)) return (int)cudaErrorInvalidValue;
+  even_map_kernel<<<dim3(w / MB, h / MB, g), EM_THREADS, 0,
+                    (cudaStream_t)stream>>>(cur, ref, h, w, map);
   return (int)cudaGetLastError();
 }
 
@@ -374,21 +503,21 @@ int launch_sea(const int* cur, const int* ref, int g, int h, int w, int rh,
 // cur, ref: [h, w] int32 (h, w multiples of 16); dy, dx, sad: [h/16, w/16].
 extern "C" int tvc_full_search(const int* cur, const int* ref, int h, int w,
                                int* dy, int* dx, int* sad, void* stream) {
-  return launch_tiled(cur, ref, 1, h, w, h, w, dy, dx, sad, stream);
+  return launch_search(cur, ref, 1, h, w, h, w, dy, dx, sad, stream);
 }
 
-// cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 289]
-// int32, candidate ((dy+16)/2)*17 + (dx+16)/2.
+// cur, ref: [h, w] int32 samples 0-255 (h, w multiples of 16); map:
+// [h/16, w/16, 289] int32, candidate ((dy+16)/2)*17 + (dx+16)/2.
 extern "C" int tvc_sad_map_even(const int* cur, const int* ref, int h, int w,
                                 int* map, void* stream) {
-  return launch_map<2>(cur, ref, 1, h, w, map, stream);
+  return launch_even_map(cur, ref, 1, h, w, map, stream);
 }
 
 // cur, ref: [h, w] int32 (h, w multiples of 16); map: [h/16, w/16, 1089]
 // int32, candidate (dy+16)*33 + (dx+16).
 extern "C" int tvc_sad_map(const int* cur, const int* ref, int h, int w,
                            int* map, void* stream) {
-  return launch_map<1>(cur, ref, 1, h, w, map, stream);
+  return launch_map(cur, ref, 1, h, w, map, stream);
 }
 
 // The G-batched search: cur, ref [g, h, w] int32, plane g of cur against
@@ -396,19 +525,20 @@ extern "C" int tvc_sad_map(const int* cur, const int* ref, int h, int w,
 extern "C" int tvc_full_search_g(const int* cur, const int* ref, int g, int h,
                                  int w, int* dy, int* dx, int* sad,
                                  void* stream) {
-  return launch_tiled(cur, ref, g, h, w, h, w, dy, dx, sad, stream);
+  return launch_search(cur, ref, g, h, w, h, w, dy, dx, sad, stream);
 }
 
-// The G-batched even map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 289].
+// The G-batched even map: cur, ref [g, h, w] int32 samples 0-255; map
+// [g, h/16, w/16, 289].
 extern "C" int tvc_sad_map_even_g(const int* cur, const int* ref, int g,
                                   int h, int w, int* map, void* stream) {
-  return launch_map<2>(cur, ref, g, h, w, map, stream);
+  return launch_even_map(cur, ref, g, h, w, map, stream);
 }
 
 // The G-batched whole map: cur, ref [g, h, w] int32; map [g, h/16, w/16, 1089].
 extern "C" int tvc_sad_map_g(const int* cur, const int* ref, int g, int h,
                              int w, int* map, void* stream) {
-  return launch_map<1>(cur, ref, g, h, w, map, stream);
+  return launch_map(cur, ref, g, h, w, map, stream);
 }
 
 // The pre-haloed search of g row shards (or 2-D tiles): cur [g, h, w] int32,
@@ -419,7 +549,8 @@ extern "C" int tvc_full_search_haloed(const int* cur, const int* ref_ext,
                                       int* dy, int* dx, int* sad,
                                       void* stream) {
   if (rh != h + 2 * R) return (int)cudaErrorInvalidValue;
-  return launch_tiled(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad, stream);
+  return launch_search(cur, ref_ext, g, h, w, rh, rw, dy, dx, sad,
+                       stream);
 }
 
 // The SEA search of tvc_full_search's operands; rows [h/16, w/16] int32,

@@ -154,7 +154,9 @@ def _sad_map(cur_y, ref_y, name: str, batched: bool):
 
 def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
     """SADs of the 289 even-even mvs per MB, [H/16, W/16, 289] int32,
-    candidate ((dy+16)/2)*17 + (dx+16)/2. cur_y, ref_y: [H, W] int32."""
+    candidate ((dy+16)/2)*17 + (dx+16)/2. cur_y, ref_y: [H, W] int32 of
+    8-bit samples (0-255, as every plane of the codec holds: the kernel
+    packs four to a word)."""
     if cur_y.device.type == "cpu":
         return motion.sad_map_even(cur_y, ref_y)
     return _sad_map(cur_y, ref_y, "sad_map_even", False)
@@ -162,7 +164,7 @@ def sad_map_even(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
 
 def sad_map_even_g(cur_y: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
     """sad_map_even of each of G plane pairs in one launch: [G, H, W]
-    int32 -> [G, H/16, W/16, 289] int32."""
+    int32 of 8-bit samples -> [G, H/16, W/16, 289] int32."""
     if cur_y.device.type == "cpu":
         return motion.sad_map_even(cur_y, ref_y)
     return _sad_map(cur_y, ref_y, "sad_map_even_g", True)
