@@ -57,9 +57,12 @@ Phases, each of which raises on failure (exit code not 0):
    shards) against three references of the 1080p pan's frame 1 (the clean
    source frame 0, the port's own qp-28 recon of it, noise), each equal to
    its plain version and the exhaustive kernel, with its mean rows per MB,
-   its time beside the exhaustive kernel's and a bound from this run's
-   rows; chunk_merge on the pieces of a real 1080p frame at 24 words
-   (65536 pieces, k = 1024) and on dense random pieces; the hierarchical
+   its time (call, device and host) beside the exhaustive kernel's and a
+   bound from this run's rows; chunk_merge on the pieces of a real 1080p
+   frame at 24 words (65536 pieces, k = 1024) and on dense random pieces,
+   with call, device and host times, its device ops per call and a bound
+   that reads each piece's used words only (so do the span merges'); the
+   hierarchical
    search at 1088x1920 against plain, with its two sad_at_mv launches.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
@@ -118,8 +121,8 @@ Phases, each of which raises on failure (exit code not 0):
 
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
-times the search, MC, code_plane and block_pack kernels of several
-checkouts of the repository
+times the search, MC, code_plane, block_pack, SEA and merge kernels of
+several checkouts of the repository
 (a parent unpacked with `git archive` under build/, and this one) in
 turns, ROOT_1 .. ROOT_n then ROOT_n .. ROOT_1, each turn a child process
 that imports the port from its ROOT (building its kernels into
@@ -136,8 +139,13 @@ composed it: a fetch per plane or parity plane, the select, the masks)
 beside one torch.take of its flat indices; code_plane at qp 28 on the
 luma and chroma planes and on G = 4 luma planes, flat and under the
 quant matrix; block_pack of the luma levels at 16 words in both
-syntaxes; then one traced 10-frame GOP of the full-search, config-3 and
-format-4 cells (device ops per frame, the GOP's device time, the motion
+syntaxes; the SEA search (TVC_SEA=1) on phase 3's three references
+(clean, recon, noise; single, G = 4, four row shards against the recon),
+each beside the exhaustive search on the same planes in the same turn;
+span_merge_mb and span_merge on the real 1080p frame's sources and on
+dense pieces, and chunk_merge on the real frame's pieces at 24 words and
+on dense ones, each with its device ops per call (kernels); then one
+traced 10-frame GOP of the full-search, config-3 and format-4 cells (device ops per frame, the GOP's device time, the motion
 kernels' device time), and the format-4 I frame on its own (code_plane launches, device
 ops, device ms, wall ms). Each timing has the call time
 (time_ms), the device time (device_ms) and the host time (host_ms). Every
@@ -927,11 +935,9 @@ def phase_kernels(dev, card: str):
         err = max_abs_err(got, want)
         timing = None
         if name == "1080p frame":
-            # per piece word: two shifts and two ors into the string
             timing = (*timed(dispatch.span_merge_mb, *srcs, plan.m1, plan.cw1,
                              plan.n1),
-                      bound(srcs, got, 4 * sum(t.numel() for t in srcs[:4])),
-                      None)
+                      merge_bound(srcs[4], mb_caps(srcs), got), None)
             dh = dev_host(lambda: dispatch.span_merge_mb(
                 *srcs, plan.m1, plan.cw1, plan.n1), None)
         record("span_merge_mb", "span_merge.cu",
@@ -948,7 +954,9 @@ def phase_kernels(dev, card: str):
             got2, want2 = both(dispatch.span_merge, *args)
             err = max_abs_err(got2, want2)
             timing = (*timed(dispatch.span_merge, *args),
-                      bound(args[:2], got2, 4 * args[0].numel()), None)
+                      merge_bound(got[1], torch.full_like(got[1], plan.cw1,
+                                                          dtype=torch.long),
+                                  got2), None)
             dh2 = dev_host(lambda: dispatch.span_merge(*args), None)
             record("span_merge", "span_merge.cu",
                    "video_encoder_tpu/ops/pallas/pack.py:296", err, timing,
@@ -1334,11 +1342,15 @@ def sea_ops(rows) -> int:
     column sums as a sliding sum (16 adds for each of its 48 columns at the
     first row offset, an add and a subtract at each of the other 32), the
     1089 bounds of 16 abs-diff-accumulates each, and 33 x 256
-    abs-diff-accumulates for every row evaluated exactly (an
-    abs-diff-accumulate counts 2)."""
+    abs-diff-accumulates for every row evaluated exactly. An
+    abs-diff-accumulate counts 2; on words of four 8-bit samples, as the
+    kernel evaluates its rows (and as EVEN_MAP_OPS counts the even map),
+    one vabsdiff4 makes four, so the rows and the exhaustive work count a
+    quarter of that."""
     sums = 256 + 48 * 16 + 32 * 48 * 2
-    sea = sums + 1089 * 16 * 2 + rows.long() * 33 * 256 * 2
-    return int(sea.clamp(max=1089 * 256 * 2).sum())
+    exhaustive = 1089 * 256 * 2 // 4
+    sea = sums + 1089 * 16 * 2 + rows.long() * 33 * 256 * 2 // 4
+    return int(sea.clamp(max=exhaustive).sum())
 
 
 def frame_levels(rng, dev, h, w):
@@ -1359,12 +1371,81 @@ def frame_levels(rng, dev, h, w):
     return levels
 
 
+def sea_references(dev, rng):
+    """The 1080p pan's first two frames [2 x (1088, 1920)] and the SEA
+    search's three references for frame 1: the clean source frame 0, the
+    port's own qp-28 recon of it (the I frame: flat-128 prediction, what
+    the engine searches) and noise."""
+    from video_encoder_tpu_torch.codec import tables
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = LUMA[0]
+    src = [torch.from_numpy(y.astype(np.int32)).to(dev)
+           for y in synth_clip(2, h, w, seed=11)[0]]
+    q28 = torch.full((h // 8, w // 8), int(tables.load(dev).QSTEP[28]),
+                     dtype=torch.int32, device=dev)
+    recon = dispatch.code_plane(src[0], torch.full_like(src[0], 128), q28, 8)[1]
+    noise = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32)).to(dev)
+    return src, {"recon": recon.contiguous(), "clean": src[0], "noise": noise}
+
+
+def chunk_pieces(rng, dev, bw: int = 24):
+    """chunk_merge's operands at the reference micro-bench's shape: a 1080p
+    frame's 8160 x 8 pieces of bw words (header, four luma blocks, Cb, Cr
+    and an empty piece per MB, from code_plane at qp 28 and random
+    vectors), padded with empty pieces to a multiple of 1024: (words
+    [65536, bw] int64, bits [65536] int32, k)."""
+    from video_encoder_tpu_torch.codec import entropy, pack
+
+    h, w = LUMA[0]
+    nby, nbx = h // 16, w // 16
+    n_mbs = nby * nbx
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    levels = frame_levels(rng, dev, h, w)
+    qpd = t32(rng.integers(-2, 3, (nby, nbx)))
+    inter = torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev)
+    mvy, mvx = (t32(rng.integers(-16, 17, (nby, nbx))) for _ in range(2))
+    pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, bw)
+    n = -(-8 * n_mbs // 1024) * 1024
+    words = torch.zeros((n, bw), dtype=torch.int64, device=dev)
+    bits = torch.zeros((n,), dtype=torch.int32, device=dev)
+    words.view(-1, 8, bw)[:n_mbs, :7] = pw_
+    bits.view(-1, 8)[:n_mbs, :7] = pb_
+    return words, bits, pack.pick_chunk_k(n, bw)
+
+
+def merge_bound(bits, caps, outputs):
+    """bound() of a merge on this run's data: each piece's used words,
+    min(ceil(bits / 32), its width caps), read once as 32-bit words (the
+    merge reads no more: every producer leaves zeros past its bit count),
+    its bit count read once, the outputs written once; two shifts and two
+    ors per used word."""
+    used = int(torch.minimum((bits.long() + 31) // 32, caps).sum())
+    nbytes = 4 * (used + bits.numel()) + sum(
+        t.numel() * (4 if t.dtype == torch.int64 else t.element_size())
+        for t in outputs)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 4 * used / INT32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def mb_caps(srcs):
+    """The width of each piece of span_merge_mb's per-MB sources (header
+    hww, blocks w, the empty eighth piece 0), in piece order."""
+    hw, yw = srcs[0], srcs[1]
+    n_mbs, _, w = yw.shape
+    one = torch.tensor([hw.shape[-1]] + [w] * 6 + [0], device=yw.device)
+    return one.repeat(n_mbs)
+
+
 def last_kernels(dev, rng, table: KernelTable):
     """The kernels that no encode path runs by default: the whole SAD map
     (stride 1) and its batched twin, the SEA full search's three entries
     (TVC_SEA=1) on three references, chunk_merge, and the hierarchical
     search's refine through sad_at_mv."""
-    from video_encoder_tpu_torch.codec import entropy, pack, tables
     from video_encoder_tpu_torch.ops import dispatch, motion
     from video_encoder_tpu_torch.ops.kernels import build
 
@@ -1434,14 +1515,7 @@ def last_kernels(dev, rng, table: KernelTable):
     # exhaustive kernel; its rows per MB and its time beside full_search's,
     # both in this call. The bound counts this run's rows.
     h, w = LUMA[0]
-    nby, nbx = h // 16, w // 16
-    n_mbs = nby * nbx
-    src = [t32(y) for y in synth_clip(2, h, w, seed=11)[0]]
-    q28 = torch.full((h // 8, w // 8), int(tables.load(dev).QSTEP[28]),
-                     dtype=torch.int32, device=dev)
-    recon = dispatch.code_plane(src[0], torch.full_like(src[0], 128), q28, 8)[1]
-    refs = {"recon": recon.contiguous(), "clean": src[0],
-            "noise": t32(rng.integers(0, 256, (h, w)))}
+    src, refs = sea_references(dev, rng)
     cur_t = src[1]
     for name, ref_t in refs.items():
         with sea(True):
@@ -1534,23 +1608,11 @@ def last_kernels(dev, rng, table: KernelTable):
         f", recon reference: equal to plain, to the whole frame's search and to "
         f"full_search_haloed ({fs_ms:.4f} ms in this call)" + shown(timing, dh))
 
-    # ---- chunk_merge at the reference micro-bench's shape: a 1080p frame's
-    # 8160 x 8 pieces of 24 words (header, four luma blocks, Cb, Cr and an
-    # empty piece per MB), padded with empty pieces to 65536 (a multiple of
-    # 1024), k = 1024; then dense random pieces (every piece full) at the
-    # same shape
-    bw = 24
-    levels = frame_levels(rng, dev, h, w)
-    qpd = t32(rng.integers(-2, 3, (nby, nbx)))
-    inter = torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev)
-    mvy, mvx = (t32(rng.integers(-16, 17, (nby, nbx))) for _ in range(2))
-    pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, bw)
-    n = -(-8 * n_mbs // 1024) * 1024
-    words = torch.zeros((n, bw), dtype=torch.int64, device=dev)
-    bits = torch.zeros((n,), dtype=torch.int32, device=dev)
-    words.view(-1, 8, bw)[:n_mbs, :7] = pw_
-    bits.view(-1, 8)[:n_mbs, :7] = pb_
-    kc = pack.pick_chunk_k(n, bw)
+    # ---- chunk_merge at the reference micro-bench's shape (chunk_pieces:
+    # a 1080p frame's 65536 pieces of 24 words, k = 1024); then dense
+    # random pieces (every piece full) at the same shape
+    words, bits, kc = chunk_pieces(rng, dev)
+    n, bw = words.shape
     full = torch.from_numpy(rng.integers(0, 2**32, (n, bw), dtype=np.uint64)
                             .astype(np.int64)).to(dev)
     for name, a in (("1080p frame", (words, bits, kc)),
@@ -1559,9 +1621,9 @@ def last_kernels(dev, rng, table: KernelTable):
         err = max_abs_err(got, want)
         if not torch.equal(got[1].long(), a[1].view(-1, kc // 2).sum(-1)):
             raise AssertionError(f"chunk_merge {name}: bit counts")
-        # per piece word: two shifts and two ors into the string
         timing = (*timed(dispatch.chunk_merge, *a),
-                  bound(a[:2], got, 4 * a[0].numel()), None)
+                  merge_bound(a[1], torch.full_like(a[1], bw, dtype=torch.long),
+                              got), None)
         dh = dev_host(lambda: dispatch.chunk_merge(*a), None)
         if name == "1080p frame":
             record("chunk_merge", "span_merge.cu",
@@ -2675,6 +2737,42 @@ def ab_child(root: str) -> dict:
     dcp = entropy._dc_pred_left(luma_levels).reshape(-1).contiguous()
     measure("block_pack_f1", lambda: dispatch.block_pack(flat, 16))
     measure("block_pack_f2", lambda: dispatch.block_pack(flat, 16, dcp, 2))
+
+    # the SEA search (TVC_SEA=1) on phase 3's three references of the
+    # 1080p pan's frame 1, each beside the exhaustive search on the same
+    # planes: single, G = 4 (recon, clean, noise, recon) and the frame's
+    # four pre-haloed row shards against the recon
+    src, refs = sea_references(dev, rng)
+    cur1 = src[1]
+    cases = [(name, dispatch.full_search, (cur1, ref_t))
+             for name, ref_t in refs.items()]
+    cases.append(("g4", dispatch.full_search, (
+        torch.stack([cur1] * g),
+        torch.stack([refs[n] for n in ("recon", "clean", "noise", "recon")]))))
+    cases.append(("rows", dispatch.full_search_pre_haloed,
+                  (rows_of(cur1), ext_rows(refs["recon"], 16))))
+    for name, fn, a in cases:
+        for on in (False, True):
+            with sea(on):
+                measure(f"{'sea' if on else 'fs'}_{name}",
+                        lambda fn=fn, a=a: fn(*a))
+    # the merges on the real 1080p frame's sources (stage 1, then stage 2
+    # on its strings; chunk_merge on its pieces at 24 words) and on dense
+    # pieces; device ops per call in each entry's kernels
+    for tag, (mh, mw), dense in (("", (h, w), False), ("_dense", (256, 128), True)):
+        srcs, plan = span_sources(rng, dev, mh, mw, dense)
+        a1 = (*srcs, plan.m1, plan.cw1, plan.n1)
+        measure("span_merge_mb" + tag, lambda a1=a1: dispatch.span_merge_mb(*a1))
+        if plan.two_stage:
+            s1 = dispatch.span_merge_mb(*a1)
+            a2 = (s1[0], s1[1], plan.g, plan.stop, plan.cwf)
+            measure("span_merge" + tag, lambda a2=a2: dispatch.span_merge(*a2))
+    words, bits, kc = chunk_pieces(rng, dev)
+    full = torch.from_numpy(rng.integers(0, 2**32, tuple(words.shape), dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    full_bits = torch.full_like(bits, 32 * words.shape[1])
+    measure("chunk_merge", lambda: dispatch.chunk_merge(words, bits, kc))
+    measure("chunk_merge_dense", lambda: dispatch.chunk_merge(full, full_bits, kc))
 
     # the cells: device ops per frame and the search's device time per GOP
     ph, pw, n = AB_CELL

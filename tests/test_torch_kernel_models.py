@@ -1,10 +1,11 @@
 """The arithmetic of the Hopper designs of code_plane (csrc/code_plane.cu),
-block_pack (csrc/block_pack.cu), the SAD maps (csrc/full_search.cu) and
-sad_at_mv (csrc/sad_at.cu), modelled in plain torch and numpy on the CPU
+block_pack (csrc/block_pack.cu), the SAD maps and the SEA search
+(csrc/full_search.cu), sad_at_mv (csrc/sad_at.cu) and the span and chunk
+merges (csrc/span_merge.cu), modelled in plain torch and numpy on the CPU
 and held against the port's plain versions, which the other test files tie
 to the JAX reference, and here also against the reference's quotient and
-its Pallas block_pack, sad_map, sad_map_even and sad_at_mv in interpret
-mode. The kernels themselves run only on the card
+its Pallas block_pack, sad_map, sad_map_even, sad_at_mv and SEA search in
+interpret mode. The kernels themselves run only on the card
 (tests/test_torch_kernels.py). Tolerance 0: the codec is integer-only.
 
 The models follow the kernels step by step: the even/odd 8-point passes
@@ -18,7 +19,15 @@ strips, the even map's words of four pixels and their vabsdiff4, the
 xor-shuffle sums, the shared row's stores); sad_at_mv's warp
 per block for all K candidates (the lanes' pixels, the coordinate clamp in
 the reference's own extents, the xor-shuffle sums, each plane's union of
-footprints).
+footprints); the SEA search's batches (the sliding column sums, each
+row's smallest bound from a lane pair, the first batch in the centre-out
+order, the later rows compacted by their bound against its best, the
+replayed row count, the runs of 11 candidates on words of four 8-bit
+samples, byte-shifted and summed by vabsdiff4); the merges' placement (a
+block per string, each task's words of a piece read before the scan and
+only up to its used words, funnel shifts of neighbouring words, words
+inside a piece stored and boundary words ored) and the zero-past-bits
+property it relies on.
 """
 
 import numpy as np
@@ -730,3 +739,491 @@ def test_sad_at_warp_model_chroma(rng, case):
     assert np.array_equal(got, motion.sad_at(_t(cur), _t(ref[0]), _t(dy), _t(dx), 8).numpy())
     if case != "many":
         assert np.array_equal(got, _pallas_sad_at(cur, ref, dy, dx, None, 8))
+
+
+# ---- the SEA search: sea_kernel in csrc/full_search.cu ----------------------
+
+def _kernel_constant(source, name):
+    """A constexpr int of csrc/<source>, so a model follows its kernel."""
+    import os
+    import re
+
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, source)) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+SEA_FIRST = _kernel_constant("full_search.cu", "SEA_FIRST")  # first batch's rows
+
+
+def _sea_row(s):
+    """Row index ky = dy + 16 of step s of the centre-out order."""
+    return 16 + ((s + 1) >> 1) * (1 - 2 * (s & 1))
+
+
+def _sliding_col_sums(win):
+    """The window's 16-row column sums [.., 33, 48] as the kernel's 96
+    threads make them: one thread per column and half of the row offsets
+    (0..16, 17..32), 16 adds at the half's first offset, then an add and a
+    subtract per step."""
+    out = np.zeros((*win.shape[:-2], 33, 48), np.int64)
+    for k0, k1 in ((0, 17), (17, 33)):
+        s = np.zeros(win.shape[:-2] + (48,), np.int64)
+        for r in range(16):
+            s = s + win[..., k0 + r, :]
+        out[..., k0, :] = s
+        for ky in range(k0 + 1, k1):
+            s = s + win[..., ky + 15, :] - win[..., ky - 1, :]
+            out[..., ky, :] = s
+    return out
+
+
+def _windows(cur, ref):
+    """Each MB's clamped 48x48 window [nby, nbx, 48, 48] of ref [rh, rw]
+    (cur's origin at ((rh - h) / 2, (rw - w) / 2), as the kernel reads it)
+    and its block [nby, nbx, 16, 16]."""
+    h, w = cur.shape
+    rh, rw = ref.shape
+    nby, nbx = h // 16, w // 16
+    ys = np.clip(16 * np.arange(nby)[:, None] - 16 + np.arange(48) + (rh - h) // 2, 0, rh - 1)
+    xs = np.clip(16 * np.arange(nbx)[:, None] - 16 + np.arange(48) + (rw - w) // 2, 0, rw - 1)
+    win = ref.astype(np.int64)[ys[:, None, :, None], xs[None, :, None, :]]
+    blk = cur.astype(np.int64).reshape(nby, 16, nbx, 16).transpose(0, 2, 1, 3)
+    return win, blk
+
+
+def _byte_shift(a, b, s):
+    """__byte_perm(a, b, 0x3210 + 0x1111 s): the word s bytes into b:a."""
+    return (((b << 32) | a) >> (8 * s)) & MASK32
+
+
+def _packed_run_sads(wp, bp, ky, kx0):
+    """run_sads_packed for every MB: the SADs [11, nby, nbx] of candidates
+    (ky, kx0 .. kx0 + 10) from the window's packed rows wp [.., 48, 13]
+    (the pad word zero) and the block's bp [.., 16, 4]: per lane (four
+    block rows each) and row, the 8 words from kx0 // 4, shifted to start
+    at sample kx0, then by 1, 2 and 3 more samples, four vabsdiff4 per
+    candidate, the four lanes' sums added."""
+    acc = np.zeros((11, *bp.shape[:2]), np.int64)
+    for r0 in range(0, 16, 4):
+        for r in range(r0, r0 + 4):
+            a = wp[..., ky + r, kx0 // 4:kx0 // 4 + 8]
+            assert a.shape[-1] == 8
+            t = _byte_shift(a[..., :7], a[..., 1:], kx0 % 4)
+            sh = [t[..., :6]] + [_byte_shift(t[..., :6], t[..., 1:], s) for s in (1, 2, 3)]
+            for j in range(11):
+                for m in range(4):
+                    acc[j] += _vsad4(bp[..., r, m], sh[j % 4][..., j // 4 + m])
+    return acc
+
+
+def _sea_model(cur, ref):
+    """sea_kernel on cur [h, w] against ref [rh, rw] (numpy, every MB at
+    once): the sliding column sums, each row's smallest bound from two
+    lanes of 17 candidates over a strip of 32 sums, the first batch of
+    SEA_FIRST rows in the centre-out order, the later rows whose bound is
+    <= that batch's best compacted in order (warp 0's ballot), each
+    evaluated row's smallest key from its three runs of 11 candidates, the
+    result the smallest key over the evaluated rows and the row count
+    replayed; the exact rows on words of four 8-bit samples
+    (_packed_run_sads). Returns (dy, dx, sad, rows, evaluated [33, nby, nbx],
+    n_later [nby, nbx])."""
+    win, blk = _windows(cur, ref)
+    nby, nbx = blk.shape[:2]
+    winc = _sliding_col_sums(win)
+    curc = blk.sum(-2)
+    rowmin = np.zeros((33, nby, nbx), np.int64)
+    for ky in range(33):
+        half = []
+        for kx0 in (0, 16):
+            strip = winc[..., ky, kx0:kx0 + 32]
+            half.append(np.min([np.abs(curc - strip[..., j:j + 16]).sum(-1)
+                                for j in range(17)], 0))
+        rowmin[ky] = np.minimum(*half)
+    rowkey = np.full((33, nby, nbx), INT32_MAX, np.int64)
+    evaluated = np.zeros((33, nby, nbx), bool)
+
+    wp, bp = _pack4(np.pad(win, ((0, 0), (0, 0), (0, 0), (0, 4)))), _pack4(blk)
+
+    def evaluate(ky, on):
+        keys = [sad * 2048 + ky * 33 + kx0 + j for kx0 in range(0, 33, 11)
+                for j, sad in enumerate(_packed_run_sads(wp, bp, ky, kx0))]
+        rowkey[ky] = np.where(on, np.minimum(rowkey[ky], np.min(keys, 0)), rowkey[ky])
+        evaluated[ky] |= on
+
+    for q in range(SEA_FIRST):
+        evaluate(_sea_row(q), np.ones((nby, nbx), bool))
+    best = rowkey[[_sea_row(q) for q in range(SEA_FIRST)]].min(0)
+    later = [_sea_row(s) for s in range(SEA_FIRST, 33)]
+    keep = rowmin[later] <= (best >> 11)                     # the ballot's lanes
+    # the compacted list of an MB holds its kept rows in order; each of
+    # its n_later rows takes RUNS = 3 of the second batch's groups
+    n_later = keep.sum(0)
+    assert n_later.max() <= 33 - SEA_FIRST
+    for ky, on in zip(later, keep):
+        evaluate(ky, on)
+    key = rowkey.min(0)
+    run_best, rows = np.full((nby, nbx), INT32_MAX, np.int64), np.zeros((nby, nbx), np.int64)
+    for s in range(33):                                      # the replay
+        ky = _sea_row(s)
+        need = rowmin[ky] <= (run_best >> 11)
+        assert evaluated[ky][need].all()                     # a superset
+        rows += need
+        run_best = np.where(need, np.minimum(run_best, rowkey[ky]), run_best)
+    assert np.array_equal(run_best, key)
+    k = key & 2047
+    return k // 33 - 16, k % 33 - 16, key >> 11, rows, evaluated, n_later
+
+
+def _sea_planes(rng, kind, h, w):
+    """cur, ref [h, w]: a smooth pan, a textured one, the pan against a
+    qp-28 recon of its reference (the engine's case), noise, two flat
+    planes (every candidate ties and every bound equals its SAD), a best
+    at the (+16, -16) corner, and a bound equal to the best: MB (1, 1)
+    matches +1 everywhere at (0, 0) and at (-16, -16), where its bound is
+    exact, so a `<` would prune the earlier candidate."""
+    from video_encoder_tpu_torch.codec import tables
+    from video_encoder_tpu_torch.ops import dispatch
+
+    base = rng.integers(0, 256, (h + 64, w + 64))
+    if kind == "flat":
+        return np.full((h, w), 77), np.full((h, w), 100)
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w)), rng.integers(0, 256, (h, w))
+    for _ in range(1 if kind == "textured" else 2):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    cur, ref = base[32:32 + h, 32:32 + w].copy(), base[30:30 + h, 35:35 + w].copy()
+    if kind == "recon":
+        q28 = int(tables.load("cpu").QSTEP[28])
+        ref = dispatch.code_plane(_t(ref), torch.full((h, w), 128, dtype=torch.int32),
+                                  torch.full((h // 8, w // 8), q28, dtype=torch.int32),
+                                  8)[1].numpy()
+    elif kind == "corner":
+        ref = base[16:16 + h, 48:48 + w].copy()
+    elif kind == "equal":
+        ref = rng.integers(0, 200, (h, w))
+        cur[16:32, 16:32] = np.minimum(cur[16:32, 16:32], 254)
+        ref[16:32, 16:32] = cur[16:32, 16:32] + 1
+        ref[0:16, 0:16] = cur[16:32, 16:32] + 1
+    return cur, ref
+
+
+def _pallas_sea(cur, ref):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from video_encoder_tpu.ops.pallas import sad as psad
+
+    with pltpu.force_tpu_interpret_mode():
+        return [np.asarray(a) for a in psad.full_search_sea_stats(
+            jnp.asarray(cur, jnp.int32), jnp.asarray(ref, jnp.int32))]
+
+
+@pytest.mark.parametrize("kind", ["smooth", "textured", "recon", "noise", "flat",
+                                  "corner", "equal"])
+def test_sea_batch_model(rng, kind):
+    """The batched schedule equals full_search's (dy, dx, sad) and the
+    plain SEA's rows per MB (the sequential count, replayed), evaluates a
+    superset of the sequential rows, and on a 64x128 plane (the
+    reference's SEA tile) the reference's Pallas SEA in interpret mode,
+    whose per-tile count is the OR of the plain masks."""
+    from video_encoder_tpu.ops.pallas import sad as psad
+    from video_encoder_tpu_torch.ops import motion
+
+    h, w = 64, 128
+    cur, ref = _sea_planes(rng, kind, h, w)
+    dy, dx, sad, rows, evaluated, n_later = _sea_model(cur, ref)
+    want = motion.full_search(_t(cur), _t(ref))
+    for a, b in zip((dy, dx, sad), want):
+        assert np.array_equal(a, b.numpy())
+    *plain, mask = motion.full_search_sea(_t(cur), _t(ref), with_mask=True)
+    assert np.array_equal(rows, plain[3].numpy())
+    assert (evaluated >= mask.numpy()).all()
+    if kind in ("noise", "flat"):
+        assert (rows == 33).all() and (n_later == 33 - SEA_FIRST).all()
+    if kind == "flat":                           # ties: the first candidate
+        assert (dy == -16).all() and (dx == -16).all()
+    if kind == "corner":
+        assert (dy[1:-1, 1:-1] == 16).all() and (dx[1:-1, 1:-1] == -16).all()
+    if kind == "equal":                          # bound == best at (-16, -16)
+        assert (dy[1, 1], dx[1, 1], sad[1, 1]) == (-16, -16, 256)
+    if kind in ("smooth", "recon", "noise", "equal"):
+        pallas = _pallas_sea(cur, ref)
+        for a, b in zip((dy, dx, sad), pallas):
+            assert np.array_equal(a, b)
+        tm, tn = psad._fs_tile_shape(h // 16, w // 16)
+        per_tile = mask.reshape(33, h // 16 // tm, tm, w // 16 // tn, tn).any(4).any(2)
+        assert np.array_equal(per_tile.sum(0).numpy(), pallas[3])
+
+
+@pytest.mark.parametrize("cols_halo", [False, True])
+def test_sea_batch_model_pre_haloed(rng, cols_halo):
+    """The same schedule on a shard against its pre-haloed reference (a
+    row shard, columns edge-replicated; a 2-D tile, column halo too):
+    equal to the plain pre-haloed search and SEA."""
+    from video_encoder_tpu_torch.ops import motion
+
+    h, w = 48, 64
+    cur, big = _sea_planes(rng, "recon", h + 32, w + 32)
+    cur = cur[16:16 + h, 16:16 + w]
+    ref_ext = big if cols_halo else big[:, 16:16 + w]
+    dy, dx, sad, rows, _, _ = _sea_model(cur, ref_ext)
+    want = motion.full_search_sea_pre_haloed(_t(cur), _t(ref_ext))
+    for a, b in zip((dy, dx, sad, rows), want):
+        assert np.array_equal(a, b.numpy())
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(
+        (dy, dx, sad), motion.full_search_pre_haloed(_t(cur), _t(ref_ext))))
+
+
+@pytest.mark.parametrize("kind", ["random", "extremes"])
+def test_sea_sliding_column_sums(rng, kind):
+    """The sliding sums equal the direct 16-row sums at every row offset;
+    a column sum is at most 4080 and a bound at most 65280 (both fit 16
+    bits)."""
+    win = rng.integers(0, 256, (5, 48, 48))
+    if kind == "extremes":
+        win[0], win[1] = 0, 255
+        win[2, ::2] = 255
+        win[3, :, ::3] = 0
+    got = _sliding_col_sums(win)
+    direct = np.stack([win[:, ky:ky + 16].sum(1) for ky in range(33)], 1)
+    assert np.array_equal(got, direct)
+    assert got.max() <= 16 * 255 < 2**16 and 16 * int(got.max()) <= 65280
+
+
+# ---- the span and chunk merges: merge_kernel in csrc/span_merge.cu --------
+
+MASK32 = (1 << 32) - 1
+
+
+MERGE_CHUNK = _kernel_constant("span_merge.cu", "CHUNK")   # positions per task
+
+
+def _block_scan(bits, nt):
+    """The block's exclusive scan of a string's m piece bit counts as the
+    kernel takes it with nt threads: thread i sums the run [i per, (i + 1)
+    per) of pieces (per <= 4), the warps scan their threads' sums, warp 0
+    the warp totals. Returns the offsets [m] and the total."""
+    m = len(bits)
+    per = -(-m // nt)
+    assert per <= 4
+    local = np.array([bits[min(i * per, m):min(i * per + per, m)].sum()
+                      for i in range(nt)], np.int64).reshape(nt // 32, 32)
+    warp_tot = np.cumsum(local.sum(1))
+    run = (np.cumsum(local, 1) - local + np.r_[0, warp_tot[:-1]][:, None]).reshape(-1)
+    offs = np.zeros(m, np.int64)
+    for i in range(nt):
+        for j in range(min(i * per, m), min(i * per + per, m)):
+            offs[j] = run[i]
+            run[i] += bits[j]
+    return offs, warp_tot[-1]
+
+
+def _merge_model(piece_words, caps, bits, m, cw, n_out):
+    """merge_kernel over pieces [n, W] (uint64, caps [n]) with bit counts
+    [n] (pieces past n empty): one block per output string of m pieces, cw
+    words. Task (i, c) holds positions [c CHUNK, (c + 1) CHUNK) of piece i
+    and, before the scan, its words c CHUNK - 1 .. c CHUNK + CHUNK - 1,
+    read only up to the piece's used words min(ceil(bits / 32), width).
+    After the scan position q of a piece at o = 32 T + r makes word T + q,
+    its word q >> r ored with its word q - 1 << (32 - r): a word wholly
+    inside the piece's bits is stored (no other task writes it), one that
+    holds a boundary is ored. Returns (words [n_out, cw] int64, bits
+    [n_out], ovf)."""
+    n = len(bits)
+    width = piece_words.shape[1]
+    chunks = (max(caps.max(), 1) + MERGE_CHUNK) // MERGE_CHUNK
+    nt = 256 if m * chunks <= 2 * 256 else 1024
+    assert m * chunks <= (2 if nt == 256 else 3) * nt
+    out = np.zeros((n_out, cw), np.uint64)
+    totals = np.zeros(n_out, np.int64)
+    pad = (0, n_out * m - n)
+    words = np.pad(piece_words, (pad, (0, 0)))[:n_out * m].reshape(n_out, m, width)
+    caps_s = np.pad(caps, pad).reshape(n_out, m)
+    bits_s = np.pad(bits, pad).reshape(n_out, m)
+    for s in range(n_out):
+        used = np.minimum((bits_s[s] + 31) >> 5, caps_s[s])
+        offs, totals[s] = _block_scan(bits_s[s], nt)
+        stored = np.zeros(cw, np.int64)
+        ored = np.zeros(cw, bool)
+        for i in range(m):
+            nb, u, o = int(bits_s[s, i]), int(used[i]), int(offs[i])
+            if nb == 0:
+                continue
+            r = o & 31
+            for c in range(chunks):
+                wd = [int(words[s, i, j]) if 0 <= j < u else 0
+                      for j in range(c * MERGE_CHUNK - 1, (c + 1) * MERGE_CHUNK)]
+                for e in range(MERGE_CHUNK):
+                    q = c * MERGE_CHUNK + e
+                    t = (o >> 5) + q
+                    if q > u or (q == u and r == 0) or t >= cw:
+                        break
+                    word = wd[e + 1] if r == 0 else (
+                        ((wd[e] << (32 - r)) | (wd[e + 1] >> r)) & MASK32)
+                    if 32 * t >= o and 32 * t + 32 <= o + nb:
+                        stored[t] += 1
+                        out[s, t] = word
+                    elif word:
+                        ored[t] = True
+                        out[s, t] |= np.uint64(word)
+        assert stored.max(initial=0) <= 1 and not (ored & (stored > 0)).any()
+    return out.astype(np.int64), totals, bool((totals > 32 * cw).any())
+
+
+def _valid(rng, n, cap, bits):
+    """Strings [n, cap] uint64 with the given bit counts, zeros past them."""
+    col = np.arange(cap) * 32
+    keep = np.clip(np.asarray(bits)[:, None] - col, 0, 32).astype(np.uint64)
+    vals = rng.integers(0, 2**32, (n, cap), dtype=np.uint64)
+    return np.where(keep > 0, vals >> (np.uint64(32) - keep) << (np.uint64(32) - keep),
+                    0).astype(np.uint64)
+
+
+def _garbage_past_used(rng, words, bits):
+    """words with random values in every word past a string's used words
+    min(ceil(bits / 32), width)."""
+    used = (np.minimum(np.asarray(bits), 32 * words.shape[1]) + 31) // 32
+    past = np.arange(words.shape[1])[None, :] >= used[:, None]
+    return np.where(past, rng.integers(0, 2**32, words.shape, dtype=np.uint64), words)
+
+
+def _mb_piece_sources(rng, n_mbs, w, hww, dense):
+    """Per-MB sources hw [n_mbs, hww], yw [n_mbs, 4, w], cbw, crw [n_mbs, w]
+    (clean, words past the counts zero), piece bits [n_mbs * 8], and the
+    same pieces as rows [n_mbs * 8, max(w, hww)] with garbage past their
+    used words, and their widths."""
+    if dense:
+        bits = np.full((n_mbs, 8), 32 * w)
+    else:
+        bits = rng.integers(0, 32 * w + 40, (n_mbs, 8))   # some over the width
+        bits[rng.random(bits.shape) < 0.2] = 0
+        mult = rng.random(bits.shape) < 0.2
+        bits[mult] = 32 * rng.integers(1, w + 1, mult.sum())
+    bits[:, 0] = rng.integers(0, 32 * hww + 1, n_mbs)
+    bits[:, 7] = 0
+    wmax = max(w, hww)
+    caps = np.tile([hww, w, w, w, w, w, w, 0], n_mbs)
+    flat = bits.reshape(-1)
+    clean = _valid(rng, n_mbs * 8, wmax, np.minimum(flat, 32 * caps))
+    clean[np.arange(wmax)[None, :] >= caps[:, None]] = 0
+    dirty = _garbage_past_used(rng, clean, np.minimum(flat, 32 * caps))
+    c = clean.astype(np.int64).reshape(n_mbs, 8, wmax)
+    srcs = (c[:, 0, :hww], c[:, 1:5, :w], c[:, 5, :w], c[:, 6, :w])
+    return ([torch.from_numpy(np.ascontiguousarray(a)) for a in srcs],
+            _t(flat), dirty, caps, flat)
+
+
+@pytest.mark.parametrize("n_mbs,w,hww,dense,cut,flag", [
+    (30, 16, 2, False, False, False),  # single stage: 240 pieces, strings of 16
+    (100, 78, 2, False, False, False),  # BLOCK_WORDS_MAX, two stages
+    (700, 16, 2, False, False, True),  # two stages at w = 16 (m1 = 128), over
+    (24, 16, 3, False, False, False),  # a header of three words
+    (64, 8, 2, True, True, True)])     # every string cut at half its width
+def test_merge_placement_model(rng, n_mbs, w, hww, dense, cut, flag):
+    """The placement equals the plain span_merge_mb and, for a
+    two-stage plan, span_merge on its stage-1 strings: pieces of 0 bits,
+    of multiples of 32 bits and longer than their width, a header of hww
+    words, strings longer than the budgeted width and strings cut at cw,
+    with the flag (stage 2 then reads its inputs' whole width). The
+    pieces' words past their
+    used words are garbage here, so the model reads none of them."""
+    from video_encoder_tpu_torch.codec import pack
+
+    srcs, pb, dirty, caps, flat = _mb_piece_sources(rng, n_mbs, w, hww, dense)
+    plan = pack.span_plan(n_mbs, w)
+    m, cw, n1 = plan.m1, plan.cw1, plan.n1
+    if cut:
+        cw = (m * w) // 2
+    want = pack.span_merge_mb(*srcs, pb, m, cw, n1)
+    got = _merge_model(dirty, caps, flat, m, cw, n1)
+    assert np.array_equal(got[0], want[0].numpy())
+    assert np.array_equal(got[1], want[1].numpy()) and got[2] == bool(want[2])
+    assert got[2] == flag and (not cut or int(want[1][-1]) > 32 * cw)
+    if plan.two_stage:
+        n2 = n1 // plan.g * plan.stop
+        w2 = pack.span_merge(want[0], want[1], plan.g, plan.stop, plan.cwf)
+        got2 = _merge_model(want[0].numpy().astype(np.uint64), np.full(n1, cw),
+                            want[1].numpy(), plan.g // plan.stop, plan.cwf, n2)
+        assert np.array_equal(got2[0], w2[0].numpy())
+        assert np.array_equal(got2[1], w2[1].numpy()) and got2[2] == bool(w2[2])
+
+
+@pytest.mark.parametrize("lead,n,w,k", [((), 256, 8, 32), ((3,), 128, 4, 64),
+                                        ((2,), 64, 24, 16)])
+def test_chunk_merge_placement_model(rng, lead, n, w, k):
+    """chunk_merge on the same placement (no flag: the width is
+    the exact worst case), G folded into the rows."""
+    from video_encoder_tpu_torch.codec import pack
+
+    total = int(np.prod(lead, dtype=np.int64)) * n
+    bits = rng.integers(0, 32 * w + 1, total)
+    bits[::7] = 0
+    bits[1::5] = 32 * rng.integers(1, w + 1, len(bits[1::5]))
+    clean = _valid(rng, total, w, bits)
+    words = torch.from_numpy(clean.astype(np.int64).reshape(*lead, n, w))
+    want = pack.chunk_merge(words, _t(bits.reshape(*lead, n)), k)
+    m = k // 2
+    got = _merge_model(_garbage_past_used(rng, clean, bits), np.full(total, w),
+                       bits, m, m * w + 1, total // m)
+    assert np.array_equal(got[0], want[0].reshape(-1, m * w + 1).numpy())
+    assert np.array_equal(got[1], want[1].reshape(-1).numpy()) and not got[2]
+
+
+def _zero_past(words, bits):
+    """Whether every string holds zeros past its bit count: whole words
+    past ceil(bits / 32) and the low bits of the last used word."""
+    words = np.asarray(words).astype(np.uint64)
+    bits = np.asarray(bits).astype(np.int64)
+    col = np.arange(words.shape[-1]) * 32
+    keep = np.clip(bits[..., None] - col, 0, 32).astype(np.uint64)
+    mask = ((np.uint64(1) << keep) - np.uint64(1)) << (np.uint64(32) - keep)
+    return bool(((words & ~mask & np.uint64(MASK32)) == 0).all())
+
+
+@pytest.mark.parametrize("producer", ["block_pack_f1", "block_pack_f2",
+                                      "block_pack_f1_max", "block_pack_f2_max",
+                                      "mb_sources_f1", "mb_sources_f4", "stage1"])
+def test_producers_zero_past_bits(rng, producer):
+    """The merges read a piece's words only up to min(ceil(bits / 32),
+    width), which equals reading them all only if every producer leaves
+    zeros past its bit count: block_pack in both syntaxes (and its
+    kernel's model) at 16 words, where long blocks overflow, and at
+    BLOCK_WORDS_MAX; every piece of entropy._mb_sources of a coded frame,
+    its header words too; the stage-1 strings of span_merge_mb."""
+    from video_encoder_tpu_torch.codec import pack, tables
+    from video_encoder_tpu_torch.ops import dispatch
+
+    if producer.startswith("block_pack"):
+        fmt = 2 if "f2" in producer else 1
+        n_words = entropy.BLOCK_WORDS_MAX if producer.endswith("max") else 16
+        lv, dcp = _pack_cases(rng)
+        words, bits = kpack.plain_block_pack(_t(lv), n_words, _t(dcp) if fmt == 2 else None, fmt)
+        model = _pack_model(_t(lv), n_words, _t(dcp), fmt)
+        assert _zero_past(words, bits) and _zero_past(*model)
+        assert bool((bits > 32 * n_words).any()) == (n_words == 16)
+        return
+    h, w = 64, 96
+    q28 = int(tables.load("cpu").QSTEP[28])
+    levels = []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        cur = _t(rng.integers(0, 256, (ph, pw)))
+        q = torch.full((ph // 8, pw // 8), q28, dtype=torch.int32)
+        levels.append(dispatch.code_plane(cur, torch.full_like(cur, 128), q, 8)[0])
+    nby, nbx = h // 16, w // 16
+    fmt = 4 if producer == "mb_sources_f4" else 1
+    (hw, yw, cbw, crw), bits, _ = entropy._mb_sources(
+        *levels, _t(rng.integers(-2, 3, (nby, nbx))), True,
+        torch.from_numpy(rng.random((nby, nbx)) < 0.7), _t(rng.integers(-16, 17, (nby, nbx))),
+        _t(rng.integers(-16, 17, (nby, nbx))), 16, fmt)
+    bits = bits.reshape(-1, 7)
+    if producer == "stage1":
+        pb = torch.nn.functional.pad(bits, (0, 1)).reshape(-1).contiguous()
+        plan = pack.span_plan(nby * nbx, 16)
+        words, sbits, ovf = pack.span_merge_mb(hw, yw, cbw, crw, pb, plan.m1, plan.cw1, plan.n1)
+        assert not bool(ovf) and _zero_past(words, sbits)
+        return
+    assert _zero_past(hw, bits[:, 0]) and _zero_past(yw, bits[:, 1:5])
+    assert _zero_past(cbw, bits[:, 5]) and _zero_past(crw, bits[:, 6])
+    assert int(bits[:, 0].max()) <= 32 * hw.shape[-1]

@@ -340,23 +340,82 @@ def _sources(rng, n_mbs, w, dense, dev):
             _t(bits.reshape(-1), dev))
 
 
-@pytest.mark.parametrize("n_mbs,w,dense", [(8160, 16, False), (240, 16, False),
-                                           (128, 16, True), (100, 78, False)])
-def test_span_merge_kernels(cuda, plain_and_kernel, rng, n_mbs, w, dense):
+def _frame_sources(rng, h, w, dev):
+    """The per-MB sources of a real frame: code_plane at qp 28 on textured
+    planes, block_pack at 16 words, random vectors and qp deltas."""
+    q28 = int(tables.load(dev).QSTEP[28])
+    levels = []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        tex = rng.integers(0, 256, (ph + 2, pw + 2))
+        tex = (tex[:-2, :-2] + tex[1:-1, 1:-1] + tex[2:, 2:]) // 3
+        cur = _t(tex, dev)
+        pred = _t(np.clip(tex + rng.integers(-3, 4, tex.shape), 0, 255), dev)
+        q = torch.full((ph // 8, pw // 8), q28, dtype=torch.int32, device=dev)
+        levels.append(dispatch.code_plane(cur, pred, q, 8)[0])
+    nby, nbx = h // 16, w // 16
+    (hw, yw, cbw, crw), bits7, _ = entropy._mb_sources(
+        *levels, _t(rng.integers(-2, 3, (nby, nbx)), dev), True,
+        torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev),
+        _t(rng.integers(-16, 17, (nby, nbx)), dev),
+        _t(rng.integers(-16, 17, (nby, nbx)), dev), 16)
+    bits = torch.nn.functional.pad(bits7, (0, 1)).reshape(-1).contiguous()
+    return hw.contiguous(), yw.contiguous(), cbw.contiguous(), crw.contiguous(), bits
+
+
+@pytest.mark.parametrize("n_mbs,w,kind", [
+    (8160, 16, "random"), (240, 16, "random"), (128, 16, "dense"),
+    (100, 78, "random"), (8160, 16, "real"), (240, 16, "real")])
+def test_span_merge_kernels(cuda, plain_and_kernel, rng, n_mbs, w, kind):
+    """Both stages against their plain versions on random pieces, dense
+    pieces that overflow the budgeted width (the flag), and the sources
+    of a real 1088x1920 or 192x320 frame."""
     from video_encoder_tpu_torch.codec import pack
 
     plan = pack.span_plan(n_mbs, w)
-    src = _sources(rng, n_mbs, w, dense, cuda)
+    if kind == "real":
+        h, wd = (1088, 1920) if n_mbs == 8160 else (192, 320)
+        src = _frame_sources(rng, h, wd, cuda)
+    else:
+        src = _sources(rng, n_mbs, w, kind == "dense", cuda)
     got, want = plain_and_kernel(dispatch.span_merge_mb, *src, plan.m1,
                                  plan.cw1, plan.n1)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
-    assert bool(got[2]) == dense
+    assert bool(got[2]) == (kind == "dense")
     if plan.two_stage:
         got2, want2 = plain_and_kernel(dispatch.span_merge, got[0], got[1],
                                        plan.g, plan.stop, plan.cwf)
         for g, w_ in zip(got2, want2):
             assert torch.equal(g, w_)
+
+
+def test_merges_are_one_device_op(cuda, rng):
+    """Each merge call is one device op (the overflow flag is derived in
+    the launch), and a flag raised by one call does not stay raised in
+    the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_encoder_tpu_torch.codec import pack
+
+    plan = pack.span_plan(128, 16)
+    dense = (*_sources(rng, 128, 16, True, cuda), plan.m1, plan.cw1, plan.n1)
+    sparse = (*_sources(rng, 128, 16, False, cuda), plan.m1, plan.cw1, plan.n1)
+    stage1 = dispatch.span_merge_mb(*sparse)
+    words, bits = (torch.from_numpy(a).to(cuda) for a in _pieces(rng, (), 256, 8, "random"))
+    for call in (lambda: dispatch.span_merge_mb(*dense),
+                 lambda: dispatch.span_merge(stage1[0], stage1[1], 8, 4, 99),
+                 lambda: dispatch.chunk_merge(words, bits, 32)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all("merge_kernel" in n for n in names), names
+    for args, raised in ((dense, True), (sparse, False), (dense, True), (sparse, False)):
+        assert bool(dispatch.span_merge_mb(*args)[2]) == raised
 
 
 @pytest.mark.parametrize("emit", ["frame", "chunks"])
@@ -862,10 +921,13 @@ def test_sad_map_g_kernel(cuda, plain_and_kernel, rng, g, h, w):
 
 def _sea_pair(rng, kind, h, w):
     """pan: a smooth clean pan by (+2, -3), on which the bound prunes;
-    noise: i.i.d. planes, on which it prunes nothing; tied: textured
-    planes with a flat region where every candidate ties; flat: two flat
-    planes of different levels (every candidate ties, every bound equals
-    its SAD)."""
+    recon: the pan against a qp-28 recon of its reference (what the engine
+    searches); noise: i.i.d. planes, on which it prunes nothing; tied:
+    textured planes with a flat region where every candidate ties; flat:
+    two flat planes of different levels (every candidate ties, every bound
+    equals its SAD); equal: MB (1, 1) matches +1 everywhere at (0, 0) and
+    at (-16, -16), where its bound is exact, so a bound equal to the best
+    must still be evaluated."""
     if kind == "flat":
         return np.full((h, w), 77), np.full((h, w), 100)
     if kind == "noise":
@@ -877,10 +939,20 @@ def _sea_pair(rng, kind, h, w):
     if kind == "tied":
         cur[:64, :64] = 9
         ref[:96, :96] = 9
+    elif kind == "recon":
+        q = torch.full((h // 8, w // 8), int(tables.load("cpu").QSTEP[28]),
+                       dtype=torch.int32)
+        ref = dispatch.code_plane(_t(ref, "cpu"), torch.full((h, w), 128, dtype=torch.int32),
+                                  q, 8)[1].numpy()
+    elif kind == "equal":
+        ref = rng.integers(0, 200, (h, w))
+        cur[16:32, 16:32] = np.minimum(cur[16:32, 16:32], 254)
+        ref[16:32, 16:32] = cur[16:32, 16:32] + 1
+        ref[0:16, 0:16] = cur[16:32, 16:32] + 1
     return cur, ref
 
 
-@pytest.mark.parametrize("kind", ["pan", "noise", "tied", "flat"])
+@pytest.mark.parametrize("kind", ["pan", "recon", "noise", "tied", "flat", "equal"])
 @pytest.mark.parametrize("h,w", [(1088, 1920), (368, 640), (144, 208)])
 def test_full_search_sea_kernel(cuda, rng, monkeypatch, kind, h, w):
     """The stats entry against the plain SEA (vectors and rows per MB);
@@ -910,7 +982,9 @@ def test_full_search_sea_kernel(cuda, rng, monkeypatch, kind, h, w):
         assert (rows == 33).all()
     elif kind == "flat":       # ties: `<=` evaluates every row, first minimum
         assert (rows == 33).all() and (got[0] == -16).all() and (got[1] == -16).all()
-    else:
+    elif kind == "equal":
+        assert [int(t[1, 1]) for t in got[:3]] == [-16, -16, 256]
+    elif kind == "tied":
         assert (rows[:4, :4] == 33).all() and (got[0][:4, :4] == -16).all()
 
 
@@ -972,9 +1046,9 @@ def _pieces(rng, lead, n, w, kind):
     ((), 65536, 24, 1024, "random"), ((), 256, 8, 32, "random"),
     ((3,), 4096, 16, 1024, "random"), ((2,), 64, 4, 2, "dense")])
 def test_chunk_merge_kernel(cuda, plain_and_kernel, rng, lead, n, w, k, kind):
-    """Half-chunk strings at the exact worst-case width; at a 1080p frame's
-    65536 pieces of 24 words each block's string takes 51 KB of shared
-    memory, over the 48 KB a launch gets without opting in."""
+    """Half-chunk strings at the exact worst-case width: a 1080p frame's
+    65536 pieces of 24 words make strings of 12289 words, 25 blocks
+    each."""
     from video_encoder_tpu_torch.codec import pack
 
     words, bits = _pieces(rng, lead, n, w, kind)

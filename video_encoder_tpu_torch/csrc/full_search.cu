@@ -73,28 +73,44 @@
 // packed, it is 2.8x faster than that loop (PERF.md, the kernel table).
 
 // Also replaces the factory's sea=True variant (sad.py:224-325, opted into
-// with TVC_SEA=1 by full_search, its batched twin and
-// full_search_pre_haloed; full_search_sea_stats also returns the count of
-// dy rows evaluated exactly): successive elimination, in sea_kernel. Its
-// bound on this card is the same ALU work, less the rows it prunes, plus
-// 1089 x 16 bound terms per MB. Design: one block per MB on the same staged
-// window. Up front, all integer: the 16 column sums of the block, the
-// 16-row column sums of the window at each of the 33 row offsets, the
-// lower bound LB = sum_c |curc[c] - winc[ky][kx + c]| of all 1089
-// candidates and its minimum per dy row (none of it depends on the running
-// best). Then the dy rows in the reference's centre-out order (dy = 0, -1,
-// +1, -2, ...): a row is evaluated exactly iff its smallest bound is <= the
-// best SAD so far. The best key sits in shared memory and is read after the
-// previous row's barrier, so the branch is uniform over the block. An
-// evaluated row is 33 candidates x 256 pixels spread over all 256 threads:
-// 8 threads per candidate, each holding two rows of the block in
-// registers, then a shuffle reduction of the 8 partial sums. `<=` and not
-// `<`: a pruned candidate has SAD >= LB > best >= the final SAD, so the
-// packed-key first minimum, ties included, is the exhaustive search's. The
-// reference counts rows per tile of MBs (a tile evaluates a row iff one of
-// its MBs needs it); here each MB counts its own, and the reference's count
-// of a tile is the OR of its MBs' row masks, because a row an MB would
-// prune cannot lower that MB's best.
+// with TVC_SEA=1 by full_search, its batched twin and full_search_pre_haloed;
+// full_search_sea_stats also returns the count of dy rows evaluated exactly):
+// successive elimination, in sea_kernel. Its bound on this card is the rows
+// it evaluates, on words of four 8-bit samples, plus 1089 x 16 bound terms
+// per MB. Design: one block of 128 threads per MB stages the window and the
+// block as words of four samples (0-255, as every plane of the codec holds;
+// the wrappers say so). Up front, all integer and none of it depending on the
+// running best: the block's 16 column sums, the window's 16-row column sums
+// at each of the 33 row offsets as sliding sums (96 threads, a column half
+// each: 16 adds, then an add and a subtract per row offset, every sample
+// loaded first), and each dy row's smallest bound LB = sum_c |curc[c] -
+// winc[ky][kx + c]| over its 33 candidates (a lane pair per row, 17
+// candidates each from a strip of 32 column sums in registers, the pair's
+// minimum by one xor shuffle; the sums' row pitch of 49 words keeps the
+// strips' loads free of bank conflicts). Then the rows in batches, not one by
+// one: the first SEA_FIRST rows of the reference's centre-out order (dy = 0,
+// -1, +1, -2, +2) are evaluated exactly; their best B is the sequential
+// search's best after those rows (a row it pruned holds no SAD below its best
+// then). Every later row whose smallest bound is <= B goes into a compacted
+// list (a ballot of warp 0) and is evaluated in a second batch. The
+// sequential search's best only falls, so it evaluates a subset of these
+// rows, and a row evaluated here that it pruned has every SAD >= LB > its
+// best then >= the final SAD: the packed-key first minimum over the evaluated
+// rows, ties included, is the exhaustive search's, in five barriers per MB.
+// An exact row is the exhaustive search's tiling (groups of 11 adjacent
+// candidates x 4 lanes of four block rows, two xor shuffles) on packed words:
+// a lane loads the 8 words of a block row's strip, shifts them to the run's
+// first sample with one byte_perm each and by 1-3 samples more for the other
+// candidates, and makes each candidate row with four vabsdiff4
+// (run_sads_packed): a third of the instructions of one __sad per sample
+// pair, on which this kernel was issue-bound. The bounds of the first batch's
+// rows decide nothing and are skipped, except for the row count:
+// full_search_sea_stats replays the count the sequential search evaluates
+// from the rows' minima (walk the centre-out order; a row counts iff its
+// smallest bound is <= the running best). The reference counts rows per tile
+// of MBs (a tile evaluates a row iff one of its MBs needs it); here each MB
+// counts its own, and the reference's count of a tile is the OR of its MBs'
+// row masks, because a row an MB would prune cannot lower that MB's best.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -105,13 +121,12 @@ constexpr int MB = 16;
 constexpr int R = 16;
 constexpr int ND = 2 * R + 1;     // 33
 constexpr int WIN = MB + 2 * R;   // 48
-constexpr int THREADS = 256;
 
 // Stages the MB's clamped 48x48 reference window and its 16x16 block with
 // NT threads; the caller synchronises. cur and ref point at the block's
 // plane. Every thread issues all its loads before its first store, so a
 // block waits for one round trip to memory, not one per element.
-template <int NT = THREADS>
+template <int NT>
 __device__ __forceinline__ void stage(const int* __restrict__ cur,
                                       const int* __restrict__ ref, int w,
                                       int rh, int rw, int oy, int ox, int y0,
@@ -142,22 +157,6 @@ __device__ __forceinline__ void stage(const int* __restrict__ cur,
     const int i = tid + q * NT;
     if (i < MB * MB) blk[i / MB][i % MB] = u[q];
   }
-}
-
-// The minimum of v over the block, combined with *best; the result is in
-// *best for every thread after the call (two barriers).
-__device__ __forceinline__ void block_min(int v, int* best, int* warp_best) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = min(v, __shfl_down_sync(0xffffffffu, v, off));
-  }
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int b = *best;
-    for (int i = 0; i < THREADS / 32; ++i) b = min(b, warp_best[i]);
-    *best = b;
-  }
-  __syncthreads();
 }
 
 constexpr int TILED_THREADS = 128;
@@ -359,95 +358,262 @@ even_map_kernel(const int* __restrict__ cur, const int* __restrict__ ref,
   for (int i = tid; i < NCAND; i += EM_THREADS) map_out[o * NCAND + i] = row_s[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// dy row index ky = dy + R of step s of the reference's centre-out order
+// (dy = 0, -1, +1, -2, +2, ...; ops/motion.py SEA_ORDER)
+__device__ __forceinline__ int sea_row(int s) {
+  return R + ((s + 1) >> 1) * (1 - 2 * (s & 1));
+}
+
+constexpr int SEA_THREADS = 128;   // four warps per MB
+constexpr int SEA_FIRST = 5;       // rows of the first batch
+
+// four 8-bit samples in one word, the first in the low byte
+__device__ __forceinline__ unsigned pack4(const int (&v)[4]) {
+  return v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
+}
+
+// Stages the MB's clamped 48x48 reference window and its 16x16 block as
+// words of four 8-bit samples (a window row is 12 words and a zero pad
+// word); the caller synchronises. Every thread issues all its loads before
+// its first store.
+__device__ __forceinline__ void stage_packed(const int* __restrict__ cur,
+                                             const int* __restrict__ ref,
+                                             int w, int rh, int rw, int oy,
+                                             int ox, int y0, int x0,
+                                             unsigned (*win)[WPITCH],
+                                             unsigned (*blk)[MB / 4]) {
+  constexpr int NWW = WIN * WIN / 4;
+  constexpr int NQ = (NWW + SEA_THREADS - 1) / SEA_THREADS;
+  const int tid = threadIdx.x;
+  int v[NQ][4], u[4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int i = min(tid + q * SEA_THREADS, NWW - 1);
+    const int y = min(max(y0 - R + i / (WIN / 4) + oy, 0), rh - 1);
+    const int c4 = x0 - R + (i % (WIN / 4)) * 4 + ox;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[q][e] = ref[y * rw + min(max(c4 + e, 0), rw - 1)];
+  }
+  const int bi = min(tid, MB * MB / 4 - 1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) u[e] = cur[(y0 + bi / 4) * w + x0 + (bi % 4) * 4 + e];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int i = tid + q * SEA_THREADS;
+    if (i < NWW) win[i / (WIN / 4)][i % (WIN / 4)] = pack4(v[q]);
+  }
+  if (tid < MB * MB / 4) blk[bi / 4][bi % 4] = pack4(u);
+  if (tid < WIN) win[tid][WIN / 4] = 0u;
+}
+
+// The SADs of the run of RUN candidates (ky, kx0 .. kx0 + RUN - 1) over
+// this lane's four block rows (four words each), on packed words. Per block row the lane loads the 8 words that hold the run's
+// strip of 26 samples and shifts them to start at sample kx0 (one
+// byte_perm each, its selector set by kx0 % 4); the candidates at 1, 2 and
+// 3 samples further read the strip shifted once more; each candidate row
+// is four vabsdiff4 (four abs-diffs and their sum each). Then the group's
+// four lanes' partial sums meet in two xor shuffles.
+__device__ __forceinline__ void run_sads_packed(const unsigned (&b)[ROWS][MB / 4],
+                                                const unsigned (*win)[WPITCH],
+                                                int ky, int kx0, int r0,
+                                                unsigned int (&acc)[RUN]) {
+  const unsigned sel = 0x3210u + 0x1111u * (kx0 & 3);
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) acc[j] = 0;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const unsigned* wr = &win[ky + r0 + r][kx0 >> 2];
+    unsigned a[8], sh[4][6];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = wr[i];
+    unsigned t[7];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) t[i] = __byte_perm(a[i], a[i + 1], sel);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        sh[s][i] = s == 0 ? t[i] : __byte_perm(t[i], t[i + 1], 0x3210u + 0x1111u * s);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+#pragma unroll
+      for (int m = 0; m < MB / 4; ++m) {
+        acc[j] = vsad4(b[r][m], sh[j & 3][(j >> 2) + m], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 1);
+    acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 2);
+  }
+}
+
+// Evaluates n_rows dy rows exactly, row q of the batch being row_of(q),
+// on the register tiling of the exhaustive search: group gi is run gi %
+// RUNS of row gi / RUNS, and warp w takes the groups 32 i + 8 w + lane / 4
+// (the loop bound is uniform over the warp, so the shuffles see every
+// lane). Each group's smallest key sad << 11 | k goes to its row's slot of
+// rowkey.
+template <class RowOf>
+__device__ __forceinline__ void sea_rows(const unsigned (&b)[ROWS][MB / 4],
+                                         const unsigned (*win)[WPITCH],
+                                         int r0, int n_rows, RowOf row_of,
+                                         int* rowkey) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_groups = n_rows * RUNS;
+  for (int g0 = 8 * warp; g0 < n_groups; g0 += SEA_THREADS / 4) {
+    const bool valid = g0 + (lane >> 2) < n_groups;
+    const int gi = valid ? g0 + (lane >> 2) : n_groups - 1;
+    const int q = gi / RUNS;
+    const int ky = row_of(q), kx0 = (gi - q * RUNS) * RUN;
+    unsigned int acc[RUN];
+    run_sads_packed(b, win, ky, kx0, r0, acc);
+    int key = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      key = min(key, (int)(acc[j] << 11) | (ky * ND + kx0 + j));
+    }
+    if (valid && (lane & 3) == 0) atomicMin(&rowkey[ky], key);
+  }
+}
+
+__global__ void __launch_bounds__(SEA_THREADS)
 sea_kernel(const int* __restrict__ cur, const int* __restrict__ ref, int h,
            int w, int rh, int rw, int oy, int ox, int* __restrict__ dy_out,
            int* __restrict__ dx_out, int* __restrict__ sad_out,
            int* __restrict__ rows_out) {
-  __shared__ int win[WIN][WIN + 1];
-  __shared__ int blk[MB][MB];
-  __shared__ int curc[MB];         // column sums of the block
-  __shared__ int winc[ND][WIN];    // 16-row column sums of the window
-  __shared__ int rowmin[ND];       // the smallest bound of each dy row
-  __shared__ int warp_best[THREADS / 32];
-  __shared__ int best_s;           // the running best key sad << 11 | k
+  __shared__ unsigned win[WIN][WPITCH];
+  __shared__ unsigned blk[MB][MB / 4];
+  __shared__ int curc[MB];           // column sums of the block
+  __shared__ int winc[ND][WIN + 1];  // 16-row column sums of the window
+  __shared__ int rowmin[ND];         // the smallest bound of each dy row
+  __shared__ int rowkey[ND];         // the smallest key of each evaluated row
+  __shared__ int later[ND];          // the second batch's rows, compacted
+  __shared__ int n_later;
 
-  const int bx = blockIdx.x, by = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t o = ((size_t)blockIdx.z * gridDim.y + by) * gridDim.x + bx;
-  stage(cur + (size_t)blockIdx.z * h * w, ref + (size_t)blockIdx.z * rh * rw,
-        w, rh, rw, oy, ox, by * MB, bx * MB, win, blk);
-  if (tid < ND) rowmin[tid] = INT_MAX;
-  if (tid == 0) best_s = INT_MAX;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t o =
+      ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  stage_packed(cur + (size_t)blockIdx.z * h * w,
+               ref + (size_t)blockIdx.z * rh * rw, w, rh, rw, oy, ox,
+               blockIdx.y * MB, blockIdx.x * MB, win, blk);
+  if (tid < ND) rowkey[tid] = INT_MAX;
   __syncthreads();
 
-  if (tid < MB) {
-    int s = 0;
-    for (int r = 0; r < MB; ++r) s += blk[r][tid];
-    curc[tid] = s;
-  }
-  for (int i = tid; i < ND * WIN; i += THREADS) {
-    const int ky = i / WIN, x = i % WIN;
-    int s = 0;
-    for (int r = 0; r < MB; ++r) s += win[ky + r][x];
-    winc[ky][x] = s;
+  // column sums: task x < 48 slides down column x over the row offsets
+  // 0..16, task 48 + x over 17..32 (all its samples loaded first, one
+  // byte_perm each); tasks 96..111 sum the block's
+  if (tid < 2 * WIN) {
+    const int x = tid % WIN, k0 = tid < WIN ? 0 : ND / 2 + 1;
+    const unsigned pick = 0x4440u | (x & 3);
+    int a[2 * MB];
+#pragma unroll
+    for (int j = 0; j < 2 * MB; ++j) {
+      a[j] = __byte_perm(win[min(k0 + j, WIN - 1)][x >> 2], 0u, pick);
+    }
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < MB; ++j) sum += a[j];
+    winc[k0][x] = sum;
+#pragma unroll
+    for (int j = 1; j <= ND / 2; ++j) {
+      if (k0 + j < ND) {
+        sum += a[j + MB - 1] - a[j - 1];
+        winc[k0 + j][x] = sum;
+      }
+    }
+  } else if (tid < 2 * WIN + MB) {
+    const int c = tid - 2 * WIN;
+    int sum = 0;
+#pragma unroll
+    for (int r = 0; r < MB; ++r) sum += __byte_perm(blk[r][c >> 2], 0u, 0x4440u | (c & 3));
+    curc[c] = sum;
   }
   __syncthreads();
-  for (int k = tid; k < ND * ND; k += THREADS) {
-    const int ky = k / ND, kx = k % ND;
-    int lb = 0;
+
+  // each row's smallest bound: tasks 2 q and 2 q + 1 take the candidates
+  // kx = 0..16 and 16..32 of row sea_row(first + q) from a strip of 32
+  // column sums, a lane pair of one warp (the loop bound is uniform over
+  // the warp). The first batch's rows matter only to the row count.
+  const int first = rows_out != nullptr ? 0 : SEA_FIRST;
+  const int n_tasks = 2 * (ND - first);
+  for (int t0 = 32 * warp; t0 < n_tasks; t0 += SEA_THREADS) {
+    const int task = min(t0 + lane, n_tasks - 1);
+    const int ky = sea_row(first + (task >> 1)), kx0 = (task & 1) * (ND / 2);
+    int c[MB], sv[2 * MB];
 #pragma unroll
-    for (int c = 0; c < MB; ++c) lb += abs(curc[c] - winc[ky][kx + c]);
-    atomicMin(&rowmin[ky], lb);
+    for (int i = 0; i < MB; ++i) c[i] = curc[i];
+#pragma unroll
+    for (int i = 0; i < 2 * MB; ++i) sv[i] = winc[ky][kx0 + i];
+    int m = INT_MAX;
+#pragma unroll
+    for (int j = 0; j <= ND / 2; ++j) {
+      unsigned int lb = 0;
+#pragma unroll
+      for (int i = 0; i < MB; ++i) lb = __sad(c[i], sv[i + j], lb);
+      m = min(m, (int)lb);
+    }
+    m = min(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    if (t0 + lane < n_tasks && (lane & 1) == 0) rowmin[ky] = m;
   }
 
-  // this thread's share of an exact row: candidate kx = tid / 8 (and, in
-  // warp 0, kx = 32 + tid / 8 for tid < 8), block rows 2 (tid % 8) and
-  // 2 (tid % 8) + 1, held in registers
-  const int r0 = 2 * (tid & 7);
-  int b[2][MB];
+  // lane & 3 picks the four block rows this thread holds
+  const int r0 = ROWS * (lane & 3);
+  unsigned b[ROWS][MB / 4];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
+  for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
-    for (int c = 0; c < MB; ++c) b[rr][c] = blk[r0 + rr][c];
+    for (int m = 0; m < MB / 4; ++m) b[r][m] = blk[r0 + r][m];
   }
+
+  // the first batch: the first SEA_FIRST rows of the centre-out order
+  sea_rows(b, win, r0, SEA_FIRST, [](int q) { return sea_row(q); }, rowkey);
   __syncthreads();
 
-  int n_rows = 0;
-  for (int s = 0; s < ND; ++s) {
-    const int ky = R + ((s + 1) >> 1) * (1 - 2 * (s & 1));
-    // uniform over the block: rowmin and best_s were written before the
-    // last barrier
-    if (rowmin[ky] > (best_s >> 11)) continue;
-    ++n_rows;
-    int key = INT_MAX;
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 1 && tid >= 32) break;  // kx = 32 is warp 0's alone
-      const int kx = (tid >> 3) + pass * (THREADS / 8);
-      unsigned int acc = 0;
-      if (kx < ND) {
+  // the second batch: every later row whose smallest bound is <= the
+  // first batch's best SAD, compacted in order by a ballot of warp 0
+  if (warp == 0) {
+    int best = INT_MAX;
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-#pragma unroll
-          for (int c = 0; c < MB; ++c) {
-            acc = __sad(b[rr][c], win[ky + r0 + rr][kx + c], acc);
+    for (int q = 0; q < SEA_FIRST; ++q) best = min(best, rowkey[sea_row(q)]);
+    const int ky = sea_row(min(SEA_FIRST + lane, ND - 1));
+    const bool keep = SEA_FIRST + lane < ND && rowmin[ky] <= (best >> 11);
+    const unsigned int mask = __ballot_sync(0xffffffffu, keep);
+    if (keep) later[__popc(mask & ((1u << lane) - 1))] = ky;
+    if (lane == 0) n_later = __popc(mask);
+  }
+  __syncthreads();
+  sea_rows(b, win, r0, n_later, [&](int q) { return later[q]; }, rowkey);
+  __syncthreads();
+
+  if (warp == 0) {
+    // every row the sequential search evaluates was evaluated here, so
+    // the smallest key is its result
+    int key = min(rowkey[lane], lane == 0 ? rowkey[ND - 1] : INT_MAX);
+    for (int off = 16; off > 0; off >>= 1) {
+      key = min(key, __shfl_down_sync(0xffffffffu, key, off));
+    }
+    if (lane == 0) {
+      const int k = key & 2047;
+      dy_out[o] = k / ND - R;
+      dx_out[o] = k % ND - R;
+      sad_out[o] = key >> 11;
+      if (rows_out != nullptr) {
+        // the sequential count, replayed from the rows' minima
+        int best = INT_MAX, n = 0;
+        for (int st = 0; st < ND; ++st) {
+          const int ky = sea_row(st);
+          if (rowmin[ky] <= (best >> 11)) {
+            ++n;
+            best = min(best, rowkey[ky]);
           }
         }
+        rows_out[o] = n;
       }
-      // whole warps: the 8 threads of a candidate are aligned lanes
-      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (kx < ND) key = min(key, (int)(acc << 11) | (ky * ND + kx));
     }
-    block_min(key, &best_s, warp_best);
-  }
-  if (tid == 0) {
-    const int k = best_s & 2047;
-    dy_out[o] = k / ND - R;
-    dx_out[o] = k % ND - R;
-    sad_out[o] = best_s >> 11;
-    if (rows_out != nullptr) rows_out[o] = n_rows;
   }
 }
 
@@ -493,7 +659,7 @@ int launch_sea(const int* cur, const int* ref, int g, int h, int w, int rh,
                int rw, int* dy, int* dx, int* sad, int* rows, void* stream) {
   if (bad_extents(g, h, w, rh, rw)) return (int)cudaErrorInvalidValue;
   const dim3 grid(w / MB, h / MB, g);
-  sea_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  sea_kernel<<<grid, SEA_THREADS, 0, (cudaStream_t)stream>>>(
       cur, ref, h, w, rh, rw, (rh - h) / 2, (rw - w) / 2, dy, dx, sad, rows);
   return (int)cudaGetLastError();
 }

@@ -2,6 +2,14 @@
 
 A CPU tensor takes the plain version in `codec/pack.py`; a CUDA tensor
 launches the kernel, which is built at first use.
+
+The kernel reads a piece's words only up to min(ceil(bits / 32), width),
+so every piece (and every string fed to a later stage) must hold zeros
+past its bit count, as the plain version's add, which equals an or only
+then, also assumes: `block_pack` and `entropy._mb_sources` write them so,
+and so does each merge for its own strings
+(tests/test_torch_kernel_models.py holds every producer to it). A call is
+one device op: the overflow flag is derived in the same launch.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ def _outputs(n_strings: int, cw: int, device):
 def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
                   n_strings: int):
     """Per-MB piece sources -> n_strings strings of m pieces, cw words:
-    (words [n_strings, cw] int64, bits [n_strings] int32, ovf bool)."""
+    (words [n_strings, cw] int64, bits [n_strings] int32, ovf bool). Each
+    piece holds zeros past its bit count (see the module note)."""
     if yw.device.type == "cpu":
         return pack.span_merge_mb(hw, yw, cbw, crw, piece_bits, m, cw,
                                   n_strings)
@@ -47,7 +56,8 @@ def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
 
 def span_merge(strings, bits_in, g: int, stop: int, cw: int):
     """Groups of g strings [n, w] -> `stop` strings each of g/stop
-    consecutive inputs, cw words: (words, bits int32, ovf bool)."""
+    consecutive inputs, cw words: (words, bits int32, ovf bool). Each
+    string holds zeros past its bit count (see the module note)."""
     if strings.device.type == "cpu":
         return pack.span_merge(strings, bits_in, g, stop, cw)
     n, w = strings.shape
@@ -71,7 +81,8 @@ def chunk_merge(words, bits_in, k: int):
     pieces at the exact worst-case width (k/2) * w + 1: words [(G,) n, w]
     int64, bits [(G,) n] int32, n a multiple of k (k even). Returns (words
     [(G,) 2n/k, (k/2) * w + 1] int64, bits [(G,) 2n/k] int32); a leading
-    G folds into the chunk axis (one launch)."""
+    G folds into the chunk axis (one launch). Each piece holds zeros past
+    its bit count (see the module note)."""
     if words.device.type == "cpu":
         return pack.chunk_merge(words, bits_in, k)
     *lead, n, w = words.shape

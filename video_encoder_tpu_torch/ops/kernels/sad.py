@@ -20,7 +20,10 @@ search wrappers (`full_search`, `full_search_g`, `full_search_pre_haloed`)
 launch the successive-elimination entry of their form instead of the
 exhaustive one, with the same result, as the reference's Pallas wrappers
 do (`_sea_enabled`); a CPU tensor takes the plain exhaustive search
-whatever the variable says, as the reference's jnp path does.
+whatever the variable says, as the reference's jnp path does. The SEA
+kernel evaluates its rows on words of four 8-bit samples, so its planes
+hold samples 0-255, as every plane of the codec does (`sad_map_even`
+takes the same).
 """
 
 from __future__ import annotations
@@ -79,11 +82,14 @@ def _sea_enabled() -> bool:
     rows, but that against the previous recon, which the engine searches,
     the quantization noise puts a floor under the best SAD while the
     column-sum bound cancels that noise, so it pruned nothing and cost its
-    bound. On an H100 the port's kernel pruned about half the rows against
-    a qp-28 recon and cut the engine's search time by about a third, and
-    was slower than the exhaustive kernel on noise (PERF.md, sections 6
-    and 7); the default stays the reference's until content of several
-    kinds has been measured."""
+    bound. On an H100 the port's kernel (its rows in two batches, on words
+    of four 8-bit samples) prunes about half the rows against a qp-28
+    recon and takes 0.36x the exhaustive kernel's time there, 0.25x on a
+    clean reference and 0.50x on noise, where nothing prunes; the full
+    cell's search fell from 6.0 to 1.8 ms of device time per GOP (PERF.md,
+    sections 6 and 7). Part of that is the packed arithmetic, which the
+    exhaustive kernel does not use yet, so the default stays the
+    reference's until content of several kinds has been measured."""
     return os.environ.get("TVC_SEA", "0") == "1"
 
 
@@ -110,7 +116,8 @@ def _full_search(cur_y, ref_y, name: str, batched: bool, halo: int = 0,
 def full_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
     """Exhaustive ±16 SAD search: (dy, dx, sad) per 16x16 MB, int32.
     cur_y, ref_y: [H, W] int32 with H, W multiples of 16. With TVC_SEA=1
-    a CUDA tensor launches the SEA kernel: the same result."""
+    a CUDA tensor launches the SEA kernel: the same result for samples
+    0-255."""
     if cur_y.device.type == "cpu":
         return motion.full_search(cur_y, ref_y)
     if _sea_enabled():
@@ -130,7 +137,8 @@ def full_search_g(cur_y: torch.Tensor, ref_y: torch.Tensor):
 def full_search_sea_stats(cur_y: torch.Tensor, ref_y: torch.Tensor):
     """The SEA full search whatever TVC_SEA says, with the count of dy
     rows each MB evaluated exactly: (dy, dx, sad, rows) [H/16, W/16] int32
-    of planes [H, W] int32; (dy, dx, sad) equal full_search's. The
+    of planes [H, W] int32 of samples 0-255; (dy, dx, sad) equal
+    full_search's. The
     reference counts per tile of MBs: its count of a tile is the number of
     rows in the OR of its MBs' masks (motion.full_search_sea's mask)."""
     if cur_y.device.type == "cpu":
