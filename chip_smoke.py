@@ -8,7 +8,8 @@ Phases, each of which raises on failure (exit code not 0):
 2. Build: compiles every kernel under video_encoder_tpu_torch/csrc/ and
    prints each kernel's registers and spill bytes (nvcc -Xptxas -v): the
    search and the whole SAD map (tiled_kernel), the even map
-   (even_map_kernel), sad_at_kernel, and the others.
+   (even_map_kernel), sad_at_kernel, the decoders' recon_kernel and
+   recon_rows_kernel, and the others.
 3. Kernels: every kernel entry of the port, one per launch counter
    (the single-plane kernels of format 1, block_pack in the format-2
    syntax, code_plane with the quant matrix, the format-3/4 I-frame row
@@ -39,6 +40,16 @@ Phases, each of which raises on failure (exit code not 0):
    plain version and, the shards' results put together, to the unsharded
    kernel on the whole frame; the odd 368x640 grid as one unbatched shard
    in both geometries.
+   Then the decoders' recon, two entries of the code_plane kernel:
+   recon_plane (the inter recon of a plane, against a predictor or the
+   flat 128 of an I frame at formats 1-2) and recon_plane_rows (the
+   format-3/4 I-frame recon, one launch per plane, without intra slices
+   and with slices of 2 and 17 rows), at 1088x1920, 544x960, 368x640 and
+   184x320, flat and under the quant matrix, on sparse levels and on
+   levels drawn from the int16 extremes at the largest step (the inverse's
+   int32 sums wrap), each equal to its plain version and its byte plane
+   to its recon; timed at qp 28 on 1088x1920 and 544x960 as the decoders
+   run them (call, device and host times, plain, bound by bytes).
    Then the MC predictor, which makes a P step's three predictor planes
    in one launch (one reference plane, or four parity planes and
    half-pel vectors at format 4; intra MBs 128): single at 1088x1920 and
@@ -84,6 +95,21 @@ Phases, each of which raises on failure (exit code not 0):
    matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
    each, against the oracle. The oracle's encodes run side by side on the
    host's CPU before the port's.
+   Then decode: every stream above (the three 1080p clips, the three
+   640x360 ones and the format-4 clip at `--intra-slice 17`) decoded
+   through the port CLI in-process with `--engine gop`, `--engine
+   device`, `--engine native --workers 1`, `--workers 0` and `--workers
+   3`, each file byte-identical to the oracle's decode of the stream; on
+   the device engines mc_predict launches once per P frame, recon_plane
+   three times per P frame and, at formats 1-2, per I frame,
+   recon_plane_rows three times per I frame at formats 3-4, and nothing
+   else (no single-plane fetch, no stripe); the C++ engines launch
+   nothing. Then the 1080p decode rates of the GOP engine:
+   device-resident (the GOP uploaded once, its frames rebuilt, one sync),
+   with its device ops per frame and busy share from torch.profiler; with
+   the parse and the download, and those host stages on their own; and
+   the CLI wall rates of the engines beside os.cpu_count() (printed,
+   claimed nowhere).
    Then the batched-GOP paths, `--gop 10 --gop-batch 3` on the same
    30-frame 1080p clips (one lockstep encode of three GOPs): config 3
    against the oracle's stream of that GOP length; full search and
@@ -155,7 +181,8 @@ card; it exits 1 if a result differs between ROOTs.
 Run with no arguments, its last lines of standard output are the card's
 name and power limit, the kernel table (one entry per launch counter,
 each with the row of PERF.md's table it ports; all sixteen rows; the
-single-plane fetches launch on no path, the predictor in their place) and
+single-plane fetches launch on no path, the predictor in their place; the
+decoders' two recon entries as rows 11d and 11dr) and
 {"ok": true, "device": {...}}. Builds go to build/ (gitignored).
 """
 
@@ -206,7 +233,9 @@ TABLE_ROW = {
     "code_plane_qmat_g": "12", "block_pack": "13", "block_pack_v2": "13v",
     "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16",
     "mc_predict": "7", "mc_predict_g": "9m", "mc_predict_haloed": "10",
-    "code_plane_rows": "11r", "code_plane_rows_g": "12r"}
+    "code_plane_rows": "11r", "code_plane_rows_g": "12r",
+    # the decoders' recon: entries of row 11's kernel, no Pallas counterpart
+    "recon_plane": "11d", "recon_plane_rows": "11dr"}
 # the single-plane fetches: held and timed in phase 3, launched by no
 # encode path (a P step's three predictors are one mc_predict launch)
 SINGLE_FETCHES = ("mc_fetch_luma", "mc_fetch_chroma", "mc_fetch_luma_g",
@@ -1229,9 +1258,106 @@ def phase_kernels(dev, card: str):
             f"{shape_of(cur_o, ref_ext)} (one shard, no batch): equal to "
             f"plain and to the unsharded kernels")
 
+    recon_kernels(dev, rng, table)
     predictor_kernels(dev, rng, table)
     last_kernels(dev, rng, table)
     return table.rows
+
+
+def recon_kernels(dev, rng, table: KernelTable):
+    """The decoders' recon, two entries of the code_plane kernel with no
+    Pallas counterpart (the reference rebuilds in jnp: recon_plane in
+    video_encoder_tpu/pipeline/decoder.py:180, transform.py:158), each
+    against its plain version at the 1080p and 640x360 plane shapes:
+    sparse levels at qp 1, 12, 28 and 63 mixed per block, and levels drawn
+    from the int16 extremes at the largest step, where the inverse's int32
+    sums wrap; a predictor and the flat 128 of an I frame; flat steps and
+    the quant matrix; the row recon without intra slices and with slices
+    of 2 and 17 rows; the byte plane each writes. Timed at qp 28 as the
+    decoders run them: the byte plane written, the inter recon against a
+    predictor."""
+    from video_encoder_tpu_torch.codec import tables
+    from video_encoder_tpu_torch.ops import dispatch
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    record, shown = table.record, table.shown
+    luma, chroma = LUMA, CHROMA
+    q28_step = int(tables.load(dev).QSTEP[28])
+    for h, w in [luma[0], chroma[0], luma[1], chroma[1]]:
+        pred_t = t32(texture(rng, h, w)[:h, :w])
+        q28 = torch.full((h // 8, w // 8), q28_step, dtype=torch.int32,
+                         device=dev)
+        for extreme in (False, True):
+            lv, q_blk = recon_case(rng, dev, h, w, extreme)
+            out8 = torch.empty((h, w), dtype=torch.uint8, device=dev)
+            for qmat in (False, True):
+                for pred in (pred_t, None):
+                    got, want = both(dispatch.recon_plane, lv, pred, q_blk,
+                                     qmat)
+                    got8 = dispatch.recon_plane(lv, pred, q_blk, qmat, out8)
+                    err = max_abs_err([got, got8, out8.int()],
+                                      [want, want, want])
+                    timing, dh = None, {}
+                    if (h, w) in (luma[0], chroma[0]) and not extreme \
+                            and pred is not None:
+                        a28 = (lv, pred, q28, qmat, out8)
+                        # per pixel: two 8-point passes of multiply-adds,
+                        # the dequantize, two roundings, the add and clip
+                        timing = (*timed(dispatch.recon_plane, *a28),
+                                  bound([lv, pred, q28], [want, out8],
+                                        h * w * (2 * 16 + 8)), None)
+                        dh = dev_host(lambda: dispatch.recon_plane(*a28))
+                    shape = (f"{h}x{w}" + (" qmat" if qmat else "")
+                             + (" flat" if pred is None else ""))
+                    if timing and (h, w) == luma[0] and not qmat:
+                        record("recon_plane", "code_plane.cu",
+                               "video_encoder_tpu/pipeline/decoder.py:180",
+                               err, timing, **dh)
+                    elif timing:
+                        record("recon_plane", "code_plane.cu",
+                               "video_encoder_tpu/pipeline/decoder.py:180",
+                               err, also=(shape, timing), **dh)
+                    else:
+                        record("recon_plane", "code_plane.cu",
+                               "video_encoder_tpu/pipeline/decoder.py:180",
+                               err)
+                    log(f"kernel recon_plane {shape}"
+                        f"{' int16 extremes' if extreme else ''}: equal"
+                        + shown(timing, dh))
+                for rr in (0, 2, 17):
+                    got, want = both(dispatch.intra_rows_recon_plane, lv,
+                                     q_blk, rr, qmat)
+                    got8 = dispatch.intra_rows_recon_plane(lv, q_blk, rr,
+                                                           qmat, out8)
+                    err = max_abs_err([got, got8, out8.int()],
+                                      [want, want, want])
+                    timing, dh = None, {}
+                    if (h, w) in (luma[0], chroma[0]) and not extreme \
+                            and rr == 0:
+                        a28 = (lv, q28, 0, qmat, out8)
+                        timing = (
+                            *timed(dispatch.intra_rows_recon_plane, *a28),
+                            bound([lv, q28], [want, out8],
+                                  h * w * (2 * 16 + 8)), None)
+                        dh = dev_host(
+                            lambda: dispatch.intra_rows_recon_plane(*a28))
+                    shape = f"{h}x{w}" + (" qmat" if qmat else "")
+                    if timing and (h, w) == luma[0] and not qmat:
+                        record("recon_plane_rows", "code_plane.cu",
+                               "video_encoder_tpu/ops/transform.py:158", err,
+                               timing, **dh)
+                    elif timing:
+                        record("recon_plane_rows", "code_plane.cu",
+                               "video_encoder_tpu/ops/transform.py:158", err,
+                               also=(shape, timing), **dh)
+                    else:
+                        record("recon_plane_rows", "code_plane.cu",
+                               "video_encoder_tpu/ops/transform.py:158", err)
+                    log(f"kernel recon_plane_rows {shape} reset_rows {rr}"
+                        f"{' int16 extremes' if extreme else ''}: equal"
+                        + shown(timing, dh))
 
 
 def predictor_kernels(dev, rng, table: KernelTable):
@@ -1369,6 +1495,26 @@ def frame_levels(rng, dev, h, w):
         q = torch.full((ph // 8, pw // 8), q28, dtype=torch.int32, device=dev)
         levels.append(dispatch.code_plane(cur, pred, q, 8)[0])
     return levels
+
+
+def recon_case(rng, dev, h, w, extreme=False):
+    """Zigzag levels int16 [h/8, w/8, 64] and steps [h/8, w/8] int32 for
+    the decoders' recon: sparse small levels at qp 1, 12, 28 and 63 mixed
+    per block or, with extreme, levels drawn from the int16 extremes at the
+    largest step."""
+    from video_encoder_tpu_torch.codec import tables
+
+    shape = (h // 8, w // 8, 64)
+    if extreme:
+        lv = rng.choice([-32768, -32767, 32767, 0, 1], shape)
+        qp = np.full(shape[:-1], 63)
+    else:
+        lv = np.where(rng.random(shape) < 0.8, 0,
+                      rng.integers(-60, 61, shape))
+        qp = rng.choice([1, 12, 28, 63], shape[:-1])
+    q_blk = tables.load(dev).QSTEP[
+        torch.from_numpy(qp).to(dev).long()].contiguous()
+    return torch.from_numpy(lv.astype(np.int16)).to(dev), q_blk
 
 
 def sea_references(dev, rng):
@@ -1976,6 +2122,167 @@ def phase_other_emit(job, stream, card):
     if m["rc"] != "none" and len(set(qps)) < 2:
         raise AssertionError(f"{m['tag']}: the rate control never moved qp")
     return launches
+
+
+# the decode engines of phase 4, as the CLI's flags: the device engines,
+# then the C++ decoder serial and GOP-parallel
+DECODES = {"gop": ["--engine", "gop"], "device": ["--engine", "device"],
+           "native1": ["--engine", "native", "--workers", "1"],
+           "native0": ["--workers", "0"], "native3": ["--workers", "3"]}
+
+
+def run_decode(job, out_path, flags):
+    """One in-process CLI decode of a job's port stream; the launch counts
+    are zeroed just before and read just after. Returns (launches, CLI
+    summary)."""
+    from video_encoder_tpu_torch import cli
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    device = ["--device", DEVICE] if "--engine" in flags[:1] and \
+        flags[1] in ("gop", "device") else []
+    build.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["decode", "-i", job["ours"], "-o", out_path, *flags,
+                       *device])
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"port decode {' '.join(flags)} of {job['tag']} "
+                           f"exited {rc}")
+    return launches, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def decode_launches(m, n, gop, device: bool):
+    """The launch counts of a decode of n frames at GOP gop: on the device
+    engines mc_predict once per P frame, recon_plane three times per P
+    frame and, at formats 1-2, per I frame, recon_plane_rows three times
+    per I frame at formats 3-4, nothing else (no single-plane fetch, no
+    stripe); the C++ decoder launches nothing."""
+    n_i = -(-n // gop)
+    n_p = n - n_i
+    if not device:
+        return {}
+    want = {"mc_predict": n_p,
+            "recon_plane": 3 * n_p + (3 * n_i if m["fmt"] < 3 else 0),
+            "recon_plane_rows": 3 * n_i if m["fmt"] >= 3 else 0}
+    return {k: v for k, v in want.items() if v}
+
+
+def phase_decode(tmp, jobs, card):
+    """Every stream of the single-GOP paths decoded by the port CLI under
+    each engine of DECODES, in-process, each file byte-identical to the C++
+    oracle's decode of the same stream (job["dec"], written by
+    decoded_psnr_y), each device decode through the kernels of the
+    decode path and nothing else. Returns (launches of each decode, CLI
+    summaries by (job, engine), launches per decoded frame of the device
+    engines by counter)."""
+    paths, summaries = [], {}
+    dev_launches, dev_frames = {}, 0
+    for name, job in jobs.items():
+        m, n, gop = job["mode"], job["n"], job["gop"]
+        with open(job["dec"], "rb") as f:
+            want = f.read()
+        for engine, flags in DECODES.items():
+            out_path = os.path.join(tmp, f"port_dec_{job['tag']}_{engine}.yuv")
+            launches, summary = run_decode(job, out_path, flags)
+            with open(out_path, "rb") as f:
+                got = f.read()
+            os.remove(out_path)
+            if got != want:
+                raise AssertionError(
+                    f"decode {engine} of {job['tag']}: {len(got)} bytes differ "
+                    f"from the oracle's decode ({len(want)} bytes)")
+            moved = {k: v for k, v in launches.items() if v}
+            expect = decode_launches(m, n, gop, engine in ("gop", "device"))
+            if moved != expect:
+                raise AssertionError(f"decode {engine} of {job['tag']}: "
+                                     f"launches {moved}, want {expect}")
+            paths.append(launches)
+            summaries[(name, engine)] = summary
+            if expect:
+                dev_frames += n
+                for k, v in moved.items():
+                    dev_launches[k] = dev_launches.get(k, 0) + v
+            log(f"decode {job['tag']} {' '.join(flags)}: == oracle "
+                f"decode ({len(want)} bytes, {summary['frames']} frames), "
+                f"launches {moved}, CLI wall {summary['fps']} fps [{card}]")
+    per_frame = {k: v / max(dev_frames, 1) for k, v in dev_launches.items()}
+    log(f"decode: launches per decoded frame of the device engines, "
+        f"{dev_frames} frames: {per_frame}")
+    return paths, summaries, per_frame
+
+
+def phase_speed_decode(cells, summaries, card):
+    """1080p decode rates of the port's device path: the GOP engine with
+    the GOP uploaded once (run, sync once) and its device ops per frame
+    and busy share from torch.profiler, then with its parse and download
+    (decode_gop_start and _finish), the host stages of a GOP on their own
+    (parse, upload, download), and the CLI wall rates of phase 4 beside
+    os.cpu_count()."""
+    from video_encoder_tpu_torch.codec import bitstream
+    from video_encoder_tpu_torch.pipeline import decoder
+
+    results = {}
+    for name, job in cells:
+        m = job["mode"]
+        with open(job["ours"], "rb") as f:
+            info, packets = bitstream.demux(io.BytesIO(f.read()))
+        packets = list(packets)
+        if len(packets) != info.gop_n:
+            raise AssertionError(f"{name}: one GOP expected")
+        eng = decoder.GopDecodeEngine(info.version, info.chroma_qp_offset,
+                                      info.quant_matrix,
+                                      info.intra_slice_mbrows, device=DEVICE)
+        n = len(packets)
+        iters = 3
+        # the GOP's host stages on their own, each the mean of iters runs:
+        # the threaded parse, the upload, the download of the decoded bytes
+        stage_ms = dict(parse=0.0, upload=0.0, download=0.0)
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            host = eng.parse(info.width, info.height, packets)
+            t1 = time.perf_counter()
+            dev_gop = eng.upload(host)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = eng.run(dev_gop)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            out.cpu()
+            t4 = time.perf_counter()
+            for k, dt in (("parse", t1 - t0), ("upload", t2 - t1),
+                          ("download", t4 - t3)):
+                stage_ms[k] += 1e3 * dt / iters
+        upload_mb = sum(t.numel() * t.element_size()
+                        for t in dev_gop.values()
+                        if isinstance(t, torch.Tensor)) / 1e6
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.run(dev_gop)
+        torch.cuda.synchronize()
+        resident = iters * n / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            eng.decode_gop_finish(eng.decode_gop_start(info.width,
+                                                       info.height, packets))
+        full = iters * n / (time.perf_counter() - t0)
+        ops, busy, top = device_ops(lambda: eng.run(dev_gop), n,
+                                    ("recon", "mc_predict"))
+        cli_fps = {e: summaries[(name, e)]["fps"]
+                   for e in ("gop", "device", "native1", "native0")}
+        results[m["tag"]] = dict(resident=resident, with_parse=full,
+                                 ops_per_frame=ops, cli=cli_fps,
+                                 stage_ms=stage_ms, upload_mb=upload_mb)
+        log(f"speed: decode {job['tag']} GOP engine device-resident "
+            f"{resident:.3f} fps, with parse and download {full:.3f} fps; "
+            f"one GOP traced: {ops if ops is None else round(ops, 2)} device "
+            f"ops/frame, device busy "
+            f"{busy if busy is None else round(100 * busy, 1)} %, "
+            f"{top[0][2] if top else None} ms of device time per GOP; host "
+            f"stages per GOP (ms) {stage_ms} ({upload_mb:.1f} MB uploaded); "
+            f"CLI wall fps {cli_fps} on {os.cpu_count()} host cores [{card}]")
+        log(f"  device ms per GOP by name (launches, ms): {top}")
+    return results
 
 
 def check_batched_launches(what, launches, m, emit, steps, tail=False):
@@ -2930,6 +3237,14 @@ def main() -> int:
             path_launches.append(
                 phase_other_emit(jobs[name], streams[name], card))
         log(f"single-GOP paths done at {time.perf_counter() - t_start:.1f} s")
+        decode_paths, decode_summaries, decode_per_frame = phase_decode(
+            tmp, jobs, card)
+        path_launches += decode_paths
+        log(f"decode paths done at {time.perf_counter() - t_start:.1f} s")
+        decode_fps = phase_speed_decode(
+            [(k, jobs[k]) for k in ("full", "config3", "v4")],
+            decode_summaries, card)
+        log(f"decode speed done at {time.perf_counter() - t_start:.1f} s")
         batched_paths, plains = phase_batched(tmp, jobs, batched_oracle, card)
         path_launches += batched_paths
         path_launches += phase_tiled(tmp, jobs, streams, plains, card)
@@ -2942,6 +3257,8 @@ def main() -> int:
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
+    for name in ("recon_plane", "recon_plane_rows"):
+        rows[name]["launches_per_decoded_frame"] = decode_per_frame[name]
     # the chroma twin of sad_at_mv, the whole SAD map and chunk_merge have
     # no caller on any encode path (nor in the reference), and neither have
     # their batched forms; the single-plane fetches no longer have one (the
@@ -2952,7 +3269,7 @@ def main() -> int:
         rows[name]["on_path"] = False
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])
-    table = {r["row"].rstrip("cqvhmsr") for r in rows.values()}
+    table = {r["row"].rstrip("cqvhmsrd") for r in rows.values()}
     if table != {str(i) for i in range(1, 17)} or set(rows) != set(TABLE_ROW):
         raise AssertionError(f"kernel table rows {sorted(table)}, counters "
                              f"{sorted(set(TABLE_ROW) ^ set(rows))} unheld")
@@ -2970,6 +3287,8 @@ def main() -> int:
     log(f"result: 1080p GOP-30 full search with and without TVC_SEA "
         f"{json.dumps(sea_fps)} [{card}]")
     log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
+    log(f"result: 1080p GOP-30 decode fps {json.dumps(decode_fps)} on "
+        f"{os.cpu_count()} host cores [{card}]")
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "
         + ", ".join(f"{k} {summaries[k]['wall_fps']} fps"
                     for k in ("full", "config3", "v4"))

@@ -336,3 +336,89 @@ def test_native_library_builds_outside_the_oracle_tree():
     lib = pathlib.Path(native._LIB_PATH)
     root = pathlib.Path(cli.__file__).resolve().parents[1]
     assert lib == root / "build" / "oracle" / "liboracle.so" and lib.exists()
+
+
+@pytest.fixture
+def v4_stream(rng, tmp_path):
+    """A format-4 stream with the quant matrix, a chroma qp offset and
+    intra slices, three GOPs of 3 and a short one (11 frames at 64x48),
+    from the reference encoder, and the C++ decoder's file of it."""
+    from video_encoder_tpu.pipeline.decoder import decode_clip_native
+
+    cfg = EncoderConfig(width=W, height=H, gop_n=3, base_qp=26,
+                        format_version=4, quant_matrix=True,
+                        chroma_qp_offset=2, intra_slice_mbrows=1)
+    buf = io.BytesIO()
+    encode_clip(cfg, make_clip(rng, W, H, 11), buf, 11)
+    path = tmp_path / "v4.tvc"
+    path.write_bytes(buf.getvalue())
+    buf.seek(0)
+    _, frames = decode_clip_native(buf)
+    want = b"".join(y.tobytes() + cb.tobytes() + cr.tobytes()
+                    for y, cb, cr in frames)
+    assert len(want) == 11 * W * H * 3 // 2
+    return str(path), want
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "gop", "--device", "cpu"],
+    ["--engine", "device", "--device", "cpu"],
+    ["--engine", "native", "--workers", "1"],
+    ["--workers", "2"],
+    ["--workers", "4"],
+    [],
+], ids=lambda f: "-".join(a.strip("-") for a in f) or "default")
+def test_decode_engines_give_the_native_file(v4_stream, tmp_path, capsys,
+                                             flags):
+    """Every decode engine and worker count writes the C++ decoder's file;
+    `--workers 4` is taken, not refused by argparse."""
+    path, want = v4_stream
+    dec = tmp_path / "d.yuv"
+    assert cli.main(["decode", "-i", path, "-o", str(dec), *flags]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["frames"] == 11
+    assert summary["engine"] == (flags[1] if flags[:1] == ["--engine"]
+                                 else "native")
+    assert dec.read_bytes() == want
+
+
+def test_decode_golden_engine_exits_2_naming_the_reference(v4_stream,
+                                                           tmp_path, capsys):
+    path, _ = v4_stream
+    dec = tmp_path / "d.yuv"
+    assert cli.main(["decode", "-i", path, "-o", str(dec), "--engine",
+                     "golden"]) == 2
+    assert "video_encoder_tpu.cli" in capsys.readouterr().err
+    assert not dec.exists()
+
+
+@pytest.mark.parametrize("engine", ["gop", "device"])
+def test_decode_device_engines_need_cuda(v4_stream, tmp_path, capsys,
+                                         monkeypatch, engine):
+    """--device defaults to cuda: without CUDA the device engines exit 1
+    with the error and decode nothing, on the CPU or elsewhere."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path, _ = v4_stream
+    dec = tmp_path / "d.yuv"
+    assert cli.main(["decode", "-i", path, "-o", str(dec), "--engine",
+                     engine]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not dec.exists()
+
+
+def test_decode_native_library_failure_exits_1(v4_stream, tmp_path, capsys,
+                                               monkeypatch):
+    """Where the C++ library cannot be built, decode exits 1 with the
+    error and switches to no other engine."""
+    from video_encoder_tpu_torch.codec import native
+
+    def broken():
+        raise RuntimeError("liboracle.so build failed: no compiler")
+
+    monkeypatch.setattr(native, "_load", broken)
+    path, _ = v4_stream
+    for flags in ([], ["--workers", "1"], ["--engine", "gop", "--device",
+                                           "cpu"]):
+        assert cli.main(["decode", "-i", path, "-o",
+                         str(tmp_path / "d.yuv"), *flags]) == 1
+        assert "liboracle.so build failed" in capsys.readouterr().err

@@ -1,4 +1,5 @@
-"""The arithmetic of the Hopper designs of code_plane (csrc/code_plane.cu),
+"""The arithmetic of the Hopper designs of code_plane (csrc/code_plane.cu,
+with the decoders' recon entries),
 block_pack (csrc/block_pack.cu), the SAD maps and the SEA search
 (csrc/full_search.cu), sad_at_mv (csrc/sad_at.cu) and the span and chunk
 merges (csrc/span_merge.cu), modelled in plain torch and numpy on the CPU
@@ -11,7 +12,10 @@ interpret mode. The kernels themselves run only on the card
 The models follow the kernels step by step: the even/odd 8-point passes
 with every partial sum checked against int32, the reciprocal-and-fix-up
 quotient in f32, the arithmetic zigzag position and quant matrix, the row
-scan's per-block-column chains, and block_pack's warp placement (two
+scan's per-block-column chains, the decoders' recon in unsigned
+arithmetic (deq read by columns from the zigzag stage, every sum mod
+2^32, the rounding shift on the wrapped value), and block_pack's warp
+placement (two
 ballot words, the previous set bit, a packed exclusive scan of the pair
 lengths, symbols ORed into the block's words, truncation); the maps'
 thread-to-candidate mapping (groups of lanes, runs of candidates, window
@@ -292,6 +296,112 @@ def test_row_scan_chains(rng, reset_rows, g, qmat):
     got = _rows_model(_t(cur), q_blk, 6, reset_rows, qmat)
     want = transform.intra_rows_code_plane(_t(cur), q_blk, 6, reset_rows, qmat)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---- the decoders' recon: recon_kernel and recon_rows_kernel ----------------
+
+def _u32(x):
+    return np.asarray(x).astype(np.int64).astype(np.uint32)
+
+
+def _inv8_wrap(x):
+    """inv8 on uint32 columns (the last axis), every product and sum mod
+    2^32 as the kernel's unsigned arithmetic computes it."""
+    x = [x[..., k] for k in range(8)]
+    a, b = 362 * (x[0] + x[4]), 362 * (x[0] - x[4])
+    c, d = 473 * x[2] + 196 * x[6], 196 * x[2] - 473 * x[6]
+    e = [a + c, b + d, b - d, a - c]
+    o = [502 * x[1] + 426 * x[3] + 284 * x[5] + 100 * x[7],
+         426 * x[1] - 100 * x[3] - 502 * x[5] - 284 * x[7],
+         284 * x[1] - 502 * x[3] + 100 * x[5] + 426 * x[7],
+         100 * x[1] - 284 * x[3] + 426 * x[5] - 502 * x[7]]
+    y = [None] * 8
+    for i in range(4):
+        y[i] = e[i] + o[i]
+        y[7 - i] = e[i] - o[i]
+    return np.stack(y, -1)
+
+
+def _round_wrap(v):
+    """rshift_round_wrap: |v| and |v| + 512 mod 2^32, the shift arithmetic
+    on the value read as int32."""
+    neg = v.view(np.int32) < 0
+    mag = (np.where(neg, np.uint32(0) - v, v) + np.uint32(512)).view(
+        np.int32) >> 10
+    return np.where(neg, -mag, mag).astype(np.int32)
+
+
+def _recon_blocks_model(lv, pred, q, qmat):
+    """recon_block on blocks [..., 64] zigzag int16 levels, pred [..., 8,
+    8], steps [...]: thread r's column r of deq read from the zigzag
+    stage (deq[k][r] = z[zz_pos(k, r)] * q(k, r)), inv8, round, one
+    transpose, inv8, round, + pred, clip."""
+    zz = np.array([[_zz_pos(k, r) for r in range(8)] for k in range(8)])
+    qk = np.asarray(q, np.int64)[..., None, None]
+    if qmat:
+        m = np.array([[_qmat(k, r) for r in range(8)] for k in range(8)])
+        qk = np.maximum(1, (qk * m + 8) >> 4)
+    deq = _u32(lv[..., zz]) * _u32(np.broadcast_to(qk, lv.shape[:-1] + (8, 8)))
+    cols = deq.swapaxes(-1, -2)                  # thread r holds column r
+    u1r = _round_wrap(_inv8_wrap(cols))          # u1[.][r], rounded
+    rows = _u32(u1r.swapaxes(-1, -2))            # the transpose: row r
+    u2 = _round_wrap(_inv8_wrap(rows))
+    rec = (_u32(u2) + _u32(pred)).view(np.int32)
+    return np.clip(rec, 0, 255)
+
+
+def _recon_case(rng, h, w, extreme):
+    shape = (h // 8, w // 8, 64)
+    if extreme:
+        lv = rng.choice([-32768, -32767, 32767, 0], shape)
+        qp = np.full(shape[:-1], 63)
+    else:
+        lv = np.where(rng.random(shape) < 0.8, 0, rng.integers(-60, 61, shape))
+        qp = rng.choice([1, 12, 28, 63], shape[:-1])
+    return lv.astype(np.int16), spec.QSTEP[qp].astype(np.int32)
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("qmat", [False, True])
+def test_recon_block_model(rng, qmat, extreme):
+    """The inter recon's unsigned arithmetic against transform.recon_plane
+    (the reference's int32 wrap) on the odd 184x320 chroma grid, also at
+    the int16 extremes and the largest step, where its sums leave int32."""
+    h, w = 184, 320
+    lv, q = _recon_case(rng, h, w, extreme)
+    pred = rng.integers(0, 256, (h, w)).astype(np.int32)
+    blocks = transform.blockify(_t(pred), 8).numpy()
+    got = transform.unblockify(torch.from_numpy(
+        _recon_blocks_model(lv, blocks, q, qmat))).numpy()
+    want = transform.recon_plane(torch.from_numpy(lv), _t(pred), _t(q), qmat)
+    assert np.array_equal(got, want.numpy())
+    if extreme:                  # the wrap was exercised
+        deq = lv.astype(np.int64) * q[..., None]
+        assert np.abs(deq).max() * 2705 > INT32_MAX
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("qmat", [False, True])
+@pytest.mark.parametrize("reset_rows", [0, 2, 17])
+def test_recon_rows_chains(rng, reset_rows, qmat, extreme):
+    """The I-frame recon as recon_rows_kernel walks it (per block column,
+    each block's pred row the recon's last row above, 128 at a slice's
+    first row) against transform.intra_rows_recon_plane on 368x640."""
+    h, w = 368, 640
+    lv, q = _recon_case(rng, h, w, extreme)
+    carry = np.full((w // 8, 1, 8), 128, np.int32)
+    rows = []
+    for j in range(h // 8):
+        if j == 0 or (reset_rows and j % reset_rows == 0):
+            carry = np.full_like(carry, 128)
+        rec = _recon_blocks_model(lv[j], np.broadcast_to(carry, (w // 8, 8, 8)),
+                                  q[j], qmat)
+        carry = rec[:, 7:, :]
+        rows.append(rec)
+    got = transform.unblockify(torch.from_numpy(np.stack(rows))).numpy()
+    want = transform.intra_rows_recon_plane(torch.from_numpy(lv), _t(q),
+                                            reset_rows, qmat)
+    assert np.array_equal(got, want.numpy())
 
 
 # ---- block_pack ---------------------------------------------------------------

@@ -1384,3 +1384,131 @@ def test_sad_at_mv_chroma_candidate_sets_kernel(cuda, plain_and_kernel, rng,
     assert torch.equal(got, want)
     if g:
         assert torch.equal(got, _per_g(dispatch.sad_at_mv_chroma, g, *args))
+
+
+# ---- the decoders: recon_plane, recon_plane_rows and the device engines ----
+
+def _recon_case(rng, lead, h, w, extreme=False):
+    """Zigzag levels int16 [.., h/8, w/8, 64] and steps [.., h/8, w/8]:
+    sparse small levels at qp 1, 12, 28 and 63 mixed per block, or, with
+    extreme, levels drawn from the int16 extremes at the largest step
+    (the inverse's sums then leave int32 and wrap)."""
+    shape = (*lead, h // 8, w // 8, 64)
+    if extreme:
+        lv = rng.choice([-32768, -32767, 32767, 0, 1], shape)
+        qp = np.full(shape[:-1], 63)
+    else:
+        lv = np.where(rng.random(shape) < 0.8, 0, rng.integers(-60, 61, shape))
+        qp = rng.choice([1, 12, 28, 63], shape[:-1])
+    return lv.astype(np.int16), qp
+
+
+def _recon_args(cuda, lv, qp):
+    q_blk = tables.load(cuda).QSTEP[_t(qp, cuda).long()].contiguous()
+    return torch.from_numpy(lv).to(cuda), q_blk
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("qmat", [False, True])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (544, 960), (368, 640),
+                                 (184, 320)])
+def test_recon_plane_kernel(cuda, plain_and_kernel, rng, h, w, qmat, flat,
+                            extreme):
+    """The inter recon against its plain version, and its byte plane;
+    flat is the I frame's 128 of formats 1-2."""
+    lv, q_blk = _recon_args(cuda, *_recon_case(rng, (), h, w, extreme))
+    pred = None if flat else _t(rng.integers(0, 256, (h, w)), cuda)
+    got, want = plain_and_kernel(dispatch.recon_plane, lv, pred, q_blk, qmat)
+    assert torch.equal(got, want)
+    out8 = torch.empty((h, w), dtype=torch.uint8, device=cuda)
+    rec = dispatch.recon_plane(lv, pred, q_blk, qmat, out8)
+    assert torch.equal(rec, want) and torch.equal(out8.int(), want)
+    assert int(want.min()) >= 0 and int(want.max()) <= 255
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("g", [None, 3])
+@pytest.mark.parametrize("qmat", [False, True])
+@pytest.mark.parametrize("reset_rows", [0, 2, 17])
+@pytest.mark.parametrize("h,w", [(1088, 1920), (544, 960), (368, 640),
+                                 (184, 320)])
+def test_recon_plane_rows_kernel(cuda, plain_and_kernel, rng, h, w,
+                                 reset_rows, qmat, g, extreme):
+    """The format-3/4 I-frame recon against the plain stripe loop: one
+    launch for the plane (or B planes), with and without intra slices."""
+    lead = () if g is None else (g,)
+    lv, q_blk = _recon_args(cuda, *_recon_case(rng, lead, h, w, extreme))
+    got, want = plain_and_kernel(dispatch.intra_rows_recon_plane, lv, q_blk,
+                                 reset_rows, qmat)
+    assert torch.equal(got, want)
+    assert build.LAUNCHES["recon_plane_rows"] > 0
+    out8 = torch.empty(want.shape, dtype=torch.uint8, device=cuda)
+    dispatch.intra_rows_recon_plane(lv, q_blk, reset_rows, qmat, out8)
+    assert torch.equal(out8.int(), want)
+
+
+def test_recon_kernels_reject_what_they_do_not_take(cuda):
+    lv = torch.zeros((4, 6, 64), dtype=torch.int16, device=cuda)
+    q = torch.ones((4, 6), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int16"):
+        dispatch.recon_plane(lv.int(), None, q)
+    with pytest.raises(ValueError, match="aligned"):
+        dispatch.recon_plane(
+            torch.zeros(4 * 6 * 64 + 1, dtype=torch.int16,
+                        device=cuda)[1:].view(4, 6, 64), None, q)
+    with pytest.raises(ValueError, match="shape"):
+        dispatch.recon_plane(lv, torch.zeros((32, 40), dtype=torch.int32,
+                                             device=cuda), q)
+    with pytest.raises(ValueError, match="reset_rows"):
+        dispatch.intra_rows_recon_plane(lv, q, -1)
+
+
+_DECODE_CFGS = [
+    dict(),
+    dict(format_version=2, chroma_qp_offset=3),
+    dict(format_version=3, quant_matrix=True, intra_slice_mbrows=1),
+    dict(format_version=4, quant_matrix=True, chroma_qp_offset=2),
+]
+
+
+@pytest.mark.parametrize("kw", _DECODE_CFGS)
+def test_device_decoders_on_card_match_native(cuda, rng, kw):
+    """The port's own stream (encoded on the CPU, two GOPs) decoded on the
+    card by both device engines equals the C++ decode frame for frame;
+    the launches are the decode path's: mc_predict once per P frame,
+    recon_plane three times per P frame (and per I frame at formats 1-2),
+    recon_plane_rows three times per I frame at formats 3-4, nothing
+    else."""
+    import io
+
+    from video_encoder_tpu_torch.codec.bitstream import OrderedMux
+    from video_encoder_tpu_torch.pipeline import decoder
+
+    frames = _pan_frames(rng, 6, 64, 96)
+    cfg = EncoderConfig(width=96, height=64, gop_n=3, base_qp=24, **kw)
+    eng = GopEngine(cfg, device="cpu")
+    buf = io.BytesIO()
+    mux = OrderedMux(buf, cfg, 6)
+    for s in (0, 3):
+        for p in eng.encode_gop(frames[s:s + 3], s)[0]:
+            mux.push(p)
+    mux.close()
+    data = buf.getvalue()
+    _, want = decoder.decode_clip_native(io.BytesIO(data))
+    want = list(want)
+    fmt = cfg.format_version
+    expect = {"mc_predict": 4, "recon_plane": 12 + (6 if fmt < 3 else 0),
+              "recon_plane_rows": 6 if fmt >= 3 else 0}
+    for run in (lambda: decoder.decode_clip_gop(
+                    io.BytesIO(data), decoder.GopDecodeEngine(device=cuda)),
+                lambda: decoder.decode_clip(
+                    io.BytesIO(data), decoder.DeviceDecodeEngine(device=cuda))):
+        build.reset_launches()
+        _, got = run()
+        got = list(got)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        assert launches == {k: v for k, v in expect.items() if v}
+        assert len(got) == len(want) == 6
+        for a, b in zip(got, want):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))

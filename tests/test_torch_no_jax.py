@@ -194,3 +194,51 @@ def test_tiled_encode_runs_without_jax():
         [frames[:3], frames[3:]], [0, 3])
     assert bytes.fromhex(line.split()[1]) == b"".join(
         p.to_bytes() for pk, _ in want for p in pk)
+
+
+_DECODE_SCRIPT = _SCRIPT[:_SCRIPT.index("leaked = ")] + r"""
+from video_encoder_tpu_torch.pipeline import decoder
+data = buf.getvalue()
+outs = {}
+for name, run in (
+        ("native", decoder.decode_clip_native),
+        ("parallel", lambda f: decoder.decode_clip_parallel(f, 2)),
+        ("gop", lambda f: decoder.decode_clip_gop(
+            f, decoder.GopDecodeEngine(device="cpu"))),
+        ("device", lambda f: decoder.decode_clip(
+            f, decoder.DeviceDecodeEngine(device="cpu")))):
+    _, frames = run(io.BytesIO(data))
+    outs[name] = b"".join(p.tobytes() for f in frames for p in f)
+leaked = [k for k in sys.modules
+          if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
+          and sys.modules[k] is not None]
+assert not leaked, leaked
+for name, raw in outs.items():
+    print("DECODED " + name + " " + raw.hex())
+"""
+
+
+def test_decoders_run_without_jax():
+    """The port's four decoders (pipeline/decoder.py) with jax and the JAX
+    package blocked, on the format-4 stream of _SCRIPT: each gives the
+    reference's C++ decode of it."""
+    from video_encoder_tpu.codec.config import EncoderConfig
+    from video_encoder_tpu.pipeline.decoder import decode_clip_native
+    from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
+
+    assert PKG / "pipeline" / "decoder.py" in PKG.rglob("*.py")   # in the scan
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _DECODE_SCRIPT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = {ln.split()[1]: bytes.fromhex(ln.split()[2])
+           for ln in r.stdout.splitlines() if ln.startswith("DECODED ")}
+    cfg = EncoderConfig(width=48, height=32, gop_n=3, format_version=4,
+                        quant_matrix=True, chroma_qp_offset=2)
+    stream = io.BytesIO()
+    encode_clip(cfg, _clip(), stream, 3, engine=GoldenEngine())
+    stream.seek(0)
+    _, frames = decode_clip_native(stream)
+    want = b"".join(p.tobytes() for f in frames for p in f)
+    assert len(want) == 3 * 48 * 32 * 3 // 2
+    assert got == {k: want for k in ("native", "parallel", "gop", "device")}

@@ -1,5 +1,5 @@
-"""Command line of the port: encode on one device, decode/info/psnr on the
-host.
+"""Command line of the port: encode and decode on one device, or decode,
+info and psnr on the host.
 
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 -o out.tvc
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv
@@ -25,28 +25,33 @@ once for G frames; `--two-pass` allocates one qp per GOP from a first
 pass at constant qp; `--tile S` encodes every frame as S row shards with
 a halo exchange between them (full search only; with `--gop-batch G`, G
 GOPs of S shards per step), all on the one device. Its streams are byte-identical to the reference
-CLI's. Decoding uses the C++ parser of `oracle/oracle.cpp` through ctypes
-(`codec/native.py`).
+CLI's. `decode` takes the reference's engines (`pipeline/decoder.py`):
+`--engine native` (the default) decodes with the C++ decoder of
+`oracle/oracle.cpp` through ctypes (`codec/native.py`), GOP-parallel on
+`--workers` threads; `--engine gop|device` parse with it and rebuild the
+frames on `--device` (default cuda):
+
+    python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --workers 4
+    python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --engine gop
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import io
 import json
 import sys
 import time
 
 import numpy as np
 
-from .codec import native
 from .codec.bitstream import OrderedMux, read_stream_header
 from .codec.config import EncoderConfig
 from .codec.frame import Frame
 from .io import yuv
 from .parallel.gop_parallel import ShardedGopEncoder
 from .parallel.mesh import make_codec_mesh
+from .pipeline import decoder
 from .pipeline.encoder import encode_clip_twopass
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
@@ -252,33 +257,39 @@ def cmd_encode(a) -> int:
     return 0
 
 
-def decode_clip_native(f):
-    """Whole-stream decode in C++ -> (info, iterator of (y, cb, cr))."""
-    data = f.read()
-    info = read_stream_header(io.BytesIO(data))
-    frames_flat = native.decode_stream(data, info.width, info.height,
-                                       info.frame_count)
-
-    def frames():
-        for i in range(info.frame_count):
-            yield yuv.split_i420(frames_flat[i].tobytes(), info.width,
-                                 info.height)
-
-    return info, frames()
-
-
 def cmd_decode(a) -> int:
+    """The reference's cmd_decode: `--engine native` (the default) decodes
+    in C++, GOP-parallel on `--workers` threads (0: one per core, up to
+    the GOP count; 1: serial); `gop` and `device` rebuild the frames on
+    `--device`. Frames are written as the decoder yields them."""
+    if a.engine == "golden":
+        print("error: --engine golden is the reference's pure-Python "
+              "decoder; run the reference CLI video_encoder_tpu.cli "
+              "decode --engine golden", file=sys.stderr)
+        return 2
+    if a.workers < 0:
+        print("error: --workers must be >= 0", file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
-    with open(a.input, "rb") as fi:
-        info, frames = decode_clip_native(fi)
     n = 0
-    with open(a.output, "wb") as fo:
-        for y, cb, cr in frames:
-            yuv.write_yuv_frame(fo, y, cb, cr)
-            n += 1
+    with open(a.input, "rb") as fi:
+        if a.engine == "native" and a.workers != 1:
+            info, frames = decoder.decode_clip_parallel(fi, a.workers)
+        elif a.engine == "native":
+            info, frames = decoder.decode_clip_native(fi)
+        elif a.engine == "gop":
+            info, frames = decoder.decode_clip_gop(
+                fi, decoder.GopDecodeEngine(device=a.device))
+        else:
+            info, frames = decoder.decode_clip(
+                fi, decoder.DeviceDecodeEngine(device=a.device))
+        with open(a.output, "wb") as fo:
+            for y, cb, cr in frames:
+                yuv.write_yuv_frame(fo, y, cb, cr)
+                n += 1
     wall = time.perf_counter() - t0
     print(json.dumps({"frames": n, "width": info.width, "height": info.height,
-                      "wall_s": round(wall, 3),
+                      "engine": a.engine, "wall_s": round(wall, 3),
                       "fps": round(n / wall, 2) if wall else 0}))
     return 0
 
@@ -362,9 +373,21 @@ def main(argv=None) -> int:
     e.add_argument("-v", "--verbose", action="store_true")
     e.set_defaults(fn=cmd_encode)
 
-    d = sub.add_parser("decode", help="TVC1 -> raw YUV (C++ parser)")
+    d = sub.add_parser("decode", help="TVC1 -> raw YUV")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output", required=True)
+    d.add_argument("--engine", choices=["native", "gop", "device", "golden"],
+                   default="native",
+                   help="native: C++ decode on the host; gop: GOP-resident "
+                        "recon on --device; device: per-frame recon on "
+                        "--device; golden: the reference CLI's only")
+    d.add_argument("--workers", type=int, default=0,
+                   help="native: GOP-parallel decode threads (0 = one per "
+                        "core up to the GOP count, 1 = serial); at most "
+                        "N + 1 GOPs are read and not yet written")
+    d.add_argument("--device", default="cuda",
+                   help="torch device of --engine gop|device (cuda, cuda:N "
+                        "or cpu)")
     d.set_defaults(fn=cmd_decode)
 
     inf = sub.add_parser("info", help="dump stream header")

@@ -1,6 +1,7 @@
 // Fused residual -> ITX8 -> quantize -> dequantize -> inverse ITX8 -> recon
 // of whole planes, with the levels written in zigzag order; and the
-// format-3/4 I-frame row scan of a whole plane in one launch.
+// format-3/4 I-frame row scan of a whole plane in one launch. Two
+// recon-only entries serve the decoders (see "The decoders" below).
 //
 // Replaces: video_encoder_tpu/ops/pallas/codec.py, _make_code_plane_kernel
 // (launched by _code_plane_call, public code_plane), plus the zigzag that
@@ -53,6 +54,25 @@
 // while this one is coded. A 1088x1920 luma plane is 240 chains of 136
 // steps: latency per step, not bandwidth, sets its time, so each warp is
 // a thread block of its own and lands on an SM of its own.
+//
+// The decoders. tvc_recon_plane is the inter recon of a plane (dequantize,
+// inverse ITX8, add the predictor or a flat 128, clip) and
+// tvc_recon_plane_rows the format-3/4 I-frame recon, rows_kernel's chains
+// without the forward half. Neither has a Pallas counterpart: they replace
+// the reference decoders' jnp recon, recon_plane in _decode_gop_jit and
+// DeviceDecodeEngine._recon (video_encoder_tpu/pipeline/decoder.py:180,
+// :115-122), and transform.intra_rows_recon_plane (ops/transform.py:148),
+// a lax.scan over [8, W] stripes. Bound: device memory; per pixel the
+// inter recon reads 2 bytes of int16 levels and 4 of pred and writes 4 of
+// recon and 1 of the output byte plane (11 bytes, a 1088x1920 plane 23 MB,
+// 0.0069 ms at 3.35 TB/s) against about 40 integer operations. The levels
+// arrive in zigzag order as the parser writes them; a thread stages its
+// eight with one 16-byte load and reads its column of the raster block
+// from the stage, so the inverse starts on columns and takes one
+// transpose. The row recon's time is its 136 dependent steps' latency, as
+// the row scan's is. Levels come from a stream, not from this codec's
+// quantizer, so the encoder's int32 bounds above do not hold: see
+// recon_block.
 
 #include <cuda_runtime.h>
 
@@ -69,9 +89,11 @@ __device__ __forceinline__ int rshift_round(int v) {
 }
 
 // The odd half of the basis, M[k][j] = B[2k + 1][j] for j < 4; M is
-// symmetric, so the forward and the inverse odd parts are the same.
-__device__ __forceinline__ void odd4(int a, int b, int c, int d, int& o0,
-                                     int& o1, int& o2, int& o3) {
+// symmetric, so the forward and the inverse odd parts are the same. T is
+// int on the encoder's range, unsigned for the decoders (see recon_block).
+template <typename T>
+__device__ __forceinline__ void odd4(T a, T b, T c, T d, T& o0, T& o1, T& o2,
+                                     T& o3) {
   o0 = 502 * a + 426 * b + 284 * c + 100 * d;
   o1 = 426 * a - 100 * b - 502 * c - 284 * d;
   o2 = 284 * a - 502 * b + 100 * c + 426 * d;
@@ -94,11 +116,12 @@ __device__ __forceinline__ void fwd8(const int (&x)[8], int (&y)[8]) {
 
 // y[i] = sum_j B[j][i] x[j]: B^T applied to a column (u1 = B^T deq) or B to
 // a row (u2 = u1 B).
-__device__ __forceinline__ void inv8(const int (&x)[8], int (&y)[8]) {
-  const int a = 362 * (x[0] + x[4]), b = 362 * (x[0] - x[4]);
-  const int c = 473 * x[2] + 196 * x[6], d = 196 * x[2] - 473 * x[6];
-  const int e0 = a + c, e1 = b + d, e2 = b - d, e3 = a - c;
-  int o0, o1, o2, o3;
+template <typename T>
+__device__ __forceinline__ void inv8(const T (&x)[8], T (&y)[8]) {
+  const T a = 362 * (x[0] + x[4]), b = 362 * (x[0] - x[4]);
+  const T c = 473 * x[2] + 196 * x[6], d = 196 * x[2] - 473 * x[6];
+  const T e0 = a + c, e1 = b + d, e2 = b - d, e3 = a - c;
+  T o0, o1, o2, o3;
   odd4(x[1], x[3], x[5], x[7], o0, o1, o2, o3);
   y[0] = e0 + o0;
   y[7] = e0 - o0;
@@ -296,6 +319,177 @@ rows_kernel(const int* __restrict__ cur, const int* __restrict__ q_blk,
   }
 }
 
+// ---- The decoders: recon only ----
+
+// rshift_round of a 32-bit value held mod 2^32, as int32 tensors compute
+// it: |v| wraps at INT_MIN, |v| + 512 wraps past INT_MAX, and the shift
+// is arithmetic. On the encoder's range it is rshift_round.
+__device__ __forceinline__ int rshift_round_wrap(unsigned v) {
+  const bool neg = (int)v < 0;
+  const int mag = (int)((neg ? 0u - v : v) + 512u) >> 10;
+  return neg ? -mag : mag;
+}
+
+// Row r of a block's 64 zigzag levels (int16, positions 8r .. 8r + 7),
+// one 16-byte load; a block past the plane's edge has zeros.
+__device__ __forceinline__ int4 load_levels(const short* lv, int r,
+                                            bool active) {
+  return active ? *reinterpret_cast<const int4*>(lv + 8 * r)
+                : make_int4(0, 0, 0, 0);
+}
+
+// Those eight levels, sign-extended, into the block's 64-word zigzag
+// stage z.
+__device__ __forceinline__ void stage_levels(int4 a, int* z, int r) {
+  const int w[4] = {a.x, a.y, a.z, a.w};
+  int v[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {        // little-endian: low half first
+    v[2 * k] = (int)(short)(w[k] & 0xffff);
+    v[2 * k + 1] = w[k] >> 16;
+  }
+  int4* zs = reinterpret_cast<int4*>(z + 8 * r);
+  zs[0] = make_int4(v[0], v[1], v[2], v[3]);
+  zs[1] = make_int4(v[4], v[5], v[6], v[7]);
+}
+
+// One 8x8 block's recon by its eight threads, after its levels are staged
+// in z (and a __syncwarp): thread r gets row r of clip(inverse(deq) +
+// pred), deq = level * q per position. Thread r reads column r of deq
+// straight from the zigzag stage, so the inverse needs one transpose.
+// Levels come from a parser, not from this codec's quantizer: |level| is
+// up to 32768 and the sums leave int32. The reference wraps them (jnp
+// int32), so the multiplies and sums run in unsigned arithmetic, whose
+// wrap is defined and exact mod 2^32 under the even/odd regrouping, and
+// only the rounding shifts read the value as signed.
+template <bool QMAT>
+__device__ __forceinline__ void recon_block(int* t, const int* z, int r,
+                                            int q, const int (&pred)[8],
+                                            int (&rec)[8]) {
+  unsigned v[8], y[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {     // deq[k][r]
+    const int qk = QMAT ? max(1, (q * (16 + 2 * (k + r)) + 8) >> 4) : q;
+    v[k] = (unsigned)z[zz_pos(k, r)] * (unsigned)qk;
+  }
+  inv8(v, y);                       // u1[.][r] = B^T deq[.][r]
+  int u[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) u[k] = rshift_round_wrap(y[k]);
+  transpose8(t, r, u);              // row r of u1r
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = (unsigned)u[k];
+  inv8(v, y);                       // u2[r][.] = u1r[r][.] B
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    rec[k] = min(max((int)((unsigned)rshift_round_wrap(y[k]) +
+                           (unsigned)pred[k]), 0), 255);
+}
+
+__device__ __forceinline__ void store_row8(unsigned char* p,
+                                           const int (&v)[8]) {
+  const unsigned lo = v[0] | v[1] << 8 | v[2] << 16 | (unsigned)v[3] << 24;
+  const unsigned hi = v[4] | v[5] << 8 | v[6] << 16 | (unsigned)v[7] << 24;
+  *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+}
+
+// The inter recon of a plane: one warp per four blocks of a block row, as
+// plane_kernel; pred null is the flat 128 of an I frame at formats 1-2;
+// out8 (may be null) gets the recon as bytes.
+template <bool QMAT>
+__global__ void __launch_bounds__(32 * WARPS)
+recon_kernel(const short* __restrict__ levels, const int* __restrict__ pred,
+             const int* __restrict__ q_blk, int h, int w,
+             int* __restrict__ rec, unsigned char* __restrict__ out8) {
+  __shared__ __align__(16) int s_t[WARPS][4 * TILE];
+  __shared__ __align__(16) int s_z[WARPS][4 * 64];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane >> 3, r = lane & 7;
+  const int nbx = w >> 3, nby = h >> 3, ngx = (nbx + 3) >> 2;
+  const long long gid = (long long)blockIdx.x * WARPS + warp;
+  if (gid >= (long long)nby * ngx) return;  // uniform over the warp
+  const int gx = (int)(gid % ngx), by = (int)(gid / ngx);
+  const int bx = gx * 4 + sub;
+  const bool active = bx < nbx;
+  const size_t o = (size_t)(by * 8 + r) * w + (size_t)bx * 8;
+  const size_t blk = (size_t)by * nbx + bx;
+  int* z = s_z[warp] + sub * 64;
+
+  int p[8] = {128, 128, 128, 128, 128, 128, 128, 128};
+  int q = 1;
+  stage_levels(load_levels(levels + blk * 64, r, active), z, r);
+  if (active) {
+    if (pred != nullptr) load_row(pred + o, p);
+    q = q_blk[blk];
+  }
+  __syncwarp();
+  int out[8];
+  recon_block<QMAT>(s_t[warp] + sub * TILE, z, r, q, p, out);
+  if (active) {
+    store_row(rec + o, out);
+    if (out8 != nullptr) store_row8(out8 + o, out);
+  }
+}
+
+// The format-3/4 I-frame recon: rows_kernel's chains (one warp, one thread
+// block, per four adjacent block columns of one plane and slice), each step
+// recon_block against the recon's last row above, passed down by shuffles;
+// the next block's levels and step are loaded while this one is rebuilt.
+template <bool QMAT>
+__global__ void __launch_bounds__(32)
+recon_rows_kernel(const short* __restrict__ levels,
+                  const int* __restrict__ q_blk, int h, int w, int span,
+                  int n_slices, int* __restrict__ rec,
+                  unsigned char* __restrict__ out8) {
+  __shared__ __align__(16) int s_t[4 * TILE];
+  __shared__ __align__(16) int s_z[4 * 64];
+  const int lane = threadIdx.x, sub = lane >> 3, r = lane & 7;
+  const int nbx = w >> 3, nby = h >> 3, ngx = (nbx + 3) >> 2;
+  const long long gid = blockIdx.x;
+  const int gx = (int)(gid % ngx);
+  const long long rest = gid / ngx;
+  const int sl = (int)(rest % n_slices);
+  const long long gg = rest / n_slices;
+  const int bx = gx * 4 + sub;
+  const bool active = bx < nbx;
+  const int j0 = sl * span, j1 = min(j0 + span, nby);
+  const size_t plane = (size_t)gg * h * w, qplane = (size_t)gg * nby * nbx;
+  int* z = s_z + sub * 64;
+
+  int pred[8] = {128, 128, 128, 128, 128, 128, 128, 128};
+  int4 nlv = load_levels(levels + (qplane + (size_t)j0 * nbx + bx) * 64, r,
+                         active);
+  int nq = active ? q_blk[qplane + (size_t)j0 * nbx + bx] : 1;
+  for (int j = j0; j < j1; ++j) {
+    const int4 lv = nlv;
+    const int q = nq;
+    const size_t o = plane + (size_t)(j * 8 + r) * w + bx * 8;
+    const size_t blk = qplane + (size_t)j * nbx + bx;
+    if (active && j + 1 < j1) {     // the next block's levels, in flight
+      nlv = load_levels(levels + (blk + nbx) * 64, r, true);
+      nq = q_blk[blk + nbx];
+    }
+    stage_levels(lv, z, r);
+    __syncwarp();
+    int out[8];
+    recon_block<QMAT>(s_t + sub * TILE, z, r, q, pred, out);
+    if (active) {
+      store_row(rec + o, out);
+      if (out8 != nullptr) store_row8(out8 + o, out);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k)     // row 7 of the recon predicts row j + 1
+      pred[k] = __shfl_sync(FULL, out[k], (lane & ~7) | 7);
+  }
+}
+
+// span (block rows per slice) and slice count of a plane of nby block rows
+// under reset_rows, as the row scans walk them
+void slices_of(int nby, int reset_rows, int& span, int& n_slices) {
+  span = reset_rows > 0 && reset_rows < nby ? reset_rows : nby;
+  n_slices = (nby + span - 1) / span;
+}
+
 int launch_plane(const int* cur, const int* pred, const int* q_blk, int g,
                  int h, int w, int qbias, int qmat, int* levels, int* rec,
                  void* stream) {
@@ -347,9 +541,8 @@ extern "C" int tvc_code_plane_rows(const int* cur, const int* q_blk, int b,
                                    void* stream) {
   if (b < 1 || h < 8 || w < 8 || h % 8 || w % 8 || reset_rows < 0)
     return (int)cudaErrorInvalidValue;
-  const int nby = h / 8;
-  const int span = reset_rows > 0 && reset_rows < nby ? reset_rows : nby;
-  const int n_slices = (nby + span - 1) / span;
+  int span, n_slices;
+  slices_of(h / 8, reset_rows, span, n_slices);
   const long long blocks = (long long)b * n_slices * ((w / 8 + 3) / 4);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -359,6 +552,55 @@ extern "C" int tvc_code_plane_rows(const int* cur, const int* q_blk, int b,
   } else {
     rows_kernel<false><<<(unsigned)blocks, 32, 0, s>>>(
         cur, q_blk, h, w, qbias, span, n_slices, levels, rec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The decoders' inter recon of one plane: levels [h/8, w/8, 64] int16 in
+// zigzag order; pred [h, w] int32, or null for a flat 128; q_blk [h/8, w/8]
+// int32 steps, scaled per position by the v3 quant matrix when qmat; rec
+// [h, w] int32 gets clip(inverse(deq) + pred, 0, 255), and out8 [h, w]
+// uint8, unless null, the same values. Every pointer 16-byte aligned.
+extern "C" int tvc_recon_plane(const short* levels, const int* pred,
+                               const int* q_blk, int h, int w, int qmat,
+                               int* rec, unsigned char* out8, void* stream) {
+  if (h < 8 || w < 8 || h % 8 || w % 8) return (int)cudaErrorInvalidValue;
+  const long long warps = (long long)(h / 8) * ((w / 8 + 3) / 4);
+  const long long blocks = (warps + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (qmat) {
+    recon_kernel<true><<<(unsigned)blocks, 32 * WARPS, 0, s>>>(
+        levels, pred, q_blk, h, w, rec, out8);
+  } else {
+    recon_kernel<false><<<(unsigned)blocks, 32 * WARPS, 0, s>>>(
+        levels, pred, q_blk, h, w, rec, out8);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The format-3/4 I-frame recon of b planes: levels [b, h/8, w/8, 64] int16
+// in zigzag order, q_blk [b, h/8, w/8], rec [b, h, w] int32 and out8 [b,
+// h, w] uint8 (or null). Block row j predicts from the recon's last pixel
+// row above it, 128 at j = 0 and, with reset_rows > 0, at every
+// reset_rows-th block row.
+extern "C" int tvc_recon_plane_rows(const short* levels, const int* q_blk,
+                                    int b, int h, int w, int qmat,
+                                    int reset_rows, int* rec,
+                                    unsigned char* out8, void* stream) {
+  if (b < 1 || h < 8 || w < 8 || h % 8 || w % 8 || reset_rows < 0)
+    return (int)cudaErrorInvalidValue;
+  int span, n_slices;
+  slices_of(h / 8, reset_rows, span, n_slices);
+  const long long blocks = (long long)b * n_slices * ((w / 8 + 3) / 4);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (qmat) {
+    recon_rows_kernel<true><<<(unsigned)blocks, 32, 0, s>>>(
+        levels, q_blk, h, w, span, n_slices, rec, out8);
+  } else {
+    recon_rows_kernel<false><<<(unsigned)blocks, 32, 0, s>>>(
+        levels, q_blk, h, w, span, n_slices, rec, out8);
   }
   return (int)cudaGetLastError();
 }

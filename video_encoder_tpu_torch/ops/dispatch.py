@@ -252,6 +252,28 @@ def intra_rows_code_plane(cur, q_blk, qbias: int = 8, reset_rows: int = 0,
     return kcodec.code_plane_rows(cur, q_blk, qbias, reset_rows, qmat)
 
 
+def recon_plane(levels_zz, pred, q_blk, qmat: bool = False, out8=None):
+    """The decoders' inter recon of one plane [H, W] from zigzag levels
+    [H/8, W/8, 64] (int16), pred [H, W] int32 (None: flat 128) and steps
+    [H/8, W/8]; with out8 (uint8 [H, W]) the recon is also written there
+    as bytes. Returns the recon int32."""
+    if _FORCE == "plain":
+        return kcodec.to_out8(
+            transform.recon_plane(levels_zz, pred, q_blk, qmat), out8)
+    return kcodec.recon_plane(levels_zz, pred, q_blk, qmat, out8)
+
+
+def intra_rows_recon_plane(levels_zz, q_blk, reset_rows: int = 0,
+                           qmat: bool = False, out8=None):
+    """Format-3/4 I-frame recon of one plane, or of B planes [B, ...]: one
+    kernel launch per call on the GPU; the plain version walks the
+    [(B,) 8, W] stripes through the plain recon_plane."""
+    if _FORCE == "plain":
+        return kcodec.to_out8(transform.intra_rows_recon_plane(
+            levels_zz, q_blk, reset_rows, qmat), out8)
+    return kcodec.recon_plane_rows(levels_zz, q_blk, reset_rows, qmat, out8)
+
+
 def block_pack(levels_zz, n_words: int, dc_pred=None, fmt: int = 1):
     """Per-block strings in the format-1 syntax, or with fmt >= 2 the
     format-2 syntax against dc_pred [n]: (words [n, W] int64, bits [n]

@@ -57,7 +57,10 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "mc_predict": 0, "mc_predict_g": 0, "mc_predict_haloed": 0,
             # the format-3/4 I-frame row scan of a whole plane in one
             # launch: one plane, and B planes (G GOPs, or G x S shards)
-            "code_plane_rows": 0, "code_plane_rows_g": 0}
+            "code_plane_rows": 0, "code_plane_rows_g": 0,
+            # the decoders' recon: the inter recon of a plane, and the
+            # format-3/4 I-frame recon of (B) planes
+            "recon_plane": 0, "recon_plane_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,6 +96,8 @@ _SIGNATURES = {
     "tvc_chunk_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     "tvc_mc_predict": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tvc_code_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tvc_recon_plane": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "tvc_recon_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -5,7 +5,10 @@ launches the kernel, which is built at first use. `code_plane_g` codes
 the planes of G GOPs, [G, H, W], in one launch; both share one private
 launcher: `lead` is () for a single plane and (G,) for a batch.
 `code_plane_rows` is the format-3/4 I-frame row scan of a whole plane, or
-of B planes [B, H, W], in one launch.
+of B planes [B, H, W], in one launch. `recon_plane` and `recon_plane_rows`
+are the decoders' recon-only twins: the inter recon of a plane, and the
+format-3/4 I-frame recon. Both may also write the recon as bytes into a
+uint8 plane, the decoded output, so that no cast follows them.
 """
 
 from __future__ import annotations
@@ -102,3 +105,88 @@ def code_plane_rows(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int = 8,
     build.check(err, "code_plane_rows")
     build.LAUNCHES["code_plane_rows_g" if batched else "code_plane_rows"] += 1
     return levels, rec
+
+
+def to_out8(rec: torch.Tensor, out8):
+    """The plain versions' byte output: rec copied into out8 unless None;
+    returns rec."""
+    if out8 is not None:
+        out8.copy_(rec)
+    return rec
+
+
+def _check_levels(levels_zz, q_blk, name: str, batched: bool):
+    """(lead, h, w) of levels [(B,) H/8, W/8, 64] int16 and q_blk [(B,)
+    H/8, W/8] int32; raises on what the recon kernels do not take."""
+    *lead, nby, nbx, n = levels_zz.shape
+    if len(lead) != int(batched) or n != 64 or not nby or not nbx:
+        raise ValueError(f"{name}: expected levels [{'B, ' if batched else ''}"
+                         f"H/8, W/8, 64], got {tuple(levels_zz.shape)}")
+    build.require(levels_zz, torch.int16, (*lead, nby, nbx, 64),
+                  f"{name} levels")
+    build.require_aligned(levels_zz, f"{name} levels")
+    build.require(q_blk, torch.int32, (*lead, nby, nbx), f"{name} q_blk")
+    return lead, 8 * nby, 8 * nbx
+
+
+def _out8_ptr(out8, shape, name: str):
+    if out8 is None:
+        return None
+    build.require(out8, torch.uint8, shape, f"{name} out8")
+    build.require_aligned(out8, f"{name} out8")
+    return out8.data_ptr()
+
+
+def recon_plane(levels_zz: torch.Tensor, pred, q_blk: torch.Tensor,
+                qmat: bool = False, out8=None) -> torch.Tensor:
+    """The decoders' inter recon of one plane: levels_zz [H/8, W/8, 64]
+    int16 in zigzag order, pred [H, W] int32 or None for a flat 128,
+    q_blk [H/8, W/8] int32 steps (scaled by the v3 quant matrix when
+    qmat). Returns the recon clip(inverse(deq) + pred) [H, W] int32 and,
+    with out8 a uint8 [H, W] tensor, writes the same values there.
+    Counted as "recon_plane"."""
+    if levels_zz.device.type == "cpu":
+        return to_out8(transform.recon_plane(levels_zz, pred, q_blk, qmat),
+                       out8)
+    _, h, w = _check_levels(levels_zz, q_blk, "recon_plane", False)
+    if pred is not None:
+        build.require(pred, torch.int32, (h, w), "recon_plane pred")
+        build.require_aligned(pred, "recon_plane pred")
+    rec = torch.empty((h, w), dtype=torch.int32, device=levels_zz.device)
+    err = build.lib().tvc_recon_plane(
+        levels_zz.data_ptr(), None if pred is None else pred.data_ptr(),
+        q_blk.data_ptr(), h, w, int(qmat), rec.data_ptr(),
+        _out8_ptr(out8, (h, w), "recon_plane"),
+        build.stream_ptr(levels_zz.device))
+    build.check(err, "recon_plane")
+    build.LAUNCHES["recon_plane"] += 1
+    return rec
+
+
+def recon_plane_rows(levels_zz: torch.Tensor, q_blk: torch.Tensor,
+                     reset_rows: int = 0, qmat: bool = False,
+                     out8=None) -> torch.Tensor:
+    """The format-3/4 I-frame recon (SPEC.md §13.1) of a whole plane, or of
+    B planes, in one launch: levels_zz [(B,) H/8, W/8, 64] int16 in
+    zigzag order, q_blk [(B,) H/8, W/8] int32; block row j predicts from
+    the recon's last pixel row above it, 128 at row 0 and every
+    reset_rows-th row. Returns the recon [(B,) H, W] int32 and, with out8
+    a uint8 tensor of that shape, writes the same values there. Counted
+    as "recon_plane_rows"."""
+    if levels_zz.device.type == "cpu":
+        return to_out8(transform.intra_rows_recon_plane(
+            levels_zz, q_blk, reset_rows, qmat), out8)
+    batched = levels_zz.ndim == 4
+    lead, h, w = _check_levels(levels_zz, q_blk, "recon_plane_rows", batched)
+    if reset_rows < 0:
+        raise ValueError(f"recon_plane_rows: reset_rows {reset_rows} < 0")
+    rec = torch.empty((*lead, h, w), dtype=torch.int32,
+                      device=levels_zz.device)
+    err = build.lib().tvc_recon_plane_rows(
+        levels_zz.data_ptr(), q_blk.data_ptr(), *(lead or [1]), h, w,
+        int(qmat), reset_rows, rec.data_ptr(),
+        _out8_ptr(out8, (*lead, h, w), "recon_plane_rows"),
+        build.stream_ptr(levels_zz.device))
+    build.check(err, "recon_plane_rows")
+    build.LAUNCHES["recon_plane_rows"] += 1
+    return rec

@@ -144,3 +144,50 @@ def intra_rows_code_plane(cur: torch.Tensor, q_blk: torch.Tensor, qbias: int,
         levels.append(lv)
         recs.append(rec)
     return torch.cat(levels, -3), torch.cat(recs, -2)
+
+
+def recon_plane(levels_zz: torch.Tensor, pred, q_blk: torch.Tensor,
+                qmat: bool = False) -> torch.Tensor:
+    """The decoders' inter recon of one plane, twin of `recon_plane` in
+    the reference's `_decode_gop_jit` (pipeline/decoder.py): unzigzag,
+    dequantize at qsteps_pos(q_blk, qmat), inverse ITX8, unblockify, add
+    pred, clip to 0-255. levels_zz [(B,) H/8, W/8, 64] in zigzag order,
+    int16 (the parser's layout) or int32; pred [(B,) H, W] int32, or None
+    for the flat 128 of an I frame at formats 1-2; q_blk [(B,) H/8, W/8]
+    int32 steps. All arithmetic is int32 and wraps as the reference's
+    does on levels no encoder writes. Returns the recon [(B,) H, W] int32:
+    the plain version of the `recon_plane` kernel."""
+    q = qsteps_pos(q_blk, qmat)
+    deq = dequantize(unzigzag(levels_zz.to(torch.int32)), q)
+    res = unblockify(inverse_transform(deq))
+    return (res + (128 if pred is None else pred)).clamp(0, 255)
+
+
+def intra_rows_recon_plane(levels_zz: torch.Tensor, q_blk: torch.Tensor,
+                           reset_rows: int = 0,
+                           qmat: bool = False) -> torch.Tensor:
+    """Format-3/4 I-frame recon of one plane (SPEC.md §13.1, decoder
+    side), twin of the reference's `transform.intra_rows_recon_plane`:
+    block row j predicts every pixel from the recon's last pixel row
+    above it, 128 at row 0 and, with reset_rows > 0, at every reset_rows-th
+    block row (§13.3). Each [(B,) 8, W] stripe is recon_plane against that
+    row broadcast to eight rows: the plain version of the
+    `recon_plane_rows` kernel. levels_zz [(B,) H/8, W/8, 64] (int16 or
+    int32), q_blk [(B,) H/8, W/8] int32. Returns the recon [(B,) H, W]
+    int32; with a leading axis the planes advance in lockstep."""
+    *lead, nby, nbx, _ = levels_zz.shape
+    w = nbx * 8
+    flat = torch.full((*lead, 8, w), 128, dtype=torch.int32,
+                      device=levels_zz.device)
+    stripes = levels_zz.movedim(-3, 0)          # [nby, (B,) nbx, 64]
+    steps = q_blk.movedim(-2, 0)                # [nby, (B,) nbx]
+    recs = []
+    pred = flat
+    for j in range(nby):
+        if j == 0 or (reset_rows and j % reset_rows == 0):
+            pred = flat
+        rec = recon_plane(stripes[j].unsqueeze(-3), pred,
+                          steps[j].unsqueeze(-2), qmat)
+        pred = rec[..., -1:, :].expand(*lead, 8, w)
+        recs.append(rec)
+    return torch.cat(recs, -2)
