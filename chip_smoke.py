@@ -118,7 +118,22 @@ Phases, each of which raises on failure (exit code not 0):
    (`--gop 12 --gop-batch 2`: a batch of two and a short GOP of 6). Every
    `_g` kernel of a path must have launched (the batched predictor once
    per P step), no single-plane kernel in a run without a tail, and the folded block pack and span merges once
-   per plane and frame step, not G times. Then two-pass: 640x360,
+   per plane and frame step, not G times. Then the per-frame engine
+   (`--engine device`): the 1080p full-search clip, equal to the oracle's
+   stream, and the config-3 texture at `--search diamond` with `--rc
+   bitrate --kbps 12000` and with `--rc adaptive`, each equal to the GOP
+   engine's stream of the same flags; each run launches the search (or
+   the even map and sad_at_mv) and mc_predict once per P frame,
+   code_plane three times per frame and nothing else; its CLI wall fps
+   beside the GOP engine's, and the device ops of one traced P frame.
+   Then `--checkpoint`: the full-search clip at `--gop 10`, interrupted
+   after its first GOP through the library and resumed by the CLI under
+   `--engine gop` and `--engine device`, each equal to the uninterrupted
+   stream, its checkpoint file gone and its summary carrying the
+   checkpoint path's stages; then one `--trace DIR --stage-timers
+   --frames 10` encode, whose trace file names tiled_kernel and
+   plane_kernel and whose summary carries the GOP path's stages. Then
+   two-pass: 640x360,
    `--two-pass --kbps 3000`, equal to the port's own `--device cpu`
    stream, decoded by the oracle above the PSNR floor, its per-GOP qps
    printed. Then the tile-sharded paths, every shard on the one card:
@@ -2391,6 +2406,180 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     return paths, plains
 
 
+def check_per_frame_launches(what, launches, m, n, gop):
+    """The per-frame engine's counters for n frames at GOP length gop:
+    the search (or the even map and sad_at_mv) and mc_predict once per P
+    frame, code_plane three times per frame, and nothing else (no
+    block_pack, span merge or single-plane fetch)."""
+    p_frames = n - -(-n // gop)
+    want = {"mc_predict": p_frames, "code_plane": 3 * n}
+    for k in (["full_search"] if m["search"] == "full"
+              else ["sad_map_even", "sad_at_mv"]):
+        want[k] = p_frames
+    got = nonzero(launches)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_per_frame(tmp, jobs, summaries, card):
+    """The per-frame engine (`encode --engine device`) at 1920x1080: the
+    full-search clip against the oracle's stream, and the config-3 texture
+    at diamond search under rc bitrate (12000 kbps) and rc adaptive, each
+    against the GOP engine's stream of the same flags; then the device
+    ops of one traced P frame. Returns the launch counts of each path."""
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
+
+    paths = []
+    job = jobs["full"]
+    m, n, gop = job["mode"], job["n"], job["gop"]
+    launches, summary, stream = run_cli(
+        job, os.path.join(tmp, f"device_{job['tag']}.tvc"),
+        ["--engine", "device"])
+    check_per_frame_launches(f"{job['tag']} --engine device", launches, m, n,
+                             gop)
+    with open(job["theirs"], "rb") as f:
+        same_stream(job["tag"] + " --engine device", stream, f.read(),
+                    "the oracle's")
+    paths.append(launches)
+    log(f"per-frame {job['tag']} --engine device: port stream == oracle "
+        f"stream ({len(stream)} bytes), CLI wall {summary['wall_fps']} fps "
+        f"against the GOP engine's {summaries['full']['wall_fps']} fps "
+        f"[{card}], launches {nonzero(launches)}")
+    fps = {"full": (summary["wall_fps"], summaries["full"]["wall_fps"])}
+    for rc in ("bitrate", "adaptive"):
+        mm = dict(jobs["config3"]["mode"], rc=rc, tag=f"config3_{rc}")
+        job = dict(jobs["config3"], mode=mm,
+                   tag=jobs["config3"]["tag"].replace("config3", mm["tag"]))
+        _, gop_summary, want = run_cli(
+            job, os.path.join(tmp, f"gop_{job['tag']}.tvc"))
+        launches, summary, stream = run_cli(
+            job, os.path.join(tmp, f"device_{job['tag']}.tvc"),
+            ["--engine", "device"])
+        check_per_frame_launches(f"{job['tag']} --engine device", launches,
+                                 mm, n, gop)
+        same_stream(job["tag"] + " --engine device", stream, want,
+                    "the GOP engine's stream")
+        paths.append(launches)
+        fps[mm["tag"]] = (summary["wall_fps"], gop_summary["wall_fps"])
+        log(f"per-frame {job['tag']} --engine device --search diamond --rc "
+            f"{rc} --kbps {mm['kbps']}: == the GOP engine's stream "
+            f"({len(stream)} bytes), CLI wall {summary['wall_fps']} fps against "
+            f"the GOP engine's {gop_summary['wall_fps']} fps [{card}], "
+            f"launches {nonzero(launches)}")
+
+    # one traced P frame (its reference the recon the engine kept)
+    job = jobs["full"]
+    cfg = config_of(job["mode"], job["w"], job["h"], job["gop"])
+    f0, f1 = (Frame.from_planes(*(c[t] for c in job["clip"])) for t in (0, 1))
+    eng = DeviceEngine(DEVICE)
+    eng.encode(cfg, f1, eng.encode(cfg, f0, None, 0, 28).recon, 1, 28)
+    i_frame = eng.encode(cfg, f0, None, 0, 28)
+    ops, busy, top = device_ops(
+        lambda: eng.encode(cfg, f1, i_frame.recon, 1, 28), 1,
+        CODE_KERNELS + SAD_KERNELS)
+    log(f"per-frame engine, one 1080p P frame traced: {ops} device ops, "
+        f"device busy {busy if busy is None else round(100 * busy, 1)} %, "
+        f"device ms by name (launches, ms) {top} [{card}]")
+    return paths, dict(cli_wall_fps=fps, ops_per_p_frame=ops,
+                       p_frame_device_ms=top[0][2] if top else None)
+
+
+def phase_aux(tmp, plains, card):
+    """`--checkpoint`, `--trace` and `--stage-timers` at 1920x1080 on the
+    full-search clip at GOP 10: an encode interrupted after its first GOP
+    through the library, resumed by the CLI under each engine, equal to
+    the uninterrupted stream with its checkpoint gone; then one traced
+    10-frame encode whose trace names the search and code_plane kernels
+    and whose summary carries its stages. Returns the launch counts."""
+    import glob
+
+    from video_encoder_tpu_torch.codec.bitstream import demux
+    from video_encoder_tpu_torch.pipeline import checkpoint as ckpt
+    from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
+    from video_encoder_tpu_torch.pipeline.encoder import (
+        PerFrameGopAdapter, encode_clip_resumable)
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    job, plain = plains["full"]
+    m, n, gop = job["mode"], job["n"], job["gop"]
+    cfg = config_of(m, job["w"], job["h"], gop)
+    paths = []
+    for engine in ("gop", "device"):
+        out = os.path.join(tmp, f"ckpt_{engine}.tvc")
+        ck = os.path.join(tmp, f"ckpt_{engine}.json")
+        eng = (GopEngine(cfg, device=DEVICE) if engine == "gop"
+               else PerFrameGopAdapter(cfg, DeviceEngine(DEVICE)))
+
+        def interrupted():
+            for t, planes in enumerate(zip(*job["clip"])):
+                if t == gop:
+                    raise KeyboardInterrupt
+                yield planes
+
+        try:
+            encode_clip_resumable(cfg, interrupted(), out, n, eng, ck)
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise AssertionError("the interrupted encode ran to its end")
+        state = ckpt.load(ck, cfg)
+        if state is None or state.next_frame != gop:
+            raise AssertionError(f"checkpoint after the first GOP: {state}")
+        launches, summary, stream = run_cli(
+            job, out, ["--engine", engine, "--checkpoint", ck,
+                       "--stage-timers"])
+        if engine == "gop":
+            check_launches("--checkpoint --engine gop", launches,
+                           expected_kernels(m, GopEngine.emit))
+            check_per_p_step("--checkpoint --engine gop", launches,
+                             "mc_predict", gop - 1)
+        else:
+            check_per_frame_launches("--checkpoint --engine device", launches,
+                                     m, n - gop, gop)
+        same_stream(f"{job['tag']} resumed --engine {engine}", stream, plain,
+                    "the uninterrupted stream")
+        if os.path.exists(ck):
+            raise AssertionError(f"--engine {engine}: {ck} left behind")
+        if sorted(summary["stages"]) != ["encode_gop", "write+checkpoint"]:
+            raise AssertionError(f"checkpoint stages {summary['stages']}")
+        paths.append(launches)
+        log(f"checkpoint {job['tag']} --engine {engine}: interrupted after "
+            f"GOP 1 (offset {state.byte_offset} bytes), resumed by the CLI: "
+            f"== the uninterrupted stream ({len(stream)} bytes), checkpoint "
+            f"cleared, frames {summary['frames']}, stages {summary['stages']}, "
+            f"launches {nonzero(launches)} [{card}]")
+
+    tdir = os.path.join(tmp, "trace")
+    launches, summary, stream = run_cli(
+        job, os.path.join(tmp, "traced.tvc"),
+        ["--trace", tdir, "--stage-timers", "--frames", str(gop)])
+    check_launches("--trace", launches, expected_kernels(m, GopEngine.emit))
+    paths.append(launches)
+    want = [p.to_bytes() for p in demux(io.BytesIO(plain))[1]][:gop]
+    if [p.to_bytes() for p in demux(io.BytesIO(stream))[1]] != want:
+        raise AssertionError("--trace: the traced GOP's packets differ")
+    files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--trace wrote {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    for k in ("tiled_kernel", "plane_kernel"):
+        if not any(k in nm for nm in names):
+            raise AssertionError(f"--trace: no {k} in the trace")
+    if sorted(summary["stages"]) != ["drain+mux", "upload+dispatch"]:
+        raise AssertionError(f"--stage-timers stages {summary['stages']}")
+    log(f"trace {job['tag']} --trace --stage-timers --frames {gop}: "
+        f"{os.path.getsize(files[0])} bytes of trace, {len(names)} event "
+        f"names, tiled_kernel and plane_kernel among them; stages "
+        f"{summary['stages']} [{card}]")
+    return paths
+
+
 SEARCH_AND_FETCH = ("full_search", "sad_map_even", "sad_at_mv", "mc_predict",
                     "mc_fetch_luma", "mc_fetch_chroma")
 
@@ -3247,6 +3436,13 @@ def main() -> int:
         log(f"decode speed done at {time.perf_counter() - t_start:.1f} s")
         batched_paths, plains = phase_batched(tmp, jobs, batched_oracle, card)
         path_launches += batched_paths
+        t_aux = time.perf_counter()
+        per_frame_paths, per_frame = phase_per_frame(tmp, jobs, summaries,
+                                                     card)
+        path_launches += per_frame_paths
+        path_launches += phase_aux(tmp, plains, card)
+        log(f"per-frame and aux paths done at {time.perf_counter() - t_start:.1f}"
+            f" s ({time.perf_counter() - t_aux:.1f} s)")
         path_launches += phase_tiled(tmp, jobs, streams, plains, card)
         log(f"tiled paths done at {time.perf_counter() - t_start:.1f} s")
         path_launches += phase_sea(tmp, jobs, streams, plains, card)
@@ -3287,6 +3483,9 @@ def main() -> int:
     log(f"result: 1080p GOP-30 full search with and without TVC_SEA "
         f"{json.dumps(sea_fps)} [{card}]")
     log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
+    log(f"result: 1080p 30-frame per-frame engine (CLI wall fps, the GOP "
+        f"engine's beside it; one P frame's device ops and ms) "
+        f"{json.dumps(per_frame)} [{card}]")
     log(f"result: 1080p GOP-30 decode fps {json.dumps(decode_fps)} on "
         f"{os.cpu_count()} host cores [{card}]")
     log(f"result: 1080p GOP-30 device-resident fps {json.dumps(fps)}; CLI wall "

@@ -82,9 +82,42 @@ def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
 
 
 def test_not_ported_flags_are_the_remaining_ones():
-    assert set(cli.NOT_PORTED) == {
-        "--engine", "--devices", "--multiprocess", "--failover",
-        "--checkpoint", "--trace", "--stage-timers"}
+    assert set(cli.NOT_PORTED) == {"--devices", "--multiprocess", "--failover"}
+    assert set(cli.NOT_PORTED.values()) == {"A13b"}
+
+
+@pytest.mark.parametrize("flags,kw", [
+    ([], {}),
+    (["--search", "diamond", "--rc", "bitrate", "--kbps", "300"],
+     dict(search="diamond", rc="bitrate", target_kbps=300)),
+    (["--rc", "adaptive", "--quant-bias", "5"],
+     dict(rc="adaptive", quant_bias=5)),
+    (["--two-pass", "--kbps", "300", "--rc", "mb"],
+     dict(rc="mb", target_kbps=300)),
+], ids=["full", "diamond-bitrate", "adaptive-qbias", "two-pass-mb"])
+def test_engine_device_matches_the_reference_device_engine(
+        clip_file, tmp_path, capsys, flags, kw):
+    """`--engine device` gives the file the reference CLI's `--engine
+    device` writes (its encode_clip, or under --two-pass its per-frame
+    two-pass: both passes at rc none, so rc mb is taken there)."""
+    from video_encoder_tpu.pipeline.device_engine import DeviceEngine
+    from video_encoder_tpu.pipeline.encoder import encode_clip_twopass
+
+    clip, path = clip_file
+    out = tmp_path / "o.tvc"
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(out), "--gop", "3", "--qp", "26",
+                     "--engine", "device", "--device", "cpu", *flags]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["frames"] == 5 and summary["engine"] == "device"
+    cfg = EncoderConfig(width=W, height=H, gop_n=3, base_qp=26, **kw)
+    want = io.BytesIO()
+    if "--two-pass" in flags:
+        encode_clip_twopass(cfg, lambda: iter(clip), want, 5,
+                            engine=DeviceEngine())
+    else:
+        encode_clip(cfg, clip, want, 5, engine=DeviceEngine())
+    assert out.read_bytes() == want.getvalue()
 
 
 @pytest.fixture

@@ -232,3 +232,90 @@ def test_allocate_gop_qps_equal(rng):
         assert port_encoder.allocate_gop_qps(*args) == ref_encoder.allocate_gop_qps(*args)
     assert (inspect.signature(port_encoder.allocate_gop_qps)
             == inspect.signature(ref_encoder.allocate_gop_qps))
+
+
+def test_frame_encode_result_equal():
+    from video_encoder_tpu_torch.codec.frame import FrameEncodeResult
+
+    def fields(cls):
+        return [(f.name, str(f.type)) for f in dataclasses.fields(cls)]
+
+    assert fields(FrameEncodeResult) == fields(golden.FrameEncodeResult)
+
+
+def test_checkpoint_and_resume_writer_equal(rng, tmp_path):
+    """pipeline/checkpoint.py and pipeline/bitstream_writer.py: the same
+    state file, the same loads and refusals, the same truncation."""
+    from video_encoder_tpu.pipeline import bitstream_writer as jwriter
+    from video_encoder_tpu.pipeline import checkpoint as jckpt
+    from video_encoder_tpu_torch.pipeline import bitstream_writer as writer
+    from video_encoder_tpu_torch.pipeline import checkpoint as ckpt
+
+    assert ([f.name for f in dataclasses.fields(ckpt.EncodeState)]
+            == [f.name for f in dataclasses.fields(jckpt.EncodeState)])
+    want_cfg = jconfig.EncoderConfig(width=64, height=48, gop_n=3)
+    cfg = config.config_from_dict(dataclasses.asdict(want_cfg))
+    args = (cfg.config_hash(), 6, 0, 6, 123456, 78.5, 201.25)
+    pa, pb = tmp_path / "a.json", tmp_path / "b.json"
+    jckpt.save(str(pa), jckpt.EncodeState(*args))
+    ckpt.save(str(pb), ckpt.EncodeState(*args))
+    assert pa.read_bytes() == pb.read_bytes()
+    got, want = ckpt.load(str(pa), cfg), jckpt.load(str(pb), want_cfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_summary().to_json() == want.to_summary().to_json()
+    other = config.EncoderConfig(width=64, height=48, gop_n=4)
+    with pytest.raises(ValueError, match="does not match"):
+        ckpt.load(str(pa), other)
+    assert ckpt.load(str(tmp_path / "none.json"), cfg) is None
+    ckpt.clear(str(pa))
+    ckpt.clear(str(pa))
+    assert not pa.exists()
+
+    body = rng.integers(0, 256, 200, dtype=np.uint8).tobytes()
+    outs = {}
+    for name, mod, c, st in (("ref", jwriter, want_cfg, jckpt.EncodeState),
+                             ("port", writer, cfg, ckpt.EncodeState)):
+        path = str(tmp_path / f"{name}.tvc")
+        f = mod.open_stream_for_resume(path, c, 9, None)     # fresh: header
+        f.write(body)
+        f.close()
+        hdr = bitstream.STREAM_HEADER_SIZE
+        for off, msg in ((hdr - 1, "inside the"), (hdr + 201, "exceeds")):
+            with pytest.raises(ValueError, match=msg):
+                mod.open_stream_for_resume(path, c, 9, st(*args[:2], off,
+                                                          *args[3:]))
+        f = mod.open_stream_for_resume(path, c, 9, st(*args[:2], hdr + 50,
+                                                      *args[3:]))
+        f.write(b"tail")
+        f.close()
+        with open(path, "rb") as fh:
+            outs[name] = fh.read()
+    assert outs["ref"] == outs["port"]
+    assert len(outs["port"]) == bitstream.STREAM_HEADER_SIZE + 54
+
+
+def test_stage_timer_and_event_log_equal(monkeypatch):
+    """utils/trace.py: the same report of the same stage times, the same
+    event lines at the same clock."""
+    import time as time_mod
+
+    from video_encoder_tpu.utils import trace as jtrace
+    from video_encoder_tpu_torch.utils import trace
+
+    clock = iter(np.arange(0.0, 100.0, 0.37))
+    monkeypatch.setattr(time_mod, "perf_counter", lambda: float(next(clock)))
+    reports = []
+    for mod in (jtrace, trace):
+        t = mod.StageTimer()
+        for name in ("b", "a", "b"):
+            with t.stage(name):
+                pass
+        reports.append((t.report(), t.to_json()))
+    assert reports[0] == reports[1]
+    monkeypatch.setattr(time_mod, "time", lambda: 1000.0)
+    sinks = [io.StringIO(), io.StringIO()]
+    for mod, sink in zip((jtrace, trace), sinks):
+        log = mod.EventLog(sink)
+        log.emit("gop", first=3, frames=2, ms=1.5)
+        log.emit("end")
+    assert sinks[0].getvalue() == sinks[1].getvalue()

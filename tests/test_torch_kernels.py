@@ -1512,3 +1512,78 @@ def test_device_decoders_on_card_match_native(cuda, rng, kw):
         assert len(got) == len(want) == 6
         for a, b in zip(got, want):
             assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("search,rc", [("full", "none"), ("diamond", "bitrate"),
+                                       ("full", "adaptive"), ("diamond", "vbv")])
+def test_device_engine_on_card_matches_cpu(cuda, rng, search, rc):
+    """The per-frame engine (`encode --engine device`) on the card: the
+    CPU's stream, the search (or the even map and sad_at_mv) and
+    mc_predict once per P frame, code_plane three times per frame, and no
+    block_pack, span merge or single-plane fetch."""
+    import io
+
+    from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
+    from video_encoder_tpu_torch.pipeline.encoder import encode_clip
+
+    base = rng.integers(0, 256, (80, 112))
+    clip = [(base[2 * t:2 * t + 64, 3 * t:3 * t + 96].astype(np.uint8),
+             np.full((32, 48), 100 + t, np.uint8),
+             np.full((32, 48), 150, np.uint8)) for t in range(5)]
+    cfg = EncoderConfig(width=96, height=64, gop_n=3, base_qp=24,
+                        search=search, rc=rc, target_kbps=300)
+    got, want = io.BytesIO(), io.BytesIO()
+    build.reset_launches()
+    encode_clip(cfg, clip, got, 5, engine=DeviceEngine(cuda))
+    launches = dict(build.LAUNCHES)
+    encode_clip(cfg, clip, want, 5, engine=DeviceEngine("cpu"))
+    assert got.getvalue() == want.getvalue()
+    p_frames = 3
+    search_kernels = (["full_search"] if search == "full"
+                      else ["sad_map_even", "sad_at_mv"])
+    assert {k: v for k, v in launches.items() if v} == dict(
+        {k: p_frames for k in search_kernels}, mc_predict=p_frames,
+        code_plane=3 * 5), launches
+
+
+_TRACE_SCRIPT = r"""
+import json, pathlib, sys
+import torch
+from video_encoder_tpu_torch.ops import dispatch
+from video_encoder_tpu_torch.utils.trace import trace
+out = pathlib.Path(sys.argv[1])
+cur = torch.randint(0, 256, (64, 96), dtype=torch.int32, device="cuda")
+ref = torch.randint(0, 256, (64, 96), dtype=torch.int32, device="cuda")
+q = torch.full((8, 12), 20, dtype=torch.int32, device="cuda")
+for session in ("a", "b"):
+    with trace(str(out / session)):
+        dispatch.full_search(cur, ref)
+        dispatch.code_plane(cur, ref, q)
+    (path,) = (out / session).glob("*.pt.trace.json")
+    print(json.dumps([e.get("name", "") for e in
+                      json.loads(path.read_text())["traceEvents"]
+                      if e.get("cat") == "kernel"]))
+"""
+
+
+def test_trace_on_card_names_the_kernels(cuda, tmp_path):
+    """utils.trace.trace on the card records the kernels' own names, the
+    first kernel of the block too, in a process's first profiler session
+    and in a later one. It runs in a process of its own, as `encode
+    --trace` does: in a process that has run for a minute or more,
+    torch.profiler can lose some or all of a short session's kernels."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", _TRACE_SCRIPT, str(tmp_path)],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    sessions = [json.loads(ln) for ln in r.stdout.splitlines()
+                if ln.startswith("[")]
+    assert len(sessions) == 2
+    for kernels in sessions:
+        assert any("tiled_kernel" in n for n in kernels), kernels
+        assert any("plane_kernel" in n for n in kernels), kernels

@@ -91,6 +91,9 @@ def test_port_sources_never_import_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert PKG / "pipeline" / "encoder.py" in files   # the two-pass module
+    for mod in ("pipeline/device_engine.py", "pipeline/checkpoint.py",
+                "pipeline/bitstream_writer.py", "utils/trace.py"):
+        assert PKG / mod in files
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert offenders == []
@@ -242,3 +245,57 @@ def test_decoders_run_without_jax():
     want = b"".join(p.tobytes() for f in frames for p in f)
     assert len(want) == 3 * 48 * 32 * 3 // 2
     assert got == {k: want for k in ("native", "parallel", "gop", "device")}
+
+
+_PER_FRAME_SCRIPT = _SCRIPT[:_SCRIPT.index("rng = ")] + r"""
+import os, tempfile
+from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
+from video_encoder_tpu_torch.pipeline.encoder import (
+    PerFrameGopAdapter, encode_clip, encode_clip_resumable)
+from video_encoder_tpu_torch.utils.trace import StageTimer, trace
+rng = np.random.default_rng(8)
+clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(5)]
+cfg = EncoderConfig(width=48, height=32, gop_n=2, rc="vbv", target_kbps=200)
+buf = io.BytesIO()
+tmp = tempfile.mkdtemp()
+with trace(os.path.join(tmp, "tr")):
+    encode_clip(cfg, clip, buf, 5, engine=DeviceEngine("cpu"))
+assert os.listdir(os.path.join(tmp, "tr"))
+out = os.path.join(tmp, "r.tvc")
+encode_clip_resumable(cfg, clip, out, 5,
+                      PerFrameGopAdapter(cfg, DeviceEngine("cpu")),
+                      os.path.join(tmp, "ck.json"), timer=StageTimer())
+leaked = [k for k in sys.modules
+          if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
+          and sys.modules[k] is not None]
+assert not leaked, leaked
+print("PERFRAME " + buf.getvalue().hex())
+print("RESUMABLE " + open(out, "rb").read().hex())
+"""
+
+
+def test_per_frame_and_resumable_encodes_run_without_jax():
+    """The per-frame engine's clip encode under a trace, and the
+    checkpointed encode, with jax and the JAX package blocked: the golden
+    model's stream, both."""
+    from video_encoder_tpu.codec.config import EncoderConfig
+    from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _PER_FRAME_SCRIPT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = dict(ln.split(" ", 1) for ln in r.stdout.splitlines()
+                 if ln.startswith(("PERFRAME ", "RESUMABLE ")))
+    rng = np.random.default_rng(8)
+    clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(5)]
+    cfg = EncoderConfig(width=48, height=32, gop_n=2, rc="vbv",
+                        target_kbps=200)
+    want = io.BytesIO()
+    encode_clip(cfg, clip, want, 5, engine=GoldenEngine())
+    assert bytes.fromhex(lines["PERFRAME"]) == want.getvalue()
+    assert bytes.fromhex(lines["RESUMABLE"]) == want.getvalue()

@@ -6,8 +6,10 @@ info and psnr on the host.
     python -m video_encoder_tpu_torch.cli info   -i out.tvc
     python -m video_encoder_tpu_torch.cli psnr   -a ref.yuv -b dec.yuv -W 1920 -H 1080
 
-`encode` runs the GOP-resident engine (full or diamond search, formats 1
-to 4, every rc mode) on `--device` (default cuda):
+`encode` runs the GOP-resident engine (`--engine gop`, the default: full
+or diamond search, formats 1 to 4, every rc mode) or the per-frame
+engine (`--engine device`: format 1, rc none, adaptive, bitrate or vbv)
+on `--device` (default cuda):
 
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --search diamond --rc mb --kbps 12000
@@ -19,17 +21,28 @@ to 4, every rc mode) on `--device` (default cuda):
         -o out.tvc --two-pass --kbps 12000
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --tile 4 --gop-batch 2
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --engine device --search diamond --rc bitrate --kbps 12000
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --checkpoint out.ckpt
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --trace traces/ --stage-timers
 
 `--gop-batch G` encodes G full GOPs in lockstep, every kernel launching
 once for G frames; `--two-pass` allocates one qp per GOP from a first
 pass at constant qp; `--tile S` encodes every frame as S row shards with
 a halo exchange between them (full search only; with `--gop-batch G`, G
-GOPs of S shards per step), all on the one device. Its streams are byte-identical to the reference
-CLI's. `decode` takes the reference's engines (`pipeline/decoder.py`):
-`--engine native` (the default) decodes with the C++ decoder of
-`oracle/oracle.cpp` through ctypes (`codec/native.py`), GOP-parallel on
-`--workers` threads; `--engine gop|device` parse with it and rebuild the
-frames on `--device` (default cuda):
+GOPs of S shards per step), all on the one device. `--checkpoint PATH`
+saves the encode's state after every GOP and resumes a killed encode at
+its last GOP, byte-identical to an uninterrupted one (either engine;
+single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
+torch.profiler trace of the encode into DIR; `--stage-timers` adds the
+host stages' wall times to the summary. Its streams are byte-identical
+to the reference CLI's. `decode` takes the reference's engines
+(`pipeline/decoder.py`): `--engine native` (the default) decodes with the
+C++ decoder of `oracle/oracle.cpp` through ctypes (`codec/native.py`),
+GOP-parallel on `--workers` threads; `--engine gop|device` parse with it
+and rebuild the frames on `--device` (default cuda):
 
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --workers 4
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --engine gop
@@ -38,6 +51,7 @@ frames on `--device` (default cuda):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -52,17 +66,17 @@ from .io import yuv
 from .parallel.gop_parallel import ShardedGopEncoder
 from .parallel.mesh import make_codec_mesh
 from .pipeline import decoder
-from .pipeline.encoder import encode_clip_twopass
+from .pipeline.device_engine import DeviceEngine
+from .pipeline.encoder import (PerFrameGopAdapter, encode_clip,
+                               encode_clip_resumable, encode_clip_twopass)
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
+from .utils.trace import EventLog, StageTimer, trace
 
 # Encode flags of the reference CLI that the port does not take yet, with
 # the ROADMAP.md item that ports them.
-NOT_PORTED = {
-    "--engine": "A11", "--devices": "A13b", "--multiprocess": "A13b",
-    "--failover": "A13b", "--checkpoint": "A14", "--trace": "A14",
-    "--stage-timers": "A14",
-}
+NOT_PORTED = {"--devices": "A13b", "--multiprocess": "A13b",
+              "--failover": "A13b"}
 
 
 def _add_dims(p):
@@ -72,14 +86,20 @@ def _add_dims(p):
 
 def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
                         n_frames: int, verbose: bool = False,
-                        gop_batch: int = 1) -> RunSummary:
+                        gop_batch: int = 1, timer=None) -> RunSummary:
     """GOP-resident encode + ordered mux: GOP k+1 is read and uploaded while
     GOP k runs on the device.
 
     gop_batch = G > 1 groups G full GOPs into one lockstep encode
     (`GopEngine.encode_gops_start`), byte-identical to G = 1. Of the tail,
     leftover full GOPs are batched if there is more than one of them, and
-    a single one or a short last GOP goes through the single-GOP encode."""
+    a single one or a short last GOP goes through the single-GOP encode.
+    timer (utils.trace.StageTimer, `--stage-timers`) splits the wall time
+    into upload+dispatch and drain+mux."""
+
+    def stage(name):
+        return timer.stage(name) if timer else contextlib.nullcontext()
+
     mux = OrderedMux(fo, cfg, n_frames)
     summary = RunSummary()
     pending = None   # double buffer: batch k runs while k+1 is read
@@ -93,16 +113,18 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
                 print(s.to_json(), file=sys.stderr)
 
     def drain(batched, handle):
-        if batched:
-            for packets, stats in eng.encode_gops_finish(handle):
-                emit(packets, stats)
-        else:
-            emit(*eng.encode_gop_finish(handle))
+        with stage("drain+mux"):
+            if batched:
+                for packets, stats in eng.encode_gops_finish(handle):
+                    emit(packets, stats)
+            else:
+                emit(*eng.encode_gop_finish(handle))
 
     def launch(batched, *args):
         nonlocal pending
         start_fn = eng.encode_gops_start if batched else eng.encode_gop_start
-        handle = (batched, start_fn(*args))
+        with stage("upload+dispatch"):
+            handle = (batched, start_fn(*args))
         if pending is not None:
             drain(*pending)
         pending = handle
@@ -188,7 +210,46 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
     return summary
 
 
+def _encode_refusal(a, cfg: EncoderConfig) -> str | None:
+    """Why an encode's flags cannot run together, or None. Checked before
+    the output file is truncated."""
+    if a.gop_batch < 1:
+        return "--gop-batch must be >= 1"
+    if a.two_pass:
+        if a.kbps <= 0:
+            return "--two-pass requires --kbps"
+        if cfg.rc == "adaptive":
+            return ("--two-pass allocates qp at the GOP level; use --rc "
+                    "none|bitrate|vbv")
+    if a.tile < 1:
+        return "--tile must be >= 1"
+    if a.tile > 1 and (a.two_pass or cfg.search != "full"):
+        return ("--tile needs a single pass and --search full (the "
+                "pre-haloed full search)")
+    if a.engine == "device":
+        if a.format != 1:
+            return ("--engine device is the format-1 per-frame engine; use "
+                    "--engine gop for formats 2-4")
+        if cfg.rc == "mb" and not a.two_pass:
+            return ("--engine device does not code --rc mb: the reference's "
+                    "per-frame engine ignores it (every MB at the frame qp, "
+                    "the rc bitrate stream); use --engine gop")
+        if a.gop_batch > 1 or a.tile > 1:
+            return ("--engine device encodes one frame at a time; "
+                    "--gop-batch and --tile need --engine gop")
+    if a.checkpoint and (a.two_pass or a.gop_batch > 1 or a.tile > 1):
+        return ("--checkpoint is the single-engine serial path (no "
+                "--two-pass, --gop-batch or --tile); GOPs are the resume "
+                "unit")
+    return None
+
+
 def cmd_encode(a) -> int:
+    if a.engine == "golden":
+        print("error: --engine golden is the reference's pure-Python "
+              "encoder; run the reference CLI video_encoder_tpu.cli "
+              "encode --engine golden", file=sys.stderr)
+        return 2
     w, h, fps, frames = yuv.open_clip(a.input, a.width, a.height)
     cfg = EncoderConfig(
         width=w, height=h, gop_n=a.gop, base_qp=a.qp, search=a.search,
@@ -197,36 +258,24 @@ def cmd_encode(a) -> int:
         quant_bias=a.quant_bias, vbv_kbits=a.vbv_kbits,
         quant_matrix=a.quant_matrix, intra_slice_mbrows=a.intra_slice,
     )
-    # preconditions, checked before the output file is truncated
-    if a.gop_batch < 1:
-        print("error: --gop-batch must be >= 1", file=sys.stderr)
+    why = _encode_refusal(a, cfg)
+    if why:
+        print(f"error: {why}", file=sys.stderr)
         return 2
-    if a.two_pass:
-        if a.kbps <= 0:
-            print("error: --two-pass requires --kbps", file=sys.stderr)
-            return 2
-        if cfg.rc == "adaptive":
-            print("error: --two-pass allocates qp at the GOP level; "
-                  "use --rc none|bitrate|vbv", file=sys.stderr)
-            return 2
-        if cfg.rc == "none":
-            cfg = dataclasses.replace(cfg, rc="bitrate")
-    if a.tile < 1:
-        print("error: --tile must be >= 1", file=sys.stderr)
-        return 2
+    if a.two_pass and cfg.rc == "none":
+        cfg = dataclasses.replace(cfg, rc="bitrate")
     senc = None
     if a.tile > 1:
-        if a.two_pass or cfg.search != "full":
-            print("error: --tile needs a single pass and --search full (the "
-                  "pre-haloed full search)", file=sys.stderr)
-            return 2
         try:
             senc = ShardedGopEncoder(
                 cfg, make_codec_mesh(a.gop_batch, a.tile, a.device))
         except ValueError as e:   # the frame or its slices do not divide
             print(f"error: --tile {a.tile}: {e}", file=sys.stderr)
             return 2
-    eng = senc.engine if senc else GopEngine(cfg, device=a.device)
+    if a.engine == "device":
+        eng = DeviceEngine(device=a.device)
+    else:
+        eng = senc.engine if senc else GopEngine(cfg, device=a.device)
     n_frames = a.frames
     if n_frames == 0:
         if a.input.endswith(".y4m"):
@@ -234,25 +283,44 @@ def cmd_encode(a) -> int:
             return 2
         n_frames = yuv.count_yuv_frames(a.input, w, h)
 
+    timer = StageTimer() if a.stage_timers else None
     t0 = time.perf_counter()
     on_frame = ((lambda st: print(st.to_json(), file=sys.stderr))
                 if a.verbose else None)
-    with open(a.output, "wb") as fo:
-        if a.two_pass:   # GOP-resident, both passes; takes no --gop-batch
-            summary = encode_clip_twopass(
-                cfg, lambda: yuv.open_clip(a.input, a.width, a.height)[3],
-                fo, n_frames, engine=eng, on_frame=on_frame)
-        elif senc is not None:
-            summary = encode_tiled(cfg, senc, eng, frames, fo, n_frames,
-                                   a.verbose)
+    with trace(a.trace):
+        if a.checkpoint:
+            # the resume path must not truncate the output: the writer
+            # cuts it back to the checkpoint's byte offset
+            summary = encode_clip_resumable(
+                cfg, frames, a.output, n_frames,
+                eng if a.engine == "gop" else PerFrameGopAdapter(cfg, eng),
+                a.checkpoint, timer=timer,
+                log=EventLog(sys.stderr) if a.verbose else None)
         else:
-            summary = encode_gop_resident(cfg, eng, frames, fo, n_frames,
-                                          a.verbose, a.gop_batch)
+            with open(a.output, "wb") as fo:
+                if a.two_pass:   # both passes; takes no --gop-batch
+                    summary = encode_clip_twopass(
+                        cfg, lambda: yuv.open_clip(a.input, a.width,
+                                                   a.height)[3],
+                        fo, n_frames, engine=eng, on_frame=on_frame)
+                elif senc is not None:
+                    summary = encode_tiled(cfg, senc, eng, frames, fo,
+                                           n_frames, a.verbose)
+                elif a.engine == "device":
+                    summary = encode_clip(cfg, frames, fo, n_frames,
+                                          engine=eng, on_frame=on_frame)
+                else:
+                    summary = encode_gop_resident(
+                        cfg, eng, frames, fo, n_frames, a.verbose,
+                        a.gop_batch, timer=timer)
     wall = time.perf_counter() - t0
     out = json.loads(summary.to_json())
     out["device"] = str(eng.device)
+    out["engine"] = a.engine
     out["wall_s"] = round(wall, 3)
     out["wall_fps"] = round(summary.frames / wall, 2) if wall else 0
+    if timer is not None:
+        out["stages"] = timer.report()
     print(json.dumps(out))
     return 0
 
@@ -368,9 +436,24 @@ def main(argv=None) -> int:
     e.add_argument("--two-pass", action="store_true",
                    help="GOP-level two-pass rate allocation toward --kbps "
                         "(constant qp within a GOP)")
+    e.add_argument("--engine", choices=["gop", "device", "golden"],
+                   default="gop",
+                   help="gop: GOP-resident on --device; device: per-frame "
+                        "on --device (format 1; rc none|adaptive|bitrate|"
+                        "vbv); golden: the reference CLI's only")
+    e.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="save the encode's state after every GOP and "
+                        "resume from PATH if it exists (single pass, no "
+                        "--gop-batch/--tile)")
+    e.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the encode into DIR")
+    e.add_argument("--stage-timers", action="store_true",
+                   help="add the host stages' wall times to the summary")
     e.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:N or cpu)")
-    e.add_argument("-v", "--verbose", action="store_true")
+    e.add_argument("-v", "--verbose", action="store_true",
+                   help="per-frame stats on stderr (with --checkpoint, one "
+                        "JSON event per GOP)")
     e.set_defaults(fn=cmd_encode)
 
     d = sub.add_parser("decode", help="TVC1 -> raw YUV")

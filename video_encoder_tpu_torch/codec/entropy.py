@@ -15,6 +15,10 @@ the bytes equal the reference's `tree_concat`.
 Words are int64 tensors holding 32-bit values: torch has no uint32
 shifts on the CPU.
 
+The per-frame engine (`pipeline/device_engine.py`) packs as the
+reference's does: per-MB symbols (`mb_symbols`) and one dense pack of
+the frame (`pack_bits`), no per-block strings.
+
 Every frame-level function also takes the arrays of G GOPs encoded in
 lockstep, with a leading G axis on each (levels [G, by, bx, 64], headers
 [G, nby, nbx]), and gives for each g what it gives for that frame alone.
@@ -190,6 +194,33 @@ def pack_dense(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
     words = buf[:, :n_words].reshape(*lead, n_words)
     bits = bits.reshape(lead).int()
     return words, bits, (bits > 32 * n_words).any()
+
+
+def pack_bits(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
+    """MSB-first pack of flat (value, length) symbol arrays of any shape,
+    in row-major order, into one string: (words int64 [n_words], total_bits
+    int32). The per-frame engine's pass 2, pack_dense of a single row."""
+    words, bits, _ = pack_dense(values.reshape(1, -1), lengths.reshape(1, -1),
+                                n_words)
+    return words[0], bits[0]
+
+
+def mb_symbols(levels_zz, qp_delta, is_p_frame: bool, is_inter, dy, dx):
+    """The per-frame engine's pass 1 in the format-1 syntax: per-MB symbol
+    (values, lengths) [nby, nbx, 4 + 6 * 130], int64, from the MB-ordered
+    zigzag levels [nby, nbx, 6, 64] (`assemble_blocks`): mode, se(dx),
+    se(dy), se(qp_delta), then each block's cbf, ue(nnz - 1) and (run,
+    level) pairs. Length 0 (and value 0) where a symbol is absent."""
+    nby, nbx = qp_delta.shape
+    hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx)
+    bv, bl = block_symbols(levels_zz)
+    return (torch.cat([hv.movedim(0, -1), bv.reshape(nby, nbx, -1)], -1),
+            torch.cat([hl.movedim(0, -1), bl.reshape(nby, nbx, -1)], -1))
+
+
+def mb_bit_counts(lengths: torch.Tensor) -> torch.Tensor:
+    """Per-MB bit totals [nby, nbx] int32 from mb_symbols' lengths."""
+    return lengths.sum(-1, dtype=torch.int32)
 
 
 def pack_header(values: torch.Tensor, lengths: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Frame model (SPEC.md §1): the port's own copy of `Frame` and `mb_grid`
-from `video_encoder_tpu/codec/golden.py`. The golden model itself stays
-the reference's.
+"""Frame model (SPEC.md §1): the port's own copy of `Frame`, `mb_grid` and
+`FrameEncodeResult` from `video_encoder_tpu/codec/golden.py`. The golden
+model itself stays the reference's.
 """
 
 from __future__ import annotations
@@ -38,3 +38,13 @@ class Frame:
 
 def mb_grid(frame: Frame) -> tuple[int, int]:
     return frame.y.shape[0] // spec.MB, frame.y.shape[1] // spec.MB
+
+
+@dataclasses.dataclass
+class FrameEncodeResult:
+    payload: bytes         # big-endian words
+    payload_bits: int
+    recon: Frame
+    mb_bits: np.ndarray    # per-MB bit counts (for stats/RC)
+    n_intra: int
+    n_inter: int
