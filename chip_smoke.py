@@ -145,7 +145,29 @@ Phases, each of which raises on failure (exit code not 0):
    search, predictor or fetch, nor a pre-haloed single-plane fetch. Then TVC_SEA=1 on the full-search clip (GOP 30; `--gop 10
    --gop-batch 3`; `--tile 4`), each byte-identical to the port's stream
    without it (the first also to the oracle's), each through its SEA entry
-   once per P step and no exhaustive search.
+   once per P step and no exhaustive search. Then the encode over ranks
+   (`phase_distributed`; parallel/, one process per rank, the kernel
+   library built once by this process before any rank starts; ranks
+   sharing the card run over gloo, a rank with a card of its own over
+   NCCL): at `--gop 10` on the 1080p clips, `--devices 3` on the full
+   and config-3 clips (DP: three GOPs over three ranks), `--devices 4
+   --tile 2` (two GOPs in 2 x 2 ranks, the third on the coordinator),
+   the format-4 clip with `--intra-slice 17 --devices 2 --tile 2` (the
+   parity-then-pad exchange between processes), `--multiprocess 2`,
+   `--failover` with TVC_FAULT_GOPS=10 alone (and TVC_FAULT_TIMES=2, so
+   the survivor encodes GOP 10) and with `--devices 3` (the batch is
+   encoded on the survivor), and `--devices 1` (NCCL at world size 1),
+   each equal to the port's unbatched GOP-10 stream (config 3 to the
+   oracle's GOP-10 stream), above the PSNR floor, with the backend, the
+   ranks' devices, the wall fps, each rank's encode seconds and, on tile
+   ranks, the transport's bytes and ms per P frame printed, and every
+   kernel of the path launched by the ranks or the coordinator; where the
+   host has two cards, `--devices 2 --tile 2` over NCCL (else it says the
+   run waits for such a host). Then the tile program of one GOP at world
+   size 1 through the transport (its frames equal the plain stream's) with
+   the transport check, and RingEncoder over 4 ranks on four streams cut
+   from the full clip (10, 10, 10 and 7 frames) at `--rc bitrate --kbps
+   12000`, each equal to its single-device encode.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
@@ -2710,6 +2732,192 @@ def phase_twopass(tmp, job, card):
     return launches
 
 
+def rank_launches(launches, summary):
+    """A run's launch counts: this process's (the coordinator's tail and
+    survivor) plus every rank's, from the summary's rank rows."""
+    total = dict(launches)
+    for row in summary.get("ranks") or []:
+        for k, v in row["launches"].items():
+            total[k] += v
+    return total
+
+
+def print_ranks(what, summary, tiled, card):
+    """A rank run's backend, ranks, devices, wall rate, each rank's encode
+    seconds and, on tile ranks, the transport per P frame."""
+    rows = summary.get("ranks") or []
+    log(f"  {what}: backend {summary.get('backend')}, {len(rows)} ranks on "
+        f"{sorted({r['device'] for r in rows})}, CLI wall "
+        f"{summary['wall_fps']} fps [{card}]")
+    for r in rows:
+        line = (f"    rank {r['rank']} ({r['device']}, {r['backend']}): GOPs "
+                f"{r['gops']}, encode {r['encode_s']:.3f} s")
+        if tiled and r["p_frames"]:
+            line += (f", transport {r['transport_bytes'] / r['p_frames']:.0f} "
+                     f"bytes and {1e3 * r['transport_s'] / r['p_frames']:.3f} "
+                     f"ms per P frame ({r['transport_calls']} calls)")
+        log(f"{line} [{card}]")
+
+
+def phase_distributed(tmp, jobs, plains, batched_oracle, card):
+    """The encode over ranks (parallel/; one process per rank, every rank
+    on the one card over gloo, or over NCCL where each has its own):
+    `--devices 3` on the full-search and config-3 clips at GOP 10, `--devices
+    4 --tile 2` (a batch of two GOPs in 2 x 2 ranks and the tail GOP on the
+    coordinator), the format-4 clip with `--intra-slice 17 --devices 2
+    --tile 2`, `--multiprocess 2`, `--failover` with TVC_FAULT_GOPS=10 alone
+    and with `--devices 3`, and `--devices 1` (NCCL at world size 1), each
+    equal to the port's GOP-10 stream (config 3 to the oracle's); the tile
+    program at world size 1 and the transport check through the library;
+    RingEncoder over 4 ranks on four streams cut from the full clip at
+    `--rc bitrate --kbps 12000`, one shorter, each equal to its
+    single-device encode. Returns the launch counts of each path (the
+    coordinator's and the ranks')."""
+    import dataclasses
+
+    from video_encoder_tpu_torch.codec import bitstream, entropy
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.codec.mux import bit_concat
+    from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.parallel import multiprocess as mp
+    from video_encoder_tpu_torch.parallel.mesh import backend_for
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    paths = []
+    full10, full_plain = plains["full"]
+    v4 = dict(jobs["v4i17"], gop=10,
+              tag=jobs["v4i17"]["tag"].replace("gop30", "gop10"))
+    _, _, v4_plain = run_cli(v4, os.path.join(tmp, f"plain_{v4['tag']}.tvc"))
+    with open(batched_oracle["theirs"], "rb") as f:
+        c3_oracle = f.read()
+    cards = torch.cuda.device_count()
+    # (job, flags, stream to equal, environment, ranks started): 30 frames
+    # at GOP 10 are three GOPs; a batch whose injected fault fires is
+    # never dispatched (the third --failover run starts no rank)
+    runs = [
+        (full10, ["--devices", "3"], full_plain, {}, 3),
+        (batched_oracle, ["--devices", "3"], c3_oracle, {}, 3),
+        (full10, ["--devices", "4", "--tile", "2"], full_plain, {}, 4),
+        (v4, ["--devices", "2", "--tile", "2"], v4_plain, {}, 2),
+        (full10, ["--multiprocess", "2"], full_plain, {}, 2),
+        (full10, ["--failover"], full_plain,
+         {"TVC_FAULT_GOPS": "10", "TVC_FAULT_TIMES": "2"}, None),
+        (full10, ["--failover", "--devices", "3"], full_plain,
+         {"TVC_FAULT_GOPS": "10"}, 0),
+        (full10, ["--devices", "1"], full_plain, {}, 1)]
+    if cards >= 2:
+        runs.append((full10, ["--devices", "2", "--tile", "2"], full_plain,
+                     {}, 2))
+    for job, extra, want, env, ranks in runs:
+        flags = " ".join([f"{k}={v}" for k, v in env.items()] + extra)
+        os.environ.update(env)
+        try:
+            launches, summary, stream = run_cli(
+                job, os.path.join(tmp, f"ranks_{len(paths)}.tvc"), extra)
+        finally:
+            for k in env:
+                del os.environ[k]
+        held = ("the oracle's GOP-10 stream" if want is c3_oracle
+                else "the port's GOP-10 stream")
+        same_stream(f"{job['tag']} {flags}", stream, want, held)
+        psnr = summary["mean_psnr_y"]
+        if not (np.isfinite(psnr) and psnr > PSNR_FLOOR):
+            raise AssertionError(f"{job['tag']} {flags}: mean PSNR-Y {psnr}")
+        rows = summary.get("ranks")
+        if ranks is not None and (len(rows) != ranks or any(
+                r["backend"] != backend_for(ranks, DEVICE) for r in rows)):
+            raise AssertionError(f"{flags}: ranks {rows}, want {ranks} over "
+                                 f"{backend_for(ranks, DEVICE)}")
+        total = rank_launches(launches, summary)
+        m = job["mode"]
+        tiled = "--tile" in extra
+        check_launches(f"{job['tag']} {flags}", total, (
+            ["full_search_haloed", "mc_predict_haloed", "code_plane_g"
+             if not m["qmat"] else "code_plane_qmat_g"] if tiled
+            else expected_kernels(m, "chunks" if ranks is not None
+                                  else GopEngine.emit)))
+        paths.append(total)
+        log(f"ranks {job['tag']} {flags}: == {held} ({len(stream)} bytes), "
+            f"mean PSNR-Y {psnr} dB, faults injected "
+            f"{summary.get('faults_injected', 0)}")
+        print_ranks(flags, summary, tiled, card)
+    if cards < 2:
+        log(f"NCCL over several ranks waits for a host with several cards: "
+            f"this one has {cards} [{card}]")
+
+    # the tile program at world size 1 (S = 1 through the transport) and
+    # the transport check, on NCCL: the first GOP against the plain stream
+    w, h = full10["w"], full10["h"]
+    cfg = config_of(full10["mode"], w, h, 10)
+    n_mbs = -(-h // 16) * (w // 16)
+    base = dict(cfg=dataclasses.asdict(cfg), clip=full10["raw"], width=w,
+                height=h)
+    build.reset_launches()
+    results, rows = mp.run_jobs(
+        [dict(base, kind="tiles", first=0, ref_mode="halo", emit="chunks",
+              block_words=entropy.BLOCK_WORDS_MAX,
+              cap_words=entropy.max_words(n_mbs)),
+         dict(kind="transport", seed=3, shape=[-(-h // 64) * 16, w],
+              halos=[1, 16], grid=[1, 1])], 1, device=DEVICE, timeout_s=600)
+    out = results[0][0][0]
+    packets = list(bitstream.demux(io.BytesIO(full_plain))[1])[:10]
+    for t, pkt in enumerate(packets):
+        got = bit_concat([(out["words"][t, 0, c], int(out["cbits"][t, 0, c]))
+                          for c in range(out["cbits"].shape[-1])
+                          if out["cbits"][t, 0, c]])
+        if got != (pkt.payload, pkt.payload_bits):
+            raise AssertionError(f"tile program at world size 1: frame {t} "
+                                 f"differs from the plain stream")
+    errs = {k: e for k, (_, e) in results[1][0][0].items()}
+    if any(errs.values()) or rows[0][0]["backend"] != backend_for(1, DEVICE):
+        raise AssertionError(f"world size 1: transport errors {errs}, rows "
+                             f"{rows[0]}")
+    paths.append({k: v + rows[0][0]["launches"].get(k, 0)
+                  for k, v in build.LAUNCHES.items()})
+    log(f"ranks: the tile program at world size 1 over "
+        f"{rows[0][0]['backend']} == the plain GOP's 10 frames; the "
+        f"transport bodies over the group == the tensor-axis bodies "
+        f"(a quarter frame's rows, halos 1 and 16) [{card}]")
+
+    # the ring: four streams of the full clip over 4 ranks, one shorter
+    rcfg = dataclasses.replace(cfg, rc="bitrate", target_kbps=12000)
+    streams = [(0, 10), (10, 10), (20, 10), (3, 7)]
+    firsts = [0, 100, 200, 300]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    results, rows = mp.run_jobs(
+        [dict(base, cfg=dataclasses.asdict(rcfg), kind="ring",
+              streams=[list(s) for s in streams], first_indices=firsts)],
+        4, device=DEVICE, timeout_s=600)
+    wall = time.perf_counter() - t0
+    got = results[0][0][0]
+    frames = [Frame.from_planes(*p) for p in zip(*full10["clip"])]
+    eng = GopEngine(rcfg, device=DEVICE)
+    for s, ((a, n), first) in enumerate(zip(streams, firsts)):
+        want = [p.to_bytes() for p in eng.encode_gop(frames[a:a + n], first)[0]]
+        if [p.to_bytes() for p in got[s]] != want:
+            raise AssertionError(f"ring stream {s} differs from its "
+                                 f"single-device encode")
+    total = {k: v + sum(r[0]["launches"].get(k, 0) for r in rows)
+             for k, v in build.LAUNCHES.items()}
+    check_launches("ring over 4 ranks", total,
+                   ["full_search_g", "mc_predict_g", "code_plane_g",
+                    "block_pack"])
+    paths.append(total)
+    log(f"ring over 4 ranks ({rows[0][0]['backend']}), streams {streams} at "
+        f"--rc bitrate --kbps 12000: each == its single-device encode; "
+        f"{sum(len(g) for g in got)} frames in {wall:.2f} s wall with the "
+        f"ranks' start [{card}]")
+    for r in rows:
+        log(f"    rank {r[0]['rank']} ({r[0]['device']}): encode "
+            f"{r[0]['encode_s']:.3f} s, transport {r[0]['transport_bytes']} "
+            f"bytes and {1e3 * r[0]['transport_s']:.3f} ms in "
+            f"{r[0]['transport_calls']} calls (the ring hops of each of "
+            f"{r[0]['p_frames'] + 1} steps, the overflow flag's "
+            f"all_reduce) [{card}]")
+    return paths
+
+
 def up(planes, mult):
     """[T, H, W] uint8 planes on the device, edge-padded to multiples of
     `mult` as Frame.from_planes pads them."""
@@ -3450,6 +3658,11 @@ def main() -> int:
         twopass_job = dict(jobs["v2"], gop=4, mode=TWOPASS_SMALL,
                            tag="640x360_gop4_twopass")
         path_launches.append(phase_twopass(tmp, twopass_job, card))
+        t_ranks = time.perf_counter()
+        path_launches += phase_distributed(tmp, jobs, plains, batched_oracle,
+                                           card)
+        log(f"rank paths done at {time.perf_counter() - t_start:.1f} s "
+            f"({time.perf_counter() - t_ranks:.1f} s)")
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)

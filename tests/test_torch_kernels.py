@@ -1587,3 +1587,82 @@ def test_trace_on_card_names_the_kernels(cuda, tmp_path):
     for kernels in sessions:
         assert any("tiled_kernel" in n for n in kernels), kernels
         assert any("plane_kernel" in n for n in kernels), kernels
+
+
+# ---- ranks on the card (parallel/, one process per rank) ----------------
+
+def _rank_clip(tmp_path, n=9, h=64, w=96):
+    """A small clip written for the ranks to read, and its frames."""
+    from video_encoder_tpu_torch.parallel import multiprocess as mp
+
+    y, cb, cr = mp.synth_gops(1, n, h, w, seed=4)
+    path = tmp_path / "clip.yuv"
+    with open(path, "wb") as f:
+        for t in range(n):
+            f.write(y[0, t].tobytes() + cb[0, t].tobytes() + cr[0, t].tobytes())
+    return str(path), [Frame.from_planes(y[0, t], cb[0, t], cr[0, t])
+                       for t in range(n)]
+
+
+def _rank_jobs(path, cfg, world):
+    """DP over the ranks, the tile program of one GOP in row shards over
+    them (S = 1 at world 1), the transport check; row-shard ranks of the
+    sharded clip encode too where there are two."""
+    import dataclasses
+
+    base = dict(cfg=dataclasses.asdict(cfg), clip=path, width=cfg.width,
+                height=cfg.height)
+    n_mbs = (cfg.height // 16) * (cfg.width // 16) // world
+    jobs = [dict(base, kind="gops", mesh=[world, 1],
+                 schedule=[[(k * world + g) * cfg.gop_n for g in range(world)]
+                           for k in range(3 // world)]),
+            dict(base, kind="tiles", first=cfg.gop_n, ref_mode="halo",
+                 emit="chunks", block_words=entropy.BLOCK_WORDS_MAX,
+                 cap_words=entropy.max_words(n_mbs)),
+            dict(kind="transport", seed=2, shape=[32, 48], halos=[1, 16],
+                 grid=[world, 1])]
+    if world > 1:
+        jobs.append(dict(base, kind="gops", mesh=[1, world],
+                         schedule=[[0], [cfg.gop_n], [2 * cfg.gop_n]]))
+    return jobs
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_ranks_on_card_match_one_device(cuda, tmp_path, world):
+    """DP and row-shard ranks on the card: world 1 over NCCL (every rank
+    has a card), 2 ranks over gloo where they share one card (NCCL where
+    the host has two). Every GOP, and the tile program's glued frames,
+    equal the single-device engine's on the card; the transport bodies
+    equal their tensor-axis bodies; the ranks launched the kernels."""
+    from video_encoder_tpu_torch.codec.mux import bit_concat
+    from video_encoder_tpu_torch.parallel import multiprocess as mp
+    from video_encoder_tpu_torch.parallel.mesh import backend_for
+
+    build.lib()              # once here, before the ranks load it
+    cfg = EncoderConfig(width=96, height=64, gop_n=3, base_qp=26)
+    path, frames = _rank_clip(tmp_path)
+    jobs = _rank_jobs(path, cfg, world)
+    results, rows = mp.run_jobs(jobs, world, device="cuda", timeout_s=600)
+    eng = GopEngine(cfg, device="cuda")
+    want = {f: eng.encode_gop(frames[f:f + 3], f)[0] for f in (0, 3, 6)}
+    for j in [0] + ([3] if world > 1 else []):
+        got = {pk[0].index: [p.to_bytes() for p in pk]
+               for per in results[j].values() for items in per.values()
+               for pk, _ in items}
+        assert got and got == {f: [p.to_bytes() for p in want[f]] for f in got}
+    shards = [results[1][0][r] for r in range(world)]
+    for t, pkt in enumerate(want[3]):
+        payload, nbits = bit_concat([
+            (sh["words"][t, 0, c], int(sh["cbits"][t, 0, c]))
+            for sh in shards for c in range(sh["cbits"].shape[-1])
+            if sh["cbits"][t, 0, c]])
+        assert (payload, nbits) == (pkt.payload, pkt.payload_bits)
+    assert all(err == 0 for r in results[2][0].values()
+               for _, err in r.values())
+    backend = backend_for(world, "cuda")
+    assert backend == ("nccl" if world <= torch.cuda.device_count() else "gloo")
+    for rank_rows in rows:
+        assert all(r["backend"] == backend for r in rank_rows)
+        assert rank_rows[0]["launches"].get("full_search", 0) > 0
+        assert rank_rows[1]["launches"].get("full_search_haloed", 0) > 0
+        assert rank_rows[1]["launches"].get("code_plane_g", 0) > 0

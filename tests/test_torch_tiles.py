@@ -480,8 +480,10 @@ def test_cli_tile_gives_the_plain_file(clip_file, tmp_path, capsys, flags):
     ["--tile", "3"],                                   # 4 MB rows
     ["--tile", "2", "--format", "3"],                  # no intra slices
     ["--tile", "0"],
-    ["--tile", "2", "--devices", "2"], ["--devices", "2"],
-    ["--multiprocess", "2"], ["--tile", "2", "--failover"],
+    ["--tile", "2", "--devices", "3"],                 # 3 ranks, 2 tiles
+    ["--devices", "2", "--two-pass", "--kbps", "300"],
+    ["--multiprocess", "2", "--engine", "device"],
+    ["--tile", "2", "--failover", "--gop-batch", "2"],
 ])
 def test_cli_tile_preconditions_exit_2(clip_file, tmp_path, capsys, extra):
     out = tmp_path / "x.tvc"
@@ -489,5 +491,6 @@ def test_cli_tile_preconditions_exit_2(clip_file, tmp_path, capsys, extra):
     err = capsys.readouterr().err
     assert "error" in err
     assert not out.exists()             # checked before the file is opened
-    if {"--devices", "--multiprocess", "--failover"} & set(extra):
-        assert "A13b" in err
+    ranked = {"--devices", "--multiprocess", "--failover"} & set(extra)
+    if ranked:                          # the message names the flag at fault
+        assert any(flag in err for flag in ranked)

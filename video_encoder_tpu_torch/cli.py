@@ -1,5 +1,5 @@
-"""Command line of the port: encode and decode on one device, or decode,
-info and psnr on the host.
+"""Command line of the port: encode on one device or over ranks, decode on
+one device, or decode, info and psnr on the host.
 
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 -o out.tvc
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv
@@ -32,10 +32,20 @@ on `--device` (default cuda):
 once for G frames; `--two-pass` allocates one qp per GOP from a first
 pass at constant qp; `--tile S` encodes every frame as S row shards with
 a halo exchange between them (full search only; with `--gop-batch G`, G
-GOPs of S shards per step), all on the one device. `--checkpoint PATH`
-saves the encode's state after every GOP and resumes a killed encode at
-its last GOP, byte-identical to an uninterrupted one (either engine;
-single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
+GOPs of S shards per step), all on the one device. `--devices N` spreads
+batches of N / S full GOPs over N ranks, one process each (with `--tile
+S`, each GOP's frames in S row shards over S of them), `--multiprocess
+N` gives N ranks a contiguous share of the full GOPs each, and
+`--failover` re-encodes a failed GOP or batch on a survivor engine
+(`parallel/`; the ranks run on the cards, sharing them over gloo where
+there are fewer cards than ranks):
+
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --gop 10 --devices 4 --tile 2 --failover
+
+`--checkpoint PATH` saves the encode's state after every GOP and resumes
+a killed encode at its last GOP, byte-identical to an uninterrupted one
+(either engine; single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
 torch.profiler trace of the encode into DIR; `--stage-timers` adds the
 host stages' wall times to the summary. Its streams are byte-identical
 to the reference CLI's. `decode` takes the reference's engines
@@ -54,15 +64,22 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import numpy as np
+import torch
 
 from .codec.bitstream import OrderedMux, read_stream_header
 from .codec.config import EncoderConfig
 from .codec.frame import Frame
 from .io import yuv
+from .ops.kernels import build
+from .parallel import multiprocess as mp
+from .parallel.failover import (RECOVERABLE, FaultInjector, GopFailure,
+                                encode_gops_with_recovery, redispatched,
+                                survivor_device)
 from .parallel.gop_parallel import ShardedGopEncoder
 from .parallel.mesh import make_codec_mesh
 from .pipeline import decoder
@@ -73,15 +90,36 @@ from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
 from .utils.trace import EventLog, StageTimer, trace
 
-# Encode flags of the reference CLI that the port does not take yet, with
-# the ROADMAP.md item that ports them.
-NOT_PORTED = {"--devices": "A13b", "--multiprocess": "A13b",
-              "--failover": "A13b"}
-
-
 def _add_dims(p):
     p.add_argument("-W", "--width", type=int, default=0)
     p.add_argument("-H", "--height", type=int, default=0)
+
+
+class _Mux:
+    """OrderedMux and the run's summary: each GOP's packets and stats."""
+
+    def __init__(self, fo, cfg: EncoderConfig, n_frames: int, verbose: bool):
+        self.mux = OrderedMux(fo, cfg, n_frames)
+        self.summary = RunSummary()
+        self.verbose = verbose
+        self.muxed: set[int] = set()    # first frames of the GOPs muxed
+
+    def emit(self, packets, stats):
+        for p in packets:
+            self.mux.push(p)
+        if packets:
+            self.muxed.add(packets[0].index)
+        for st in stats:
+            self.summary.add(st)
+            if self.verbose:
+                print(st.to_json(), file=sys.stderr)
+
+    def recover(self, survivor, gops, firsts, err):
+        """A failed batch's GOPs, encoded again on the survivor."""
+        redispatched(firsts, err, survivor)
+        stats: list = []
+        self.emit(encode_gops_with_recovery(survivor, gops, firsts,
+                                            stats=stats), stats)
 
 
 def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
@@ -100,25 +138,16 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
     def stage(name):
         return timer.stage(name) if timer else contextlib.nullcontext()
 
-    mux = OrderedMux(fo, cfg, n_frames)
-    summary = RunSummary()
+    out = _Mux(fo, cfg, n_frames, verbose)
     pending = None   # double buffer: batch k runs while k+1 is read
-
-    def emit(packets, stats):
-        for p in packets:
-            mux.push(p)
-        for s in stats:
-            summary.add(s)
-            if verbose:
-                print(s.to_json(), file=sys.stderr)
 
     def drain(batched, handle):
         with stage("drain+mux"):
             if batched:
                 for packets, stats in eng.encode_gops_finish(handle):
-                    emit(packets, stats)
+                    out.emit(packets, stats)
             else:
-                emit(*eng.encode_gop_finish(handle))
+                out.emit(*eng.encode_gop_finish(handle))
 
     def launch(batched, *args):
         nonlocal pending
@@ -157,35 +186,53 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
         launch(False, gop, start)
     if pending is not None:
         drain(*pending)
-    mux.close()
-    return summary
+    out.mux.close()
+    return out.summary
 
 
 def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
-                 frames, fo, n_frames: int, verbose: bool = False
+                 frames, fo, n_frames: int, verbose: bool = False,
+                 survivor=None, fault: FaultInjector | None = None
                  ) -> RunSummary:
     """Tile-sharded encode + ordered mux: every batch of as many full GOPs
-    as the mesh's 'gop' axis goes through `senc`; full GOPs short of a
-    batch and the clip's short last GOP go through the single-device
-    engine, GOP by GOP. Same bytes as the unsharded encode."""
-    mux = OrderedMux(fo, cfg, n_frames)
-    summary = RunSummary()
+    as the mesh's 'gop' axis goes through `senc`, batch k + 1 read and
+    launched while batch k runs (`encode_gop_batch_start` / `_finish`);
+    full GOPs short of a batch and the clip's short last GOP go through
+    the single-device engine. Same bytes as the unsharded encode. With a
+    survivor (`--failover`), a batch whose injected fault fires (checked
+    before it is launched) or whose encode raises a recoverable error is
+    encoded again GOP by GOP on the survivor."""
+    out = _Mux(fo, cfg, n_frames, verbose)
+    pending = None
 
-    def emit(packets, stats):
-        for p in packets:
-            mux.push(p)
-        for s in stats:
-            summary.add(s)
-            if verbose:
-                print(s.to_json(), file=sys.stderr)
+    def drain(batched, handle, gops, firsts):
+        try:
+            results = (senc.encode_gop_batch_finish(handle) if batched
+                       else [eng.encode_gop_finish(handle)])
+        except RECOVERABLE as e:
+            if survivor is None:
+                raise
+            out.recover(survivor, gops, firsts, e)
+            return
+        for packets, stats in results:
+            out.emit(packets, stats)
 
-    def flush(batch, firsts):
-        if len(batch) == senc.n_gop_devices:
-            for packets, stats in senc.encode_gop_batch(batch, firsts):
-                emit(packets, stats)
-        else:
-            for gop, first in zip(batch, firsts):
-                emit(*eng.encode_gop(gop, first))
+    def launch(batched, gops, firsts):
+        nonlocal pending
+        try:
+            if batched and fault is not None:
+                for first in firsts:
+                    fault.check(first)
+            handle = (senc.encode_gop_batch_start(gops, firsts) if batched
+                      else eng.encode_gop_start(gops[0], firsts[0]))
+        except RECOVERABLE as e:
+            if survivor is None:
+                raise
+            out.recover(survivor, gops, firsts, e)
+            return
+        if pending is not None:
+            drain(*pending)
+        pending = (batched, handle, gops, firsts)
 
     gop: list[Frame] = []
     batch: list[list[Frame]] = []
@@ -201,13 +248,130 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
             start += len(gop)
             gop = []
             if len(batch) == senc.n_gop_devices:
-                flush(batch, firsts)
+                launch(True, batch, firsts)
                 batch, firsts = [], []
-    flush(batch, firsts)
+    for g, first in zip(batch, firsts):   # full GOPs short of a batch
+        launch(False, [g], [first])
     if gop:
-        emit(*eng.encode_gop(gop, start))
-    mux.close()
-    return summary
+        launch(False, [gop], [start])
+    if pending is not None:
+        drain(*pending)
+    out.mux.close()
+    return out.summary
+
+
+def encode_failover(cfg: EncoderConfig, eng: GopEngine, survivor, frames, fo,
+                    n_frames: int, fault: FaultInjector | None = None,
+                    verbose: bool = False) -> RunSummary:
+    """`--failover` on one engine: each GOP through
+    encode_gops_with_recovery, retried on `eng` and then re-dispatched on
+    the survivor (the reference's `_encode_failover`)."""
+    out = _Mux(fo, cfg, n_frames, verbose)
+    gop: list[Frame] = []
+    start = 0
+
+    def flush():
+        stats: list = []
+        out.emit(encode_gops_with_recovery(eng, [gop], [start],
+                                           fallback=survivor, fault=fault,
+                                           stats=stats), stats)
+
+    for count, planes in enumerate(frames):
+        if count >= n_frames:
+            break
+        gop.append(Frame.from_planes(*planes))
+        if len(gop) == cfg.gop_n:
+            flush()
+            start += len(gop)
+            gop = []
+    if gop:
+        flush()
+    out.mux.close()
+    return out.summary
+
+
+def encode_ranks(cfg: EncoderConfig, a, eng: GopEngine, fo, n_frames: int,
+                 survivor=None, fault: FaultInjector | None = None,
+                 timeout_s: float = mp.DEFAULT_TIMEOUT_S):
+    """`--devices N [--tile S]`: batch k of N / S full GOPs goes to the
+    ranks, 'gop' rank g (with its S tile ranks) encoding GOP k N / S + g;
+    each rank reads its own GOPs from the input, and this process muxes
+    the packets as they arrive. The full GOPs short of a batch and the
+    short last GOP are encoded here on `eng` while the ranks run. With a
+    survivor (`--failover`), a batch whose injected fault fires is never
+    dispatched and is encoded here on the survivor, and if a rank fails,
+    every rank is stopped and every GOP not yet received is encoded on the
+    survivor. Returns (summary, each rank's row)."""
+    n_gop = a.devices // a.tile
+    n_full = n_frames // cfg.gop_n
+    batches = [[(k * n_gop + g) * cfg.gop_n for g in range(n_gop)]
+               for k in range(n_full // n_gop)]
+    ranked, on_survivor = [], []
+    for firsts in batches:
+        try:
+            for first in firsts if fault is not None else ():
+                fault.check(first)
+            ranked.append(firsts)
+        except GopFailure as e:   # before dispatch: no rank skips a collective
+            redispatched(firsts, e, survivor)
+            on_survivor += firsts
+    tail = list(range(len(batches) * n_gop * cfg.gop_n, n_frames, cfg.gop_n))
+    out = _Mux(fo, cfg, n_frames, a.verbose)
+
+    def encode_here(firsts, engine):
+        for first, gop in mp.read_gops(a.input, cfg.width, cfg.height,
+                                       cfg.gop_n, firsts, n_frames):
+            if engine is eng:
+                out.emit(*eng.encode_gop(gop, first))
+            else:   # the survivor retries, as the reference's does
+                stats: list = []
+                out.emit(encode_gops_with_recovery(engine, [gop], [first],
+                                                   stats=stats), stats)
+
+    rows: list = []
+    job = dict(kind="gops", cfg=dataclasses.asdict(cfg),
+               clip=os.path.abspath(a.input), width=cfg.width,
+               height=cfg.height, mesh=[n_gop, a.tile], schedule=ranked)
+    with contextlib.ExitStack() as stack:
+        group = (stack.enter_context(mp.RankGroup(
+            a.devices, [job], device=a.device, timeout_s=timeout_s))
+            if ranked else None)
+        encode_here(sorted(on_survivor), survivor)
+        encode_here(tail, eng)
+        if group is not None:
+            try:
+                for ev in group.events():
+                    for packets, stats in ev["result"]:
+                        out.emit(packets, stats)
+                rows = [r for rank_rows in group.rows for r in rank_rows]
+            except mp.RankFailure as e:
+                if survivor is None:
+                    raise
+                lost = [f for b in ranked for f in b if f not in out.muxed]
+                redispatched(lost, e, survivor)
+                encode_here(lost, survivor)
+    out.mux.close()
+    return out.summary, rows
+
+
+def encode_multiprocess(cfg: EncoderConfig, a, eng: GopEngine, fo,
+                        n_frames: int,
+                        timeout_s: float = mp.DEFAULT_TIMEOUT_S):
+    """`--multiprocess N`: N ranks encode contiguous shares of the clip's
+    full GOPs (`multiprocess.spawn_clip_encode`); this process muxes their
+    packets and then encodes the rest on `eng`, as the reference's
+    `_encode_multiprocess`. Returns (summary, each rank's row)."""
+    rows, packets, stats = mp.spawn_clip_encode(
+        cfg, a.input, cfg.width, cfg.height, n_frames, a.multiprocess,
+        device=a.device, timeout_s=timeout_s)
+    out = _Mux(fo, cfg, n_frames, a.verbose)
+    out.emit(packets, stats)
+    for first, gop in mp.read_gops(a.input, cfg.width, cfg.height, cfg.gop_n,
+                                   range(len(packets), n_frames, cfg.gop_n),
+                                   n_frames):
+        out.emit(*eng.encode_gop(gop, first))
+    out.mux.close()
+    return out.summary, rows
 
 
 def _encode_refusal(a, cfg: EncoderConfig) -> str | None:
@@ -237,11 +401,43 @@ def _encode_refusal(a, cfg: EncoderConfig) -> str | None:
         if a.gop_batch > 1 or a.tile > 1:
             return ("--engine device encodes one frame at a time; "
                     "--gop-batch and --tile need --engine gop")
-    if a.checkpoint and (a.two_pass or a.gop_batch > 1 or a.tile > 1):
+    if a.devices < 0 or a.multiprocess < 0:
+        return "--devices and --multiprocess take N >= 1 ranks"
+    if a.devices % a.tile:
+        return f"--devices {a.devices} not divisible by --tile {a.tile}"
+    if (a.devices or a.tile > 1) and (a.engine != "gop" or a.two_pass
+                                      or a.multiprocess):
+        return ("--devices/--tile need the gop engine, single pass, no "
+                "--multiprocess")
+    if a.multiprocess and (a.two_pass or a.engine != "gop"):
+        return "--multiprocess needs the gop engine, single pass"
+    if (a.devices or a.multiprocess) and a.gop_batch > 1:
+        return ("--gop-batch batches GOPs on one device; --devices and "
+                "--multiprocess spread them over ranks, one GOP per rank")
+    if a.checkpoint and a.failover:
+        return ("--checkpoint resumes the single-engine serial path; "
+                "--failover re-dispatches GOPs on a survivor: pick one")
+    if a.checkpoint and (a.two_pass or a.gop_batch > 1 or a.tile > 1
+                         or a.devices or a.multiprocess):
         return ("--checkpoint is the single-engine serial path (no "
-                "--two-pass, --gop-batch or --tile); GOPs are the resume "
-                "unit")
+                "--two-pass, --gop-batch, --tile, --devices or "
+                "--multiprocess); GOPs are the resume unit")
+    if a.failover and (a.two_pass or a.multiprocess or a.engine != "gop"):
+        return "--failover wraps the gop/sharded engines, single pass"
+    if a.failover and a.gop_batch > 1:
+        return ("--failover re-encodes GOP by GOP; it does not take "
+                "--gop-batch")
     return None
+
+
+def _fault_injector() -> FaultInjector | None:
+    """TVC_FAULT_GOPS=i,j (first-frame indices) and TVC_FAULT_TIMES inject
+    faults into --failover runs, as the reference CLI's."""
+    if not os.environ.get("TVC_FAULT_GOPS"):
+        return None
+    return FaultInjector(
+        {int(x) for x in os.environ["TVC_FAULT_GOPS"].split(",")},
+        times=int(os.environ.get("TVC_FAULT_TIMES", "1")))
 
 
 def cmd_encode(a) -> int:
@@ -265,10 +461,12 @@ def cmd_encode(a) -> int:
     if a.two_pass and cfg.rc == "none":
         cfg = dataclasses.replace(cfg, rc="bitrate")
     senc = None
-    if a.tile > 1:
+    if a.tile > 1 or a.devices:
+        # on ranks, the layout is checked here, before the file is opened
+        n_gop = a.devices // a.tile if a.devices else a.gop_batch
         try:
             senc = ShardedGopEncoder(
-                cfg, make_codec_mesh(a.gop_batch, a.tile, a.device))
+                cfg, make_codec_mesh(n_gop, a.tile, a.device))
         except ValueError as e:   # the frame or its slices do not divide
             print(f"error: --tile {a.tile}: {e}", file=sys.stderr)
             return 2
@@ -276,6 +474,18 @@ def cmd_encode(a) -> int:
         eng = DeviceEngine(device=a.device)
     else:
         eng = senc.engine if senc else GopEngine(cfg, device=a.device)
+    survivor = fault = None
+    if a.failover:
+        survivor = GopEngine(cfg, device=survivor_device(eng.device),
+                             emit=eng.emit)
+        fault = _fault_injector()
+    ranks = a.devices or a.multiprocess
+    if ranks and eng.device.type == "cuda":
+        build.lib()     # once, before the ranks load it
+        cards = torch.cuda.device_count()
+        if ranks > cards:
+            print(f"note: {ranks} ranks on {cards} card(s): the ranks share "
+                  "cards over gloo", file=sys.stderr)
     n_frames = a.frames
     if n_frames == 0:
         if a.input.endswith(".y4m"):
@@ -284,6 +494,7 @@ def cmd_encode(a) -> int:
         n_frames = yuv.count_yuv_frames(a.input, w, h)
 
     timer = StageTimer() if a.stage_timers else None
+    rows = None
     t0 = time.perf_counter()
     on_frame = ((lambda st: print(st.to_json(), file=sys.stderr))
                 if a.verbose else None)
@@ -303,9 +514,19 @@ def cmd_encode(a) -> int:
                         cfg, lambda: yuv.open_clip(a.input, a.width,
                                                    a.height)[3],
                         fo, n_frames, engine=eng, on_frame=on_frame)
+                elif a.devices:
+                    summary, rows = encode_ranks(cfg, a, eng, fo, n_frames,
+                                                 survivor, fault)
+                elif a.multiprocess:
+                    summary, rows = encode_multiprocess(cfg, a, eng, fo,
+                                                        n_frames)
                 elif senc is not None:
                     summary = encode_tiled(cfg, senc, eng, frames, fo,
-                                           n_frames, a.verbose)
+                                           n_frames, a.verbose, survivor,
+                                           fault)
+                elif a.failover:
+                    summary = encode_failover(cfg, eng, survivor, frames, fo,
+                                              n_frames, fault, a.verbose)
                 elif a.engine == "device":
                     summary = encode_clip(cfg, frames, fo, n_frames,
                                           engine=eng, on_frame=on_frame)
@@ -319,6 +540,11 @@ def cmd_encode(a) -> int:
     out["engine"] = a.engine
     out["wall_s"] = round(wall, 3)
     out["wall_fps"] = round(summary.frames / wall, 2) if wall else 0
+    if rows is not None:
+        out["backend"] = rows[0]["backend"] if rows else None
+        out["ranks"] = rows
+    if fault is not None:
+        out["faults_injected"] = fault.injected
     if timer is not None:
         out["stages"] = timer.report()
     print(json.dumps(out))
@@ -395,7 +621,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="video_encoder_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    e = sub.add_parser("encode", help="raw YUV/Y4M -> TVC1 on one device")
+    e = sub.add_parser("encode", help="raw YUV/Y4M -> TVC1 on one device "
+                       "or over ranks")
     e.add_argument("-i", "--input", required=True)
     e.add_argument("-o", "--output", required=True)
     _add_dims(e)
@@ -433,6 +660,20 @@ def main(argv=None) -> int:
                         "exchange (needs --search full, MB rows divisible "
                         "by S; format >= 3 also --intra-slice dividing a "
                         "shard's MB rows); byte-identical to 1")
+    e.add_argument("--devices", type=int, default=0,
+                   help="spread batches of N / S full GOPs over N ranks, one "
+                        "process each (S = --tile: each GOP's frames in S "
+                        "row shards over S ranks); rank r runs on cuda:(r "
+                        "%% cards), over NCCL when every rank has a card, "
+                        "else over gloo")
+    e.add_argument("--multiprocess", type=int, default=0,
+                   help="N ranks, each encoding a contiguous share of the "
+                        "full GOPs; this process encodes the rest")
+    e.add_argument("--failover", action="store_true",
+                   help="per-GOP retry and a survivor engine (the next card, "
+                        "else this one); with --devices/--tile a failed "
+                        "batch or rank is re-encoded on the survivor. "
+                        "TVC_FAULT_GOPS=i,j injects faults for testing")
     e.add_argument("--two-pass", action="store_true",
                    help="GOP-level two-pass rate allocation toward --kbps "
                         "(constant qp within a GOP)")
@@ -483,15 +724,6 @@ def main(argv=None) -> int:
     _add_dims(p)
     p.set_defaults(fn=cmd_psnr)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["encode"]:
-        for arg in argv[1:]:
-            flag = arg.split("=", 1)[0]
-            if flag in NOT_PORTED:
-                print(f"error: {flag} is not supported by the port yet "
-                      f"(ROADMAP.md {NOT_PORTED[flag]}); the reference CLI "
-                      "video_encoder_tpu.cli has it", file=sys.stderr)
-                return 2
     a = ap.parse_args(argv)
     try:
         return a.fn(a)

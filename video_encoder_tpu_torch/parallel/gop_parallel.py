@@ -1,23 +1,44 @@
-"""Host side of the sharded encode on one device.
+"""Host side of the sharded encode: GOPs over the 'gop' axis, every frame
+in row shards over the 'tile' axis, on one device or over ranks.
 
 Twin of `video_encoder_tpu/parallel/gop_parallel.py` `ShardedGopEncoder`
-for the ('gop', 'tile') layout of `parallel/mesh.py`: G equal-length GOPs
-in lockstep, every frame in S row shards (`parallel/tiles.py`
-`encode_gop_batch_2d`), all on one device. A frame's payload is the
-bit-concatenation of its shards in tile order, under chunk emit of each
-shard's span strings in order. With one tile it is the engine's own
-batched encode (`GopEngine.encode_gops`). GOPs spread over several devices
-are the next parallel slice (ROADMAP.md A13b).
+for the ('gop', 'tile') layout of `parallel/mesh.py`.
+
+- On one device, G equal-length GOPs run in lockstep, every frame in S
+  row shards (`parallel/tiles.py` `encode_gop_batch_2d`). A frame's
+  payload is the bit-concatenation of its shards in tile order, under
+  chunk emit of each shard's span strings in order.
+- Over ranks (the DP branch, the reference's `encode_gop_batch_sharded`),
+  'gop' rank g encodes GOP k * N_gop + g of batch k, together with the S
+  ranks of its 'tile' group. Tile rank 0 gathers its group's span strings
+  (all_gather_object over the 'tile' group) and glues them in tile order,
+  so the packets leave the ranks whole; the other tile ranks return none.
+- With one tile the encode is the engine's own (`GopEngine.encode_gop_start`
+  for one GOP, `encode_gops_start` for several in lockstep), under chunk
+  emit as the tile path, and the stats keep each frame's sse: the
+  reference's DP branch runs the frame emit and drops sse (its PSNR reads
+  0), which is not copied.
+
+The encode is split as the engine's is: `encode_gop_batch_start` uploads
+and launches, `encode_gop_batch_finish` waits once, reruns the batch at
+the worst-case capacities if any shard overflowed (over ranks, the whole
+'tile' group decides by an all_reduce(MAX) of the flag and reruns
+together), downloads and makes the packets.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
 from ..codec import entropy, tables
 from ..codec.config import EncoderConfig
 from ..codec.frame import Frame
 from ..pipeline.gop_engine import GopEngine, block_words_for_qp
+from . import mesh as dmesh
 from . import tiles
 from .mesh import CodecMesh, make_codec_mesh
 
@@ -26,10 +47,11 @@ class ShardedGopEncoder:
     """encode_gop_batch(gops, first_indices, base_qp) -> one (packets,
     stats) pair per GOP, as GopEngine.encode_gops gives them and with the
     same bytes. `mesh` is a ('gop', 'tile') CodecMesh (default: one GOP,
-    one tile); `device` defaults to the mesh's. The tile path exchanges
-    halos and packs under chunk emit."""
+    one tile, one device); `device` defaults to the mesh's. On a mesh over
+    ranks the GOPs are this rank's (one), and only tile rank 0 gets
+    packets. The tile path exchanges halos and packs under chunk emit."""
 
-    emit = "chunks"     # of the tile path
+    emit = "chunks"
 
     def __init__(self, cfg: EncoderConfig, mesh: CodecMesh | None = None,
                  device=None):
@@ -39,7 +61,8 @@ class ShardedGopEncoder:
         self.n_tile_devices = self.mesh.shape.get("tile", 1)
         # uploads, downloads and packets are the single-device engine's;
         # with one tile so is the whole encode
-        self.engine = GopEngine(cfg, device=device or self.mesh.device)
+        self.engine = GopEngine(cfg, device=device or self.mesh.device,
+                                emit=self.emit)
         self.device = self.engine.device
         if self.n_tile_devices > 1:
             if cfg.search != "full":
@@ -49,14 +72,15 @@ class ShardedGopEncoder:
                                     cfg.format_version, cfg.intra_slice_mbrows)
 
     def run(self, y, cb, cr, base_qp: int, xl: bool = False):
-        """One lockstep encode of G GOPs in S row shards each: [T, G, H, W]
-        / [T, G, H/2, W/2] uint8 planes on the encoder's device; launches
-        only, no host wait. xl selects the exact worst-case capacities;
-        per-shard capacities come from the per-shard MB count. Returns
+        """One lockstep encode of this process's GOPs in row shards: [T, G,
+        H, W] / [T, G, H/2, W/2] uint8 planes on the encoder's device (over
+        ranks, G = 1 and the rows are this rank's); launches only, no host
+        wait. xl selects the exact worst-case capacities; per-shard
+        capacities come from the per-shard MB count. Returns
         tiles.encode_gop_batch_2d's stacked per-frame device tensors."""
         cfg = self.cfg
         n_mbs = ((y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
-                 // self.n_tile_devices)
+                 // self.mesh.local("tile"))
         if xl:
             bw, cap = entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
         else:
@@ -69,40 +93,138 @@ class ShardedGopEncoder:
             vbv_bits=cfg.vbv_bits(), qmat=cfg.quant_matrix,
             islice=cfg.intra_slice_mbrows, emit="chunks")
 
-    def encode_gop_batch(self, gops: list[list[Frame]],
-                         first_indices: list[int], base_qp: int | None = None):
-        """gops: as many equal-length GOPs as the mesh's 'gop' axis."""
+    def encode_gop_batch_start(self, gops: list[list[Frame]],
+                               first_indices: list[int],
+                               base_qp: int | None = None):
+        """Upload this process's GOPs of a batch and launch their encode,
+        without waiting on the device: as many equal-length GOPs as the
+        mesh's 'gop' axis on one device, one over ranks."""
         base_qp = self.cfg.base_qp if base_qp is None else base_qp
-        if len(gops) != self.n_gop_devices:
-            raise ValueError(f"{len(gops)} GOPs for a mesh of "
-                             f"{self.n_gop_devices} on its gop axis")
+        want = self.mesh.local("gop")
+        if len(gops) != want:
+            where = ("per rank" if self.mesh.spans_ranks
+                     else f"for a mesh of {want} on its gop axis")
+            raise ValueError(f"{len(gops)} GOPs {where}; want {want}")
+        if self.n_tile_devices == 1 and len(gops) == 1:
+            return dict(gop=self.engine.encode_gop_start(
+                gops[0], first_indices[0], base_qp))
         if self.n_tile_devices == 1:
-            return self.engine.encode_gops(gops, first_indices,
-                                           [base_qp] * len(gops))
+            return dict(batch=self.engine.encode_gops_start(
+                gops, first_indices, [base_qp] * len(gops)))
         n = len(gops[0])
         if any(len(g) != n for g in gops):
             raise ValueError("batched GOPs must be of equal length")
         t0 = time.perf_counter()
+        rows = slice(None)
+        if self.mesh.spans_ranks:     # this rank's rows of the padded frame
+            h = gops[0][0].y.shape[0] // self.n_tile_devices
+            s = self.mesh.coords["tile"]
+            rows = slice(s * h, (s + 1) * h)
         eng = self.engine
 
-        def up(plane):   # [T, G, H, W]: the frame axis leads
-            return eng.upload([getattr(g[t], plane) for t in range(n)
-                                for g in gops], (n, len(gops)))
+        def up(plane, sub):   # [T, G, H, W]: the frame axis leads
+            return eng.upload([getattr(g[t], plane)[sub] for t in range(n)
+                               for g in gops], (n, len(gops)))
 
-        y, cb, cr = up("y"), up("cb"), up("cr")
-        outs = self.run(y, cb, cr, base_qp)
-        if bool(outs["ovf"].any()):   # the batch's one wait on the device
-            outs = self.run(y, cb, cr, base_qp, xl=True)
+        crows = slice(None) if rows.start is None else slice(
+            rows.start // 2, rows.stop // 2)
+        y, cb, cr = up("y", rows), up("cb", crows), up("cr", crows)
+        return dict(gops=gops, first_indices=first_indices, base_qp=base_qp,
+                    y=y, cb=cb, cr=cr, outs=self.run(y, cb, cr, base_qp),
+                    t0=t0)
+
+    def _overflowed(self, ovf: torch.Tensor) -> bool:
+        """The batch's one wait on the device: did any shard overflow? Over
+        ranks the 'tile' group decides together."""
+        flag = ovf.any().to(torch.int32)
+        group = self.mesh.group("tile")
+        if group is not None:
+            flag = dmesh.all_reduce(flag, group, dist.ReduceOp.MAX)
+        return bool(flag)
+
+    def encode_gop_batch_finish(self, handle):
+        """Per-GOP (packets, stats) of a started batch, in the order given
+        to encode_gop_batch_start; over ranks, [] on tile ranks other than
+        0."""
+        if "gop" in handle:
+            return [self.engine.encode_gop_finish(handle["gop"])]
+        if "batch" in handle:
+            return self.engine.encode_gops_finish(handle["batch"])
+        outs = handle["outs"]
+        if self._overflowed(outs["ovf"]):
+            outs = self.run(handle["y"], handle["cb"], handle["cr"],
+                            handle["base_qp"], xl=True)
+        eng = self.engine
         # a frame's strings in order: tile by tile, span by span
         host = eng.download(dict(
             words=outs["words"].flatten(2, 3),
             cbits=outs["cbits"].flatten(2, 3), bits=tiles.psum(outs["bits"]),
             n_inter=tiles.psum(outs["n_inter"]), qp=outs["qp"],
             sse=tiles.psum(outs["sse"], -2)))
-        ms = (time.perf_counter() - t0) * 1e3 / (n * len(gops))
+        group = self.mesh.group("tile")
+        if group is not None:
+            shares = [None] * self.n_tile_devices
+            dist.all_gather_object(shares, host, group=group)
+            if self.mesh.coords["tile"]:
+                return []
+            host = _glue_shards(shares)
+        gops = handle["gops"]
+        ms = (time.perf_counter() - handle["t0"]) * 1e3 / sum(map(len, gops))
         return [
             eng.gop_packets(
                 frames, first_index,
                 {k: v if v is None else v[:, gi] for k, v in host.items()}, ms)
             for gi, (frames, first_index)
-            in enumerate(zip(gops, first_indices))]
+            in enumerate(zip(gops, handle["first_indices"]))]
+
+    def encode_gop_batch(self, gops: list[list[Frame]],
+                         first_indices: list[int], base_qp: int | None = None):
+        """Synchronous start and finish of one batch."""
+        return self.encode_gop_batch_finish(
+            self.encode_gop_batch_start(gops, first_indices, base_qp))
+
+
+def _glue_shards(shares: list) -> dict:
+    """The host arrays of a frame's S row shards (GopEngine.download's,
+    one per tile rank, in tile order) as one download of the whole frame:
+    span strings concatenated in tile order (words padded to the widest
+    share), bits, inter MBs and sse summed."""
+    width = max(h["words"].shape[-1] for h in shares)
+    words = np.concatenate([np.pad(
+        h["words"], [(0, 0)] * (h["words"].ndim - 1)
+        + [(0, width - h["words"].shape[-1])]) for h in shares], -2)
+    return dict(words=words,
+                cbits=np.concatenate([h["cbits"] for h in shares], -1),
+                bits=sum(h["bits"] for h in shares),
+                n_inter=sum(h["n_inter"] for h in shares),
+                qp=shares[0]["qp"], sse=sum(h["sse"] for h in shares))
+
+
+def encode_gops_on_ranks(senc: ShardedGopEncoder, gops, emit) -> int:
+    """This rank's share of a sharded encode. gops yields (first_index,
+    frames) of the GOPs of this rank's 'gop' coordinate, batch by batch
+    (its tile group yields the same ones). Batch k + 1 is read and
+    launched before batch k is finished, as the CLI's GOP path does.
+    emit(k, results) takes each batch's (packets, stats) list ([] on tile
+    ranks other than 0). After each batch the bits of its packets are
+    summed over every rank (all_reduce, the reference's psum of total
+    bits). Returns that sum over all batches."""
+    total = 0
+    pending = None
+
+    def finish(k, handle):
+        results = senc.encode_gop_batch_finish(handle)
+        emit(k, results)
+        bits = sum(p.payload_bits for packets, _ in results for p in packets)
+        return int(dmesh.all_reduce(
+            torch.tensor(bits, dtype=torch.int64, device=senc.device),
+            dist.group.WORLD))
+
+    for k, (first, frames) in enumerate(gops):
+        handle = senc.encode_gop_batch_start([frames], [first])
+        if pending is not None:
+            total += finish(*pending)
+        pending = (k, handle)
+    if pending is not None:
+        total += finish(*pending)
+    return total

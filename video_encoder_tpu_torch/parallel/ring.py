@@ -1,0 +1,139 @@
+"""Temporal ring: D independent streams over D ranks (or D shards on one
+device), the sequence-parallel analogue.
+
+Twin of `video_encoder_tpu/parallel/ring.py` (`encode_ring_jit`,
+`RingEncoder`). The P-frame chain t -> t + 1 is serial, so one GOP cannot
+be frame-parallel; but D streams can share D ranks in a rotating
+schedule. At micro-step m, rank d encodes frame m of stream (d - m) mod D,
+then sends its reconstruction to rank d + 1, which encodes frame m + 1 of
+the same stream at the next step. The hop carries the stream's
+rate-control state with the three recon planes (the qp, and the vbv
+fullness in int64 as `gop_engine.rc_carry_step` keeps it), so rc
+bitrate/vbv/mb streams follow the single-device trajectory and every
+stream is byte-identical to its single-device encode.
+
+Over ranks each rank runs the engine's frame loop (`GopEngine.run_batch`)
+on its own column of the schedule, with the hop a batch_isend_irecv over
+the mesh's 'ring' group; on one device the D columns are one lockstep
+batch and the hop is a roll of its axis. The worst-case rerun is global:
+one all_reduce(MAX) of the overflow flag over the ring. The packets of
+every stream are returned on every rank (all_gather_object of the
+columns' payloads). There is no CLI flag, as in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..codec.bitstream import FramePacket
+from ..codec.frame import Frame
+from ..pipeline.gop_engine import GopEngine
+from . import mesh as dmesh
+from .mesh import CodecMesh
+
+
+def ring_hop(carry, group=None):
+    """The ring's ppermute: each column's carry moves to the next column
+    (d -> d + 1 mod D). carry: tensors with the columns on axis 0; with a
+    group, this rank's one column, sent to group rank d + 1 and received
+    from d - 1 in one batch."""
+    if group is None:
+        return tuple(torch.roll(t, 1, 0) for t in carry)
+    d, n = dmesh.group_rank(group)
+    if n == 1:
+        return tuple(carry)
+    return tuple(dmesh.exchange([(t, (d + 1) % n) for t in carry],
+                                [(t, (d - 1) % n) for t in carry], group))
+
+
+class RingEncoder:
+    """encode_streams(streams, first_indices) -> the packets of each
+    stream. `mesh` is a ('ring',) CodecMesh (parallel/mesh.py
+    make_ring_mesh): D ranks, each calling encode_streams with the same
+    streams, or D columns on one device."""
+
+    def __init__(self, cfg, mesh: CodecMesh):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.d = mesh.shape["ring"]
+        self.group = mesh.group("ring")
+        self.engine = GopEngine(cfg, device=mesh.device, emit="frame")
+
+    def _overflowed(self, ovf: torch.Tensor) -> bool:
+        flag = ovf.any().to(torch.int32)
+        if self.group is not None:
+            flag = dmesh.all_reduce(flag, self.group, dist.ReduceOp.MAX)
+        return bool(flag)
+
+    def encode_streams(self, streams: list[list[Frame]],
+                       first_indices: list[int]) -> list[list[FramePacket]]:
+        """streams: up to D streams of any (nonzero) lengths.
+
+        Drain/fill as the reference's: shorter streams are padded with
+        repeats of their last frame up to the longest length, and missing
+        streams with a dummy stream; padded slots ride the ring like real
+        work and their packets are dropped. Per-stream outputs stay
+        byte-identical to a single-device encode because streams are
+        independent and padding follows each stream's real frames."""
+        d = self.d
+        if not 0 < len(streams) <= d:
+            raise ValueError(
+                f"need 1..{d} streams for a {d}-device ring, got {len(streams)}")
+        real_t = [len(s) for s in streams]
+        n_real = len(streams)
+        t = max(real_t)
+        streams = [s + [s[-1]] * (t - len(s)) for s in streams]
+        first_indices = list(first_indices)
+        while len(streams) < d:
+            streams.append([streams[0][0]] * t)
+            first_indices.append(0)
+        # rotate: column dev, step m holds frame m of stream (dev - m) % d
+        cols = [self.mesh.coords["ring"]] if self.group is not None else range(d)
+        eng = self.engine
+
+        def up(plane):   # [T, B, H, W], B the columns this process holds
+            return eng.upload([getattr(streams[(dev - m) % d][m], plane)
+                               for m in range(t) for dev in cols],
+                              (t, len(cols)))
+
+        y, cb, cr = up("y"), up("cb"), up("cr")
+        base = [self.cfg.base_qp] * len(cols)
+
+        def hop(carry):
+            return ring_hop(carry, self.group)
+
+        outs = eng.run_batch(y, cb, cr, base, hop=hop)
+        if self._overflowed(outs["ovf"]):
+            outs = eng.run_batch(y, cb, cr, base, xl=True, hop=hop)
+            if self._overflowed(outs["ovf"]):
+                raise RuntimeError(
+                    "ring encode overflowed worst-case payload capacity "
+                    "(corrupt input or internal bug)")
+        bits = outs["bits"].cpu().numpy()           # [T, B]
+        qps = outs["qp"].cpu().numpy()
+        nw = max(int(bits.max() + 31) // 32, 1)
+        words = outs["words"][..., :nw].cpu().numpy()   # [T, B, nw]
+        if self.group is not None:
+            mine = (bits, qps, words)
+            parts = [None] * d
+            dist.all_gather_object(parts, mine, group=self.group)
+            nw = max(p[2].shape[-1] for p in parts)
+            bits = np.concatenate([p[0] for p in parts], 1)
+            qps = np.concatenate([p[1] for p in parts], 1)
+            words = np.concatenate([np.pad(p[2], ((0, 0), (0, 0),
+                                                  (0, nw - p[2].shape[-1])))
+                                    for p in parts], 1)
+        packets: list[list[FramePacket]] = [[] for _ in range(n_real)]
+        for m in range(t):
+            for dev in range(d):
+                s = (dev - m) % d
+                if s >= n_real or m >= real_t[s]:
+                    continue  # padded slot: drop
+                n = (int(bits[m, dev]) + 31) // 32
+                packets[s].append(FramePacket(
+                    first_indices[s] + m, 0 if m == 0 else 1,
+                    int(qps[m, dev]), int(bits[m, dev]),
+                    words[m, dev, :n].astype(">u4").tobytes()))
+        return packets

@@ -10,13 +10,16 @@ byte-identical to the unsharded one. The TVC1 MB syntax has no
 cross-MB-row prediction, so a frame's payload is the bit-concatenation of
 the per-shard payloads in tile order (`codec/mux.py` `bit_concat`).
 
-Here every shard lives on one device: the S row shards of a frame are one
-more leading axis of each tensor ([.., S, h, w]; B = G * S planes per
-frame step for G GOPs in lockstep, g-major), and the reference's three
-collectives are functions of that axis: `exchange_halo` (ppermute),
-`gather_ref` (all_gather) and `psum`. The per-shard program is the
-reference's, seam for seam; moving the transport onto several devices
-changes the bodies of those three functions and nothing else.
+The reference's collectives have two bodies each, chosen by the process
+group they are given (`parallel/mesh.py`): `exchange_halo` (ppermute),
+`exchange_halo_2d`, `gather_ref` (all_gather) and `psum`. Without a group
+every shard lives on one device: the S row shards of a frame are one more
+leading axis of each tensor ([.., S, h, w]; B = G * S planes per frame
+step for G GOPs in lockstep, g-major), and a collective is a function of
+that axis. With a group the mesh spans ranks: each rank holds its own
+shard (that axis of size 1) and the collective runs over the group
+(batch_isend_irecv, all_gather, all_reduce). The per-shard program is
+the reference's, seam for seam, and the same for both.
 
 The 2-D grid ('tr' x 'tc': MB rows and MB columns, format 1 only) shards
 [T, H, W] planes into [T, Sr * Sc, h, w] tiles; its halo carries corner
@@ -34,71 +37,99 @@ from ..codec.mux import bit_concat
 from ..ops import dispatch, motion
 from ..pipeline.gop_engine import (_code_frame, _sse, code_pack_traced,
                                    predict_i_traced, rc_carry_step)
+from . import mesh as dmesh
 from .mesh import CodecMesh
 
 HALO_Y = tables.SEARCH_R   # 16 luma halo rows
 HALO_C = tables.BLK        # 8 chroma halo rows
 
 
-# ---- the transport: functions of the shard axis ---------------------------
+# ---- the transport: a function of the shard axis, or of a process group --
 
 def exchange_halo(plane: torch.Tensor, halo: int, shard_dim: int = -3,
-                  axis: int = 0) -> torch.Tensor:
+                  axis: int = 0, group=None) -> torch.Tensor:
     """Shards [.., S, .., h, w] (S at `shard_dim`) -> each extended by
     2 * halo rows (axis 0) or columns (axis 1) with its neighbours'
-    boundary strips. Stands for the reference's two `ppermute`s along the
-    mesh axis: shard i receives shard i - 1's last rows above and shard
-    i + 1's first rows below. Boundary shards replicate their own first or
-    last row, which is the unsharded pad_ref."""
+    boundary strips: the reference's two `ppermute`s along the mesh axis.
+    Shard i receives shard i - 1's last rows above and shard i + 1's first
+    rows below. Boundary shards replicate their own first or last row,
+    which is the unsharded pad_ref. With a group, S is 1 (this rank's
+    shard) and the strips travel in one batch_isend_irecv: the last rows to
+    group rank i + 1, the first rows to i - 1."""
     if axis == 1:
-        return exchange_halo(plane.transpose(-1, -2), halo, shard_dim
-                             ).transpose(-1, -2)
+        return exchange_halo(plane.transpose(-1, -2), halo, shard_dim,
+                             group=group).transpose(-1, -2)
     p = plane.movedim(shard_dim, 0)
     top_own = p[..., :1, :].expand(*p.shape[:-2], halo, p.shape[-1])
     bot_own = p[..., -1:, :].expand(*p.shape[:-2], halo, p.shape[-1])
-    top = torch.cat([top_own[:1], p[:-1, ..., -halo:, :]], 0)
-    bot = torch.cat([p[1:, ..., :halo, :], bot_own[-1:]], 0)
+    if group is None:
+        top = torch.cat([top_own[:1], p[:-1, ..., -halo:, :]], 0)
+        bot = torch.cat([p[1:, ..., :halo, :], bot_own[-1:]], 0)
+    else:
+        i, n = dmesh.group_rank(group)
+        first, last = p[..., :halo, :], p[..., -halo:, :]
+        sends = ([(first, i - 1)] if i > 0 else []) + (
+            [(last, i + 1)] if i < n - 1 else [])
+        recvs = ([(last, i - 1)] if i > 0 else []) + (
+            [(first, i + 1)] if i < n - 1 else [])
+        got = dmesh.exchange(sends, recvs, group)
+        top = got.pop(0) if i > 0 else top_own
+        bot = got.pop(0) if i < n - 1 else bot_own
     return torch.cat([top, p, bot], -2).movedim(0, shard_dim)
 
 
 def exchange_halo_2d(plane: torch.Tensor, halo: int, row_dim: int = -4,
-                     col_dim: int = -3) -> torch.Tensor:
+                     col_dim: int = -3, groups=(None, None)) -> torch.Tensor:
     """Tiles [.., Sr, Sc, h, w] -> [.., Sr, Sc, h + 2 halo, w + 2 halo]:
     the row halo along 'tr', then the column halo along 'tc' of the
     row-extended tiles, so the four corner patches arrive from the
-    diagonal neighbours (a two-hop corner exchange)."""
-    p = exchange_halo(plane, halo, row_dim, axis=0)
-    return exchange_halo(p, halo, col_dim, axis=1)
+    diagonal neighbours (a two-hop corner exchange). groups: the ('tr',
+    'tc') process groups of a mesh over ranks."""
+    p = exchange_halo(plane, halo, row_dim, axis=0, group=groups[0])
+    return exchange_halo(p, halo, col_dim, axis=1, group=groups[1])
 
 
-def _shard_windows(full: torch.Tensor, n: int, halo: int) -> torch.Tensor:
+def _shard_windows(full: torch.Tensor, n: int, halo: int,
+                   only: int | None = None) -> torch.Tensor:
     """[.., n * h, w] -> [.., n, h + 2 halo, w]: shard s's rows of the
     frame with halo rows on both sides, the frame's first and last row
-    replicated beyond its edge."""
+    replicated beyond its edge; with `only`, that shard's window alone
+    ([.., 1, h + 2 halo, w])."""
     rows_total = full.shape[-2]
     h = rows_total // n
     rows = torch.arange(-halo, rows_total + halo, device=full.device
                         ).clamp(0, rows_total - 1)
     padded = full[..., rows, :]
     return torch.stack([padded[..., s * h:(s + 1) * h + 2 * halo, :]
-                        for s in range(n)], -3)
+                        for s in (range(n) if only is None else [only])], -3)
 
 
-def gather_ref(plane: torch.Tensor, halo: int, shard_dim: int = -3
-               ) -> torch.Tensor:
+def _whole_frame(p: torch.Tensor, group):
+    """Row shards [.., S, h, w] -> (the frame [.., S * h, w], the shard
+    count, this rank's shard index or None): with a group, the frame of
+    every rank's shard by all_gather (the reference's tiled all_gather)."""
+    own = None
+    if group is not None:
+        own, _ = dmesh.group_rank(group)
+        p = torch.cat(dmesh.all_gather(p.contiguous(), group), -3)
+    n = p.shape[-3]
+    return p.reshape(*p.shape[:-3], n * p.shape[-2], p.shape[-1]), n, own
+
+
+def gather_ref(plane: torch.Tensor, halo: int, shard_dim: int = -3,
+               group=None) -> torch.Tensor:
     """The all_gather variant of exchange_halo (rows): every shard gets the
     whole frame (the reference's tiled `all_gather`), pads it and slices
     its own rows plus the halo."""
-    p = plane.movedim(shard_dim, -3)
-    n = p.shape[-3]
-    full = p.reshape(*p.shape[:-3], n * p.shape[-2], p.shape[-1])
-    return _shard_windows(full, n, halo).movedim(-3, shard_dim)
+    full, n, own = _whole_frame(plane.movedim(shard_dim, -3), group)
+    return _shard_windows(full, n, halo, own).movedim(-3, shard_dim)
 
 
-def psum(x: torch.Tensor, shard_dim: int = -1) -> torch.Tensor:
-    """Sum over the shard axis: stands for the reference's `psum` of the
-    frame bits along the mesh axis."""
-    return x.sum(shard_dim)
+def psum(x: torch.Tensor, shard_dim: int = -1, group=None) -> torch.Tensor:
+    """Sum over the shard axis: the reference's `psum` along the mesh axis
+    (with a group, an all_reduce of this rank's sum)."""
+    s = x.sum(shard_dim)
+    return s if group is None else dmesh.all_reduce(s, group)
 
 
 # ---- format 4 half-pel under row sharding (SPEC.md §14) --------------------
@@ -112,38 +143,39 @@ def psum(x: torch.Tensor, shard_dim: int = -1) -> torch.Tensor:
 # exchange of the parity planes themselves.
 
 def _parity_ext(ref: torch.Tensor, halo: int, ref_mode: str,
-                shard_dim: int = -3):
+                shard_dim: int = -3, group=None):
     """Halo-extended parity planes (H, V, D) of row shards [.., S, h, w],
     each [.., S, h + 2 halo, w] and equal to shard s's rows of
     pad_ref(hpel_planes(full frame), halo)."""
     if ref_mode == "halo":
-        p1 = exchange_halo(ref, 1, shard_dim)   # ±1 pixel row for the +1 reads
-        return tuple(exchange_halo(q[..., 1:-1, :], halo, shard_dim)
+        p1 = exchange_halo(ref, 1, shard_dim, group=group)   # ±1 row for +1 reads
+        return tuple(exchange_halo(q[..., 1:-1, :], halo, shard_dim,
+                                   group=group)
                      for q in motion.hpel_planes(p1))
-    p = ref.movedim(shard_dim, -3)
-    n = p.shape[-3]
-    full = p.reshape(*p.shape[:-3], n * p.shape[-2], p.shape[-1])
-    return tuple(_shard_windows(q, n, halo).movedim(-3, shard_dim)
+    full, n, own = _whole_frame(ref.movedim(shard_dim, -3), group)
+    return tuple(_shard_windows(q, n, halo, own).movedim(-3, shard_dim)
                  for q in motion.hpel_planes(full))
 
 
 def predict_p_tile_traced(cur_y, ref_y, ref_cb, ref_cr, icost, *,
-                          n_tile: int, ref_mode: str, fmt: int):
+                          n_tile: int, ref_mode: str, fmt: int, group=None):
     """P-frame prediction of B = G * n_tile row shards [B, h, w] (g-major):
     halo exchange, full search (plus the half-pel refine of format 4) and
     MC: the sharded twin of gop_engine.predict_p_traced. The reference
-    planes are the shards' reconstructions, not the source."""
+    planes are the shards' reconstructions, not the source. With a group
+    (the 'tile' group of a mesh over ranks) n_tile is 1 and the exchange
+    runs over the group."""
     fetch = exchange_halo if ref_mode == "halo" else gather_ref
 
     def over_tiles(fn, plane, halo):   # [B, h, w] -> [B, h + 2 halo, w]
-        ext = fn(plane.unflatten(0, (-1, n_tile)), halo)
+        ext = fn(plane.unflatten(0, (-1, n_tile)), halo, group=group)
         if isinstance(ext, tuple):
             return tuple(e.flatten(0, 1).contiguous() for e in ext)
         return ext.flatten(0, 1).contiguous()
 
     def parity(plane, halo):
-        return over_tiles(lambda p, hl: _parity_ext(p, hl, ref_mode), plane,
-                          halo)
+        return over_tiles(lambda p, hl, group: _parity_ext(
+            p, hl, ref_mode, group=group), plane, halo)
 
     exts = tuple(over_tiles(fetch, p, halo) for p, halo in
                  ((ref_y, HALO_Y), (ref_cb, HALO_C), (ref_cr, HALO_C)))
@@ -168,7 +200,7 @@ def encode_frame_tile_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
                              cap_words: int, ref_mode: str = "halo",
                              fmt: int = 1, cqpo: int = 0, qbias: int = 8,
                              qmat: bool = False, islice: int = 0,
-                             emit: str = "frame"):
+                             emit: str = "frame", group=None):
     """One frame step of B = G * n_tile row shards: cur and ref are three
     planes [B, h, w] each (ref None on an I frame), qp the [G] frame qps.
     I frames run no search and no exchange. Every shard codes and packs
@@ -177,13 +209,14 @@ def encode_frame_tile_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
     its own total, and with islice dividing a shard's MB rows the row
     scan of a format >= 3 I frame restarts at every shard's first row as
     it does unsharded. Returns code_pack_traced's tensors per shard
-    ([B, ...]) plus frame_bits [G], the sum over a frame's shards."""
+    ([B, ...]) plus frame_bits [G], the sum over a frame's shards (with
+    a group, over the group's ranks too)."""
     icost = None
     if is_p or rc == "adaptive":
         _, icost = motion.intra_cost_and_dc(cur[0])
     if is_p:
         pred = predict_p_tile_traced(cur[0], *ref, icost, n_tile=n_tile,
-                                     ref_mode=ref_mode, fmt=fmt)
+                                     ref_mode=ref_mode, fmt=fmt, group=group)
     else:
         pred = predict_i_traced(*cur)
     dy, dx, is_inter = pred[:3]
@@ -191,7 +224,8 @@ def encode_frame_tile_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
         cur, pred[3:], dy, dx, is_inter, is_p, qp.repeat_interleave(n_tile),
         icost, rc=rc, emit=emit, block_words=block_words, cap_words=cap_words,
         fmt=fmt, cqpo=cqpo, qbias=qbias, qmat=qmat, islice=islice)
-    out["frame_bits"] = psum(out["bits"].unflatten(0, (-1, n_tile)))
+    out["frame_bits"] = psum(out["bits"].unflatten(0, (-1, n_tile)),
+                             group=group)
     return out
 
 
@@ -199,12 +233,12 @@ def tile_gop_scan(y, cb, cr, qp: torch.Tensor, *, n_tile: int, rc: str,
                   block_words: int, cap_words: int, target_bits: int,
                   ref_mode: str = "halo", fmt: int = 1, cqpo: int = 0,
                   qbias: int = 8, vbv_bits: int = 0, qmat: bool = False,
-                  islice: int = 0, emit: str = "frame"):
+                  islice: int = 0, emit: str = "frame", group=None):
     """The loop over a GOP's frames on row shards: y [T, B, h, w] uint8
     (B = G * n_tile, g-major; chroma [T, B, h/2, w/2]), qp [G] int32.
-    Launches only, no host wait. The rate-control carry runs on the summed
-    frame bits, so every shard of a GOP sees the same next qp and vbv
-    fullness. Returns stacked tensors [T, G, n_tile, ...]: words, bits,
+    Launches only, no host wait (with a group, its collectives). The
+    rate-control carry runs on the summed frame bits, so every shard of a
+    GOP sees the same next qp and vbv fullness. Returns stacked tensors [T, G, n_tile, ...]: words, bits,
     n_inter, sse [.., 3], cbits under chunk emit; qp [T, G]; ovf [T]."""
     fullness = torch.full_like(qp, spec.vbv_init(vbv_bits), dtype=torch.int64)
     ref = None
@@ -216,7 +250,7 @@ def tile_gop_scan(y, cb, cr, qp: torch.Tensor, *, n_tile: int, rc: str,
             cur, ref, qp, is_p=t > 0, n_tile=n_tile, rc=rc,
             block_words=block_words, cap_words=cap_words, ref_mode=ref_mode,
             fmt=fmt, cqpo=cqpo, qbias=qbias, qmat=qmat, islice=islice,
-            emit=emit)
+            emit=emit, group=group)
         out["qp"] = qp
         qp, fullness = rc_carry_step(rc, target_bits, vbv_bits, qp, fullness,
                                      out["frame_bits"])
@@ -266,7 +300,8 @@ def encode_gop_tiled(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
     y_u8 [T, H, W] uint8 (H/16 divisible by the tile count), chroma
     [T, H/2, W/2]. Format >= 3 needs intra slices dividing the per-shard
     MB rows. Returns tile_gop_scan's tensors without the GOP axis:
-    [T, S, ...] per shard, qp [T], ovf [T]."""
+    [T, S, ...] per shard, qp [T], ovf [T]. On a mesh over ranks y_u8 is
+    this rank's rows [T, H / S, W] and S is 1 in the results."""
     outs = encode_gop_batch_2d(
         y_u8[:, None], cb_u8[:, None], cr_u8[:, None], base_qp, mesh=mesh,
         rc=rc, block_words=block_words, cap_words=cap_words,
@@ -288,12 +323,15 @@ def encode_gop_batch_2d(y_u8, cb_u8, cr_u8, base_qp, *, mesh: CodecMesh,
     GOP. The 'gop' axis carries no exchange: GOPs are closed under
     prediction. Returns [T, G, S, ...] per shard: words, bits, n_inter,
     sse, cbits under chunk emit (the host glues a frame's shards in
-    order); qp [T, G]; ovf [T]."""
+    order); qp [T, G]; ovf [T]. On a mesh over ranks the planes are this
+    rank's block, [T, 1, H / S, W]: its GOP and its rows, with S = 1 in
+    the results; the exchange and the frame bits' sum run over the
+    rank's 'tile' group."""
     t, g, h, w = y_u8.shape
-    n_tile = mesh.shape["tile"]
-    if g != mesh.shape.get("gop", g):
+    n_tile = mesh.local("tile")
+    if g != mesh.local("gop"):
         raise ValueError(f"{g} GOPs on a mesh of {mesh.shape}")
-    check_tile_config(mesh, h, w, fmt, islice)
+    check_tile_config(mesh, h * mesh.shape["tile"] // n_tile, w, fmt, islice)
 
     def shards(p):   # [T, G, H, W] -> [T, G * S, h, W], a view
         p = p.contiguous()
@@ -304,50 +342,60 @@ def encode_gop_batch_2d(y_u8, cb_u8, cr_u8, base_qp, *, mesh: CodecMesh,
         _base_qps(base_qp, g, y_u8.device), n_tile=n_tile, rc=rc,
         block_words=block_words, cap_words=cap_words, target_bits=target_bits,
         ref_mode=ref_mode, fmt=fmt, cqpo=cqpo, qbias=qbias, vbv_bits=vbv_bits,
-        qmat=qmat, islice=islice, emit=emit)
+        qmat=qmat, islice=islice, emit=emit, group=mesh.group("tile"))
 
 
 # ---- the 2-D tile grid ('tr' x 'tc'), format 1 ----------------------------
 
-def mb_rc_offsets_tile2d(est: torch.Tensor, col_dim: int = -3) -> torch.Tensor:
+def mb_rc_offsets_tile2d(est: torch.Tensor, col_dim: int = -3,
+                         group=None) -> torch.Tensor:
     """rc=mb offsets (SPEC.md §10.4) on a column-sharded MB grid, est
     [.., Sc, nby, nbx_local] pass-1 bits: the pace needs each MB row's
     total over all column shards (the reference's `psum` along 'tc') and
     each MB's prefix across the shards to its left (its `all_gather` of
     the per-shard share sums). Equal to gop_engine.mb_rc_offsets of the
-    unsharded grid; int32 in [-2, 2]."""
+    unsharded grid; int32 in [-2, 2]. With a group (the 'tc' group of a
+    mesh over ranks) Sc is 1, this rank's column shard."""
     est = est.long().movedim(col_dim, -3)
     sc, nbx_local = est.shape[-3], est.shape[-1]
+    c0 = 0
+    if group is not None:
+        c0, sc = dmesh.group_rank(group)
     dev = est.device
-    row_tot = psum(est.sum(-1, keepdim=True), -3).unsqueeze(-3).clamp(min=1)
+    row_tot = psum(est.sum(-1, keepdim=True), -3, group).unsqueeze(-3
+                                                                   ).clamp(min=1)
     share = torch.div(est * 1024, row_tot, rounding_mode="floor")
     share_sum = share.sum(-1, keepdim=True)             # [.., Sc, nby, 1]
-    prefix = torch.cumsum(share_sum, -3) - share_sum    # shards to the left
+    sums = (share_sum if group is None
+            else torch.cat(dmesh.all_gather(share_sum, group), -3))
+    prefix = (torch.cumsum(sums, -3) - sums)[..., c0:c0 + est.shape[-3], :, :]
     spent = prefix + torch.cumsum(share, -1) - share
-    gx = (torch.arange(sc, device=dev)[:, None, None] * nbx_local
-          + torch.arange(nbx_local, device=dev))
+    gx = (torch.arange(c0, c0 + est.shape[-3], device=dev)[:, None, None]
+          * nbx_local + torch.arange(nbx_local, device=dev))
     plan = torch.div(gx * 1024, sc * nbx_local, rounding_mode="floor")
     return ((spent - plan) >> 7).clamp(-2, 2).int().movedim(-3, col_dim)
 
 
 def encode_frame_tile2d_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
                                grid: tuple, rc: str, block_words: int,
-                               row_words: int, qbias: int = 8):
+                               row_words: int, qbias: int = 8,
+                               groups=(None, None)):
     """One frame step of a 2-D tile grid: cur and ref are three planes
     [Sr * Sc, h, w] each (row-major tiles; ref None on an I frame), qp the
     0-dim frame qp. The reference halo comes from the four neighbours and
     the corners (exchange_halo_2d); the pack emits one string per MB row
     of a tile. Format 1 only: the left-MV and DC predictors of format 2
     would cross column-shard boundaries. rc mb probes per tile and paces
-    over the whole row (mb_rc_offsets_tile2d)."""
+    over the whole row (mb_rc_offsets_tile2d). groups: the ('tr', 'tc')
+    process groups of a mesh over ranks, whose grid is then (1, 1)."""
     b = cur[0].shape[0]
     icost = None
     if is_p or rc == "adaptive":
         _, icost = motion.intra_cost_and_dc(cur[0])
     if is_p:
         def ext(plane, halo):
-            return exchange_halo_2d(plane.unflatten(0, grid), halo
-                                    ).flatten(0, 1).contiguous()
+            return exchange_halo_2d(plane.unflatten(0, grid), halo,
+                                    groups=groups).flatten(0, 1).contiguous()
 
         ref_ext = (ext(ref[0], HALO_Y), ext(ref[1], HALO_C), ext(ref[2], HALO_C))
         dy, dx, best_sad = dispatch.full_search_pre_haloed(cur[0], ref_ext[0])
@@ -366,7 +414,8 @@ def encode_frame_tile2d_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
         levels, _ = _code_frame(cur, pred, flat, 0, qbias)
         est = entropy.frame_mb_bits(*levels, flat - qp_mbs, is_p, is_inter,
                                     dy, dx, block_words)
-        offs = mb_rc_offsets_tile2d(est.unflatten(0, grid)).flatten(0, 1)
+        offs = mb_rc_offsets_tile2d(est.unflatten(0, grid),
+                                    group=groups[1]).flatten(0, 1)
         qp_mb = (qp_mbs + offs).clamp(tables.QP_MIN, tables.QP_MAX)
     else:
         qp_mb = flat
@@ -376,7 +425,8 @@ def encode_frame_tile2d_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
         row_words)
     tile_bits = row_bits.sum(-1).unflatten(0, grid)
     return dict(words=words, row_bits=row_bits,
-                frame_bits=psum(psum(tile_bits, 0), 0), ovf=ovf,
+                frame_bits=psum(psum(tile_bits, 0, groups[0]), 0, groups[1]),
+                ovf=ovf,
                 n_inter=is_inter.sum((-2, -1)), rec=rec,
                 sse=torch.stack([_sse(c, r) for c, r in zip(cur, rec)], -1))
 
@@ -390,7 +440,9 @@ def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
     halo. y_u8 [T, H, W] uint8; H/16 divisible by Sr, W/16 by Sc. Returns
     per tile, frame and local MB row: words [T, Sr, Sc, nby_s, row_words],
     row_bits [T, Sr, Sc, nby_s]; n_inter [T, Sr, Sc], sse [T, Sr, Sc, 3];
-    qp [T]; ovf [T]. assemble_frame_2d glues a frame's payload."""
+    qp [T]; ovf [T]. assemble_frame_2d glues a frame's payload. On a mesh
+    over ranks y_u8 is this rank's tile [T, H / Sr, W / Sc] and Sr = Sc = 1
+    in the results."""
     if fmt != 1:
         raise ValueError(
             f"encode_gop_tiled2d is format v1 only (got fmt={fmt}): v2's "
@@ -398,8 +450,10 @@ def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
             "v4's half-pel is not implemented on the 2-D grid; use the 1-D "
             "row sharding (encode_gop_tiled) for fmt>=2")
     t, h, w = y_u8.shape
-    mesh.check_frame(h, w)
-    grid = (mesh.shape["tr"], mesh.shape["tc"])
+    grid = (mesh.local("tr"), mesh.local("tc"))
+    mesh.check_frame(h * mesh.shape["tr"] // grid[0],
+                     w * mesh.shape["tc"] // grid[1])
+    groups = (mesh.group("tr"), mesh.group("tc"))
 
     def tiles(p):   # [T, H, W] -> [T, Sr * Sc, h, w]
         ph, pw = p.shape[-2] // grid[0], p.shape[-1] // grid[1]
@@ -416,7 +470,8 @@ def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
                cr[k].to(torch.int32))
         out = encode_frame_tile2d_traced(
             cur, ref, qp, is_p=k > 0, grid=grid, rc=rc,
-            block_words=block_words, row_words=row_words, qbias=qbias)
+            block_words=block_words, row_words=row_words, qbias=qbias,
+            groups=groups)
         out["qp"] = qp
         qp, fullness = rc_carry_step(rc, target_bits, vbv_bits, qp, fullness,
                                      out["frame_bits"])

@@ -243,9 +243,9 @@ class GopEngine:
                 "diamond); hier is golden/oracle-only")
         if cfg.gop_devices != 1 or cfg.tile_devices != 1:
             raise NotImplementedError(
-                "an encode over several devices is not ported yet "
-                "(ROADMAP.md A13b); the tile-sharded encode on one device "
-                "is parallel.gop_parallel.ShardedGopEncoder")
+                "GopEngine encodes on one device; an encode over several "
+                "devices is parallel.gop_parallel.ShardedGopEncoder on a "
+                "CodecMesh, over ranks or on one device (ROADMAP.md A13b)")
         if emit not in (None, "frame", "chunks"):
             raise ValueError(f"unknown emit {emit!r} (frame, chunks)")
         self.cfg = cfg
@@ -259,11 +259,13 @@ class GopEngine:
             return entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
         return block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
 
-    def _run(self, y, cb, cr, qp, bw: int, cap: int):
+    def _run(self, y, cb, cr, qp, bw: int, cap: int, hop=None):
         """The loop over a GOP's frames: y [T, H, W] with a 0-dim qp, or
         for G GOPs in lockstep y [T, G, H, W] with qp [G]. Launches only,
         no host wait; the frame qp and the vbv fullness are device
-        tensors carried from frame to frame."""
+        tensors carried from frame to frame. hop, if given, maps each
+        step's carry (the three recon planes, qp, fullness) to the next
+        step's: the temporal ring's shift (parallel/ring.py)."""
         cfg = self.cfg
         target_bits, vbv_bits = cfg.target_bits_per_frame(), cfg.vbv_bits()
         fullness = torch.full_like(qp, spec.vbv_init(vbv_bits),
@@ -293,6 +295,8 @@ class GopEngine:
             qp, fullness = rc_carry_step(cfg.rc, target_bits, vbv_bits, qp,
                                          fullness, out["bits"])
             ref = out["rec"]
+            if hop is not None:
+                *ref, qp, fullness = hop((*ref, qp, fullness))
             outs.append(out)
         keys = ["words", "bits", "ovf", "n_inter", "qp", "sse"]
         if self.emit == "chunks":
@@ -309,18 +313,18 @@ class GopEngine:
         qp = torch.full((), base_qp, dtype=torch.int32, device=y.device)
         return self._run(y, cb, cr, qp, *self._capacities(n_mbs, base_qp, xl))
 
-    def run_batch(self, y, cb, cr, base_qps, xl: bool = False):
+    def run_batch(self, y, cb, cr, base_qps, xl: bool = False, hop=None):
         """Encode G GOPs of T frames in lockstep: [T, G, H, W] /
         [T, G, H/2, W/2] uint8 planes on the engine's device (the frame
         axis leads, so each step's [G, H, W] planes are contiguous), one
         base qp per GOP. The block budget is that of the smallest qp of
         the batch. Returns run()'s tensors with the axes [T, G, ...]; ovf
-        stays [T], a frame step's flag being any GOP's."""
+        stays [T], a frame step's flag being any GOP's. hop: as _run's."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
         qp = torch.tensor([int(q) for q in base_qps], dtype=torch.int32).to(
             y.device)
         return self._run(y, cb, cr, qp, *self._capacities(
-            n_mbs, min(int(q) for q in base_qps), xl))
+            n_mbs, min(int(q) for q in base_qps), xl), hop=hop)
 
     def upload(self, planes, lead: tuple) -> torch.Tensor:
         """uint8 device tensor [*lead, H, W] of equal-shaped planes given
