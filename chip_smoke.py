@@ -110,6 +110,19 @@ Phases, each of which raises on failure (exit code not 0):
    the parse and the download, and those host stages on their own; and
    the CLI wall rates of the engines beside os.cpu_count() (printed,
    claimed nowhere).
+   Then the golden model (`phase_golden`; `--engine golden`, the numpy
+   executable spec, on the host's CPU): the port CLI encodes the 640x360
+   GOP-1 clip (30 frames) and the format-2 clip, each equal to the
+   oracle's stream; `--search hier` on the format-2 clip at format 1, GOP
+   12, equal to one more oracle encode at hier; `--rc mb --kbps 3000` on
+   it (diamond), equal to the GOP engine's stream of the same flags on
+   the card; and `decode --engine golden` of the format-2, format-3 and
+   GOP-1 streams, each equal to the oracle's decode. The seven golden
+   jobs run side by side, each a child process (`chip_smoke.py
+   --cli-child ARGS`) that must launch no kernel and leave CUDA
+   uninitialised, with their host wall fps beside os.cpu_count(). The
+   C++ library must load (`native.available()`), and no decode of the
+   phase may print the native decode's fallback warning.
    Then the batched-GOP paths, `--gop 10 --gop-batch 3` on the same
    30-frame 1080p clips (one lockstep encode of three GOPs): config 3
    against the oracle's stream of that GOP length; full search and
@@ -1914,6 +1927,11 @@ V3_SMALL = mode("v3", fmt=3, qmat=True, islice=2, rc="adaptive", scale=16)
 # decodes under the PSNR floor)
 TWOPASS_SMALL = mode("twopass", fmt=2, cqpo=4, search="diamond", kbps=3000,
                      passes=4, scale=4)
+# the golden model's own modes on the format-2 clip at format 1: the
+# hierarchical search (no device engine takes it), and rc mb, held against
+# the GOP engine on the card
+HIER_SMALL = mode("hier", search="hier", passes=4, scale=4)
+MB_SMALL = mode("mb", search="diamond", rc="mb", kbps=3000, passes=4, scale=4)
 
 
 FOLDED = ("block_pack", "block_pack_v2", "span_merge_mb", "span_merge")
@@ -2044,15 +2062,11 @@ def halfpel_share(stream: bytes, fmt: int) -> float:
     return odd / max(inter, 1)
 
 
-def run_cli(job, out_path, extra=(), device=None):
-    """One in-process CLI encode of a job's raw file with its mode's flags
-    plus `extra`; the launch counts are zeroed just before and read just
-    after. Returns (launches, CLI summary, stream bytes)."""
-    from video_encoder_tpu_torch import cli
-    from video_encoder_tpu_torch.ops.kernels import build
-
+def encode_argv(job, out_path, extra=(), device=None):
+    """The port CLI's encode arguments for a job's raw file with its mode's
+    flags plus `extra`."""
     m, w, h, gop = (job[k] for k in ("mode", "w", "h", "gop"))
-    argv = ["encode", "-i", job["raw"], "-W", str(w), "-H", str(h),
+    return ["encode", "-i", job["raw"], "-W", str(w), "-H", str(h),
             "-o", out_path, "--gop", str(gop), "--qp", "28",
             "--search", m["search"], "--format", str(m["fmt"]),
             "--rc", m["rc"], "--kbps", str(m["kbps"]),
@@ -2061,6 +2075,16 @@ def run_cli(job, out_path, extra=(), device=None):
             "--quant-bias", str(m["qbias"]), "--intra-slice", str(m["islice"]),
             "--device", device or DEVICE, *extra
             ] + (["--quant-matrix"] if m["qmat"] else [])
+
+
+def run_cli(job, out_path, extra=(), device=None):
+    """One in-process CLI encode of a job's raw file with its mode's flags
+    plus `extra`; the launch counts are zeroed just before and read just
+    after. Returns (launches, CLI summary, stream bytes)."""
+    from video_encoder_tpu_torch import cli
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    argv = encode_argv(job, out_path, extra, device)
     build.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -2168,24 +2192,33 @@ DECODES = {"gop": ["--engine", "gop"], "device": ["--engine", "device"],
            "native0": ["--workers", "0"], "native3": ["--workers", "3"]}
 
 
+# what the CLI's native decode prints where the C++ library cannot be
+# loaded and it decodes with the golden model instead
+NATIVE_FALLBACK = "warning: native lib unavailable, using golden"
+
+
 def run_decode(job, out_path, flags):
     """One in-process CLI decode of a job's port stream; the launch counts
-    are zeroed just before and read just after. Returns (launches, CLI
-    summary)."""
+    are zeroed just before and read just after. Raises if the CLI fell
+    back to the golden model. Returns (launches, CLI summary)."""
     from video_encoder_tpu_torch import cli
     from video_encoder_tpu_torch.ops.kernels import build
 
     device = ["--device", DEVICE] if "--engine" in flags[:1] and \
         flags[1] in ("gop", "device") else []
     build.reset_launches()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(["decode", "-i", job["ours"], "-o", out_path, *flags,
                        *device])
     launches = dict(build.LAUNCHES)
+    sys.stderr.write(err.getvalue())
     if rc != 0:
         raise RuntimeError(f"port decode {' '.join(flags)} of {job['tag']} "
                            f"exited {rc}")
+    if NATIVE_FALLBACK in err.getvalue():
+        raise AssertionError(f"port decode {' '.join(flags)} of {job['tag']} "
+                             "fell back to the golden model")
     return launches, json.loads(out.getvalue().strip().splitlines()[-1])
 
 
@@ -2247,6 +2280,114 @@ def phase_decode(tmp, jobs, card):
     log(f"decode: launches per decoded frame of the device engines, "
         f"{dev_frames} frames: {per_frame}")
     return paths, summaries, per_frame
+
+
+def cli_child(argv) -> int:
+    """`chip_smoke.py --cli-child ARGS`: the port CLI's main(ARGS) in this
+    process, its output as it prints it, then one line `CHILD {json}` with
+    the launch counts that moved and whether this process initialised
+    CUDA. phase_golden runs its host jobs this way, side by side."""
+    from video_encoder_tpu_torch import cli
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    build.reset_launches()
+    rc = cli.main(argv)
+    print("CHILD " + json.dumps(dict(
+        launches={k: v for k, v in build.LAUNCHES.items() if v},
+        cuda_initialized=torch.cuda.is_initialized())), flush=True)
+    return rc
+
+
+def phase_golden(tmp, jobs, hier_oracle, card):
+    """The golden model through the port CLI (`--engine golden`), on the
+    host's CPU: the GOP-1 and format-2 640x360 clips, each equal to the
+    oracle's stream of the same flags; `--search hier` on the format-2
+    clip at format 1, GOP 12, equal to the oracle's hier stream; `--rc mb
+    --kbps 3000` on it, equal to the GOP engine's stream of the same flags
+    on the card; `decode --engine golden` of the format-2, format-3 and
+    GOP-1 streams, each equal to the oracle's decode. The golden jobs run
+    side by side, one child process each (`--cli-child`), and must launch
+    no kernel and leave CUDA uninitialised; the GOP engine's encode runs
+    here meanwhile. Returns the launches of that GOP-engine encode."""
+    from video_encoder_tpu_torch.codec import native
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    if not native.available():
+        raise AssertionError("golden: the C++ library did not load")
+    v2 = jobs["v2"]
+    mb_job = dict(v2, mode=MB_SMALL,
+                  tag=f"{v2['w']}x{v2['h']}_gop{v2['gop']}_mb")
+    encodes = {"gop1": jobs["intra"], "v2": jobs["v2"], "hier": hier_oracle,
+               "mb": mb_job}
+    children = {}
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    for name, job in encodes.items():
+        out = os.path.join(tmp, f"golden_{job['tag']}.tvc")
+        argv = encode_argv(job, out, ["--engine", "golden"])
+        children[name] = (out, argv)
+    for name in ("v2", "v3", "intra"):
+        out = os.path.join(tmp, f"golden_dec_{jobs[name]['tag']}.yuv")
+        children["dec_" + name] = (out, ["decode", "-i", jobs[name]["ours"],
+                                         "-o", out, "--engine", "golden"])
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cli-child",
+         *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, (_, argv) in children.items()}
+    # meanwhile the GOP engine encodes the rc-mb job on the card
+    launches, gop_summary, gop_mb = run_cli(
+        mb_job, os.path.join(tmp, "gop_mb.tvc"))
+    check_launches("golden phase: GOP engine rc mb", launches,
+                   expected_kernels(MB_SMALL, GopEngine.emit))
+    results = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"golden {name} exited {proc.returncode}: "
+                               f"{stderr[-1500:]}")
+        lines = stdout.strip().splitlines()
+        child = json.loads(lines[-1].split(" ", 1)[1])
+        if child["launches"] or child["cuda_initialized"]:
+            raise AssertionError(f"golden {name} touched the card: {child}")
+        if NATIVE_FALLBACK in stderr:
+            raise AssertionError(f"golden {name}: the native fallback ran")
+        results[name] = json.loads(lines[-2])
+    wall = time.perf_counter() - t0
+    want = {"gop1": jobs["intra"]["theirs"], "v2": jobs["v2"]["theirs"],
+            "hier": hier_oracle["theirs"]}
+    for name, job in encodes.items():
+        with open(children[name][0], "rb") as f:
+            got = f.read()
+        if name == "mb":
+            same_stream("golden rc mb", got, gop_mb,
+                        "the GOP engine's stream on the card")
+            other = f"the GOP engine's on the card ({gop_summary['wall_fps']} fps)"
+        else:
+            with open(want[name], "rb") as f:
+                same_stream(f"golden {name}", got, f.read(), "the oracle's")
+            other = "the oracle's"
+        r = results[name]
+        log(f"golden encode {job['tag']} ({r['frames']} frames, search "
+            f"{job['mode']['search']}, rc {job['mode']['rc']}, format "
+            f"{job['mode']['fmt']}): == {other} ({len(got)} bytes); host "
+            f"wall {r['wall_s']} s = {r['wall_fps']} fps on the CPU "
+            f"({os.cpu_count()} host cores, {len(procs)} jobs side by side) "
+            f"[{card}]")
+    for name in ("v2", "v3", "intra"):
+        out = children["dec_" + name][0]
+        with open(out, "rb") as f, open(jobs[name]["dec"], "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"golden decode of {jobs[name]['tag']} "
+                                     "differs from the oracle's decode")
+        r = results["dec_" + name]
+        log(f"golden decode {jobs[name]['tag']} ({r['frames']} frames): == "
+            f"oracle decode; host wall {r['wall_s']} s = {r['fps']} fps on "
+            f"the CPU ({os.cpu_count()} host cores) [{card}]")
+    log(f"golden: {len(procs)} host jobs, no kernel launched, CUDA never "
+        f"initialised in them, native.available() True; phase wall "
+        f"{wall:.1f} s [{card}]")
+    return launches
 
 
 def phase_speed_decode(cells, summaries, card):
@@ -3576,6 +3717,8 @@ def ab_main(roots) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
+    if args[:1] == ["--cli-child"]:
+        return cli_child(args[1:])
     if args[:1] == ["--ab-child"]:
         print("AB " + json.dumps(dict(root=args[1], **ab_child(args[1]))),
               flush=True)
@@ -3624,7 +3767,10 @@ def main() -> int:
         # the tile path's referee under format 4: intra slices of 17 MB rows
         jobs["v4i17"] = start_job(tmp, V4_ISLICE, 1920, 1080, 30, 30,
                                   like=jobs["v4"])
-        wait_oracles([*jobs.values(), batched_oracle])
+        # the golden phase's hier referee, on the format-2 clip
+        hier_oracle = start_job(tmp, HIER_SMALL, 640, 360, 12, 12,
+                                like=jobs["v2"])
+        wait_oracles([*jobs.values(), batched_oracle, hier_oracle])
         log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s")
         summaries, streams = {}, {}
         for name, job in jobs.items():
@@ -3638,6 +3784,8 @@ def main() -> int:
             tmp, jobs, card)
         path_launches += decode_paths
         log(f"decode paths done at {time.perf_counter() - t_start:.1f} s")
+        path_launches.append(phase_golden(tmp, jobs, hier_oracle, card))
+        log(f"golden paths done at {time.perf_counter() - t_start:.1f} s")
         decode_fps = phase_speed_decode(
             [(k, jobs[k]) for k in ("full", "config3", "v4")],
             decode_summaries, card)

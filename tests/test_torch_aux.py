@@ -249,13 +249,21 @@ def test_trace_writes_a_file_and_raises_when_it_cannot(tmp_path, monkeypatch):
     (["--engine", "device", "--format", "2"], "format-1"),
     (["--engine", "device", "--gop-batch", "2"], "one frame at a time"),
     (["--engine", "device", "--tile", "2"], "one frame at a time"),
-    (["--engine", "golden"], "reference CLI"),
+    (["--engine", "golden", "--gop-batch", "2"], "one frame at a time"),
     (["--checkpoint", "c.json", "--gop-batch", "2"], "--checkpoint"),
     (["--checkpoint", "c.json", "--tile", "2"], "--checkpoint"),
     (["--checkpoint", "c.json", "--two-pass", "--kbps", "300"],
      "--checkpoint"),
+    (["--engine", "golden", "--tile", "2"], "one frame at a time"),
+    (["--engine", "golden", "--devices", "2"], "need the gop engine"),
+    (["--engine", "golden", "--multiprocess", "2"], "needs the gop engine"),
+    (["--engine", "golden", "--failover"], "--failover wraps"),
+    (["--engine", "device", "--search", "hier"], "golden/oracle-only"),
+    (["--search", "hier", "--tile", "2"], "golden/oracle-only"),
 ], ids=["device-rc-mb", "device-format-2", "device-gop-batch", "device-tile",
-        "golden", "ckpt-gop-batch", "ckpt-tile", "ckpt-two-pass"])
+        "golden", "ckpt-gop-batch", "ckpt-tile", "ckpt-two-pass",
+        "golden-tile", "golden-devices", "golden-multiprocess",
+        "golden-failover", "device-hier", "hier-tile"])
 def test_refused_pairs_exit_2_saying_why(clip, tmp_path, capsys, extra, msg):
     out = tmp_path / "x.tvc"
     assert cli.main(_argv(clip, str(out), *extra)) == 2

@@ -1,8 +1,12 @@
 """Port CLI on the CPU: encode gives the reference encoder's bytes (formats
 1 to 4, every rc mode), decode / info / psnr round-trip, the stream
 header carries the format fields, flags the port does not support exit
-2, `--gop-batch G` gives the unbatched file on a clip with a tail, and
-`--two-pass` gives the reference's two-pass file."""
+2, `--gop-batch G` gives the unbatched file on a clip with a tail,
+`--two-pass` gives the reference's two-pass file, and `--engine golden`
+(with `--search hier`, `--rc mb`, format 4, two-pass and a resumed
+`--checkpoint`) gives the reference CLI's golden file; `decode --engine
+golden`, and the native decode's fallback to it, give the C++ decoder's
+file."""
 
 import io
 import json
@@ -69,7 +73,8 @@ def test_decode_info_psnr_roundtrip(clip_file, tmp_path, capsys):
     ["--two-pass"], ["--tile=2", "--search", "diamond"], ["--search", "hier"],
     ["--format", "5"], ["--multiprocess", "2", "--two-pass", "--kbps", "300"],
     ["--devices", "2", "--engine", "device"],
-    ["--engine", "golden"], ["--gop-batch=0"], ["--no-such-flag"],
+    ["--engine", "golden", "--gop-batch", "2"], ["--gop-batch=0"],
+    ["--no-such-flag"],
 ])
 def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
     _, path = clip_file
@@ -85,19 +90,33 @@ def test_unsupported_flags_exit_2(clip_file, tmp_path, extra, capsys):
 
 def test_not_ported_flags_are_the_remaining_ones(capsys):
     """None remain: every encode flag of the reference CLI is one of the
-    port's (the port adds --device)."""
+    port's (the port adds --device), and `--search` and `--engine` take
+    the reference's choices, on encode and decode."""
     from video_encoder_tpu import cli as reference_cli
 
-    def flags(main):
+    def help_text(main, cmd):
         with pytest.raises(SystemExit):
-            main(["encode", "--help"])
+            main([cmd, "--help"])
+        return capsys.readouterr().out
+
+    def flags(main):
         return set(re.findall(r"^  (?:-\w(?: \S+)?, )?(--[a-z][a-z0-9-]*)",
-                              capsys.readouterr().out, re.M))
+                              help_text(main, "encode"), re.M))
+
+    def choices(main, cmd):
+        return dict(re.findall(r"^  (--search|--engine) \{([a-z,]+)\}",
+                               help_text(main, cmd), re.M))
 
     ours, theirs = flags(cli.main), flags(reference_cli.main)
     assert {"--devices", "--multiprocess", "--failover", "--tile"} <= theirs
     assert theirs <= ours and ours - theirs == {"--device"}
     assert not hasattr(cli, "NOT_PORTED")
+    got, want = choices(cli.main, "encode"), choices(reference_cli.main,
+                                                     "encode")
+    assert got == want and want["--search"] == "full,diamond,hier"
+    assert "golden" in want["--engine"].split(",")
+    assert choices(cli.main, "decode") == choices(reference_cli.main,
+                                                  "decode")
 
 
 @pytest.mark.parametrize("flags,kw", [
@@ -431,12 +450,16 @@ def test_decode_engines_give_the_native_file(v4_stream, tmp_path, capsys,
 
 def test_decode_golden_engine_exits_2_naming_the_reference(v4_stream,
                                                            tmp_path, capsys):
-    path, _ = v4_stream
+    """`decode --engine golden` is the port's own golden decoder on the
+    host: it no longer exits 2 pointing at the reference CLI, and writes
+    the C++ decoder's file."""
+    path, want = v4_stream
     dec = tmp_path / "d.yuv"
     assert cli.main(["decode", "-i", path, "-o", str(dec), "--engine",
-                     "golden"]) == 2
-    assert "video_encoder_tpu.cli" in capsys.readouterr().err
-    assert not dec.exists()
+                     "golden"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["engine"] == "golden" and summary["frames"] == 11
+    assert dec.read_bytes() == want
 
 
 @pytest.mark.parametrize("engine", ["gop", "device"])
@@ -455,17 +478,118 @@ def test_decode_device_engines_need_cuda(v4_stream, tmp_path, capsys,
 
 def test_decode_native_library_failure_exits_1(v4_stream, tmp_path, capsys,
                                                monkeypatch):
-    """Where the C++ library cannot be built, decode exits 1 with the
-    error and switches to no other engine."""
+    """Where the C++ library cannot be built, the engines that parse with
+    it (gop, device) exit 1 with the error and decode nothing; the native
+    decode warns and decodes with the golden model, as the reference CLI
+    does, to the same file."""
     from video_encoder_tpu_torch.codec import native
 
     def broken():
         raise RuntimeError("liboracle.so build failed: no compiler")
 
     monkeypatch.setattr(native, "_load", broken)
-    path, _ = v4_stream
-    for flags in ([], ["--workers", "1"], ["--engine", "gop", "--device",
-                                           "cpu"]):
-        assert cli.main(["decode", "-i", path, "-o",
-                         str(tmp_path / "d.yuv"), *flags]) == 1
+    path, want = v4_stream
+    dec = tmp_path / "d.yuv"
+    for engine in ("gop", "device"):
+        assert cli.main(["decode", "-i", path, "-o", str(dec), "--engine",
+                         engine, "--device", "cpu"]) == 1
         assert "liboracle.so build failed" in capsys.readouterr().err
+        assert not dec.exists()
+    assert cli.main(["decode", "-i", path, "-o", str(dec)]) == 0
+    out = capsys.readouterr()
+    assert "native lib unavailable, using golden" in out.err
+    assert json.loads(out.out)["engine"] == "golden"
+    assert dec.read_bytes() == want
+
+
+@pytest.mark.parametrize("flags", [[], ["--workers", "1"], ["--workers", "3"]],
+                         ids=["default", "workers-1", "workers-3"])
+def test_decode_native_unavailable_warns_and_decodes_with_golden(
+        v4_stream, tmp_path, capsys, monkeypatch, flags):
+    """native.available() False: the reference's warning on stderr, the
+    golden decoder, the C++ decoder's file; the library is not called."""
+    from video_encoder_tpu_torch.codec import native
+    from video_encoder_tpu_torch.pipeline import decoder
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    for name in ("decode_clip_native", "decode_clip_parallel"):
+        monkeypatch.setattr(decoder, name, None)
+    path, want = v4_stream
+    dec = tmp_path / "d.yuv"
+    assert cli.main(["decode", "-i", path, "-o", str(dec), *flags]) == 0
+    out = capsys.readouterr()
+    assert out.err.splitlines() == [
+        "warning: native lib unavailable, using golden"]
+    assert json.loads(out.out)["engine"] == "golden"
+    assert dec.read_bytes() == want
+
+
+def _reference_cli_stream(path, out, argv):
+    from video_encoder_tpu import cli as reference_cli
+
+    assert reference_cli.main(["encode", "-i", path, "-W", str(W), "-H",
+                               str(H), "-o", str(out), *argv]) == 0
+    return out.read_bytes()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--search", "hier"],
+    ["--search", "hier", "--format", "2", "--chroma-qp-offset", "3"],
+    ["--rc", "mb", "--kbps", "300", "--search", "diamond"],
+    ["--format", "4", "--quant-matrix", "--chroma-qp-offset", "2",
+     "--intra-slice", "1", "--rc", "vbv", "--kbps", "300"],
+    ["--two-pass", "--kbps", "300", "--search", "hier"],
+], ids=["hier", "hier-v2", "rc-mb", "v4-qmat-vbv", "two-pass-hier"])
+def test_golden_engine_matches_the_reference_cli(clip_file, tmp_path, capsys,
+                                                 flags):
+    """`encode --engine golden` writes the reference CLI's `--engine
+    golden` file (its per-frame loop, or its per-frame two-pass), runs on
+    the host whatever --device says, and names itself in the summary."""
+    _, path = clip_file
+    out = tmp_path / "o.tvc"
+    argv = ["--gop", "3", "--qp", "26", "--engine", "golden", *flags]
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(out), *argv]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["engine"] == "golden" and summary["device"] == "cpu"
+    assert summary["frames"] == 5
+    assert out.read_bytes() == _reference_cli_stream(
+        path, tmp_path / "r.tvc", argv)
+
+
+def test_golden_checkpoint_resume_matches_the_reference_cli(clip_file,
+                                                            tmp_path, capsys):
+    """An `--engine golden --checkpoint` encode killed after its first GOP
+    and resumed by the CLI: the reference CLI's uninterrupted golden file,
+    and the checkpoint gone."""
+    import os
+
+    from video_encoder_tpu_torch.codec.config import EncoderConfig as Config
+    from video_encoder_tpu_torch.io import yuv
+    from video_encoder_tpu_torch.pipeline.encoder import (
+        GoldenGopAdapter, encode_clip_resumable)
+
+    clip, path = clip_file
+    out, ck = tmp_path / "o.tvc", tmp_path / "ck.json"
+    argv = ["--gop", "2", "--qp", "26", "--engine", "golden", "--format",
+            "3", "--search", "hier"]
+    cfg = Config(width=W, height=H, gop_n=2, base_qp=26, format_version=3,
+                 search="hier")
+
+    def killed_at_frame_3():
+        for i, planes in enumerate(yuv.open_clip(path, W, H)[3]):
+            if i == 3:
+                raise KeyboardInterrupt
+            yield planes
+
+    with pytest.raises(KeyboardInterrupt):
+        encode_clip_resumable(cfg, killed_at_frame_3(), str(out), 5,
+                              GoldenGopAdapter(cfg), str(ck))
+    assert os.path.exists(ck)
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(out), "--checkpoint", str(ck), *argv]) == 0
+    assert json.loads(capsys.readouterr().out)["frames"] == 5
+    assert not os.path.exists(ck)
+    assert out.read_bytes() == _reference_cli_stream(
+        path, tmp_path / "r.tvc", ["--checkpoint", str(tmp_path / "rck"),
+                                   *argv])

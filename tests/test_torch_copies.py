@@ -1,7 +1,8 @@
 """The port's own copies of the reference's host modules against their
 originals: the tables, constants and integer programs of `spec`, the
 config's canonical string and hash, stream and frame headers, the frame
-model, raw YUV I/O and the metrics. A copy is a copy: same behaviour."""
+model, the golden model and its bit layer, raw YUV I/O and the metrics.
+A copy is a copy: same behaviour."""
 
 import dataclasses
 import inspect
@@ -319,3 +320,56 @@ def test_stage_timer_and_event_log_equal(monkeypatch):
         log.emit("gop", first=3, frames=2, ms=1.5)
         log.emit("end")
     assert sinks[0].getvalue() == sinks[1].getvalue()
+
+
+def test_bitio_and_golden_public_names_equal():
+    """codec/bitio.py and codec/golden.py: the originals' public names, each
+    function with its signature; golden's Frame, mb_grid and
+    FrameEncodeResult are the port's one frame model (codec/frame.py)."""
+    from video_encoder_tpu.codec import bitio as jbitio
+    from video_encoder_tpu_torch.codec import bitio, golden as port_golden
+
+    for ours, theirs in ((bitio, jbitio), (port_golden, golden)):
+        got, want = _public(ours), _public(theirs)
+        assert sorted(got) == sorted(want)
+        for name, obj in want.items():
+            if inspect.isfunction(obj):
+                assert (inspect.signature(got[name])
+                        == inspect.signature(obj)), name
+    for name in ("_assemble_blocks", "_scatter_blocks", "_predict", "_q6",
+                 "_reconstruct"):
+        assert (inspect.signature(getattr(port_golden, name))
+                == inspect.signature(getattr(golden, name))), name
+    assert port_golden.Frame is frame.Frame
+    assert port_golden.mb_grid is frame.mb_grid
+    assert port_golden.FrameEncodeResult is frame.FrameEncodeResult
+
+
+def test_golden_search_and_prediction_equal(rng):
+    """The golden model's search, half-pel and intra helpers give the
+    original's results on random planes (the frame coder is held over a
+    grid in tests/test_torch_golden.py)."""
+    from video_encoder_tpu_torch.codec import golden as port_golden
+
+    base = rng.integers(0, 256, (80, 112)).astype(np.int32)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3
+    cur, ref = base[5:53, 3:83], base[2:50, 7:87]     # 48 x 80: 3 x 5 MBs
+    for name in ("sad_full_search", "sad_diamond_search", "sad_hier_search"):
+        got = getattr(port_golden, name)(cur, ref)
+        want = getattr(golden, name)(cur, ref)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+    dy, dx, _ = golden.sad_full_search(cur, ref)
+    for a, b in zip(port_golden.sad_hpel_refine(cur, ref, dy, dx),
+                    golden.sad_hpel_refine(cur, ref, dy, dx)):
+        assert np.array_equal(a, b)
+    for a, b in zip(port_golden.hpel_planes(ref), golden.hpel_planes(ref)):
+        assert np.array_equal(a, b)
+    d2y, d2x = 2 * dy + 1, 2 * dx - 1
+    assert np.array_equal(port_golden.mc_fetch_hpel(ref, d2y, d2x, 16, 16),
+                          golden.mc_fetch_hpel(ref, d2y, d2x, 16, 16))
+    for a, b in zip(port_golden.intra_cost_and_dc(cur),
+                    golden.intra_cost_and_dc(cur)):
+        assert np.array_equal(a, b)
+    qp = rng.integers(0, 52, (3, 5))
+    assert np.array_equal(port_golden._q6(qp, 4, True), golden._q6(qp, 4, True))

@@ -3,7 +3,7 @@ port or of chip_smoke.py imports `jax` or `video_encoder_tpu`, every
 module of the package imports, and a small format-4 clip encodes on the
 CPU with both blocked from import, to the golden model's bytes; so do a
 batched-GOP encode and a two-pass encode, to the bytes the port gives
-in this process."""
+in this process, and the port's own golden model encodes and decodes."""
 
 import io
 import os
@@ -92,7 +92,8 @@ def test_port_sources_never_import_jax():
     assert len(files) > 20
     assert PKG / "pipeline" / "encoder.py" in files   # the two-pass module
     for mod in ("pipeline/device_engine.py", "pipeline/checkpoint.py",
-                "pipeline/bitstream_writer.py", "utils/trace.py"):
+                "pipeline/bitstream_writer.py", "utils/trace.py",
+                "codec/golden.py", "codec/bitio.py"):
         assert PKG / mod in files
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -299,3 +300,57 @@ def test_per_frame_and_resumable_encodes_run_without_jax():
     encode_clip(cfg, clip, want, 5, engine=GoldenEngine())
     assert bytes.fromhex(lines["PERFRAME"]) == want.getvalue()
     assert bytes.fromhex(lines["RESUMABLE"]) == want.getvalue()
+
+
+_GOLDEN_SCRIPT = _SCRIPT[:_SCRIPT.index("rng = ")] + r"""
+from video_encoder_tpu_torch.pipeline import decoder
+from video_encoder_tpu_torch.pipeline.encoder import GoldenEngine, encode_clip
+rng = np.random.default_rng(8)
+clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8),
+         rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(5)]
+cfg = EncoderConfig(width=48, height=32, gop_n=3, search="hier",
+                    format_version=3, quant_matrix=True, rc="mb",
+                    target_kbps=200)
+buf = io.BytesIO()
+encode_clip(cfg, clip, buf, 5, engine=GoldenEngine())
+_, frames = decoder.decode_clip(io.BytesIO(buf.getvalue()),
+                                decoder.GoldenDecodeEngine())
+raw = b"".join(p.tobytes() for f in frames for p in f)
+leaked = [k for k in sys.modules
+          if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
+          and sys.modules[k] is not None]
+assert not leaked, leaked
+print("GOLDEN " + buf.getvalue().hex())
+print("DECODED " + raw.hex())
+"""
+
+
+def test_golden_encode_and_decode_run_without_jax():
+    """The port's golden model (codec/golden.py) through its engines, with
+    jax and the JAX package blocked: the reference golden model's stream
+    (hier search, rc mb, format 3), and the C++ decoder's frames of it."""
+    from video_encoder_tpu.codec.config import EncoderConfig
+    from video_encoder_tpu.pipeline.decoder import decode_clip_native
+    from video_encoder_tpu.pipeline.encoder import GoldenEngine, encode_clip
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _GOLDEN_SCRIPT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = dict(ln.split(" ", 1) for ln in r.stdout.splitlines()
+                 if ln.startswith(("GOLDEN ", "DECODED ")))
+    rng = np.random.default_rng(8)
+    clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8)) for _ in range(5)]
+    cfg = EncoderConfig(width=48, height=32, gop_n=3, search="hier",
+                        format_version=3, quant_matrix=True, rc="mb",
+                        target_kbps=200)
+    want = io.BytesIO()
+    encode_clip(cfg, clip, want, 5, engine=GoldenEngine())
+    assert bytes.fromhex(lines["GOLDEN"]) == want.getvalue()
+    want.seek(0)
+    _, frames = decode_clip_native(want)
+    assert bytes.fromhex(lines["DECODED"]) == b"".join(
+        p.tobytes() for f in frames for p in f)

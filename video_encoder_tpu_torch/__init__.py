@@ -10,7 +10,8 @@ and to the C++ oracle (`oracle/`).
 This package imports `torch`, never `jax`, and nothing of
 `video_encoder_tpu`: it keeps its own copies of the host modules it needs
 (`codec/spec.py`, `codec/config.py`, `codec/bitstream.py`,
-`codec/frame.py`, `codec/native.py`, `io/yuv.py`, `utils/metrics.py`,
+`codec/frame.py`, `codec/native.py`, the numpy golden model
+`codec/golden.py` and its `codec/bitio.py`, `io/yuv.py`, `utils/metrics.py`,
 `pipeline/checkpoint.py`, `pipeline/bitstream_writer.py`, and the
 stage timer and event log of `utils/trace.py`), held equal to the
 reference's by tests/test_torch_copies.py.

@@ -9,7 +9,10 @@ one device, or decode, info and psnr on the host.
 `encode` runs the GOP-resident engine (`--engine gop`, the default: full
 or diamond search, formats 1 to 4, every rc mode) or the per-frame
 engine (`--engine device`: format 1, rc none, adaptive, bitrate or vbv)
-on `--device` (default cuda):
+on `--device` (default cuda), or the numpy golden model on the host's CPU
+(`--engine golden`: every format, search and rc mode, one frame at a
+time; it ignores `--device`). `--search hier` is golden-only, as in the
+reference, which retired it from its device engines:
 
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --search diamond --rc mb --kbps 12000
@@ -23,6 +26,8 @@ on `--device` (default cuda):
         -o out.tvc --tile 4 --gop-batch 2
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --engine device --search diamond --rc bitrate --kbps 12000
+    python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
+        -o out.tvc --engine golden --search hier --format 2
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
         -o out.tvc --checkpoint out.ckpt
     python -m video_encoder_tpu_torch.cli encode -i in.yuv -W 1920 -H 1080 \
@@ -45,17 +50,21 @@ there are fewer cards than ranks):
 
 `--checkpoint PATH` saves the encode's state after every GOP and resumes
 a killed encode at its last GOP, byte-identical to an uninterrupted one
-(either engine; single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
+(any engine; single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
 torch.profiler trace of the encode into DIR; `--stage-timers` adds the
 host stages' wall times to the summary. Its streams are byte-identical
 to the reference CLI's. `decode` takes the reference's engines
 (`pipeline/decoder.py`): `--engine native` (the default) decodes with the
 C++ decoder of `oracle/oracle.cpp` through ctypes (`codec/native.py`),
-GOP-parallel on `--workers` threads; `--engine gop|device` parse with it
-and rebuild the frames on `--device` (default cuda):
+GOP-parallel on `--workers` threads, or, where that library cannot be
+loaded, warns and decodes with the golden model, as the reference does;
+`--engine gop|device` parse with it and rebuild the frames on `--device`
+(default cuda); `--engine golden` decodes with the numpy golden model on
+the host:
 
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --workers 4
     python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --engine gop
+    python -m video_encoder_tpu_torch.cli decode -i out.tvc -o dec.yuv --engine golden
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import time
 import numpy as np
 import torch
 
+from .codec import native
 from .codec.bitstream import OrderedMux, read_stream_header
 from .codec.config import EncoderConfig
 from .codec.frame import Frame
@@ -84,7 +94,7 @@ from .parallel.gop_parallel import ShardedGopEncoder
 from .parallel.mesh import make_codec_mesh
 from .pipeline import decoder
 from .pipeline.device_engine import DeviceEngine
-from .pipeline.encoder import (PerFrameGopAdapter, encode_clip,
+from .pipeline.encoder import (GoldenEngine, PerFrameGopAdapter, encode_clip,
                                encode_clip_resumable, encode_clip_twopass)
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
@@ -377,6 +387,11 @@ def encode_multiprocess(cfg: EncoderConfig, a, eng: GopEngine, fo,
 def _encode_refusal(a, cfg: EncoderConfig) -> str | None:
     """Why an encode's flags cannot run together, or None. Checked before
     the output file is truncated."""
+    if cfg.search == "hier" and a.engine != "golden":
+        return ("--search hier is golden/oracle-only (retired from the "
+                "device engines: slower AND worse RD than full on TPU - "
+                "BASELINE.md); use --search full, or --engine golden to "
+                "reproduce hier streams")
     if a.gop_batch < 1:
         return "--gop-batch must be >= 1"
     if a.two_pass:
@@ -398,9 +413,9 @@ def _encode_refusal(a, cfg: EncoderConfig) -> str | None:
             return ("--engine device does not code --rc mb: the reference's "
                     "per-frame engine ignores it (every MB at the frame qp, "
                     "the rc bitrate stream); use --engine gop")
-        if a.gop_batch > 1 or a.tile > 1:
-            return ("--engine device encodes one frame at a time; "
-                    "--gop-batch and --tile need --engine gop")
+    if a.engine != "gop" and (a.gop_batch > 1 or a.tile > 1):
+        return (f"--engine {a.engine} encodes one frame at a time; "
+                "--gop-batch and --tile need --engine gop")
     if a.devices < 0 or a.multiprocess < 0:
         return "--devices and --multiprocess take N >= 1 ranks"
     if a.devices % a.tile:
@@ -441,11 +456,6 @@ def _fault_injector() -> FaultInjector | None:
 
 
 def cmd_encode(a) -> int:
-    if a.engine == "golden":
-        print("error: --engine golden is the reference's pure-Python "
-              "encoder; run the reference CLI video_encoder_tpu.cli "
-              "encode --engine golden", file=sys.stderr)
-        return 2
     w, h, fps, frames = yuv.open_clip(a.input, a.width, a.height)
     cfg = EncoderConfig(
         width=w, height=h, gop_n=a.gop, base_qp=a.qp, search=a.search,
@@ -470,7 +480,9 @@ def cmd_encode(a) -> int:
         except ValueError as e:   # the frame or its slices do not divide
             print(f"error: --tile {a.tile}: {e}", file=sys.stderr)
             return 2
-    if a.engine == "device":
+    if a.engine == "golden":
+        eng = GoldenEngine()      # on the host; --device is not read
+    elif a.engine == "device":
         eng = DeviceEngine(device=a.device)
     else:
         eng = senc.engine if senc else GopEngine(cfg, device=a.device)
@@ -527,7 +539,7 @@ def cmd_encode(a) -> int:
                 elif a.failover:
                     summary = encode_failover(cfg, eng, survivor, frames, fo,
                                               n_frames, fault, a.verbose)
-                elif a.engine == "device":
+                elif a.engine != "gop":   # the per-frame engines
                     summary = encode_clip(cfg, frames, fo, n_frames,
                                           engine=eng, on_frame=on_frame)
                 else:
@@ -536,7 +548,7 @@ def cmd_encode(a) -> int:
                         a.gop_batch, timer=timer)
     wall = time.perf_counter() - t0
     out = json.loads(summary.to_json())
-    out["device"] = str(eng.device)
+    out["device"] = "cpu" if a.engine == "golden" else str(eng.device)
     out["engine"] = a.engine
     out["wall_s"] = round(wall, 3)
     out["wall_fps"] = round(summary.frames / wall, 2) if wall else 0
@@ -554,18 +566,18 @@ def cmd_encode(a) -> int:
 def cmd_decode(a) -> int:
     """The reference's cmd_decode: `--engine native` (the default) decodes
     in C++, GOP-parallel on `--workers` threads (0: one per core, up to
-    the GOP count; 1: serial); `gop` and `device` rebuild the frames on
-    `--device`. Frames are written as the decoder yields them."""
-    if a.engine == "golden":
-        print("error: --engine golden is the reference's pure-Python "
-              "decoder; run the reference CLI video_encoder_tpu.cli "
-              "decode --engine golden", file=sys.stderr)
-        return 2
+    the GOP count; 1: serial), or warns and decodes with the golden model
+    where the C++ library cannot be loaded; `gop` and `device` rebuild
+    the frames on `--device`; `golden` decodes with the golden model on
+    the host. Frames are written as the decoder yields them."""
     if a.workers < 0:
         print("error: --workers must be >= 0", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     n = 0
+    if a.engine == "native" and not native.available():
+        print("warning: native lib unavailable, using golden", file=sys.stderr)
+        a.engine = "golden"
     with open(a.input, "rb") as fi:
         if a.engine == "native" and a.workers != 1:
             info, frames = decoder.decode_clip_parallel(fi, a.workers)
@@ -574,9 +586,12 @@ def cmd_decode(a) -> int:
         elif a.engine == "gop":
             info, frames = decoder.decode_clip_gop(
                 fi, decoder.GopDecodeEngine(device=a.device))
-        else:
+        elif a.engine == "device":
             info, frames = decoder.decode_clip(
                 fi, decoder.DeviceDecodeEngine(device=a.device))
+        else:
+            info, frames = decoder.decode_clip(fi,
+                                               decoder.GoldenDecodeEngine())
         with open(a.output, "wb") as fo:
             for y, cb, cr in frames:
                 yuv.write_yuv_frame(fo, y, cb, cr)
@@ -629,9 +644,11 @@ def main(argv=None) -> int:
     e.add_argument("--gop", type=int, default=30)
     e.add_argument("--qp", type=int, default=28)
     e.add_argument("--frames", type=int, default=0, help="0 = all")
-    # hier is golden/oracle-only in the reference too
-    e.add_argument("--search", choices=["full", "diamond"], default="full",
-                   help="ME mode")
+    e.add_argument("--search", choices=["full", "diamond", "hier"],
+                   default="full",
+                   help="ME mode; hier (a coarse search on 4x-downsampled "
+                        "planes, then a refine) only with --engine golden, "
+                        "as in the reference")
     e.add_argument("--rc", choices=["none", "adaptive", "bitrate", "vbv", "mb"],
                    default="none", help="rate control")
     e.add_argument("--kbps", type=int, default=0,
@@ -681,7 +698,9 @@ def main(argv=None) -> int:
                    default="gop",
                    help="gop: GOP-resident on --device; device: per-frame "
                         "on --device (format 1; rc none|adaptive|bitrate|"
-                        "vbv); golden: the reference CLI's only")
+                        "vbv); golden: the numpy golden model, per frame on "
+                        "the host's CPU (every format, search and rc mode; "
+                        "slow)")
     e.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="save the encode's state after every GOP and "
                         "resume from PATH if it exists (single pass, no "
@@ -702,9 +721,11 @@ def main(argv=None) -> int:
     d.add_argument("-o", "--output", required=True)
     d.add_argument("--engine", choices=["native", "gop", "device", "golden"],
                    default="native",
-                   help="native: C++ decode on the host; gop: GOP-resident "
-                        "recon on --device; device: per-frame recon on "
-                        "--device; golden: the reference CLI's only")
+                   help="native: C++ decode on the host (the golden model "
+                        "where the library cannot be loaded); gop: "
+                        "GOP-resident recon on --device; device: per-frame "
+                        "recon on --device; golden: the numpy golden model "
+                        "on the host (slow)")
     d.add_argument("--workers", type=int, default=0,
                    help="native: GOP-parallel decode threads (0 = one per "
                         "core up to the GOP count, 1 = serial); at most "

@@ -1,6 +1,7 @@
 """Frame model (SPEC.md §1): the port's own copy of `Frame`, `mb_grid` and
-`FrameEncodeResult` from `video_encoder_tpu/codec/golden.py`. The golden
-model itself stays the reference's.
+`FrameEncodeResult` from `video_encoder_tpu/codec/golden.py`. The port's
+golden model (`codec/golden.py`) takes them from here, so one `Frame`
+class flows between the golden, per-frame and GOP engines.
 """
 
 from __future__ import annotations

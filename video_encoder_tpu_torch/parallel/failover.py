@@ -6,10 +6,12 @@ encoded again on any surviving engine, and the ordered mux is indifferent
 to who produced a packet. The fault injector exercises the re-dispatch
 path without losing a card.
 
-The survivor is a second `GopEngine` (the reference's is its golden model,
-which stays the reference's): on the next card where the host has one,
-otherwise on the same card; never the CPU unless the run asked for the
-CPU (`survivor_device`). A sticky CUDA error (an illegal address, a
+The survivor is a second `GopEngine`: on the next card where the host has
+one, otherwise on the same card; never the CPU unless the run asked for
+the CPU (`survivor_device`). The reference's survivor is its golden model
+(`GoldenGopAdapter`), which the port has too, but a survivor on the host
+would carry a card's work on the CPU and hide a kernel that fails to
+launch; a second `GopEngine` writes the same bytes. A sticky CUDA error (an illegal address, a
 device-side assert) can leave the card unusable for the rest of the
 process, so a survivor on the same card may not survive it; the next card
 does.

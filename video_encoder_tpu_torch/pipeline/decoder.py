@@ -7,6 +7,10 @@
   GOP k + 1 is parsed and uploaded while GOP k runs.
 - `DeviceDecodeEngine` / `decode_clip`: the same frame step, one frame per
   call (parse, upload, recon, download).
+- `GoldenDecodeEngine`: the numpy golden model's `decode_frame` on the
+  host, one frame per call through `decode_clip` (slow: the referee, and
+  the fallback of `decode --engine native` where the C++ library cannot
+  be loaded).
 - `decode_clip_native`: the whole decode in C++, GOP by GOP;
   `decode_clip_parallel`: the same on worker threads, streaming, with at
   most N + 1 GOPs read and not yet yielded.
@@ -15,7 +19,7 @@ Every decoder reads the stream through the lazy `bitstream.demux` and
 yields cropped (y, cb, cr) uint8 planes in frame order. The device
 decoders run on `device` ("cuda" by default) and raise without CUDA
 unless the caller passes "cpu", where every kernel wrapper takes its
-plain version. The golden decoder stays the reference's.
+plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from ..codec import bitstream, native, spec
 from ..codec.frame import Frame
+from ..codec.golden import decode_frame
 from ..io import yuv
 from ..ops import dispatch, motion
 from .gop_engine import resolve_device
@@ -275,13 +280,33 @@ class DeviceDecodeEngine:
         return frame
 
 
+class GoldenDecodeEngine:
+    """Per-frame decode by the numpy golden model on the host: the
+    stream's whole syntax in Python, no library and no device."""
+
+    def __init__(self, version: int = 1, chroma_qp_offset: int = 0,
+                 quant_matrix: bool = False, intra_slice: int = 0):
+        self.version = version
+        self.chroma_qp_offset = chroma_qp_offset
+        self.quant_matrix = quant_matrix
+        self.intra_slice = intra_slice
+
+    def decode(self, width: int, height: int, pkt: bitstream.FramePacket,
+               ref: Frame | None) -> Frame:
+        return decode_frame(
+            width, height, pkt.frame_type, pkt.base_qp, pkt.payload,
+            pkt.payload_bits, ref, self.version, self.chroma_qp_offset,
+            self.quant_matrix, self.intra_slice)
+
+
 def decode_clip(
     f: BinaryIO, engine=None
 ) -> tuple[bitstream.StreamInfo, Iterator[tuple[np.ndarray, np.ndarray,
                                                 np.ndarray]]]:
     """Decode a TVC1 stream frame by frame: (info, iterator of cropped
-    (y, cb, cr)). Without an engine it takes a DeviceDecodeEngine on
-    cuda."""
+    (y, cb, cr)) through a per-frame engine (DeviceDecodeEngine or
+    GoldenDecodeEngine). Without an engine it takes a DeviceDecodeEngine
+    on cuda."""
     info, packets = bitstream.demux(f)
     engine = _take_stream_fields(engine or DeviceDecodeEngine(), info)
 

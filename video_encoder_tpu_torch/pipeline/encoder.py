@@ -2,18 +2,19 @@
 
 Twin of `video_encoder_tpu/pipeline/encoder.py`: the per-frame GOP loop
 (`gop_schedule`, `encode_gop`, `encode_clip`) around a per-frame engine
-(`pipeline/device_engine.py` `DeviceEngine`), the killable
+(`pipeline/device_engine.py` `DeviceEngine` on a device, or
+`GoldenEngine`, the numpy golden model on the host), the killable
 `encode_clip_resumable` around any engine with `encode_gop(frames,
 first_index)` (the GOP engine, or a per-frame engine through
-`PerFrameGopAdapter`), and two-pass (`allocate_gop_qps`,
-`encode_clip_twopass`) on either kind. GOPs are closed under
-prediction, so the rate-control state starts fresh at every GOP
-(SPEC.md §10) and a GOP is the unit of checkpoint and resume. The
-frame-level rc carry of the per-frame loop is the reference's host
-integer program (`spec.bitrate_next_qp`, `spec.vbv_next`); the two-pass
-allocation is host float math, copied letter for letter so both packages
-pick the same qps; the encoding itself stays exact-integer. The golden
-engine stays the reference's.
+`PerFrameGopAdapter`; `GoldenGopAdapter` for the golden model), and
+two-pass (`allocate_gop_qps`, `encode_clip_twopass`) on either kind.
+GOPs are closed under prediction, so the rate-control state starts fresh
+at every GOP (SPEC.md §10) and a GOP is the unit of checkpoint and
+resume. The frame-level rc carry of the per-frame loop is the
+reference's host integer program (`spec.bitrate_next_qp`,
+`spec.vbv_next`); the two-pass allocation is host float math, copied
+letter for letter so both packages pick the same qps; the encoding
+itself stays exact-integer.
 """
 
 from __future__ import annotations
@@ -31,10 +32,20 @@ from ..codec import spec
 from ..codec.bitstream import FramePacket, OrderedMux
 from ..codec.config import EncoderConfig
 from ..codec.frame import Frame
+from ..codec.golden import encode_frame
 from ..utils.metrics import FrameStats, RunSummary, psnr
 from . import checkpoint as ckpt
 from .bitstream_writer import open_stream_for_resume
 from .device_engine import DeviceEngine
+
+
+class GoldenEngine:
+    """Per-frame encode engine backed by the numpy golden model: every
+    format, search (full, diamond, hier) and rc mode, on the host's CPU."""
+
+    def encode(self, cfg, cur: Frame, ref: Frame | None, frame_type: int,
+               base_qp: int):
+        return encode_frame(cfg, cur, ref, frame_type, base_qp)
 
 
 def gop_schedule(n_frames: int, gop_n: int):
@@ -102,6 +113,14 @@ class PerFrameGopAdapter:
 
     def encode_gop(self, frames: list[Frame], first_index: int):
         return encode_gop(self.cfg, self.engine, frames, 0, first_index)
+
+
+class GoldenGopAdapter(PerFrameGopAdapter):
+    """GOP-level interface over the golden engine (checkpointed encodes,
+    tests, CPU runs)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__(cfg, GoldenEngine())
 
 
 def encode_clip_resumable(
@@ -273,7 +292,8 @@ def encode_clip_twopass(
     clip is read twice — files, not generators). `engine` is a GOP-level
     engine (`GopEngine`: both passes run on a new engine of its type,
     device and emit under the constant-qp config) or a per-frame engine
-    (`DeviceEngine`: each GOP goes through `encode_gop` at its qp). Every
+    (`DeviceEngine`, `GoldenEngine`: each GOP goes through `encode_gop`
+    at its qp). Every
     packet of a GOP carries the qp allocated to it.
     """
     target = cfg.target_bits_per_frame()
