@@ -90,7 +90,13 @@ Phases, each of which raises on failure (exit code not 0):
    lockstep or tiled step), and no single-plane fetch on any path; at
    formats 3 and 4 every I step one row-scan launch per plane and no
    [8, W] stripe through code_plane, on every route (single GOP, lockstep,
-   tiled). Then 640x360: GOP 1 (odd 23-row MB grid), format 2
+   tiled). Then the GOP engine's CUDA graphs (`phase_graphs`): on each
+   1080p clip one engine encodes the 30-frame GOP three times (the eager
+   loop, the capture and its replay, a replay), each equal to the CLI's
+   stream with the launches of the eager loop; two GOPs in flight (the
+   clip and the clip backwards, the second launched before the first is
+   finished) each equal to its own eager encode; one replay traced, its
+   search and code_plane kernels named in the trace. Then 640x360: GOP 1 (odd 23-row MB grid), format 2
    (chroma qp offset 4, diamond, rc vbv at 1500 kbps) and format 3 (quant
    matrix, intra slices of 2 MB rows, rc adaptive, GOP 4), 12 frames
    each, against the oracle. The oracle's encodes run side by side on the
@@ -125,7 +131,9 @@ Phases, each of which raises on failure (exit code not 0):
    phase may print the native decode's fallback warning.
    Then the batched-GOP paths, `--gop 10 --gop-batch 3` on the same
    30-frame 1080p clips (one lockstep encode of three GOPs): config 3
-   against the oracle's stream of that GOP length; full search and
+   against the oracle's stream of that GOP length, and so is config 3's
+   unbatched GOP-10 encode (the CLI launches GOP k + 1 before it drains
+   GOP k; GOPs 2 and 3 are graph replays); full search and
    format 4 against the port's own unbatched stream, format 4 also
    in-process under the other emit; config 3 once more with a tail
    (`--gop 12 --gop-batch 2`: a batch of two and a short GOP of 6). Every
@@ -143,9 +151,11 @@ Phases, each of which raises on failure (exit code not 0):
    after its first GOP through the library and resumed by the CLI under
    `--engine gop` and `--engine device`, each equal to the uninterrupted
    stream, its checkpoint file gone and its summary carrying the
-   checkpoint path's stages; then one `--trace DIR --stage-timers
-   --frames 10` encode, whose trace file names tiled_kernel and
-   plane_kernel and whose summary carries the GOP path's stages. Then
+   checkpoint path's stages; then one `--trace DIR --stage-timers`
+   encode of the clip's three GOPs (the first eager, the others graph
+   replays), whose trace file names tiled_kernel and plane_kernel more
+   often than the eager GOP launched them and whose summary carries the
+   GOP path's stages. Then
    two-pass: 640x360,
    `--two-pass --kbps 3000`, equal to the port's own `--device cpu`
    stream, decoded by the oracle above the PSNR floor, its per-GOP qps
@@ -184,16 +194,23 @@ Phases, each of which raises on failure (exit code not 0):
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
-   emit, each with its device ops per frame, busy share, top device
-   times and the search's device time per GOP from torch.profiler, the
-   format-4 I frame on its own (its code_plane launches, device ops,
-   device ms and wall ms), and the CLI's wall fps. Then the three cells at G = 1, 2 and 4
-   GOPs in lockstep (G = 1 is the single-GOP path), in turns within this
-   one run: device-resident fps, device ops per frame and busy share
-   (the G = 1 trace is the one taken of that GOP just before). Then the
-   full-search cell with every frame in S = 1, 2 and 4 row shards, in
-   turns, all under the tile path's emit. Then the full-search cell with
-   TVC_SEA 0 and 1 in turns, with the search's device time of each.
+   emit, each through the GOP's CUDA graph and through the eager loop
+   (`GopEngine._run`) in turns, each with its device ops per frame, busy
+   share, top device times, the search's device time per GOP and the
+   host's submitting calls (kernel and graph launches, copies, fills) per
+   GOP from torch.profiler, the graphs' capture seconds and the reserved
+   memory; the format-4 I frame on its own (its code_plane launches,
+   device ops, device ms and wall ms), and the CLI's wall fps. Then the
+   three cells at G = 1, 2 and 4 GOPs in lockstep (G = 1 is the
+   single-GOP path), graph and eager in turns within this one run:
+   device-resident fps, device ops per frame, busy share and host calls
+   (the G = 1 traces are the ones taken of that GOP just before), capture
+   seconds and reserved memory. Then the full-search cell with every
+   frame in S = 1, 2 and 4 row shards, in turns, all under the tile
+   path's emit and eager (the tile loop has no graph). Then the
+   full-search cell with TVC_SEA 0 and 1 in turns, each through its own
+   graph, with the search's device time of each. The reserved memory is
+   printed after each phase.
 
     python3 chip_smoke.py --ab ROOT [ROOT ...]
 
@@ -297,6 +314,12 @@ ORACLE_BIN = os.path.join(ROOT, "build", "oracle", "oracle")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mem() -> str:
+    """The caching allocator's reserved and peak allocated device memory."""
+    return (f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB, peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
 
 def card_line() -> str:
@@ -2185,6 +2208,93 @@ def phase_other_emit(job, stream, card):
     return launches
 
 
+def graph_key_name(key) -> str:
+    """A GopGraph's key as the speed lines print it: the luma shape and
+    the block and frame word budgets (the rest is the cell's config)."""
+    return ("x".join(map(str, key.y_shape))
+            + f"/bw{key.block_words}/cap{key.cap_words}")
+
+
+def phase_graphs(jobs, streams, card):
+    """The GOP engine's graphs (GopGraph) on the three 1080p clips: one
+    engine per clip encodes the clip's 30-frame GOP three times, the
+    eager loop (a key's first call), the capture and its replay, then a
+    replay; each time the CLI's stream (the oracle's) with the same
+    launch counts. Then two GOPs in flight (the clip and the clip run
+    backwards, the second launched before the first is finished), each
+    equal to its own eager encode, and one replay traced: its kernels
+    appear under their own names. Returns the launch counts of each
+    run."""
+    from video_encoder_tpu_torch.codec.bitstream import demux
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    paths = []
+    for name in ("full", "config3", "v4"):
+        job = jobs[name]
+        m, n = job["mode"], job["n"]
+        cfg = config_of(m, job["w"], job["h"], job["gop"])
+        frames = [Frame.from_planes(*p) for p in zip(*job["clip"])]
+        want = [p.to_bytes() for p in demux(io.BytesIO(streams[name]))[1]]
+        eng = GopEngine(cfg, device=DEVICE)
+        runs = []
+        for call in ("eager", "capture", "replay"):
+            build.reset_launches()
+            got = [p.to_bytes() for p in eng.encode_gop(frames, 0)[0]]
+            runs.append(dict(build.LAUNCHES))
+            if got != want:
+                raise AssertionError(f"{job['tag']} graph {call}: packets "
+                                     "differ from the CLI's stream")
+            check_launches(f"{job['tag']} graph {call}", runs[-1],
+                           expected_kernels(m, GopEngine.emit))
+        if runs[1] != runs[0] or runs[2] != runs[0]:
+            raise AssertionError(f"{job['tag']}: launches per GOP eager "
+                                 f"{nonzero(runs[0])}, under the graph "
+                                 f"{nonzero(runs[1])}, {nonzero(runs[2])}")
+        paths += runs
+        graphs = {graph_key_name(k): round(g.capture_s, 3)
+                  for k, g in eng.graphs.items() if g is not None}
+        if not graphs:
+            raise AssertionError(f"{job['tag']}: no graph was captured")
+        # two GOPs in flight: the second launched before the first drains
+        back = frames[::-1]
+        want_back = [p.to_bytes() for p in
+                     GopEngine(cfg, device=DEVICE).encode_gop(back, 0)[0]]
+        build.reset_launches()
+        first = eng.encode_gop_start(frames, 0)
+        second = eng.encode_gop_start(back, 0)
+        if ([p.to_bytes() for p in eng.encode_gop_finish(first)[0]] != want
+                or [p.to_bytes() for p in eng.encode_gop_finish(second)[0]]
+                != want_back):
+            raise AssertionError(f"{job['tag']}: two GOPs in flight did not "
+                                 "keep their own outputs")
+        paths.append(dict(build.LAUNCHES))
+        # one replay traced: the graph's kernels under their own names
+        y, cb, cr = first["y"], first["cb"], first["cr"]
+        build.reset_launches()
+        ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n,
+                                    CODE_KERNELS + SAD_KERNELS)
+        replay = dict(build.LAUNCHES)
+        paths.append(replay)
+        named = {k: sum(c for nm, c, _ in top[1:] if k in nm)
+                 for k in (*SAD_KERNELS, *CODE_KERNELS)}
+        named = {k: c for k, c in named.items() if c}
+        if (not any(k in named for k in SAD_KERNELS)
+                or not any(k in named for k in CODE_KERNELS)):
+            raise AssertionError(f"{job['tag']}: a replay's trace names no "
+                                 f"search or code_plane kernel: {top}")
+        log(f"graphs {job['tag']}: eager, capture+replay and replay each == "
+            f"the CLI's stream ({len(streams[name])} bytes) with the same "
+            f"launches ({nonzero(runs[0])}); two GOPs in flight each == its "
+            f"own eager encode; captures (s) {graphs}; one replay traced: "
+            f"{ops if ops is None else round(ops, 1)} device ops/frame, busy "
+            f"{busy if busy is None else round(100 * busy, 1)} %, kernels by "
+            f"name (trace) {named} against launches {nonzero(replay)}; "
+            f"{mem()} [{card}]")
+    return paths
+
+
 # the decode engines of phase 4, as the CLI's flags: the device engines,
 # then the C++ decoder serial and GOP-parallel
 DECODES = {"gop": ["--engine", "gop"], "device": ["--engine", "device"],
@@ -2518,6 +2628,18 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     log(f"batched {job['tag']} --gop-batch 3: port stream == oracle stream "
         f"({len(stream)} bytes), oracle decode PSNR-Y {psnr_y:.4f} dB, CLI wall "
         f"{summary['wall_fps']} fps [{card}], launches {launches}")
+    # ... and unbatched: three GOPs of 10, GOP k + 1 launched before GOP k
+    # is drained, GOPs 2 and 3 through the graph
+    launches, summary, stream = run_cli(
+        job, os.path.join(tmp, f"plain_{job['tag']}.tvc"))
+    check_launches(f"{job['tag']} CLI encode", launches,
+                   expected_kernels(job["mode"], emit))
+    with open(job["theirs"], "rb") as f:
+        same_stream(job["tag"] + " unbatched", stream, f.read(), "the oracle's")
+    paths.append(launches)
+    log(f"unbatched {job['tag']} (double-buffered, GOPs 2-3 graph replays): "
+        f"port stream == oracle stream ({len(stream)} bytes), CLI wall "
+        f"{summary['wall_fps']} fps [{card}], launches {launches}")
 
     # full search and format 4 against the port's own unbatched streams
     for name in ("full", "v4"):
@@ -2657,11 +2779,12 @@ def phase_aux(tmp, plains, card):
     full-search clip at GOP 10: an encode interrupted after its first GOP
     through the library, resumed by the CLI under each engine, equal to
     the uninterrupted stream with its checkpoint gone; then one traced
-    10-frame encode whose trace names the search and code_plane kernels
-    and whose summary carries its stages. Returns the launch counts."""
+    encode of the clip's three GOPs (the first through the eager loop, the
+    others through its graph) whose trace names the search and code_plane
+    kernels more often than the eager GOP launched them and whose summary
+    carries its stages. Returns the launch counts."""
     import glob
 
-    from video_encoder_tpu_torch.codec.bitstream import demux
     from video_encoder_tpu_torch.pipeline import checkpoint as ckpt
     from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
     from video_encoder_tpu_torch.pipeline.encoder import (
@@ -2717,29 +2840,39 @@ def phase_aux(tmp, plains, card):
             f"cleared, frames {summary['frames']}, stages {summary['stages']}, "
             f"launches {nonzero(launches)} [{card}]")
 
+    # the whole clip: GOP 1 runs the eager loop, GOPs 2 and 3 the graph
     tdir = os.path.join(tmp, "trace")
     launches, summary, stream = run_cli(
-        job, os.path.join(tmp, "traced.tvc"),
-        ["--trace", tdir, "--stage-timers", "--frames", str(gop)])
+        job, os.path.join(tmp, "traced.tvc"), ["--trace", tdir,
+                                                "--stage-timers"])
     check_launches("--trace", launches, expected_kernels(m, GopEngine.emit))
     paths.append(launches)
-    want = [p.to_bytes() for p in demux(io.BytesIO(plain))[1]][:gop]
-    if [p.to_bytes() for p in demux(io.BytesIO(stream))[1]] != want:
-        raise AssertionError("--trace: the traced GOP's packets differ")
+    if stream != plain:
+        raise AssertionError("--trace: the traced stream differs")
     files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
     if len(files) != 1:
         raise AssertionError(f"--trace wrote {files}")
     with open(files[0]) as f:
-        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    for k in ("tiled_kernel", "plane_kernel"):
-        if not any(k in nm for nm in names):
-            raise AssertionError(f"--trace: no {k} in the trace")
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {k: sum(k in e.get("name", "") for e in events
+                      if e.get("cat") == "kernel")
+               for k in ("tiled_kernel", "plane_kernel")}
+    # more than the eager GOP's launches: the graph's kernels are named too
+    for k, name in (("tiled_kernel", "full_search"),
+                    ("plane_kernel", "code_plane")):
+        if kernels[k] <= launches[name] // (n // gop):
+            raise AssertionError(
+                f"--trace: {kernels[k]} {k} events for {launches[name]} "
+                f"launches in {n // gop} GOPs, of which the first is eager")
     if sorted(summary["stages"]) != ["drain+mux", "upload+dispatch"]:
         raise AssertionError(f"--stage-timers stages {summary['stages']}")
-    log(f"trace {job['tag']} --trace --stage-timers --frames {gop}: "
-        f"{os.path.getsize(files[0])} bytes of trace, {len(names)} event "
-        f"names, tiled_kernel and plane_kernel among them; stages "
-        f"{summary['stages']} [{card}]")
+    log(f"trace {job['tag']} --trace --stage-timers, {n} frames in "
+        f"{n // gop} GOPs (the first eager, the others replays of one "
+        f"graph): {os.path.getsize(files[0])} bytes of trace, {len(names)} "
+        f"event names; kernel events {kernels} against launches "
+        f"full_search {launches['full_search']}, code_plane "
+        f"{launches['code_plane']}; stages {summary['stages']} [{card}]")
     return paths
 
 
@@ -3069,11 +3202,14 @@ def up(planes, mult):
 
 def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
     """Device-resident 1080p GOP-30 fps of G GOPs in lockstep for G in gs
-    (G = 1 is the single-GOP path), in turns (1, 2, 4, 4, 2, 1) so the
-    G share a host; each with its device ops per frame and busy share
-    from one traced batch (G = 1: the trace phase_speed took of the same
-    GOP, in `single`). The G GOPs are the cell's one 30-frame clip G
-    times: the work per GOP is the cell's own."""
+    (G = 1 is the single-GOP path), each through its graph and through
+    the eager loop, in turns: G in (1, 2, 4, 4, 2, 1), and per G (graph,
+    eager) or (eager, graph), so the G and the loops share a host; each
+    with its device ops per frame, busy share and host calls from one
+    traced batch (G = 1: the traces phase_speed took of the same GOP, in
+    `single`), the graphs' capture seconds and the reserved memory. The G
+    GOPs are the cell's one 30-frame clip G times: the work per GOP is the
+    cell's own."""
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     results = {}
@@ -3088,48 +3224,71 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
                 inputs[g] = tuple(p[:, None].expand(-1, g, -1, -1).contiguous()
                                   for p in one)
 
-        def launch(g, xl=False):
+        def launch(g, loop, xl=False):
+            if loop == "eager":
+                return eager_run(eng, *inputs[g], 28 if g == 1 else [28] * g,
+                                 xl)
             if g == 1:
                 return eng.run(*inputs[1], 28, xl=xl)
             return eng.run_batch(*inputs[g], [28] * g, xl=xl)
 
         # the engine reruns a batch that overflows its budgets
-        reruns = {g: bool(launch(g)["ovf"].any()) for g in gs}
+        reruns = {g: bool(launch(g, "graph")["ovf"].any()) for g in gs}
 
-        def batch(g):
-            launch(g)
+        def batch(g, loop):
+            launch(g, loop)
             if reruns[g]:
-                launch(g, xl=True)
+                launch(g, loop, xl=True)
 
-        times = {g: 0.0 for g in gs}
+        times = {(g, loop): 0.0 for g in gs for loop in ("graph", "eager")}
         iters = 1
-        for g in (*gs, *gs[::-1]):
-            batch(g)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                batch(g)
-            torch.cuda.synchronize()
-            times[g] += time.perf_counter() - t0
+        for i, g in enumerate((*gs, *gs[::-1])):
+            for loop in (("graph", "eager") if i % 2 == 0
+                         else ("eager", "graph")):
+                batch(g, loop)       # the graph's capture, at its first turn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    batch(g, loop)
+                torch.cuda.synchronize()
+                times[g, loop] += time.perf_counter() - t0
         for g in gs:
-            fps = 2 * iters * g * n / times[g]
-            torch.cuda.reset_peak_memory_stats()
-            if g == 1:
-                batch(g)
-                ops, busy, top = single[m["tag"]]
-            else:
-                ops, busy, top = device_ops(lambda: batch(g), g * n)
-            peak = torch.cuda.max_memory_allocated() / 2**20
+            fig = {}
+            for loop in ("graph", "eager"):
+                torch.cuda.reset_peak_memory_stats()
+                f = loop_figures(lambda: batch(g, loop), g * n,
+                                 trace=single[m["tag"]][loop] if g == 1
+                                 else None)
+                f.update(resident=2 * iters * g * n / times[g, loop],
+                         peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+                f["busy_of_wall"] = busy_of_wall(f, g * n)
+                fig[loop] = f
+            captures = {graph_key_name(k): round(v.capture_s, 3)
+                        for k, v in eng.graphs.items()
+                        if v is not None and len(k.y_shape) == (3 if g == 1 else 4)
+                        and (g == 1 or k.y_shape[1] == g)}
             results[f"{m['tag']}/G{g}"] = dict(
-                resident=fps, ops_per_frame=ops, busy=busy)
-            log(f"speed: lockstep {w}x{h} GOP {n} {m['tag']} G={g} emit "
-                f"{eng.emit}: {fps:.3f} fps device-resident "
-                f"({1e3 / fps:.3f} ms/frame, {2 * iters} batches, rerun "
-                f"{reruns[g]}, peak {peak:.0f} MiB); one batch traced: "
-                f"{ops if ops is None else round(ops, 1)} device ops/frame, "
-                f"device busy {busy if busy is None else round(100 * busy, 1)}"
-                f" % [{card}]")
-            log(f"  device ms per batch by name (launches, ms): {top[:7]}")
+                resident=fig["graph"]["resident"],
+                ops_per_frame=fig["graph"]["ops"], busy=fig["graph"]["busy"],
+                host_calls_per_batch=fig["graph"]["calls"],
+                eager_resident=fig["eager"]["resident"],
+                eager_ops_per_frame=fig["eager"]["ops"],
+                eager_busy=fig["eager"]["busy"],
+                busy_of_wall=fig["graph"]["busy_of_wall"],
+                eager_busy_of_wall=fig["eager"]["busy_of_wall"],
+                eager_host_calls_per_batch=fig["eager"]["calls"],
+                capture_s=captures,
+                reserved_mib=torch.cuda.memory_reserved() / 2**20)
+            for loop, f in fig.items():
+                log(f"speed: lockstep {w}x{h} GOP {n} {m['tag']} G={g} emit "
+                    f"{eng.emit} {loop}: {f['resident']:.3f} fps "
+                    f"device-resident ({1e3 / f['resident']:.3f} ms/frame, "
+                    f"{2 * iters} batches, rerun {reruns[g]}, peak "
+                    f"{f['peak_mib']:.0f} MiB); one batch traced: "
+                    f"{fmt_figures(f)} [{card}]")
+                log(f"  device ms per batch by name (launches, ms): "
+                    f"{f['top'][:7]}")
+            log(f"  graphs at G={g}: capture s {captures}; {mem()} [{card}]")
     return results
 
 
@@ -3138,8 +3297,9 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
     row shards on the one card, for S in shards, in turns (1, 2, 4, 4, 2,
     1), each with its device ops per frame and busy share from one traced
     GOP. Every S packs under the tile path's emit, so only the sharding
-    differs: S = 1 is the single-device engine's lockstep run of a batch
-    of one GOP, S > 1 the sharded encoder's of its S planes per step."""
+    differs: S = 1 is the single-device engine's lockstep loop on a batch
+    of one GOP, S > 1 the sharded encoder's of its S planes per step, both
+    eager (the tile loop has no graph yet: ROADMAP Queue C item 1)."""
     from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
     from video_encoder_tpu_torch.parallel.mesh import make_codec_mesh
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
@@ -3155,8 +3315,8 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
     for s in shards:
         if s == 1:
             eng = GopEngine(cfg, device=DEVICE, emit=emit)
-            launchers[s] = lambda xl=False, eng=eng: eng.run_batch(
-                *batch1, [28], xl=xl)
+            launchers[s] = lambda xl=False, eng=eng: eager_run(
+                eng, *batch1, [28], xl)
         else:
             senc = ShardedGopEncoder(cfg, make_codec_mesh(1, s, DEVICE))
             launchers[s] = lambda xl=False, senc=senc: senc.run(
@@ -3195,8 +3355,10 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
 
 def phase_speed_sea(m, clip, card):
     """The full-search cell device-resident with TVC_SEA 0 and 1 in turns
-    (0, 1, 1, 0), one GOP a turn, and the search's device time per GOP of
-    each from a trace: a finding, not a claim."""
+    (0, 1, 1, 0), one GOP a turn, each through its own graph (TVC_SEA is
+    part of the key; both are captured before the turns), and the
+    search's device time per GOP of each from a trace: a finding, not a
+    claim."""
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     ys, cbs, crs = clip
@@ -3211,6 +3373,10 @@ def phase_speed_sea(m, clip, card):
         if rerun:
             eng.run(y, cb, cr, 28, xl=True)
 
+    for on in (False, True):   # each route's key: its eager call, its capture
+        with sea(on):
+            gop()
+            gop()
     times = {False: 0.0, True: 0.0}
     for on in (False, True, True, False):
         with sea(on):
@@ -3236,6 +3402,14 @@ def phase_speed_sea(m, clip, card):
     return results
 
 
+def raw_events(prof):
+    """A finished torch.profiler run's events as the profiler's own
+    records (name(), device_type(), start_ns(), end_ns(), duration_ns()):
+    read 50x faster than prof.events(), which links every host op into a
+    tree (seconds for the tens of thousands of calls of an eager GOP)."""
+    return prof.profiler.kineto_results.events()
+
+
 def device_ops(run_once, n_frames, watch=()):
     """Device kernels (and memsets/copies) per frame, the device busy share
     and the largest device-time totals by name, of one GOP under
@@ -3249,20 +3423,20 @@ def device_ops(run_once, n_frames, watch=()):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_once()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [e for e in raw_events(prof)
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None, None, []
     by_name = {}
     for e in dev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        n, us = by_name.get(e.name(), (0, 0.0))
+        by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     top = ranked[:8] + [kv for kv in ranked[8:]
                         if any(w in kv[0] for w in watch)]
     busy = sum(us for _, us in by_name.values())
-    span = (max(e.time_range.end for e in dev)
-            - min(e.time_range.start for e in dev))
+    span = (max(e.end_ns() for e in dev)
+            - min(e.start_ns() for e in dev)) / 1e3
     return len(dev) / n_frames, busy / max(span, 1), [
         ("all kernels", len(dev), round(busy / 1e3, 3))] + [
         (name[:60], n, round(us / 1e3, 3)) for name, (n, us) in top]
@@ -3309,14 +3483,86 @@ def i_frame_figures(eng, y, cb, cr):
                 sum=_checksum([out["words"], out["bits"]]))
 
 
+def eager_run(eng, y, cb, cr, qps, xl=False):
+    """The engine's eager loop (`GopEngine._run`) on its own, at the
+    budgets run() and run_batch() pick: a base qp (int) or G of them."""
+    n_mbs = (y.shape[-2] // 16) * (y.shape[-1] // 16)
+    bw, cap = eng._capacities(n_mbs, int(min(np.atleast_1d(qps))), xl)
+    qp = torch.tensor(qps, dtype=torch.int32, device=y.device)
+    return eng._run(y, cb, cr, qp, bw, cap)
+
+
+# the host's calls that submit device work (kernel and graph launches,
+# copies, fills), by the names torch.profiler gives the CUDA API's calls
+SUBMITS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+           "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+
+
+def host_calls(run_once):
+    """(count, {name: count}) of the calls of SUBMITS the host made in one
+    run_once(), from torch.profiler; (None, {}) where the trace recorded
+    none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in raw_events(prof):
+        if (e.device_type() == torch.autograd.DeviceType.CPU
+                and e.name().startswith(SUBMITS)):
+            by_name[e.name()] = by_name.get(e.name(), 0) + 1
+    return (sum(by_name.values()) or None), by_name
+
+
+def loop_figures(run_once, n_frames, watch=(), trace=None):
+    """One GOP (or batch) of run_once under torch.profiler twice: device
+    ops per frame, busy share and top device times (device_ops, or the
+    `trace` of it already taken), and the host's submitting calls
+    (host_calls)."""
+    ops, busy, top = trace or device_ops(run_once, n_frames, watch)
+    calls, by_name = host_calls(run_once)
+    return dict(ops=ops, busy=busy, top=top, calls=calls,
+                calls_by_name=dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:6]))
+
+
+def busy_of_wall(f, n_frames):
+    """The traced run's device time (its kernels' durations summed) over
+    the untraced wall time of the same run at the measured rate: the busy
+    share without the profiler's own cost per kernel, which a trace of a
+    graph replay, thousands of short kernels back to back, adds to the
+    span the traced busy share divides by."""
+    if not f["top"]:
+        return None
+    return f["top"][0][2] / (1e3 * n_frames / f["resident"])
+
+
+def fmt_figures(f) -> str:
+    bw = f.get("busy_of_wall")
+    return (f"{f['ops'] if f['ops'] is None else round(f['ops'], 1)} device "
+            f"ops/frame, busy "
+            f"{f['busy'] if f['busy'] is None else round(100 * f['busy'], 1)} "
+            f"% traced, {bw if bw is None else round(100 * bw, 1)} % of the "
+            f"untraced wall, {f['calls']} host calls {f['calls_by_name']}")
+
+
 def phase_speed(cells, card):
     """Device-resident 1080p GOP-30 fps (upload once, loop, sync once), and
     the same with each GOP's finish (sync, download, payload glue,
-    packets), for each (mode, clip, emits) cell. Two emits are timed in
-    turns (frame, chunks, chunks, frame) on one card, one emit twice;
-    each figure is the mean of its two turns. For format >= 3 the I frame
-    (the vertical-intra row scan) is also timed on its own. Returns the
-    figures and, per cell, the trace of its GOP under the default emit."""
+    packets), for each (mode, clip, emits) cell, through the GOP's graph
+    (`GopEngine.run`, a replay from a key's second call) and through the
+    eager loop (`GopEngine._run`) in turns: per emit (graph, eager) then
+    (eager, graph), the emits in turns (frame, chunks, chunks, frame) on
+    one card, one emit twice; each figure is the mean of its two turns.
+    For each: device ops per frame, busy share and top device times, and
+    the host's submitting calls per GOP, from torch.profiler; the graph
+    keys' capture seconds and the reserved memory. For format >= 3 the I
+    frame (the vertical-intra row scan) is also timed on its own. Returns
+    the figures and, per cell, the traces of its GOP under the default
+    emit, graph and eager."""
     from video_encoder_tpu_torch.codec.frame import Frame
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
@@ -3332,67 +3578,99 @@ def phase_speed(cells, card):
             eng = engines[emit] = GopEngine(cfg, device=DEVICE, emit=emit)
             # the engine reruns a GOP that overflows its budgets
             reruns[emit] = bool(eng.run(y, cb, cr, 28)["ovf"].any())
-            times[emit] = [0.0, 0.0]
+            for loop in ("graph", "eager"):
+                times[emit, loop] = [0.0, 0.0]
 
-        def gop(emit):
+        def run(emit, loop, xl=False):
             eng = engines[emit]
-            eng.run(y, cb, cr, 28)
+            if loop == "eager":
+                return eager_run(eng, y, cb, cr, 28, xl)
+            return eng.run(y, cb, cr, 28, xl=xl)
+
+        def gop(emit, loop):
+            run(emit, loop)
             if reruns[emit]:
-                eng.run(y, cb, cr, 28, xl=True)
+                run(emit, loop, xl=True)
 
-        def finished_gop(emit):
-            eng = engines[emit]
-            eng.encode_gop_finish(dict(
+        def finished_gop(emit, loop):
+            engines[emit].encode_gop_finish(dict(
                 frames=frames, first_index=0, base_qp=28, y=y, cb=cb, cr=cr,
-                outs=eng.run(y, cb, cr, 28), t0=time.perf_counter()))
+                outs=run(emit, loop), t0=time.perf_counter()))
 
         iters = 2
         turns = (emits + emits[::-1]) if len(emits) == 2 else emits * 2
-        for emit in turns:
-            gop(emit)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                gop(emit)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(iters):
-                finished_gop(emit)
-            t2 = time.perf_counter()
-            times[emit][0] += t1 - t0
-            times[emit][1] += t2 - t1
+        for i, emit in enumerate(turns):
+            for loop in (("graph", "eager") if i % 2 == 0
+                         else ("eager", "graph")):
+                gop(emit, loop)      # the graph's capture, at its first turn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    gop(emit, loop)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(iters):
+                    finished_gop(emit, loop)
+                t2 = time.perf_counter()
+                times[emit, loop][0] += t1 - t0
+                times[emit, loop][1] += t2 - t1
         for emit in emits:
+            eng = engines[emit]
             frames_timed = 2 * iters * n
-            fps = frames_timed / times[emit][0]
-            fin_fps = frames_timed / times[emit][1]
-            torch.cuda.reset_peak_memory_stats()
-            ops, busy, top = device_ops(lambda: gop(emit), n,
-                                        CODE_KERNELS + SAD_KERNELS)
-            peak = torch.cuda.max_memory_allocated() / 2**20
+            fig = {}
+            for loop in ("graph", "eager"):
+                torch.cuda.reset_peak_memory_stats()
+                fig[loop] = loop_figures(lambda: gop(emit, loop), n,
+                                         CODE_KERNELS + SAD_KERNELS)
+                fig[loop].update(
+                    resident=frames_timed / times[emit, loop][0],
+                    with_finish=frames_timed / times[emit, loop][1],
+                    peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+                fig[loop]["busy_of_wall"] = busy_of_wall(fig[loop], n)
+            g, e = fig["graph"], fig["eager"]
+            top = g["top"]
+            captures = {graph_key_name(k): round(v.capture_s, 3)
+                        for k, v in eng.graphs.items() if v is not None}
             key = f"{m['tag']}/{m['search']}/{m['rc']}/{emit}"
             search = [t for t in top if any(k in t[0] for k in SAD_KERNELS)]
-            results[key] = dict(resident=fps, with_finish=fin_fps,
-                                ops_per_frame=ops, search=search,
-                                device_ms=top[0][2] if top else None)
+            results[key] = dict(
+                resident=g["resident"], with_finish=g["with_finish"],
+                ops_per_frame=g["ops"], busy=g["busy"],
+                host_calls_per_gop=g["calls"], search=search,
+                device_ms=top[0][2] if top else None,
+                eager_resident=e["resident"],
+                eager_with_finish=e["with_finish"],
+                eager_ops_per_frame=e["ops"], eager_busy=e["busy"],
+                eager_host_calls_per_gop=e["calls"],
+                eager_device_ms=e["top"][0][2] if e["top"] else None,
+                busy_of_wall=g["busy_of_wall"],
+                eager_busy_of_wall=e["busy_of_wall"],
+                capture_s=captures,
+                reserved_mib=torch.cuda.memory_reserved() / 2**20)
             if emit == GopEngine.emit:
-                traces[m["tag"]] = (ops, busy, top)
-            log(f"speed: device-resident {w}x{h} GOP {n} {key} {fps:.3f} fps "
-                f"({1e3 / fps:.3f} ms/frame, {2 * iters} GOPs, rerun "
-                f"{reruns[emit]}, peak {peak:.0f} MiB), with finish "
-                f"{fin_fps:.3f} fps; one GOP traced: "
-                f"{ops if ops is None else round(ops, 1)} device ops/frame, "
-                f"device busy {busy if busy is None else round(100 * busy, 1)}"
-                f" %, search (launches, ms per GOP) {search} of "
-                f"{top[0][2] if top else None} ms of device time [{card}]")
-            log(f"  device ms per GOP by name (launches, ms): {top}")
+                traces[m["tag"]] = {loop: (f["ops"], f["busy"], f["top"])
+                                    for loop, f in fig.items()}
+            for loop, f in fig.items():
+                log(f"speed: device-resident {w}x{h} GOP {n} {key} {loop} "
+                    f"{f['resident']:.3f} fps ({1e3 / f['resident']:.3f} "
+                    f"ms/frame, {2 * iters} GOPs, rerun {reruns[emit]}, peak "
+                    f"{f['peak_mib']:.0f} MiB), with finish "
+                    f"{f['with_finish']:.3f} fps; one GOP traced: "
+                    f"{fmt_figures(f)}, search (launches, ms per GOP) "
+                    f"{[t for t in f['top'] if any(k in t[0] for k in SAD_KERNELS)]}"
+                    f" of {f['top'][0][2] if f['top'] else None} ms of device "
+                    f"time [{card}]")
+                log(f"  device ms per GOP by name (launches, ms): {f['top']}")
+            log(f"  graphs of {key}: capture s {captures}; {mem()} [{card}]")
         if m["fmt"] >= 3:
             i_frame = i_frame_figures(engines[emits[0]], y, cb, cr)
             results[f"{m['tag']}/i_frame"] = i_frame
             log(f"speed: {m['tag']} I frame alone (the row scan, one launch "
-                f"per plane; the pack) {i_frame['wall_ms']:.3f} ms, "
-                f"{i_frame['device_ops']} device ops, {i_frame['device_ms']} ms "
-                f"of device time, device busy {i_frame['busy']} %, code_plane "
-                f"launches {i_frame['launches']} [{card}]")
+                f"per plane; the pack; a graph replay) {i_frame['wall_ms']:.3f}"
+                f" ms, {i_frame['device_ops']} device ops, "
+                f"{i_frame['device_ms']} ms of device time, device busy "
+                f"{i_frame['busy']} %, code_plane launches "
+                f"{i_frame['launches']} [{card}]")
             log(f"  device ms by name (launches, ms): {i_frame['top']}")
     return results, traces
 
@@ -3749,7 +4027,8 @@ def main() -> int:
             f"stores, {spill_ld} bytes spill loads")
 
     rows = phase_kernels(dev, card)
-    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
 
     build_oracle()
     path_launches = []
@@ -3771,7 +4050,8 @@ def main() -> int:
         hier_oracle = start_job(tmp, HIER_SMALL, 640, 360, 12, 12,
                                 like=jobs["v2"])
         wait_oracles([*jobs.values(), batched_oracle, hier_oracle])
-        log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s")
+        log(f"oracle encodes done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         summaries, streams = {}, {}
         for name, job in jobs.items():
             launches, summaries[name], streams[name] = phase_slice(job, card)
@@ -3779,17 +4059,22 @@ def main() -> int:
         for name in ("config3", "v4"):
             path_launches.append(
                 phase_other_emit(jobs[name], streams[name], card))
-        log(f"single-GOP paths done at {time.perf_counter() - t_start:.1f} s")
+        path_launches += phase_graphs(jobs, streams, card)
+        log(f"single-GOP paths done at {time.perf_counter() - t_start:.1f} s"
+            f"; {mem()}")
         decode_paths, decode_summaries, decode_per_frame = phase_decode(
             tmp, jobs, card)
         path_launches += decode_paths
-        log(f"decode paths done at {time.perf_counter() - t_start:.1f} s")
+        log(f"decode paths done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         path_launches.append(phase_golden(tmp, jobs, hier_oracle, card))
-        log(f"golden paths done at {time.perf_counter() - t_start:.1f} s")
+        log(f"golden paths done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         decode_fps = phase_speed_decode(
             [(k, jobs[k]) for k in ("full", "config3", "v4")],
             decode_summaries, card)
-        log(f"decode speed done at {time.perf_counter() - t_start:.1f} s")
+        log(f"decode speed done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         batched_paths, plains = phase_batched(tmp, jobs, batched_oracle, card)
         path_launches += batched_paths
         t_aux = time.perf_counter()
@@ -3798,11 +4083,13 @@ def main() -> int:
         path_launches += per_frame_paths
         path_launches += phase_aux(tmp, plains, card)
         log(f"per-frame and aux paths done at {time.perf_counter() - t_start:.1f}"
-            f" s ({time.perf_counter() - t_aux:.1f} s)")
+            f" s ({time.perf_counter() - t_aux:.1f} s); {mem()}")
         path_launches += phase_tiled(tmp, jobs, streams, plains, card)
-        log(f"tiled paths done at {time.perf_counter() - t_start:.1f} s")
+        log(f"tiled paths done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         path_launches += phase_sea(tmp, jobs, streams, plains, card)
-        log(f"TVC_SEA=1 paths done at {time.perf_counter() - t_start:.1f} s")
+        log(f"TVC_SEA=1 paths done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
         twopass_job = dict(jobs["v2"], gop=4, mode=TWOPASS_SMALL,
                            tag="640x360_gop4_twopass")
         path_launches.append(phase_twopass(tmp, twopass_job, card))
@@ -3810,7 +4097,7 @@ def main() -> int:
         path_launches += phase_distributed(tmp, jobs, plains, batched_oracle,
                                            card)
         log(f"rank paths done at {time.perf_counter() - t_start:.1f} s "
-            f"({time.perf_counter() - t_ranks:.1f} s)")
+            f"({time.perf_counter() - t_ranks:.1f} s); {mem()}")
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
@@ -3833,11 +4120,13 @@ def main() -> int:
     fps, traces = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),
                        (CONFIG3, jobs["config3"]["clip"], ["frame", "chunks"]),
                        (V4, jobs["v4"]["clip"], [GopEngine.emit])], card)
-    log(f"single-GOP speed done at {time.perf_counter() - t_start:.1f} s")
+    log(f"single-GOP speed done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
     lockstep = phase_speed_batched(
         [(m, jobs[k]["clip"]) for m, k in ((FULL, "full"), (CONFIG3, "config3"),
                                            (V4, "v4"))], traces, card)
-    log(f"lockstep speed done at {time.perf_counter() - t_start:.1f} s")
+    log(f"lockstep speed done at {time.perf_counter() - t_start:.1f} s; "
+            f"{mem()}")
     tiled = phase_speed_tiled(FULL, jobs["full"]["clip"], card)
     log(f"result: 1080p GOP-30 tiled {json.dumps(tiled)} [{card}]")
     sea_fps = phase_speed_sea(FULL, jobs["full"]["clip"], card)

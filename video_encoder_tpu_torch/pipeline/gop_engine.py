@@ -3,13 +3,27 @@
 Twin of `video_encoder_tpu/pipeline/gop_engine.py` for full and diamond
 search, formats 1 to 4 (chroma qp offset, quant matrix, intra slices,
 half-pel vectors), every rc mode (none, adaptive, bitrate, vbv, mb) and
-both emits (frame and chunks). A Python loop over the GOP's frames replaces `lax.scan`; the
-reconstruction, the frame qp and the vbv fullness stay on the device as
-the next frame's reference and rate-control carry, and the kernels launch asynchronously
-on the current stream. The host waits once per GOP, for the overflow
-flag: payload capacity is budgeted, and a GOP whose pack overflows any
-budget is encoded again at the exact worst-case capacities (the bytes are
-the same either way, SPEC.md §11 invariant 2).
+both emits (frame and chunks). A Python loop over the GOP's frames
+(`GopEngine._run`) replaces `lax.scan`; the reconstruction, the frame qp
+and the vbv fullness stay on the device as the next frame's reference and
+rate-control carry, and the kernels launch asynchronously on the current
+stream. The host waits once per GOP, for the overflow flag: payload
+capacity is budgeted, and a GOP whose pack overflows any budget is
+encoded again at the exact worst-case capacities (the bytes are the same
+either way, SPEC.md §11 invariant 2).
+
+On CUDA that loop is captured as one CUDA graph per key (`GopGraph`), the
+counterpart of the reference's one jitted XLA program per GOP
+(`encode_gop_jit`): the key is the jit's static arguments, the input
+shapes and the routes read at each call (`TVC_SEA`, `dispatch.force`).
+The first call of a key runs the loop eagerly (the warm-up: the kernel
+library, its function attributes and the device tables are made there,
+outside any capture); the second captures it on static input buffers;
+every call from then on copies its planes and base qps into those
+buffers, replays the graph and copies the outputs out into tensors of
+its own, all on the caller's current stream. A capture that fails
+raises; nothing falls back to the eager loop. The eager loop runs on the
+CPU, for a key's first call, and for `hop` callers (parallel/ring.py).
 
 The batched path (`run_batch`, `encode_gops*`; twin of
 `encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
@@ -22,6 +36,7 @@ packets are byte-identical to G single-GOP encodes.
 
 from __future__ import annotations
 
+import collections
 import math
 import time
 
@@ -35,6 +50,8 @@ from ..codec.frame import Frame
 from ..codec.mux import bit_concat
 from ..ops import dispatch, motion
 from ..ops import transform as tx
+from ..ops.kernels import build
+from ..ops.kernels import sad as ksad
 from ..utils.metrics import FrameStats
 
 
@@ -221,6 +238,67 @@ def code_pack_traced(cur, pred, dy, dx, is_inter, is_p: bool,
     return out
 
 
+# what a captured GOP loop bakes in (GopEngine.graph_key)
+GraphKey = collections.namedtuple(
+    "GraphKey", "search rc block_words cap_words target_bits fmt cqpo qbias "
+    "vbv_bits qmat islice emit y_shape c_shape sea force")
+
+# the devices whose GOP loops run as graphs (a test may add "cpu" beside a
+# fake _capture)
+_GRAPH_DEVICE_TYPES = ("cuda",)
+
+
+def _capture(body, pool):
+    """(graph, outputs) of body() captured as one CUDA graph on a side
+    stream, sharing the memory pool `pool` (None: a pool of its own).
+    Raises where the capture fails: a host sync or a pageable copy inside
+    body, or a CUDA call from another thread while it runs. The one seam
+    between the engine and torch.cuda.CUDAGraph."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        outs = body()
+    return graph, outs
+
+
+class GopGraph:
+    """One GOP loop captured once and replayed: the static inputs the
+    graph reads (planes, and the base qp as a 0-dim or [G] int32 buffer),
+    the static outputs it writes, and the launch counts of
+    `build.LAUNCHES` recorded while it was captured (the wrappers count
+    where they launch, which under capture is once; a replay adds them)."""
+
+    def __init__(self, run, y, cb, cr, qp_shape, pool):
+        self.y, self.cb, self.cr = (torch.empty_like(p) for p in (y, cb, cr))
+        self.qp = torch.zeros(qp_shape, dtype=torch.int32, device=y.device)
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            self.graph, self.outs = _capture(
+                lambda: run(self.y, self.cb, self.cr, self.qp), pool)
+        finally:
+            self.launches = {k: v - before[k]
+                             for k, v in build.LAUNCHES.items()
+                             if v != before[k]}
+            build.LAUNCHES.update(before)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, y, cb, cr, qps):
+        """Replay on the current stream: inputs copied in, outputs copied
+        out into fresh tensors before anything can replay again, so that
+        a GOP in flight keeps its own outputs."""
+        for dst, src in zip((self.y, self.cb, self.cr), (y, cb, cr)):
+            dst.copy_(src)
+        if self.qp.ndim == 0:
+            self.qp.fill_(qps)
+        else:
+            for g, q in enumerate(qps):
+                self.qp[g].fill_(q)
+        self.graph.replay()
+        for k, v in self.launches.items():
+            build.LAUNCHES[k] += v
+        return {k: v.clone() for k, v in self.outs.items()}
+
+
 class GopEngine:
     """Host driver of the GOP-resident path on one device.
 
@@ -231,6 +309,14 @@ class GopEngine:
     `emit` is "frame" (the device assembles each payload) or "chunks"
     (span strings glued on the host); both give the same bytes. The
     default is the one measured faster on the card (PERF.md).
+
+    On CUDA, `run` and `run_batch` (without a hop) replay one CUDA graph
+    per `graph_key` from a key's second call on (the module docstring);
+    `graphs` holds them, and they go with the engine. Replays run on the
+    current stream, which must stay the one of the first replay: the
+    merges' overflow ticket is one per device (csrc/span_merge.cu), and
+    the graphs share one memory pool, safe only while no two replay at
+    once.
     """
 
     emit = "frame"
@@ -251,6 +337,10 @@ class GopEngine:
         self.cfg = cfg
         self.emit = emit or self.emit
         self.device = resolve_device(device)
+        # graph_key -> its GopGraph, or None after the key's eager first call
+        self.graphs: dict[GraphKey, GopGraph | None] = {}
+        self._pool = None      # the memory pool the graphs share
+        self._stream = None    # the stream the graphs replay on
 
     def _capacities(self, n_mbs: int, base_qp: int, xl: bool):
         """(block words, frame capacity words): budgeted for base_qp, or
@@ -263,16 +353,21 @@ class GopEngine:
         """The loop over a GOP's frames: y [T, H, W] with a 0-dim qp, or
         for G GOPs in lockstep y [T, G, H, W] with qp [G]. Launches only,
         no host wait; the frame qp and the vbv fullness are device
-        tensors carried from frame to frame. hop, if given, maps each
-        step's carry (the three recon planes, qp, fullness) to the next
-        step's: the temporal ring's shift (parallel/ring.py)."""
+        tensors carried from frame to frame, and each frame's results go
+        into [T, ...] tensors made at the first frame's shapes. hop, if
+        given, maps each step's carry (the three recon planes, qp,
+        fullness) to the next step's: the temporal ring's shift
+        (parallel/ring.py). The body that a GopGraph captures."""
         cfg = self.cfg
         target_bits, vbv_bits = cfg.target_bits_per_frame(), cfg.vbv_bits()
         fullness = torch.full_like(qp, spec.vbv_init(vbv_bits),
                                    dtype=torch.int64)
-        ref = None
-        outs = []
-        for t in range(y.shape[0]):
+        keys = ["words", "bits", "ovf", "n_inter", "qp", "sse"]
+        if self.emit == "chunks":
+            keys.append("cbits")
+        n = y.shape[0]
+        ref = res = None
+        for t in range(n):
             cur = (y[t].to(torch.int32), cb[t].to(torch.int32),
                    cr[t].to(torch.int32))
             icost = None
@@ -292,26 +387,69 @@ class GopEngine:
                 islice=cfg.intra_slice_mbrows,
             )
             out["qp"] = qp
+            if res is None:
+                res = {k: out[k].new_empty((n, *out[k].shape)) for k in keys}
+            for k in keys:
+                res[k][t] = out[k]
             qp, fullness = rc_carry_step(cfg.rc, target_bits, vbv_bits, qp,
                                          fullness, out["bits"])
             ref = out["rec"]
             if hop is not None:
                 *ref, qp, fullness = hop((*ref, qp, fullness))
-            outs.append(out)
-        keys = ["words", "bits", "ovf", "n_inter", "qp", "sse"]
-        if self.emit == "chunks":
-            keys.append("cbits")
-        return {k: torch.stack([o[k] for o in outs]) for k in keys}
+        return res
+
+    def graph_key(self, y_shape, c_shape, bw: int, cap: int) -> GraphKey:
+        """The key of a GOP's graph: the reference's static arguments of
+        encode_gop(_batch)_jit (search, rc, block_words, cap_words,
+        target_bits, fmt, cqpo, qbias, vbv_bits, qmat, islice, emit), the
+        luma and chroma shapes ([T, H, W], or [T, G, H, W] in lockstep),
+        and the routes that the wrappers read at every call and a capture
+        bakes in: TVC_SEA and dispatch.force. The base qp is an input."""
+        cfg = self.cfg
+        return GraphKey(cfg.search, cfg.rc, bw, cap, cfg.target_bits_per_frame(),
+                        cfg.format_version, cfg.chroma_qp_offset,
+                        cfg.quant_bias, cfg.vbv_bits(), cfg.quant_matrix,
+                        cfg.intra_slice_mbrows, self.emit, tuple(y_shape),
+                        tuple(c_shape), ksad._sea_enabled(), dispatch._FORCE)
+
+    def _launch(self, y, cb, cr, qps, bw: int, cap: int):
+        """The GOP loop on y's device: eager on the CPU and for a key's
+        first call, else the key's graph (captured at its second call).
+        qps: the base qp (int) or the G base qps (list)."""
+        key = (self.graph_key(y.shape, cb.shape, bw, cap)
+               if y.device.type in _GRAPH_DEVICE_TYPES else None)
+        if key is None or key not in self.graphs:
+            if key is not None:     # the key's first call is the warm-up
+                self.graphs[key] = None
+            qp = (torch.full((), qps, dtype=torch.int32, device=y.device)
+                  if isinstance(qps, int)
+                  else torch.tensor(qps, dtype=torch.int32).to(y.device))
+            return self._run(y, cb, cr, qp, bw, cap)
+        stream = torch.cuda.current_stream(y.device) if y.is_cuda else None
+        if self._stream is None:
+            self._stream = stream
+        elif stream != self._stream:
+            raise RuntimeError(
+                "GopEngine: its graphs replay on one stream (the merges' "
+                "overflow ticket is one per device); this call is on another")
+        graph = self.graphs[key]
+        if graph is None:
+            graph = self.graphs[key] = GopGraph(
+                lambda *planes_qp: self._run(*planes_qp, bw, cap), y, cb, cr,
+                () if isinstance(qps, int) else (len(qps),), self._pool)
+            if self._pool is None:
+                self._pool = graph.graph.pool()
+        return graph(y, cb, cr, qps)
 
     def run(self, y, cb, cr, base_qp: int, xl: bool = False):
         """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
         on the engine's device; launches only, no host wait. xl selects the
-        worst-case block and frame capacities. Returns stacked per-frame
-        device tensors: words, bits, ovf, n_inter, qp, sse, and cbits
-        [T, C] under chunk emit."""
+        worst-case block and frame capacities. Returns [T, ...] per-frame
+        device tensors of the call's own: words, bits, ovf, n_inter, qp,
+        sse, and cbits [T, C] under chunk emit."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
-        qp = torch.full((), base_qp, dtype=torch.int32, device=y.device)
-        return self._run(y, cb, cr, qp, *self._capacities(n_mbs, base_qp, xl))
+        return self._launch(y, cb, cr, int(base_qp),
+                            *self._capacities(n_mbs, base_qp, xl))
 
     def run_batch(self, y, cb, cr, base_qps, xl: bool = False, hop=None):
         """Encode G GOPs of T frames in lockstep: [T, G, H, W] /
@@ -319,12 +457,15 @@ class GopEngine:
         axis leads, so each step's [G, H, W] planes are contiguous), one
         base qp per GOP. The block budget is that of the smallest qp of
         the batch. Returns run()'s tensors with the axes [T, G, ...]; ovf
-        stays [T], a frame step's flag being any GOP's. hop: as _run's."""
+        stays [T], a frame step's flag being any GOP's. hop: as _run's,
+        and a call with one runs eagerly (its collective is not captured)."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
-        qp = torch.tensor([int(q) for q in base_qps], dtype=torch.int32).to(
-            y.device)
-        return self._run(y, cb, cr, qp, *self._capacities(
-            n_mbs, min(int(q) for q in base_qps), xl), hop=hop)
+        qps = [int(q) for q in base_qps]
+        bw, cap = self._capacities(n_mbs, min(qps), xl)
+        if hop is not None:
+            qp = torch.tensor(qps, dtype=torch.int32).to(y.device)
+            return self._run(y, cb, cr, qp, bw, cap, hop=hop)
+        return self._launch(y, cb, cr, qps, bw, cap)
 
     def upload(self, planes, lead: tuple) -> torch.Tensor:
         """uint8 device tensor [*lead, H, W] of equal-shaped planes given
