@@ -140,13 +140,18 @@ Phases, each of which raises on failure (exit code not 0):
    `_g` kernel of a path must have launched (the batched predictor once
    per P step), no single-plane kernel in a run without a tail, and the folded block pack and span merges once
    per plane and frame step, not G times. Then the per-frame engine
-   (`--engine device`): the 1080p full-search clip, equal to the oracle's
+   (`--engine device`), each run through its CUDA graphs (frames 0 and 1
+   eager, frame 2 the capture of the P key, the later P frames replays)
+   and through the eager path (`eager_paths()`) in turns: the 1080p
+   full-search clip (graph, eager, eager, graph), equal to the oracle's
    stream, and the config-3 texture at `--search diamond` with `--rc
-   bitrate --kbps 12000` and with `--rc adaptive`, each equal to the GOP
-   engine's stream of the same flags; each run launches the search (or
-   the even map and sad_at_mv) and mc_predict once per P frame,
-   code_plane three times per frame and nothing else; its CLI wall fps
-   beside the GOP engine's, and the device ops of one traced P frame.
+   bitrate --kbps 12000` and with `--rc adaptive` (graph, eager), each
+   equal to the GOP engine's stream of the same flags; each run launches
+   the search (or the even map and sad_at_mv) and mc_predict once per P
+   frame, code_plane three times per frame and nothing else, the same
+   under the graph as eager; its CLI wall fps beside the GOP engine's,
+   and one traced P frame, replayed and eager: device ops, busy share and
+   host calls, and the P key's capture seconds.
    Then `--checkpoint`: the full-search clip at `--gop 10`, interrupted
    after its first GOP through the library and resumed by the CLI under
    `--engine gop` and `--engine device`, each equal to the uninterrupted
@@ -163,7 +168,12 @@ Phases, each of which raises on failure (exit code not 0):
    `--tile 4` on the full-search clip, `--gop 10 --gop-batch 3 --tile 2`,
    and the format-4 clip with `--intra-slice 17 --tile 2` (whose unsharded
    stream at `--intra-slice 17` is held against one more oracle encode),
-   each equal to the port's unsharded stream. The pre-haloed search and
+   each equal to the port's unsharded stream; then the multi-GOP tiled
+   encodes whose later batches replay the tile loop's graph: `--gop 10
+   --tile 2` (GOPs 2-3 replays), equal to the unsharded GOP-10 stream,
+   in turns with the eager path (same stream and launches), and `--gop 5
+   --gop-batch 3 --tile 2` (two batches, the second a replay), equal to
+   the port's unsharded GOP-5 stream. The pre-haloed search and
    predictor must have launched once per P step, and no unsharded
    search, predictor or fetch, nor a pre-haloed single-plane fetch. Then TVC_SEA=1 on the full-search clip (GOP 30; `--gop 10
    --gop-batch 3`; `--tile 4`), each byte-identical to the port's stream
@@ -207,7 +217,10 @@ Phases, each of which raises on failure (exit code not 0):
    (the G = 1 traces are the ones taken of that GOP just before), capture
    seconds and reserved memory. Then the full-search cell with every
    frame in S = 1, 2 and 4 row shards, in turns, all under the tile
-   path's emit and eager (the tile loop has no graph). Then the
+   path's emit, each through its graph and through the eager loop in
+   turns: device-resident fps, host calls per GOP, device ops per frame,
+   busy share (traced and over the untraced wall) and capture seconds.
+   Then the
    full-search cell with TVC_SEA 0 and 1 in turns, each through its own
    graph, with the search's device time of each. The reserved memory is
    printed after each phase.
@@ -2711,67 +2724,106 @@ def nonzero(launches):
 
 
 def phase_per_frame(tmp, jobs, summaries, card):
-    """The per-frame engine (`encode --engine device`) at 1920x1080: the
-    full-search clip against the oracle's stream, and the config-3 texture
-    at diamond search under rc bitrate (12000 kbps) and rc adaptive, each
-    against the GOP engine's stream of the same flags; then the device
-    ops of one traced P frame. Returns the launch counts of each path."""
+    """The per-frame engine (`encode --engine device`) at 1920x1080, each
+    run through its graphs (frames 0 and 1 eager, frame 2 the capture of
+    the P key, the later P frames replays) and through the eager path
+    (eager_paths()), in turns: the full-search clip (graph, eager, eager,
+    graph) against the oracle's stream, and the config-3 texture at
+    diamond search under rc bitrate (12000 kbps) and rc adaptive (graph,
+    eager), each against the GOP engine's stream of the same flags; the
+    launches of each graph run equal to its eager run's. Then one 1080p P
+    frame traced through its replay and eagerly: device ops and host
+    calls. Returns the launch counts of each path and the figures."""
     from video_encoder_tpu_torch.codec.frame import Frame
     from video_encoder_tpu_torch.pipeline.device_engine import DeviceEngine
 
     paths = []
+
+    def device_runs(job, m, want, other, loops):
+        """The job's `--engine device` encode once per loop in loops, each
+        equal to `want`; (launches, {loop: [wall fps]}, graph calls)."""
+        walls, launches, graph_calls_of = {}, {}, None
+        for i, loop in enumerate(loops):
+            out = os.path.join(tmp, f"device_{job['tag']}_{i}.tvc")
+            with graph_calls() as calls, (eager_paths() if loop == "eager"
+                                          else contextlib.nullcontext()):
+                got, summary, stream = run_cli(job, out, ["--engine", "device"])
+            what = f"{job['tag']} --engine device ({loop})"
+            check_per_frame_launches(what, got, m, job["n"], job["gop"])
+            same_stream(what, stream, want, other)
+            if launches.setdefault(loop, got) != got:
+                raise AssertionError(f"{what}: launches differ between runs")
+            if loop == "graph" and not calls.get("FrameKey/replay"):
+                raise AssertionError(f"{what}: no frame replayed ({calls})")
+            if loop == "eager" and set(calls) != {"FrameKey/eager"}:
+                raise AssertionError(f"{what}: a graph was used ({calls})")
+            paths.append(got)
+            walls.setdefault(loop, []).append(summary["wall_fps"])
+            if loop == "graph":
+                graph_calls_of = calls
+            log(f"per-frame {job['tag']} --engine device --search "
+                f"{m['search']} --rc {m['rc']} ({loop}): == {other} "
+                f"({len(stream)} bytes), CLI wall {summary['wall_fps']} fps "
+                f"[{card}], graph calls {calls}, launches {nonzero(got)}")
+        if launches["graph"] != launches["eager"]:
+            raise AssertionError(f"{job['tag']}: launches under the graph "
+                                 f"{nonzero(launches['graph'])}, eager "
+                                 f"{nonzero(launches['eager'])}")
+        return walls, graph_calls_of
+
+    fps = {}
     job = jobs["full"]
-    m, n, gop = job["mode"], job["n"], job["gop"]
-    launches, summary, stream = run_cli(
-        job, os.path.join(tmp, f"device_{job['tag']}.tvc"),
-        ["--engine", "device"])
-    check_per_frame_launches(f"{job['tag']} --engine device", launches, m, n,
-                             gop)
     with open(job["theirs"], "rb") as f:
-        same_stream(job["tag"] + " --engine device", stream, f.read(),
-                    "the oracle's")
-    paths.append(launches)
-    log(f"per-frame {job['tag']} --engine device: port stream == oracle "
-        f"stream ({len(stream)} bytes), CLI wall {summary['wall_fps']} fps "
-        f"against the GOP engine's {summaries['full']['wall_fps']} fps "
-        f"[{card}], launches {nonzero(launches)}")
-    fps = {"full": (summary["wall_fps"], summaries["full"]["wall_fps"])}
+        oracle = f.read()
+    walls, calls = device_runs(job, job["mode"], oracle, "the oracle's stream",
+                               ("graph", "eager", "eager", "graph"))
+    fps["full"] = dict(graph=walls["graph"], eager=walls["eager"],
+                       gop_engine=summaries["full"]["wall_fps"],
+                       graph_calls=calls)
     for rc in ("bitrate", "adaptive"):
         mm = dict(jobs["config3"]["mode"], rc=rc, tag=f"config3_{rc}")
         job = dict(jobs["config3"], mode=mm,
                    tag=jobs["config3"]["tag"].replace("config3", mm["tag"]))
         _, gop_summary, want = run_cli(
             job, os.path.join(tmp, f"gop_{job['tag']}.tvc"))
-        launches, summary, stream = run_cli(
-            job, os.path.join(tmp, f"device_{job['tag']}.tvc"),
-            ["--engine", "device"])
-        check_per_frame_launches(f"{job['tag']} --engine device", launches,
-                                 mm, n, gop)
-        same_stream(job["tag"] + " --engine device", stream, want,
-                    "the GOP engine's stream")
-        paths.append(launches)
-        fps[mm["tag"]] = (summary["wall_fps"], gop_summary["wall_fps"])
-        log(f"per-frame {job['tag']} --engine device --search diamond --rc "
-            f"{rc} --kbps {mm['kbps']}: == the GOP engine's stream "
-            f"({len(stream)} bytes), CLI wall {summary['wall_fps']} fps against "
-            f"the GOP engine's {gop_summary['wall_fps']} fps [{card}], "
-            f"launches {nonzero(launches)}")
+        walls, calls = device_runs(job, mm, want, "the GOP engine's stream",
+                                   ("graph", "eager"))
+        fps[mm["tag"]] = dict(graph=walls["graph"], eager=walls["eager"],
+                              gop_engine=gop_summary["wall_fps"],
+                              graph_calls=calls)
 
-    # one traced P frame (its reference the recon the engine kept)
+    # one traced P frame (its reference the recon the engine kept): a
+    # replay of the P key, and the eager path
     job = jobs["full"]
     cfg = config_of(job["mode"], job["w"], job["h"], job["gop"])
     f0, f1 = (Frame.from_planes(*(c[t] for c in job["clip"])) for t in (0, 1))
-    eng = DeviceEngine(DEVICE)
-    eng.encode(cfg, f1, eng.encode(cfg, f0, None, 0, 28).recon, 1, 28)
-    i_frame = eng.encode(cfg, f0, None, 0, 28)
-    ops, busy, top = device_ops(
-        lambda: eng.encode(cfg, f1, i_frame.recon, 1, 28), 1,
-        CODE_KERNELS + SAD_KERNELS)
-    log(f"per-frame engine, one 1080p P frame traced: {ops} device ops, "
-        f"device busy {busy if busy is None else round(100 * busy, 1)} %, "
-        f"device ms by name (launches, ms) {top} [{card}]")
-    return paths, dict(cli_wall_fps=fps, ops_per_p_frame=ops,
-                       p_frame_device_ms=top[0][2] if top else None)
+    traced, engines = {}, {}
+    for loop in ("graph", "eager"):
+        with (eager_paths() if loop == "eager" else contextlib.nullcontext()):
+            eng = engines[loop] = DeviceEngine(DEVICE)
+            i_frame = eng.encode(cfg, f0, None, 0, 28)
+            for _ in range(2):       # the P key's eager call, its capture
+                eng.encode(cfg, f1, i_frame.recon, 1, 28)
+
+            def p_frame():
+                eng.encode(cfg, f1, i_frame.recon, 1, 28)
+
+            f = loop_figures(p_frame, 1, CODE_KERNELS + SAD_KERNELS)
+        traced[loop] = dict(ops=f["ops"], busy=f["busy"], calls=f["calls"],
+                            calls_by_name=f["calls_by_name"],
+                            device_ms=f["top"][0][2] if f["top"] else None)
+        log(f"per-frame engine, one 1080p P frame traced ({loop}): "
+            f"{fmt_figures(f)}; device ms by name (launches, ms) {f['top']} "
+            f"[{card}]")
+    captures = [round(v.capture_s, 3) for v in engines["graph"].graphs.values()
+                if v is not None]
+    if engines["eager"].graphs or len(captures) != 1:
+        raise AssertionError(f"per-frame graphs: {captures} under the graph, "
+                             f"{engines['eager'].graphs} eager")
+    log(f"per-frame engine, the P key's capture: {captures} s [{card}]")
+    return paths, dict(cli_wall_fps=fps, p_frame=traced, capture_s=captures,
+                       ops_per_p_frame=traced["graph"]["ops"],
+                       p_frame_device_ms=traced["graph"]["device_ms"])
 
 
 def phase_aux(tmp, plains, card):
@@ -2908,20 +2960,24 @@ def phase_tiled(tmp, jobs, streams, plains, card):
     --gop-batch 3 --tile 2` and the format-4 clip with `--intra-slice 17
     --tile 2`, each equal to the port's unsharded stream of the same
     configuration, with a PSNR from the shards' summed sse above the
-    floor. Returns the launch counts of each path."""
+    floor. Then the multi-GOP tiled encodes whose later batches replay
+    the tile loop's graph: `--gop 10 --tile 2` (GOPs 2-3 replays), equal
+    to the unsharded GOP-10 stream, in turns with the same under
+    eager_paths() (graph, eager, eager, graph), same stream and launches;
+    and `--gop 5 --gop-batch 3 --tile 2` (two
+    batches of three GOPs, the second a replay; at GOP 10 the 30 frames
+    are one batch, a key's first call), equal to the port's unsharded
+    GOP-5 stream. Returns the launch counts of each path."""
     from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
 
     paths = []
-    for job, extra, plain, p_steps, held in (
-            (jobs["full"], ["--tile", "4"], streams["full"], 29,
-             "held against the oracle's"),
-            (plains["full"][0], ["--gop-batch", "3", "--tile", "2"],
-             plains["full"][1], 9, "of --gop 10"),
-            (jobs["v4i17"], ["--tile", "2"], streams["v4i17"], 29,
-             "held against the oracle's")):
-        flags = " ".join(extra)
+
+    def tiled(job, extra, plain, p_steps, held, eager=False):
+        flags = " ".join(extra) + (" (eager)" if eager else "")
         out = os.path.join(tmp, f"tiled_{job['tag']}_{len(paths)}.tvc")
-        launches, summary, stream = run_cli(job, out, extra)
+        with graph_calls() as calls, (eager_paths() if eager
+                                      else contextlib.nullcontext()):
+            launches, summary, stream = run_cli(job, out, extra)
         same_stream(f"{job['tag']} {flags}", stream, plain,
                     "the port's unsharded stream")
         check_tiled_launches(f"{job['tag']} {flags}", launches, job["mode"],
@@ -2932,9 +2988,41 @@ def phase_tiled(tmp, jobs, streams, plains, card):
         paths.append(launches)
         log(f"tiled {job['tag']} {flags}: == the port's unsharded stream "
             f"({len(stream)} bytes, {held}), CLI wall {summary['wall_fps']} fps, "
-            f"mean PSNR-Y {summary['mean_psnr_y']} dB [{card}], launches "
-            f"{launches}")
+            f"mean PSNR-Y {summary['mean_psnr_y']} dB, graph calls {calls} "
+            f"[{card}], launches {launches}")
+        return launches, calls
 
+    for job, extra, plain, p_steps, held in (
+            (jobs["full"], ["--tile", "4"], streams["full"], 29,
+             "held against the oracle's"),
+            (plains["full"][0], ["--gop-batch", "3", "--tile", "2"],
+             plains["full"][1], 9, "of --gop 10"),
+            (jobs["v4i17"], ["--tile", "2"], streams["v4i17"], 29,
+             "held against the oracle's")):
+        tiled(job, extra, plain, p_steps, held)
+
+    # multi-GOP: the later GOPs or batches replay the tile loop's graph;
+    # graph and eager in turns (each CLI run captures anew)
+    job10, plain10 = plains["full"]
+    runs = {}
+    for eager in (False, True, True, False):
+        runs[eager] = tiled(job10, ["--tile", "2"], plain10, 27,
+                            "of --gop 10", eager)
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError(f"--gop 10 --tile 2: launches under the graph "
+                             f"{nonzero(runs[False][0])}, eager "
+                             f"{nonzero(runs[True][0])}")
+    job5 = dict(job10, gop=5, tag=job10["tag"].replace("gop10", "gop5"))
+    _, _, plain5 = run_cli(job5, os.path.join(tmp, f"port_{job5['tag']}.tvc"))
+    batched = tiled(job5, ["--gop-batch", "3", "--tile", "2"], plain5, 8,
+                    "of --gop 5")
+    for what, (_, calls) in (("--gop 10 --tile 2", runs[False]),
+                             ("--gop 5 --gop-batch 3 --tile 2", batched)):
+        if not (calls.get("TileKey/capture", 0) + calls.get("TileKey/replay", 0)):
+            raise AssertionError(f"{what}: no tile batch replayed a graph "
+                                 f"({calls})")
+    if set(runs[True][1]) != {"TileKey/eager"}:
+        raise AssertionError(f"eager --tile 2 used a graph: {runs[True][1]}")
     return paths
 
 
@@ -3294,12 +3382,15 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
 
 def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
     """Device-resident 1080p GOP-30 fps of one cell with every frame in S
-    row shards on the one card, for S in shards, in turns (1, 2, 4, 4, 2,
-    1), each with its device ops per frame and busy share from one traced
-    GOP. Every S packs under the tile path's emit, so only the sharding
-    differs: S = 1 is the single-device engine's lockstep loop on a batch
-    of one GOP, S > 1 the sharded encoder's of its S planes per step, both
-    eager (the tile loop has no graph yet: ROADMAP Queue C item 1)."""
+    row shards on the one card, for S in shards, each through its graph
+    and through the eager loop, in turns: S in (1, 2, 4, 4, 2, 1), and per
+    S (graph, eager) or (eager, graph); each with its host calls per GOP,
+    device ops per frame, busy share (traced, and the traced device time
+    over the untraced wall) and capture seconds. Every S packs under the
+    tile path's emit, so only the sharding differs: S = 1 is the
+    single-device engine's lockstep loop on a batch of one GOP
+    (`run_batch`), S > 1 the sharded encoder's (`ShardedGopEncoder.run`);
+    the eager turns run the same entry points under eager_paths()."""
     from video_encoder_tpu_torch.parallel.gop_parallel import ShardedGopEncoder
     from video_encoder_tpu_torch.parallel.mesh import make_codec_mesh
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
@@ -3311,45 +3402,74 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
     emit = ShardedGopEncoder.emit
     y, cb, cr = up(ys, 16), up(cbs, 8), up(crs, 8)
     batch1 = (y[:, None], cb[:, None], cr[:, None])        # [T, 1, H, W]
-    launchers = {}
+    launchers, caches = {}, {}
     for s in shards:
         if s == 1:
             eng = GopEngine(cfg, device=DEVICE, emit=emit)
-            launchers[s] = lambda xl=False, eng=eng: eager_run(
-                eng, *batch1, [28], xl)
+            caches[s] = eng.cache
+            launchers[s] = lambda xl=False, eng=eng: eng.run_batch(
+                *batch1, [28], xl=xl)
         else:
             senc = ShardedGopEncoder(cfg, make_codec_mesh(1, s, DEVICE))
+            caches[s] = senc.cache
             launchers[s] = lambda xl=False, senc=senc: senc.run(
                 *batch1, 28, xl=xl)
-    # the encoders rerun a GOP that overflows its budgets
-    reruns = {s: bool(launchers[s]()["ovf"].any()) for s in shards}
 
-    def gop(s):
-        launchers[s]()
+    def launch(s, loop, xl=False):
+        if loop == "graph":
+            return launchers[s](xl)
+        with eager_paths():
+            return launchers[s](xl)
+
+    # the encoders rerun a GOP that overflows its budgets (a key's first
+    # call: the eager warm-up)
+    reruns = {s: bool(launch(s, "graph")["ovf"].any()) for s in shards}
+
+    def gop(s, loop):
+        launch(s, loop)
         if reruns[s]:
-            launchers[s](xl=True)
+            launch(s, loop, xl=True)
 
-    times = {s: 0.0 for s in shards}
-    for s in (*shards, *shards[::-1]):
-        gop(s)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gop(s)
-        torch.cuda.synchronize()
-        times[s] += time.perf_counter() - t0
+    times = {(s, loop): 0.0 for s in shards for loop in ("graph", "eager")}
+    for i, s in enumerate((*shards, *shards[::-1])):
+        for loop in (("graph", "eager") if i % 2 == 0
+                     else ("eager", "graph")):
+            gop(s, loop)          # the graph's capture, at its first turn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gop(s, loop)
+            torch.cuda.synchronize()
+            times[s, loop] += time.perf_counter() - t0
     results = {}
     for s in shards:
-        fps = 2 * n / times[s]
-        ops, busy, top = device_ops(lambda: gop(s), n)
-        results[f"{m['tag']}/S{s}"] = dict(resident=fps, ops_per_frame=ops,
-                                           busy=busy)
-        log(f"speed: tiled {w}x{h} GOP {n} {m['tag']} S={s} emit {emit}: "
-            f"{fps:.3f} fps device-resident ({1e3 / fps:.3f} ms/frame, 2 GOPs, "
-            f"rerun {reruns[s]}); one GOP traced: "
-            f"{ops if ops is None else round(ops, 1)} device ops/frame, "
-            f"device busy {busy if busy is None else round(100 * busy, 1)}"
-            f" % [{card}]")
-        log(f"  device ms per GOP by name (launches, ms): {top[:7]}")
+        fig = {}
+        for loop in ("graph", "eager"):
+            f = loop_figures(lambda: gop(s, loop), n)
+            f.update(resident=2 * n / times[s, loop])
+            f["busy_of_wall"] = busy_of_wall(f, n)
+            fig[loop] = f
+        captures = {graph_key_name(k): round(v.capture_s, 3)
+                    for k, v in caches[s].graphs.items() if v is not None}
+        if not captures:
+            raise AssertionError(f"tiled S={s}: no graph was captured")
+        results[f"{m['tag']}/S{s}"] = dict(
+            resident=fig["graph"]["resident"],
+            ops_per_frame=fig["graph"]["ops"], busy=fig["graph"]["busy"],
+            busy_of_wall=fig["graph"]["busy_of_wall"],
+            host_calls_per_gop=fig["graph"]["calls"],
+            eager_resident=fig["eager"]["resident"],
+            eager_ops_per_frame=fig["eager"]["ops"],
+            eager_busy=fig["eager"]["busy"],
+            eager_busy_of_wall=fig["eager"]["busy_of_wall"],
+            eager_host_calls_per_gop=fig["eager"]["calls"],
+            capture_s=captures)
+        for loop, f in fig.items():
+            log(f"speed: tiled {w}x{h} GOP {n} {m['tag']} S={s} emit {emit} "
+                f"{loop}: {f['resident']:.3f} fps device-resident "
+                f"({1e3 / f['resident']:.3f} ms/frame, 2 GOPs, rerun "
+                f"{reruns[s]}); one GOP traced: {fmt_figures(f)} [{card}]")
+            log(f"  device ms per GOP by name (launches, ms): {f['top'][:7]}")
+        log(f"  graphs at S={s}: capture s {captures}; {mem()} [{card}]")
     return results
 
 
@@ -3490,6 +3610,55 @@ def eager_run(eng, y, cb, cr, qps, xl=False):
     bw, cap = eng._capacities(n_mbs, int(min(np.atleast_1d(qps))), xl)
     qp = torch.tensor(qps, dtype=torch.int32, device=y.device)
     return eng._run(y, cb, cr, qp, bw, cap)
+
+
+@contextlib.contextmanager
+def eager_paths():
+    """Every engine's eager path while the block runs: no device type runs
+    graphs (gop_engine._GRAPH_DEVICE_TYPES, read at every call), so each
+    GraphCache call runs its body eagerly and records no key. The eager
+    turn of a graph-against-eager pair, through the same entry points."""
+    from video_encoder_tpu_torch.pipeline import gop_engine
+
+    saved = gop_engine._GRAPH_DEVICE_TYPES
+    gop_engine._GRAPH_DEVICE_TYPES = ()
+    try:
+        yield
+    finally:
+        gop_engine._GRAPH_DEVICE_TYPES = saved
+
+
+@contextlib.contextmanager
+def graph_calls():
+    """Counts of the GraphCache calls made while the block runs, by the
+    key's type (GraphKey: the GOP engine; TileKey: the tile loop;
+    FrameKey: the per-frame engine) and by what the call did: "eager" (a
+    key's first call, a graph-less device, or no key), "capture" (the
+    capture and its replay) or "replay"; under "capture_s" the seconds
+    of each capture."""
+    from video_encoder_tpu_torch.pipeline import gop_engine
+
+    counts = {}
+    real = gop_engine.GraphCache.launch
+
+    def launch(cache, key, body, inputs, qps):
+        graph = cache.graphs.get(key, "new")
+        what = ("eager" if key is None or graph == "new" or inputs[0].device.type
+                not in gop_engine._GRAPH_DEVICE_TYPES
+                else "capture" if graph is None else "replay")
+        name = f"{type(key).__name__}/{what}"
+        counts[name] = counts.get(name, 0) + 1
+        out = real(cache, key, body, inputs, qps)
+        if what == "capture":
+            counts.setdefault("capture_s", []).append(
+                round(cache.graphs[key].capture_s, 3))
+        return out
+
+    gop_engine.GraphCache.launch = launch
+    try:
+        yield counts
+    finally:
+        gop_engine.GraphCache.launch = real
 
 
 # the host's calls that submit device work (kernel and graph launches,
@@ -4128,13 +4297,15 @@ def main() -> int:
     log(f"lockstep speed done at {time.perf_counter() - t_start:.1f} s; "
             f"{mem()}")
     tiled = phase_speed_tiled(FULL, jobs["full"]["clip"], card)
-    log(f"result: 1080p GOP-30 tiled {json.dumps(tiled)} [{card}]")
+    log(f"result: 1080p GOP-30 tiled, graph and eager {json.dumps(tiled)} "
+        f"[{card}]")
     sea_fps = phase_speed_sea(FULL, jobs["full"]["clip"], card)
     log(f"result: 1080p GOP-30 full search with and without TVC_SEA "
         f"{json.dumps(sea_fps)} [{card}]")
     log(f"result: 1080p GOP-30 lockstep {json.dumps(lockstep)} [{card}]")
-    log(f"result: 1080p 30-frame per-frame engine (CLI wall fps, the GOP "
-        f"engine's beside it; one P frame's device ops and ms) "
+    log(f"result: 1080p 30-frame per-frame engine (CLI wall fps through "
+        f"its graphs and eager, the GOP engine's beside it; one P frame's "
+        f"device ops, ms and host calls, replayed and eager) "
         f"{json.dumps(per_frame)} [{card}]")
     log(f"result: 1080p GOP-30 decode fps {json.dumps(decode_fps)} on "
         f"{os.cpu_count()} host cores [{card}]")

@@ -7,7 +7,9 @@ for the ('gop', 'tile') layout of `parallel/mesh.py`.
 - On one device, G equal-length GOPs run in lockstep, every frame in S
   row shards (`parallel/tiles.py` `encode_gop_batch_2d`). A frame's
   payload is the bit-concatenation of its shards in tile order, under
-  chunk emit of each shard's span strings in order.
+  chunk emit of each shard's span strings in order. On a CUDA device
+  that loop is one CUDA graph per key (`ShardedGopEncoder.run`), the
+  counterpart of the reference's jitted `encode_gop_batch_2d`.
 - Over ranks (the DP branch, the reference's `encode_gop_batch_sharded`),
   'gop' rank g encodes GOP k * N_gop + g of batch k, together with the S
   ranks of its 'tile' group. Tile rank 0 gathers its group's span strings
@@ -28,6 +30,7 @@ together), downloads and makes the packets.
 
 from __future__ import annotations
 
+import collections
 import time
 
 import numpy as np
@@ -37,10 +40,17 @@ import torch.distributed as dist
 from ..codec import entropy, tables
 from ..codec.config import EncoderConfig
 from ..codec.frame import Frame
+from ..ops import dispatch
+from ..ops.kernels import sad as ksad
 from ..pipeline.gop_engine import GopEngine, block_words_for_qp
 from . import mesh as dmesh
 from . import tiles
 from .mesh import CodecMesh, make_codec_mesh
+
+# what a captured tile loop bakes in (ShardedGopEncoder.graph_key)
+TileKey = collections.namedtuple(
+    "TileKey", "n_tile n_gop rc block_words cap_words target_bits ref_mode "
+    "fmt cqpo qbias vbv_bits qmat islice emit y_shape c_shape sea force")
 
 
 class ShardedGopEncoder:
@@ -64,6 +74,8 @@ class ShardedGopEncoder:
         self.engine = GopEngine(cfg, device=device or self.mesh.device,
                                 emit=self.emit)
         self.device = self.engine.device
+        # the tile graphs live beside the engine's: one pool, one stream
+        self.cache = self.engine.cache
         if self.n_tile_devices > 1:
             if cfg.search != "full":
                 raise ValueError("the tile-sharded encode needs search='full' "
@@ -71,27 +83,66 @@ class ShardedGopEncoder:
             tiles.check_tile_config(self.mesh, cfg.height, cfg.width,
                                     cfg.format_version, cfg.intra_slice_mbrows)
 
-    def run(self, y, cb, cr, base_qp: int, xl: bool = False):
-        """One lockstep encode of this process's GOPs in row shards: [T, G,
-        H, W] / [T, G, H/2, W/2] uint8 planes on the encoder's device (over
-        ranks, G = 1 and the rows are this rank's); launches only, no host
-        wait. xl selects the exact worst-case capacities; per-shard
-        capacities come from the per-shard MB count. Returns
-        tiles.encode_gop_batch_2d's stacked per-frame device tensors."""
-        cfg = self.cfg
+    def _capacities(self, y, qps: list[int], xl: bool):
+        """(block words, capacity words) of a shard: per-shard capacities
+        from the per-shard MB count; with xl the exact worst case, else
+        budgeted for the smallest base qp of the batch."""
         n_mbs = ((y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
                  // self.mesh.local("tile"))
         if xl:
-            bw, cap = entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
-        else:
-            bw, cap = block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
+            return entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
+        return block_words_for_qp(min(qps)), entropy.capacity_words(n_mbs)
+
+    def graph_key(self, y_shape, c_shape, bw: int, cap: int) -> TileKey:
+        """The key of a batch's graph: the arguments encode_gop_batch_2d
+        passes as static (S and G, rc, block words, capacity words, target
+        bits, ref_mode, fmt, cqpo, qbias, vbv bits, qmat, islice, emit),
+        the [T, G, H, W] luma and chroma shapes, and the routes the
+        wrappers read at every call (TVC_SEA, dispatch.force). The base
+        qps are an input."""
+        cfg = self.cfg
+        return TileKey(self.mesh.local("tile"), y_shape[1], cfg.rc, bw, cap,
+                       cfg.target_bits_per_frame(), "halo", cfg.format_version,
+                       cfg.chroma_qp_offset, cfg.quant_bias, cfg.vbv_bits(),
+                       cfg.quant_matrix, cfg.intra_slice_mbrows, self.emit,
+                       tuple(y_shape), tuple(c_shape), ksad._sea_enabled(),
+                       dispatch._FORCE)
+
+    def _run(self, y, cb, cr, qp, bw: int, cap: int):
+        """The tile loop (tiles.encode_gop_batch_2d) at the given
+        capacities, qp the [G] int32 base qps on the device: the body a
+        graph captures."""
+        cfg = self.cfg
         return tiles.encode_gop_batch_2d(
-            y, cb, cr, base_qp, mesh=self.mesh, rc=cfg.rc, block_words=bw,
+            y, cb, cr, qp, mesh=self.mesh, rc=cfg.rc, block_words=bw,
             cap_words=cap, target_bits=cfg.target_bits_per_frame(),
             ref_mode="halo", fmt=cfg.format_version,
             cqpo=cfg.chroma_qp_offset, qbias=cfg.quant_bias,
             vbv_bits=cfg.vbv_bits(), qmat=cfg.quant_matrix,
-            islice=cfg.intra_slice_mbrows, emit="chunks")
+            islice=cfg.intra_slice_mbrows, emit=self.emit)
+
+    def run(self, y, cb, cr, base_qp, xl: bool = False):
+        """One lockstep encode of this process's GOPs in row shards: [T, G,
+        H, W] / [T, G, H/2, W/2] uint8 planes on the encoder's device (over
+        ranks, G = 1 and the rows are this rank's), base_qp one int or one
+        per GOP; launches only, no host wait. xl selects the exact
+        worst-case capacities. Returns tiles.encode_gop_batch_2d's
+        per-frame device tensors, of the call's own.
+
+        On one CUDA device this is one graph per graph_key, replayed from
+        the key's second call on, in the GopEngine's GraphCache: the same
+        memory pool and the same one-stream rule as the engine's own
+        graphs, since both run the merges. Over ranks (a 'tile' group) it
+        stays eager: the exchange is a gloo collective, which a CUDA graph
+        cannot capture."""
+        qps = ([int(base_qp)] * y.shape[1] if np.ndim(base_qp) == 0
+               else [int(q) for q in base_qp])
+        bw, cap = self._capacities(y, qps, xl)
+        key = (self.graph_key(y.shape, cb.shape, bw, cap)
+               if self.mesh.group("tile") is None else None)
+        return self.cache.launch(
+            key, lambda *planes_qp: self._run(*planes_qp, bw, cap),
+            (y, cb, cr), qps)
 
     def encode_gop_batch_start(self, gops: list[list[Frame]],
                                first_indices: list[int],

@@ -238,12 +238,19 @@ def tile_gop_scan(y, cb, cr, qp: torch.Tensor, *, n_tile: int, rc: str,
     (B = G * n_tile, g-major; chroma [T, B, h/2, w/2]), qp [G] int32.
     Launches only, no host wait (with a group, its collectives). The
     rate-control carry runs on the summed frame bits, so every shard of a
-    GOP sees the same next qp and vbv fullness. Returns stacked tensors [T, G, n_tile, ...]: words, bits,
-    n_inter, sse [.., 3], cbits under chunk emit; qp [T, G]; ovf [T]."""
+    GOP sees the same next qp and vbv fullness. Each frame's results go
+    into [T, ...] tensors made at the first frame's shapes (the body a
+    graph captures: gop_parallel.ShardedGopEncoder). Returns [T, G,
+    n_tile, ...]: words, bits, n_inter, sse [.., 3], cbits under chunk
+    emit; qp [T, G]; ovf [T]."""
     fullness = torch.full_like(qp, spec.vbv_init(vbv_bits), dtype=torch.int64)
-    ref = None
-    outs = []
-    for t in range(y.shape[0]):
+    per_shard = ["words", "bits", "n_inter", "sse"]
+    if emit == "chunks":
+        per_shard.append("cbits")
+    keys = per_shard + ["qp", "ovf"]
+    n = y.shape[0]
+    ref = res = None
+    for t in range(n):
         cur = (y[t].to(torch.int32), cb[t].to(torch.int32),
                cr[t].to(torch.int32))
         out = encode_frame_tile_traced(
@@ -252,18 +259,16 @@ def tile_gop_scan(y, cb, cr, qp: torch.Tensor, *, n_tile: int, rc: str,
             fmt=fmt, cqpo=cqpo, qbias=qbias, qmat=qmat, islice=islice,
             emit=emit, group=group)
         out["qp"] = qp
+        if res is None:
+            res = {k: out[k].new_empty((n, *out[k].shape)) for k in keys}
+        for k in keys:
+            res[k][t] = out[k]
         qp, fullness = rc_carry_step(rc, target_bits, vbv_bits, qp, fullness,
                                      out["frame_bits"])
         ref = out["rec"]
-        outs.append(out)
-    per_shard = ["words", "bits", "n_inter", "sse"]
-    if emit == "chunks":
-        per_shard.append("cbits")
-    stacked = {k: torch.stack([o[k] for o in outs]).unflatten(1, (-1, n_tile))
-               for k in per_shard}
-    stacked["qp"] = torch.stack([o["qp"] for o in outs])
-    stacked["ovf"] = torch.stack([o["ovf"] for o in outs])
-    return stacked
+    for k in per_shard:
+        res[k] = res[k].unflatten(1, (-1, n_tile))
+    return res
 
 
 def check_tile_config(mesh: CodecMesh, height: int, width: int, fmt: int,
@@ -320,13 +325,14 @@ def encode_gop_batch_2d(y_u8, cb_u8, cr_u8, base_qp, *, mesh: CodecMesh,
     in S row shards. y_u8 [T, G, H, W] uint8 with the frame axis leading
     (the port's batch order, gop_engine.run_batch; the reference takes
     [G, T, H, W]), chroma [T, G, H/2, W/2]; base_qp one int or one per
-    GOP. The 'gop' axis carries no exchange: GOPs are closed under
-    prediction. Returns [T, G, S, ...] per shard: words, bits, n_inter,
-    sse, cbits under chunk emit (the host glues a frame's shards in
-    order); qp [T, G]; ovf [T]. On a mesh over ranks the planes are this
-    rank's block, [T, 1, H / S, W]: its GOP and its rows, with S = 1 in
-    the results; the exchange and the frame bits' sum run over the
-    rank's 'tile' group."""
+    GOP, or a [G] int32 device tensor (a graph's input). The 'gop' axis
+    carries no exchange: GOPs are closed under prediction. Returns
+    [T, G, S, ...] per shard: words, bits, n_inter, sse, cbits under
+    chunk emit (the host glues a frame's shards in order); qp [T, G];
+    ovf [T]. On a mesh over ranks the planes are this rank's block,
+    [T, 1, H / S, W]: its GOP and its rows, with S = 1 in the results;
+    the exchange and the frame bits' sum run over the rank's 'tile'
+    group."""
     t, g, h, w = y_u8.shape
     n_tile = mesh.local("tile")
     if g != mesh.local("gop"):
@@ -337,9 +343,10 @@ def encode_gop_batch_2d(y_u8, cb_u8, cr_u8, base_qp, *, mesh: CodecMesh,
         p = p.contiguous()
         return p.reshape(t, g * n_tile, p.shape[-2] // n_tile, p.shape[-1])
 
+    qp = (base_qp if isinstance(base_qp, torch.Tensor)
+          else _base_qps(base_qp, g, y_u8.device))
     return tile_gop_scan(
-        shards(y_u8), shards(cb_u8), shards(cr_u8),
-        _base_qps(base_qp, g, y_u8.device), n_tile=n_tile, rc=rc,
+        shards(y_u8), shards(cb_u8), shards(cr_u8), qp, n_tile=n_tile, rc=rc,
         block_words=block_words, cap_words=cap_words, target_bits=target_bits,
         ref_mode=ref_mode, fmt=fmt, cqpo=cqpo, qbias=qbias, vbv_bits=vbv_bits,
         qmat=qmat, islice=islice, emit=emit, group=mesh.group("tile"))

@@ -17,6 +17,14 @@ into one string of the worst-case capacity (`entropy.pack_bits`), so no
 frame is ever encoded twice. The bytes equal the reference engine's and
 the golden model's.
 
+On CUDA a frame's encode is one CUDA graph per key (`DeviceEngine.key`),
+the counterpart of the reference's jitted per-frame function: a key's
+first call runs eagerly, its second captures, every later one replays
+(`gop_engine.GraphCache`). In a GOP, frame 0 (I) and frame 1 (P) run
+eagerly, frame 2 captures the P key and the later P frames replay. The
+upload, the downloads and the rc carry stay on the host, outside the
+graph.
+
 rc="mb" raises: the reference's per-frame engine ignores it and codes
 every MB at the frame qp, so its rc-mb stream is its rc-bitrate stream
 and not the golden model's.
@@ -24,15 +32,22 @@ and not the golden model's.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from ..codec import entropy, tables
 from ..codec.config import EncoderConfig
 from ..codec.frame import Frame, FrameEncodeResult
-from ..ops import motion
-from .gop_engine import (_code_frame, predict_i_traced, predict_p_traced,
-                         resolve_device)
+from ..ops import dispatch, motion
+from ..ops.kernels import sad as ksad
+from .gop_engine import (GraphCache, _code_frame, predict_i_traced,
+                         predict_p_traced, resolve_device)
+
+# what a captured frame encode bakes in (DeviceEngine.key)
+FrameKey = collections.namedtuple(
+    "FrameKey", "is_p search rc n_words qbias y_shape c_shape sea force")
 
 
 def assemble_blocks(yb, cbb, crb):
@@ -50,12 +65,14 @@ def scatter_blocks(blocks6):
             blocks6[:, :, 5])
 
 
-def encode_frame_device(cur, ref, base_qp: int, *, is_p: bool, search: str,
-                        rc: str, n_words: int, qbias: int = 8):
+def encode_frame_device(cur, ref, qp: torch.Tensor, *, is_p: bool,
+                        search: str, rc: str, n_words: int, qbias: int = 8):
     """The per-frame encode on the planes' device: cur and ref are (y, cb,
-    cr) int32 planes (ref unused and may be None on an I frame). Returns
-    a dict of device tensors: words [n_words] int64, payload_bits, rec
-    (three int32 planes), n_inter and mb_bits [nby, nbx] int32."""
+    cr) int32 planes (ref unused and may be None on an I frame), qp the
+    frame's base qp as a 0-dim int32 device tensor. Launches only, no
+    host wait. Returns a dict of device tensors: words [n_words] int64,
+    payload_bits, rec (three int32 planes), n_inter and mb_bits
+    [nby, nbx] int32."""
     if search not in ("full", "diamond"):
         raise ValueError(f"search={search!r} is not a device-engine mode")
     if rc == "mb":
@@ -71,7 +88,6 @@ def encode_frame_device(cur, ref, base_qp: int, *, is_p: bool, search: str,
         dy, dx, is_inter, *pred = predict_p_traced(cur_y, *ref, icost, search)
     else:
         dy, dx, is_inter, *pred = predict_i_traced(*cur)
-    qp = torch.full((), base_qp, dtype=torch.int32, device=cur_y.device)
     if rc == "adaptive":
         qp_mb = motion.adaptive_qp(qp, icost)
     else:
@@ -91,17 +107,31 @@ class DeviceEngine:
     `device` is explicit and defaults to "cuda"; nothing moves to the CPU
     on its own. The engine keeps the device planes of the recon it
     returned last, and a `ref` that is that very Frame is not uploaded
-    again."""
+    again. On CUDA each frame replays its key's graph from the key's
+    second call on (the module docstring); `graphs` holds them."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._last: tuple[Frame, tuple] | None = None
+        self.cache = GraphCache("DeviceEngine")
+        self.graphs = self.cache.graphs     # FrameKey -> its GopGraph
 
     def _upload(self, frame: Frame):
         if self._last is not None and frame is self._last[0]:
             return self._last[1]
         return tuple(torch.from_numpy(p.astype(np.uint8)).to(self.device)
                      .to(torch.int32) for p in (frame.y, frame.cb, frame.cr))
+
+    @staticmethod
+    def key(cfg: EncoderConfig, is_p: bool, n_words: int, y_shape,
+            c_shape) -> FrameKey:
+        """The key of a frame's graph: the reference's static arguments
+        (is_p, search, rc, n_words, qbias), the luma and chroma shapes,
+        and the routes the wrappers read at every call (TVC_SEA,
+        dispatch.force). The planes and the base qp are inputs."""
+        return FrameKey(is_p, cfg.search, cfg.rc, n_words, cfg.quant_bias,
+                        tuple(y_shape), tuple(c_shape), ksad._sea_enabled(),
+                        dispatch._FORCE)
 
     def encode(self, cfg: EncoderConfig, cur: Frame, ref: Frame | None,
                frame_type: int, base_qp: int) -> FrameEncodeResult:
@@ -110,11 +140,20 @@ class DeviceEngine:
                              "GOP engine codes formats 1-4")
         is_p = frame_type == 1
         cur_d = self._upload(cur)
-        ref_d = self._upload(cur if ref is None else ref) if is_p else None
+        ref_d = self._upload(cur if ref is None else ref) if is_p else ()
         n_mbs = (cur.y.shape[0] // tables.MB) * (cur.y.shape[1] // tables.MB)
-        out = encode_frame_device(
-            cur_d, ref_d, base_qp, is_p=is_p, search=cfg.search, rc=cfg.rc,
-            n_words=entropy.max_words(n_mbs), qbias=cfg.quant_bias)
+        n_words = entropy.max_words(n_mbs)
+
+        def body(*planes_qp):
+            *planes, qp = planes_qp
+            return encode_frame_device(
+                tuple(planes[:3]), tuple(planes[3:]) or None, qp, is_p=is_p,
+                search=cfg.search, rc=cfg.rc, n_words=n_words,
+                qbias=cfg.quant_bias)
+
+        out = self.cache.launch(
+            self.key(cfg, is_p, n_words, cur_d[0].shape, cur_d[1].shape),
+            body, (*cur_d, *ref_d), int(base_qp))
         bits, n_inter = torch.stack([out["payload_bits"].long(),
                                      out["n_inter"].long()]).tolist()
         payload = (out["words"][:(bits + 31) // 32].cpu().numpy()

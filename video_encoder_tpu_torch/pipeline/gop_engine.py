@@ -24,6 +24,10 @@ buffers, replays the graph and copies the outputs out into tensors of
 its own, all on the caller's current stream. A capture that fails
 raises; nothing falls back to the eager loop. The eager loop runs on the
 CPU, for a key's first call, and for `hop` callers (parallel/ring.py).
+The key -> first-call-eager -> capture -> replay logic is `GraphCache`,
+which the tile loop (parallel/gop_parallel.py `ShardedGopEncoder`, on
+its GopEngine's cache) and the per-frame engine
+(pipeline/device_engine.py `DeviceEngine`) use too.
 
 The batched path (`run_batch`, `encode_gops*`; twin of
 `encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
@@ -243,8 +247,8 @@ GraphKey = collections.namedtuple(
     "GraphKey", "search rc block_words cap_words target_bits fmt cqpo qbias "
     "vbv_bits qmat islice emit y_shape c_shape sea force")
 
-# the devices whose GOP loops run as graphs (a test may add "cpu" beside a
-# fake _capture)
+# the devices whose loops run as graphs (a test may add "cpu" beside a fake
+# _capture); read at every call
 _GRAPH_DEVICE_TYPES = ("cuda",)
 
 
@@ -253,28 +257,35 @@ def _capture(body, pool):
     stream, sharing the memory pool `pool` (None: a pool of its own).
     Raises where the capture fails: a host sync or a pageable copy inside
     body, or a CUDA call from another thread while it runs. The one seam
-    between the engine and torch.cuda.CUDAGraph."""
+    between the engines and torch.cuda.CUDAGraph."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool):
         outs = body()
     return graph, outs
 
 
-class GopGraph:
-    """One GOP loop captured once and replayed: the static inputs the
-    graph reads (planes, and the base qp as a 0-dim or [G] int32 buffer),
-    the static outputs it writes, and the launch counts of
-    `build.LAUNCHES` recorded while it was captured (the wrappers count
-    where they launch, which under capture is once; a replay adds them)."""
+def _clone(v):
+    """A graph output copied out: a tensor, or a tuple of them."""
+    return tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone()
 
-    def __init__(self, run, y, cb, cr, qp_shape, pool):
-        self.y, self.cb, self.cr = (torch.empty_like(p) for p in (y, cb, cr))
-        self.qp = torch.zeros(qp_shape, dtype=torch.int32, device=y.device)
+
+class GopGraph:
+    """One body captured once and replayed: the static inputs the graph
+    reads (tensors, and the base qp as a 0-dim or [G] int32 buffer), the
+    static outputs it writes (a dict of tensors or tuples of them), and
+    the launch counts of `build.LAUNCHES` recorded while it was captured
+    (the wrappers count where they launch, which under capture is once; a
+    replay adds them)."""
+
+    def __init__(self, body, inputs, qp_shape, pool):
+        self.inputs = tuple(torch.empty_like(p) for p in inputs)
+        self.qp = torch.zeros(qp_shape, dtype=torch.int32,
+                              device=inputs[0].device)
         before = dict(build.LAUNCHES)
         t0 = time.perf_counter()
         try:
             self.graph, self.outs = _capture(
-                lambda: run(self.y, self.cb, self.cr, self.qp), pool)
+                lambda: body(*self.inputs, self.qp), pool)
         finally:
             self.launches = {k: v - before[k]
                              for k, v in build.LAUNCHES.items()
@@ -282,11 +293,11 @@ class GopGraph:
             build.LAUNCHES.update(before)
         self.capture_s = time.perf_counter() - t0
 
-    def __call__(self, y, cb, cr, qps):
+    def __call__(self, inputs, qps):
         """Replay on the current stream: inputs copied in, outputs copied
         out into fresh tensors before anything can replay again, so that
-        a GOP in flight keeps its own outputs."""
-        for dst, src in zip((self.y, self.cb, self.cr), (y, cb, cr)):
+        a call in flight keeps its own outputs."""
+        for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         if self.qp.ndim == 0:
             self.qp.fill_(qps)
@@ -296,7 +307,59 @@ class GopGraph:
         self.graph.replay()
         for k, v in self.launches.items():
             build.LAUNCHES[k] += v
-        return {k: v.clone() for k, v in self.outs.items()}
+        return {k: _clone(v) for k, v in self.outs.items()}
+
+
+class GraphCache:
+    """The graphs of one engine, one per key: `graphs` maps a key to its
+    GopGraph, or to None after the key's first call, which runs eagerly
+    (the warm-up: the kernel library, its function attributes and the
+    device tables are made there, outside any capture); the second call
+    captures, every later one replays. The graphs share one memory pool,
+    safe only while no two replay at once, and replay on one stream: the
+    merges' overflow ticket is one per device (csrc/span_merge.cu), so a
+    call from another stream raises. Engines that run on one device share
+    a cache (ShardedGopEncoder and its GopEngine). A capture that fails
+    raises; nothing falls back to the eager call."""
+
+    def __init__(self, owner: str):
+        self.owner = owner
+        self.graphs: dict = {}
+        self.pool = None       # the memory pool the graphs share
+        self.stream = None     # the stream the graphs replay on
+
+    def launch(self, key, body, inputs, qps):
+        """body(*inputs, qp) on the inputs' device, qp the int32 device
+        tensor of qps (an int: 0-dim; a list: [G]). Eager where the device
+        runs no graphs, where key is None (a caller whose body a capture
+        cannot take: collectives over ranks), and at a key's first call;
+        else the key's graph. Returns body's outputs, or a replay's
+        copies of them."""
+        dev = inputs[0].device
+        if dev.type not in _GRAPH_DEVICE_TYPES:
+            key = None
+        if key is None or key not in self.graphs:
+            if key is not None:
+                self.graphs[key] = None
+            qp = (torch.full((), qps, dtype=torch.int32, device=dev)
+                  if isinstance(qps, int)
+                  else torch.tensor(qps, dtype=torch.int32).to(dev))
+            return body(*inputs, qp)
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        if self.stream is None:
+            self.stream = stream
+        elif stream != self.stream:
+            raise RuntimeError(
+                f"{self.owner}: its graphs replay on one stream (the merges' "
+                "overflow ticket is one per device); this call is on another")
+        graph = self.graphs[key]
+        if graph is None:
+            graph = self.graphs[key] = GopGraph(
+                body, inputs, () if isinstance(qps, int) else (len(qps),),
+                self.pool)
+            if self.pool is None:
+                self.pool = graph.graph.pool()
+        return graph(inputs, qps)
 
 
 class GopEngine:
@@ -312,11 +375,9 @@ class GopEngine:
 
     On CUDA, `run` and `run_batch` (without a hop) replay one CUDA graph
     per `graph_key` from a key's second call on (the module docstring);
-    `graphs` holds them, and they go with the engine. Replays run on the
-    current stream, which must stay the one of the first replay: the
-    merges' overflow ticket is one per device (csrc/span_merge.cu), and
-    the graphs share one memory pool, safe only while no two replay at
-    once.
+    `graphs` holds them, and they go with the engine. They live in its
+    GraphCache, `cache`: replays run on the current stream, which must
+    stay the one of the first replay, and share one memory pool.
     """
 
     emit = "frame"
@@ -337,10 +398,10 @@ class GopEngine:
         self.cfg = cfg
         self.emit = emit or self.emit
         self.device = resolve_device(device)
-        # graph_key -> its GopGraph, or None after the key's eager first call
-        self.graphs: dict[GraphKey, GopGraph | None] = {}
-        self._pool = None      # the memory pool the graphs share
-        self._stream = None    # the stream the graphs replay on
+        self.cache = GraphCache("GopEngine")
+        # graph_key -> its GopGraph, or None after the key's eager first
+        # call; a ShardedGopEncoder over this engine adds its TileKeys
+        self.graphs: dict[GraphKey, GopGraph | None] = self.cache.graphs
 
     def _capacities(self, n_mbs: int, base_qp: int, xl: bool):
         """(block words, frame capacity words): budgeted for base_qp, or
@@ -413,33 +474,14 @@ class GopEngine:
                         tuple(c_shape), ksad._sea_enabled(), dispatch._FORCE)
 
     def _launch(self, y, cb, cr, qps, bw: int, cap: int):
-        """The GOP loop on y's device: eager on the CPU and for a key's
-        first call, else the key's graph (captured at its second call).
-        qps: the base qp (int) or the G base qps (list)."""
-        key = (self.graph_key(y.shape, cb.shape, bw, cap)
-               if y.device.type in _GRAPH_DEVICE_TYPES else None)
-        if key is None or key not in self.graphs:
-            if key is not None:     # the key's first call is the warm-up
-                self.graphs[key] = None
-            qp = (torch.full((), qps, dtype=torch.int32, device=y.device)
-                  if isinstance(qps, int)
-                  else torch.tensor(qps, dtype=torch.int32).to(y.device))
-            return self._run(y, cb, cr, qp, bw, cap)
-        stream = torch.cuda.current_stream(y.device) if y.is_cuda else None
-        if self._stream is None:
-            self._stream = stream
-        elif stream != self._stream:
-            raise RuntimeError(
-                "GopEngine: its graphs replay on one stream (the merges' "
-                "overflow ticket is one per device); this call is on another")
-        graph = self.graphs[key]
-        if graph is None:
-            graph = self.graphs[key] = GopGraph(
-                lambda *planes_qp: self._run(*planes_qp, bw, cap), y, cb, cr,
-                () if isinstance(qps, int) else (len(qps),), self._pool)
-            if self._pool is None:
-                self._pool = graph.graph.pool()
-        return graph(y, cb, cr, qps)
+        """The GOP loop on y's device through the engine's GraphCache:
+        eager on the CPU and for a key's first call, else the key's graph
+        (captured at its second call). qps: the base qp (int) or the G
+        base qps (list)."""
+        return self.cache.launch(
+            self.graph_key(y.shape, cb.shape, bw, cap),
+            lambda *planes_qp: self._run(*planes_qp, bw, cap), (y, cb, cr),
+            qps)
 
     def run(self, y, cb, cr, base_qp: int, xl: bool = False):
         """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
