@@ -75,6 +75,13 @@ Phases, each of which raises on failure (exit code not 0):
    that reads each piece's used words only (so do the span merges'); the
    hierarchical
    search at 1088x1920 against plain, with its two sad_at_mv launches.
+   The pack's words are int32 holding uint32 bit patterns (block_pack's
+   output, the merges' input and output, checked), so each pack row's
+   bound counts 4 bytes a word. After the span merges, the frame emit's
+   assembly (entropy.frame_concat, plain PyTorch on the card) of a real
+   1080p frame's pieces at 16 words, alone and for G = 4 frames in one
+   call: call, device and host times, device kernels per call, and the
+   bytes it must move over the memory rate.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
    1; on a smoother texture, diamond search, rc mb and --kbps 12000
@@ -215,7 +222,11 @@ Phases, each of which raises on failure (exit code not 0):
    single-GOP path), graph and eager in turns within this one run:
    device-resident fps, device ops per frame, busy share and host calls
    (the G = 1 traces are the ones taken of that GOP just before), capture
-   seconds and reserved memory. Then the full-search cell with every
+   seconds and reserved memory; and per G and emit one eager batch from a
+   settled allocator: the peak allocated memory
+   (torch.cuda.reset_peak_memory_stats before it), the memory allocated
+   before it, and its download bytes per GOP (all, and the words alone).
+   Then the full-search cell with every
    frame in S = 1, 2 and 4 row shards, in turns, all under the tile
    path's emit, each through its graph and through the eager loop in
    turns: device-resident fps, host calls per GOP, device ops per frame,
@@ -250,7 +261,13 @@ syntaxes; the SEA search (TVC_SEA=1) on phase 3's three references
 each beside the exhaustive search on the same planes in the same turn;
 span_merge_mb and span_merge on the real 1080p frame's sources and on
 dense pieces, and chunk_merge on the real frame's pieces at 24 words and
-on dense ones, each with its device ops per call (kernels); then one
+on dense ones, each with its device ops per call (kernels); frame_concat
+of the real frame's pieces, alone and for G = 4 frames; one G = 4
+lockstep GOP of 30 1080p frames of the full cell under each emit: the
+eager batch's peak allocated memory and download bytes per GOP, and the
+batch's time through its graph and eager (each checkout takes its own
+word dtype: its pack makes the pieces, dense pieces take the dtype of
+its words, and a result's sum takes each element's low 32 bits); then one
 traced 10-frame GOP of the full-search, config-3 and format-4 cells (device ops per frame, the GOP's device time, the motion
 kernels' device time), and the format-4 I frame on its own (code_plane launches, device
 ops, device ms, wall ms). Each timing has the call time
@@ -409,11 +426,9 @@ def synth_clip_halfpel(t: int, h: int, w: int, seed: int, passes: int = 2,
 def bound(inputs, outputs, ops: float):
     """(bound_ms, bound_by): the least time the card could take for a
     function that reads each input tensor once, writes each output once
-    and does `ops` int32 operations. The int64 tensors of these interfaces
-    (the packed strings of block_pack and the span merges) hold 32-bit
-    words, so the function needs 4 bytes of each element, not 8."""
-    nbytes = sum(t.numel() * (4 if t.dtype == torch.int64 else t.element_size())
-                 for t in (*inputs, *outputs))
+    and does `ops` int32 operations. The packed strings of block_pack and
+    the span merges are int32 words: 4 bytes a word."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / INT32_OPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -898,6 +913,8 @@ def phase_kernels(dev, card: str):
                    if fmt >= 2 else None)
         gp, wp = both(dispatch.block_pack, lv.reshape(-1, 64), 16, dc_pred, fmt)
         max_abs_err(gp, wp)
+        if gp[0].dtype != torch.int32:
+            raise AssertionError(f"{pname}: words are {gp[0].dtype}, not int32")
         bits = gp[1].reshape(64, 64)
         if not bool((bits[0] > 512).all() and (bits[2:] > 512).all()):
             raise AssertionError("dense blocks should overflow 16 words")
@@ -1048,6 +1065,9 @@ def phase_kernels(dev, card: str):
         got, want = both(dispatch.span_merge_mb, *srcs, plan.m1, plan.cw1,
                          plan.n1)
         err = max_abs_err(got, want)
+        if srcs[1].dtype != torch.int32 or got[0].dtype != torch.int32:
+            raise AssertionError(f"span_merge_mb {name}: words are "
+                                 f"{srcs[1].dtype} in, {got[0].dtype} out")
         timing = None
         if name == "1080p frame":
             timing = (*timed(dispatch.span_merge_mb, *srcs, plan.m1, plan.cw1,
@@ -1079,6 +1099,7 @@ def phase_kernels(dev, card: str):
             log(f"kernel span_merge {name}: {plan.n_strings} strings of "
                 f"{plan.cwf} words: equal, overflow {bool(got2[2])}"
                 + shown(timing, dh2))
+    frame_concat_figures(rng, dev, card)
 
     # ---- the G-batched kernels at G = 4: each against its plain batched
     # version AND against G launches of the single-plane kernel; its bound
@@ -1621,12 +1642,21 @@ def sea_references(dev, rng):
     return src, {"recon": recon.contiguous(), "clean": src[0], "noise": noise}
 
 
+def as_words(a, like):
+    """Values below 2^32 (numpy) as a device tensor of the word dtype of
+    `like`: int32 holding the uint32 bit patterns (a checkout from before
+    the 32-bit words: int64)."""
+    a = np.asarray(a).astype(np.uint32)
+    a = a.view(np.int32) if like.dtype == torch.int32 else a.astype(np.int64)
+    return torch.from_numpy(a).to(like.device)
+
+
 def chunk_pieces(rng, dev, bw: int = 24):
     """chunk_merge's operands at the reference micro-bench's shape: a 1080p
     frame's 8160 x 8 pieces of bw words (header, four luma blocks, Cb, Cr
     and an empty piece per MB, from code_plane at qp 28 and random
     vectors), padded with empty pieces to a multiple of 1024: (words
-    [65536, bw] int64, bits [65536] int32, k)."""
+    [65536, bw] in the pack's word dtype, bits [65536] int32, k)."""
     from video_encoder_tpu_torch.codec import entropy, pack
 
     h, w = LUMA[0]
@@ -1642,7 +1672,7 @@ def chunk_pieces(rng, dev, bw: int = 24):
     mvy, mvx = (t32(rng.integers(-16, 17, (nby, nbx))) for _ in range(2))
     pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, bw)
     n = -(-8 * n_mbs // 1024) * 1024
-    words = torch.zeros((n, bw), dtype=torch.int64, device=dev)
+    words = torch.zeros((n, bw), dtype=pw_.dtype, device=dev)
     bits = torch.zeros((n,), dtype=torch.int32, device=dev)
     words.view(-1, 8, bw)[:n_mbs, :7] = pw_
     bits.view(-1, 8)[:n_mbs, :7] = pb_
@@ -1653,15 +1683,58 @@ def merge_bound(bits, caps, outputs):
     """bound() of a merge on this run's data: each piece's used words,
     min(ceil(bits / 32), its width caps), read once as 32-bit words (the
     merge reads no more: every producer leaves zeros past its bit count),
-    its bit count read once, the outputs written once; two shifts and two
-    ors per used word."""
+    its bit count read once, the outputs (int32 words) written once; two
+    shifts and two ors per used word."""
     used = int(torch.minimum((bits.long() + 31) // 32, caps).sum())
     nbytes = 4 * (used + bits.numel()) + sum(
-        t.numel() * (4 if t.dtype == torch.int64 else t.element_size())
-        for t in outputs)
+        t.numel() * t.element_size() for t in outputs)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * 4 * used / INT32_OPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def frame_concat_figures(rng, dev, card, g: int = 4) -> dict:
+    """The frame emit's assembly (entropy.frame_concat, plain PyTorch on
+    the card: no kernel of its own) of a real 1080p frame's pieces at 16
+    words into its budgeted capacity, alone and for G frames in one call:
+    call time, device time (its kernels' durations) and device kernels
+    per call, host time, and the bytes it must move (the pieces' words
+    and bit counts read once, the frame's words written once) over the
+    card's memory rate."""
+    from video_encoder_tpu_torch.codec import entropy
+
+    h, w = LUMA[0]
+    nby, nbx = h // 16, w // 16
+    levels = frame_levels(rng, dev, h, w)
+    qpd = torch.from_numpy(rng.integers(-2, 3, (nby, nbx)).astype(np.int32)).to(dev)
+    inter = torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev)
+    mvy, mvx = (torch.from_numpy(rng.integers(-16, 17, (nby, nbx)).astype(
+        np.int32)).to(dev) for _ in range(2))
+    pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, 16)
+    pieces, bits = pw_.reshape(-1, 16), pb_.reshape(-1)
+    cap = entropy.capacity_words(nby * nbx)
+    out = {}
+    for lead in (1, g):
+        p = pieces if lead == 1 else pieces.expand(lead, *pieces.shape).contiguous()
+        b = bits if lead == 1 else bits.expand(lead, -1).contiguous()
+
+        def fn(p=p, b=b):
+            return entropy.frame_concat(p, b, cap)
+        words, total = fn()
+        nbytes = (p.numel() * p.element_size() + b.numel() * b.element_size()
+                  + words.numel() * words.element_size())
+        dev_ms, kernels = device_ms(fn, per_call=None)
+        f = dict(ms=time_ms(fn), device_ms=dev_ms, kernels=kernels,
+                 host_ms=host_ms(fn), bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                 words_dtype=str(words.dtype).replace("torch.", ""),
+                 sum=_checksum([words, total]))
+        out["single" if lead == 1 else f"g{lead}"] = f
+        log(f"frame_concat {list(p.shape)} -> {list(words.shape)} "
+            f"{f['words_dtype']} ({int(total.reshape(-1)[0])} bits a frame): "
+            f"{f['ms']:.4f} ms, device {dev_ms:.4f} ms in {kernels:g} kernels, "
+            f"host {f['host_ms']:.4f} ms, bytes bound {f['bound_ms']:.4f} ms "
+            f"[{card}]")
+    return out
 
 
 def mb_caps(srcs):
@@ -1845,8 +1918,7 @@ def last_kernels(dev, rng, table: KernelTable):
     # random pieces (every piece full) at the same shape
     words, bits, kc = chunk_pieces(rng, dev)
     n, bw = words.shape
-    full = torch.from_numpy(rng.integers(0, 2**32, (n, bw), dtype=np.uint64)
-                            .astype(np.int64)).to(dev)
+    full = as_words(rng.integers(0, 2**32, (n, bw), dtype=np.uint64), words)
     for name, a in (("1080p frame", (words, bits, kc)),
                     ("dense pieces", (full, torch.full_like(bits, 32 * bw), kc))):
         got, want = both(dispatch.chunk_merge, *a)
@@ -3280,6 +3352,34 @@ def phase_distributed(tmp, jobs, plains, batched_oracle, card):
     return paths
 
 
+def gop_memory(eng, inputs, qps) -> dict:
+    """One GOP (or G in lockstep) through the engine's eager loop from a
+    settled allocator: the memory allocated before it (the inputs and
+    whatever else is live), the peak allocated during it
+    (torch.cuda.reset_peak_memory_stats first), the GOP's own share of
+    the peak (peak less before), and the bytes of its download
+    (GopEngine.download: the words cut to the longest payload or span
+    string, and the small per-frame arrays), per GOP and of the words
+    alone."""
+    g = 1 if isinstance(qps, int) else len(qps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = eager_run(eng, *inputs, qps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    host = eng.download(outs)
+    words_sum = _checksum([outs["words"], outs["bits"]])
+    del outs
+    return dict(sum=words_sum, before_mib=before / 2**20, peak_mib=peak / 2**20,
+                gop_peak_mib=(peak - before) / 2**20,
+                download_bytes_per_gop=sum(a.nbytes for a in host.values()
+                                           if a is not None) / g,
+                words_bytes_per_gop=host["words"].nbytes / g,
+                words_dtype=str(host["words"].dtype))
+
+
 def up(planes, mult):
     """[T, H, W] uint8 planes on the device, edge-padded to multiples of
     `mult` as Frame.from_planes pads them."""
@@ -3305,6 +3405,9 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
         h, w = ys[0].shape
         n = len(ys)
         eng = GopEngine(config_of(m, w, h, n), device=DEVICE)
+        emits = {eng.emit: eng, **{e: GopEngine(config_of(m, w, h, n),
+                                                device=DEVICE, emit=e)
+                                   for e in ("frame", "chunks") if e != eng.emit}}
         one = (up(ys, 16), up(cbs, 8), up(crs, 8))
         inputs = {1: one}
         for g in gs:
@@ -3355,7 +3458,11 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
                         for k, v in eng.graphs.items()
                         if v is not None and len(k.y_shape) == (3 if g == 1 else 4)
                         and (g == 1 or k.y_shape[1] == g)}
+            memory = {e: gop_memory(em, inputs[g], 28 if g == 1 else [28] * g)
+                      for e, em in emits.items()}
             results[f"{m['tag']}/G{g}"] = dict(
+                memory=memory, peak_mib=fig["graph"]["peak_mib"],
+                eager_peak_mib=fig["eager"]["peak_mib"],
                 resident=fig["graph"]["resident"],
                 ops_per_frame=fig["graph"]["ops"], busy=fig["graph"]["busy"],
                 host_calls_per_batch=fig["graph"]["calls"],
@@ -3377,6 +3484,14 @@ def phase_speed_batched(cells, single, card, gs=(1, 2, 4)):
                 log(f"  device ms per batch by name (launches, ms): "
                     f"{f['top'][:7]}")
             log(f"  graphs at G={g}: capture s {captures}; {mem()} [{card}]")
+            for e, f in memory.items():
+                log(f"memory: lockstep {w}x{h} GOP {n} {m['tag']} G={g} emit {e}"
+                    f" eager: peak allocated {f['peak_mib']:.1f} MiB, "
+                    f"{f['before_mib']:.1f} before the batch, "
+                    f"{f['gop_peak_mib']:.1f} its own; download "
+                    f"{f['download_bytes_per_gop']:.0f} bytes per GOP, words "
+                    f"{f['words_bytes_per_gop']:.0f} ({f['words_dtype']}) "
+                    f"[{card}]")
     return results
 
 
@@ -3850,9 +3965,12 @@ AB_CELL = (1080, 1920, 10)  # height, width, frames (one GOP) of the A/B cells
 
 
 def _checksum(x) -> int:
+    """A sum over the tensors of a result, each element taken as its low
+    32 bits: equal for the same words held in int32 (negative where bit
+    31 is set) and in int64 (a checkout from before the 32-bit words)."""
     ts = x if isinstance(x, (tuple, list)) else [x]
-    return int(sum(int((t.long() * (i + 1)).sum()) for i, t in enumerate(ts)
-                   if isinstance(t, torch.Tensor)))
+    return int(sum(int(((t.long() & 0xFFFFFFFF) * (i + 1)).sum())
+                   for i, t in enumerate(ts) if isinstance(t, torch.Tensor)))
 
 
 def ab_child(root: str) -> dict:
@@ -4060,11 +4178,34 @@ def ab_child(root: str) -> dict:
             a2 = (s1[0], s1[1], plan.g, plan.stop, plan.cwf)
             measure("span_merge" + tag, lambda a2=a2: dispatch.span_merge(*a2))
     words, bits, kc = chunk_pieces(rng, dev)
-    full = torch.from_numpy(rng.integers(0, 2**32, tuple(words.shape), dtype=np.uint64)
-                            .astype(np.int64)).to(dev)
+    full = as_words(rng.integers(0, 2**32, tuple(words.shape), dtype=np.uint64),
+                    words)
     full_bits = torch.full_like(bits, 32 * words.shape[1])
     measure("chunk_merge", lambda: dispatch.chunk_merge(words, bits, kc))
     measure("chunk_merge_dense", lambda: dispatch.chunk_merge(full, full_bits, kc))
+    # the frame emit's assembly of the real frame's pieces (plain PyTorch)
+    for k, f in frame_concat_figures(rng, dev, "").items():
+        out[f"frame_concat_{k}"] = f
+
+    # one G = 4 lockstep GOP of 30 1080p frames (the full cell) under each
+    # emit: the eager loop's peak allocated memory and download bytes
+    # (gop_memory), and the batch's time through its graph and eager
+    ph, pw = AB_CELL[:2]
+    clip = synth_clip(30, ph, pw, 11, FULL["passes"], FULL["scale"])
+    inputs = tuple(up(p, mult)[:, None].expand(-1, g, -1, -1).contiguous()
+                   for p, mult in zip(clip, (16, 8, 8)))
+    for emit in ("frame", "chunks"):
+        eng = GopEngine(config_of(FULL, pw, ph, 30), device=dev, emit=emit)
+        f = gop_memory(eng, inputs, [28] * g)
+        for loop, fn in (("graph", lambda: eng.run_batch(*inputs, [28] * g)),
+                         ("eager", lambda: eager_run(eng, *inputs, [28] * g))):
+            for _ in range(3):      # eager, capture, replay
+                fn()
+            torch.cuda.synchronize()
+            f[f"{loop}_ms"] = time_ms(fn, budget_s=2.0)
+        f["ms"] = f["graph_ms"]
+        out[f"lockstep_g{g}_{emit}"] = f
+        del eng
 
     # the cells: device ops per frame and the search's device time per GOP
     ph, pw, n = AB_CELL
@@ -4145,7 +4286,10 @@ def ab_main(roots) -> int:
     for root, runs in results.items():
         keys = [k for k, v in runs[0].items() if isinstance(v, dict) and "ms" in v]
         summary[root] = {k: {f: sum(r[k][f] for r in runs) / len(runs)
-                             for f in ("ms", "device_ms", "host_ms", "kernels")
+                             for f in ("ms", "device_ms", "host_ms", "kernels",
+                                       "graph_ms", "eager_ms", "peak_mib",
+                                       "gop_peak_mib", "download_bytes_per_gop",
+                                       "words_bytes_per_gop")
                              if f in runs[0][k]}
                          for k in keys}
         summary[root].update({k: runs[0][k] for k in runs[0] if k.startswith("cell_")})

@@ -34,8 +34,9 @@ def _strings(rng, n, w, bits):
     return words
 
 
-def _t64(a):
-    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64))
+def _t32(a):
+    """uint32 words as the port carries them: int32 of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
 def test_chunk_merge_matches_pallas_kernel(rng):
@@ -51,21 +52,21 @@ def test_chunk_merge_matches_pallas_kernel(rng):
             jnp.asarray(words.reshape(2, n // 2, w)),
             jnp.asarray(bits.reshape(2, n // 2)))
     for fn in (pack.chunk_merge, dispatch.chunk_merge):
-        got_w, got_b = fn(_t64(words), torch.from_numpy(bits), k)
-        assert got_w.dtype == torch.int64 and got_b.dtype == torch.int32
+        got_w, got_b = fn(_t32(words), torch.from_numpy(bits), k)
+        assert got_w.dtype == torch.int32 and got_b.dtype == torch.int32
         assert got_w.shape == (2 * n // k, (k // 2) * w + 1)
-        assert np.array_equal(got_w.numpy(), np.asarray(want_w).astype(np.int64))
+        assert np.array_equal(got_w.numpy().view(np.uint32), np.asarray(want_w))
         assert np.array_equal(got_b.numpy(), np.asarray(want_b))
     h = k // 2       # each half-chunk string is tree_concat of its pieces
     tw, tb = jax.jit(jax.vmap(
         lambda a, b: jent.tree_concat(a, b, got_w.shape[1])))(
         jnp.asarray(words.reshape(-1, h, w)), jnp.asarray(bits.reshape(-1, h)))
     assert np.array_equal(got_b.numpy(), np.asarray(tb))
-    assert np.array_equal(got_w.numpy(), np.asarray(tw).astype(np.int64))
-    gw, gb = pack.chunk_merge(_t64(words.reshape(2, n // 2, w)),
+    assert np.array_equal(got_w.numpy().view(np.uint32), np.asarray(tw))
+    gw, gb = pack.chunk_merge(_t32(words.reshape(2, n // 2, w)),
                               torch.from_numpy(bits.reshape(2, n // 2)), k)
     assert gw.shape == (2, n // k, h * w + 1)
-    assert np.array_equal(gw.numpy(), np.asarray(bw).astype(np.int64))
+    assert np.array_equal(gw.numpy().view(np.uint32), np.asarray(bw))
     assert np.array_equal(gb.numpy(), np.asarray(bb))
     assert torch.equal(gw.reshape(-1, h * w + 1), got_w)
 

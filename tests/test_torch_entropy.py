@@ -48,15 +48,15 @@ def test_block_pack_matches_reference(rng, n, words):
     v, l = jent.block_symbols(jnp.asarray(lv))
     want_w, want_b, want_ovf = jent.pack_dense(v, l, words)
     got_w, got_b = kpack.block_pack(_t(lv), words)   # CPU: plain version
-    assert got_w.dtype == torch.int64 and got_b.dtype == torch.int32
+    assert got_w.dtype == torch.int32 and got_b.dtype == torch.int32
     assert np.array_equal(got_b.numpy(), np.asarray(want_b))
-    assert np.array_equal(got_w.numpy(), np.asarray(want_w).astype(np.int64))
+    assert np.array_equal(got_w.numpy().view(np.uint32), np.asarray(want_w))
     assert bool((got_b > 32 * words).any()) == bool(want_ovf)
     # and against the Pallas kernel itself, run in interpret mode
     pw, pb = ep._block_pack_impl(jnp.asarray(lv), jnp.zeros((n, 1), jnp.int32),
                                  1, words, interpret=True)
     assert np.array_equal(got_b.numpy(), np.asarray(pb))
-    assert np.array_equal(got_w.numpy(), np.asarray(pw).astype(np.int64))
+    assert np.array_equal(got_w.numpy().view(np.uint32), np.asarray(pw))
 
 
 def test_block_pack_overflow_keeps_true_length(rng):
@@ -83,7 +83,7 @@ def test_pack_header_matches_reference(rng):
                                        _t(dx))
         gw, gb, _ = entropy.pack_header(tv, tl)
         assert np.array_equal(gb.numpy(), np.asarray(wb))
-        assert np.array_equal(gw.numpy(), np.asarray(ww).astype(np.int64))
+        assert np.array_equal(gw.numpy().view(np.uint32), np.asarray(ww))
 
 
 @pytest.mark.parametrize("is_p,cap", [(True, 600), (False, 600), (True, 40)])
@@ -108,7 +108,7 @@ def test_frame_assembly_matches_pack_frame_planes(rng, is_p, cap):
     assert bool(govf) == bool(wovf) == (int(gbits) > 32 * cap)
     assert np.array_equal(gmb.numpy(), np.asarray(wmb))
     if not govf:
-        assert np.array_equal(gw.numpy(), np.asarray(ww).astype(np.int64))
+        assert np.array_equal(gw.numpy().view(np.uint32), np.asarray(ww))
     else:  # words of an overflowing frame are never emitted (worst-case
         # rerun); the port's are the stream's first `cap` words
         full, _, _, _ = entropy.pack_frame_planes(

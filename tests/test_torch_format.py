@@ -41,8 +41,10 @@ def _t(a):
 
 
 def _eq(got: torch.Tensor, want) -> bool:
-    return np.array_equal(got.numpy().astype(np.int64),
-                          np.asarray(want).astype(np.int64))
+    got, want = got.numpy(), np.asarray(want)
+    if got.dtype == np.int32 and want.dtype == np.uint32:   # words
+        got = got.view(np.uint32)
+    return np.array_equal(got.astype(np.int64), want.astype(np.int64))
 
 
 def _smooth(rng, h, w):
@@ -92,7 +94,7 @@ def test_block_pack_v2_matches_reference(rng, by, bx, words):
     tv, tl = entropy.block_symbols_v2(_t(flat), _t(fpred))
     assert _eq(tv, v) and _eq(tl, l)
     got_w, got_b = kpack.block_pack(_t(flat), words, _t(fpred), 2)
-    assert got_w.dtype == torch.int64 and got_b.dtype == torch.int32
+    assert got_w.dtype == torch.int32 and got_b.dtype == torch.int32
     assert _eq(got_b, want_b) and _eq(got_w, want_w)
     assert bool((got_b > 32 * words).any()) == bool(want_ovf) == (words < 78)
     # the Pallas kernel itself, in interpret mode
@@ -176,7 +178,7 @@ def test_frame_pack_v2_matches_reference(rng, jnp_path, is_p, emit):
         cw, cbits, gmb, govf = entropy.pack_frame_chunks(*targs, fmt=2)
         gbits = int(cbits.sum())
         payload, nbits = bit_concat(
-            [(cw[c].numpy().astype(np.uint32), int(b))
+            [(cw[c].numpy().view(np.uint32), int(b))
              for c, b in enumerate(cbits) if b])
         nw = (gbits + 31) // 32
         assert nbits == gbits

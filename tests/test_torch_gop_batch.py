@@ -149,6 +149,7 @@ def test_run_batch_shapes_and_block_budget(monkeypatch):
     assert outs["words"].shape[:2] == outs["cbits"].shape[:2] == (T, G)
     assert outs["qp"][0].tolist() == [30, 15, 22]
     assert outs["bits"].dtype == torch.int64 and outs["qp"].dtype == torch.int32
+    assert outs["words"].dtype == torch.int32
     seen.clear()
     eng.run_batch(y, c[0], c[1], [30, 15, 22], xl=True)
     assert seen == [(entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs))] * T

@@ -417,8 +417,9 @@ def _se_ue(v):
 
 def _pack_model(levels, n_words, dc_pred, fmt):
     """block_pack_kernel's placement for blocks [n, 64]: (words [n,
-    n_words] int64, bits [n] int32): each pair code ORed into a string
-    that starts as the header."""
+    n_words] int32, bits [n] int32): each pair code ORed into a string
+    that starts as the header, built in int64 and stored as 32-bit
+    words."""
     v2 = fmt >= 2
     lv = levels.long()
     n = lv.shape[0]
@@ -475,7 +476,7 @@ def _pack_model(levels, n_words, dc_pred, fmt):
         keep = nz & (end > 32 * k) & (wi + k < n_words)
         buf.scatter_add_(1, torch.where(keep, wi + k, n_words + 2),
                          torch.where(keep, piece, 0))
-    return buf[:, :n_words], bits.int()
+    return buf[:, :n_words].to(torch.int32), bits.int()
 
 
 def _pack_cases(rng):
@@ -518,7 +519,7 @@ def test_block_pack_placement_model(rng, fmt, n_words):
                                              jnp.int32)[:, None],
                                  fmt, n_words, interpret=True)
     assert np.array_equal(got[1].numpy(), np.asarray(pb))
-    assert np.array_equal(got[0].numpy(), np.asarray(pw).astype(np.int64))
+    assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(pw))
 
 
 # ---- the SAD maps: tiled_kernel and even_map_kernel in csrc/full_search.cu --
@@ -1139,8 +1140,8 @@ def _merge_model(piece_words, caps, bits, m, cw, n_out):
     After the scan position q of a piece at o = 32 T + r makes word T + q,
     its word q >> r ored with its word q - 1 << (32 - r): a word wholly
     inside the piece's bits is stored (no other task writes it), one that
-    holds a boundary is ored. Returns (words [n_out, cw] int64, bits
-    [n_out], ovf)."""
+    holds a boundary is ored. Returns (words [n_out, cw] int32, the
+    kernel's 32-bit stores, bits [n_out], ovf)."""
     n = len(bits)
     width = piece_words.shape[1]
     chunks = (max(caps.max(), 1) + MERGE_CHUNK) // MERGE_CHUNK
@@ -1179,7 +1180,8 @@ def _merge_model(piece_words, caps, bits, m, cw, n_out):
                         ored[t] = True
                         out[s, t] |= np.uint64(word)
         assert stored.max(initial=0) <= 1 and not (ored & (stored > 0)).any()
-    return out.astype(np.int64), totals, bool((totals > 32 * cw).any())
+    return (out.astype(np.uint32).view(np.int32), totals,
+            bool((totals > 32 * cw).any()))
 
 
 def _valid(rng, n, cap, bits):
@@ -1219,7 +1221,7 @@ def _mb_piece_sources(rng, n_mbs, w, hww, dense):
     clean = _valid(rng, n_mbs * 8, wmax, np.minimum(flat, 32 * caps))
     clean[np.arange(wmax)[None, :] >= caps[:, None]] = 0
     dirty = _garbage_past_used(rng, clean, np.minimum(flat, 32 * caps))
-    c = clean.astype(np.int64).reshape(n_mbs, 8, wmax)
+    c = clean.astype(np.uint32).view(np.int32).reshape(n_mbs, 8, wmax)
     srcs = (c[:, 0, :hww], c[:, 1:5, :w], c[:, 5, :w], c[:, 6, :w])
     return ([torch.from_numpy(np.ascontiguousarray(a)) for a in srcs],
             _t(flat), dirty, caps, flat)
@@ -1254,7 +1256,8 @@ def test_merge_placement_model(rng, n_mbs, w, hww, dense, cut, flag):
     if plan.two_stage:
         n2 = n1 // plan.g * plan.stop
         w2 = pack.span_merge(want[0], want[1], plan.g, plan.stop, plan.cwf)
-        got2 = _merge_model(want[0].numpy().astype(np.uint64), np.full(n1, cw),
+        got2 = _merge_model(want[0].numpy().view(np.uint32).astype(np.uint64),
+                            np.full(n1, cw),
                             want[1].numpy(), plan.g // plan.stop, plan.cwf, n2)
         assert np.array_equal(got2[0], w2[0].numpy())
         assert np.array_equal(got2[1], w2[1].numpy()) and got2[2] == bool(w2[2])
@@ -1272,7 +1275,8 @@ def test_chunk_merge_placement_model(rng, lead, n, w, k):
     bits[::7] = 0
     bits[1::5] = 32 * rng.integers(1, w + 1, len(bits[1::5]))
     clean = _valid(rng, total, w, bits)
-    words = torch.from_numpy(clean.astype(np.int64).reshape(*lead, n, w))
+    words = torch.from_numpy(
+        clean.astype(np.uint32).view(np.int32).reshape(*lead, n, w))
     want = pack.chunk_merge(words, _t(bits.reshape(*lead, n)), k)
     m = k // 2
     got = _merge_model(_garbage_past_used(rng, clean, bits), np.full(total, w),
@@ -1283,8 +1287,12 @@ def test_chunk_merge_placement_model(rng, lead, n, w, k):
 
 def _zero_past(words, bits):
     """Whether every string holds zeros past its bit count: whole words
-    past ceil(bits / 32) and the low bits of the last used word."""
-    words = np.asarray(words).astype(np.uint64)
+    past ceil(bits / 32) and the low bits of the last used word (int32
+    words viewed as uint32)."""
+    words = np.asarray(words)
+    if words.dtype == np.int32:
+        words = words.view(np.uint32)
+    words = words.astype(np.uint64)
     bits = np.asarray(bits).astype(np.int64)
     col = np.arange(words.shape[-1]) * 32
     keep = np.clip(bits[..., None] - col, 0, 32).astype(np.uint64)

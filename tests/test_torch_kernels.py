@@ -329,12 +329,11 @@ def _sources(rng, n_mbs, w, dense, dev):
     bits = np.full((n_mbs, 8), 300) if dense else rng.integers(0, 200, (n_mbs, 8))
     bits[:, 0] = np.minimum(bits[:, 0], 38)
     bits[:, 7] = 0
-    words = np.zeros((n_mbs, 8, w), np.int64)
     col = np.arange(w)[None, None, :] * 32
     keep = np.clip(bits[..., None] - col, 0, 32)
-    vals = rng.integers(0, 2**32, words.shape, dtype=np.uint64)
+    vals = rng.integers(0, 2**32, (n_mbs, 8, w), dtype=np.uint64)
     words = (vals >> (32 - keep).astype(np.uint64) << (32 - keep).astype(np.uint64))
-    words = torch.from_numpy(words.astype(np.int64)).to(dev)
+    words = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
     return (words[:, 0, :2].contiguous(), words[:, 1:5].contiguous(),
             words[:, 5].contiguous(), words[:, 6].contiguous(),
             _t(bits.reshape(-1), dev))
@@ -1027,7 +1026,8 @@ def test_full_search_sea_haloed_kernel(cuda, rng, monkeypatch, sr, sc, h, w):
 
 
 def _pieces(rng, lead, n, w, kind):
-    """Piece strings [*lead, n, w] int64 and bits [*lead, n] int32: every
+    """Piece strings [*lead, n, w] int32 (uint32 bit patterns) and bits
+    [*lead, n] int32: every
     piece full (dense), every piece empty, or random lengths with every
     ninth piece empty; words past each length zero."""
     shape = (*lead, n)
@@ -1038,7 +1038,7 @@ def _pieces(rng, lead, n, w, kind):
     keep = np.clip(bits[..., None] - np.arange(w) * 32, 0, 32).astype(np.uint64)
     vals = rng.integers(0, 2**32, (*shape, w), dtype=np.uint64)
     words = np.where(keep > 0, vals >> (32 - keep) << (32 - keep), 0)
-    return words.astype(np.int64), bits.astype(np.int32)
+    return words.astype(np.uint32).view(np.int32), bits.astype(np.int32)
 
 
 @pytest.mark.parametrize("lead,n,w,k,kind", [

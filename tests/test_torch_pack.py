@@ -43,13 +43,19 @@ def _mb_sources(rng, n_mbs, w, max_bits):
     return hw, blocks[:, :4], blocks[:, 4], blocks[:, 5], pb.reshape(-1).astype(np.int32)
 
 
-def _t64(a):
-    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64))
+def _t32(a):
+    """uint32 words as the port carries them: int32 of the same bits."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a).astype(np.uint32).view(np.int32))
 
 
 def _masked(words, bits):
-    """Words with every bit past the string's count cleared."""
-    words = np.asarray(words).astype(np.uint64)
+    """Words with every bit past the string's count cleared (int32 words
+    are viewed as uint32 before they widen)."""
+    words = np.asarray(words)
+    if words.dtype == np.int32:
+        words = words.view(np.uint32)
+    words = words.astype(np.uint64)
     col = np.arange(words.shape[1])[None, :] * 32
     keep = np.clip(np.asarray(bits)[:, None] - col, 0, 32).astype(np.uint64)
     mask = ((np.uint64(1) << keep) - np.uint64(1)) << (np.uint64(32) - keep)
@@ -59,7 +65,7 @@ def _masked(words, bits):
 def _port_spans(hw, yw, cbw, crw, pb, w):
     plan = pack.span_plan(yw.shape[0], w)
     words, bits, ovf = pack.span_merge_mb(
-        _t64(hw), _t64(yw), _t64(cbw), _t64(crw), torch.from_numpy(pb),
+        _t32(hw), _t32(yw), _t32(cbw), _t32(crw), torch.from_numpy(pb),
         plan.m1, plan.cw1, plan.n1)
     if plan.two_stage:
         words, bits, ovf2 = pack.span_merge(words, bits, plan.g, plan.stop,
@@ -95,7 +101,7 @@ def test_span_merge_matches_super_merge_mb(rng, n_mbs, w, max_bits, two_stage):
     want_payload, want_bits = jent.tree_concat(
         jnp.asarray(pieces), jnp.asarray(pb), int(pb.sum() + 31) // 32 + 1)
     payload, nbits = mux.bit_concat(
-        [(got_w[s].astype(np.uint32), int(b)) for s, b in enumerate(got_b)])
+        [(got_w[s].view(np.uint32), int(b)) for s, b in enumerate(got_b)])
     assert nbits == int(want_bits)
     nw = (nbits + 31) // 32
     assert payload == np.asarray(want_payload)[:nw].astype(">u4").tobytes()
@@ -108,7 +114,7 @@ def test_span_merge_stage2_matches_reduce(rng):
     bits = rng.integers(0, 32 * cw1 + 1, n).astype(np.int32)
     bits[::7] = 0
     strings = _strings(rng, n, cw1, bits)
-    words, got_b, ovf = pack.span_merge(_t64(strings), torch.from_numpy(bits),
+    words, got_b, ovf = pack.span_merge(_t32(strings), torch.from_numpy(bits),
                                         32, 8, cwf)
     with pltpu.force_tpu_interpret_mode():
         want_w, want_b, want_ovf = ppack._reduce(
@@ -192,15 +198,16 @@ def test_pack_frame_chunks_matches_reference(rng, is_p):
         *t, is_p, torch.from_numpy(inter), torch.from_numpy(dy),
         torch.from_numpy(dx), bw, 4096)
     payload, nbits = mux.bit_concat(
-        [(gw[s].numpy().astype(np.uint32), int(b)) for s, b in enumerate(gb)])
+        [(gw[s].numpy(), int(b)) for s, b in enumerate(gb)])
     assert nbits == int(fbits)
     nw = (nbits + 31) // 32
-    assert payload == fw[:nw].numpy().astype(">u4").tobytes()
+    assert gw.dtype == fw.dtype == torch.int32
+    assert payload == fw[:nw].numpy().view(np.uint32).astype(">u4").tobytes()
 
 
 def test_dispatch_span_merge_on_cpu_is_the_plain_version(rng):
     hw, yw, cbw, crw, pb = _mb_sources(rng, 12, 16, 100)
-    args = (_t64(hw), _t64(yw), _t64(cbw), _t64(crw), torch.from_numpy(pb),
+    args = (_t32(hw), _t32(yw), _t32(cbw), _t32(crw), torch.from_numpy(pb),
             16, 257, 6)
     got = dispatch.span_merge_mb(*args)
     want = pack.span_merge_mb(*args)

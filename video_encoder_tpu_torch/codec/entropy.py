@@ -12,8 +12,13 @@ the piece bit lengths, then one shifted add per piece word into the two
 target words it straddles. Disjoint bit ranges make add equal to or, so
 the bytes equal the reference's `tree_concat`.
 
-Words are int64 tensors holding 32-bit values: torch has no uint32
-shifts on the CPU.
+Words are int32 tensors holding the reference's uint32 bit patterns, on
+the CPU and on the card (torch has no uint32 shifts or adds on the CPU).
+A word with bit 31 set is negative, so a right shift of a word goes
+through `shift_split`, which shifts logically; int64 appears only inside
+a plain function's arithmetic and is narrowed before it leaves. Adds of
+disjoint bit ranges never carry, so an int32 add of them equals an or and
+never overflows.
 
 The per-frame engine (`pipeline/device_engine.py`) packs as the
 reference's does: per-MB symbols (`mb_symbols`) and one dense pack of
@@ -30,6 +35,8 @@ still launches once.
 from __future__ import annotations
 
 import torch
+
+from . import tables
 
 MASK32 = 0xFFFFFFFF
 HEADER_SLOTS = 4
@@ -163,13 +170,34 @@ def _header_slots(qp_delta, is_p_frame: bool, is_inter, dy, dx,
     return torch.where(lengths > 0, values, 0), lengths
 
 
+def shift_split(words: torch.Tensor, s: torch.Tensor):
+    """int32 words placed at a bit shift s in [0, 32) (broadcast, one per
+    string): (hi, lo), each word shifted right by s and its low s bits
+    left-aligned in the next word (0 where s == 0). The right shift is
+    logical: an int32 `>>` is arithmetic and smears a set bit 31 into the
+    top s bits, which a mask clears. No shift is by 32 or by a negative
+    count. The shifts and masks of all the strings are one gather of
+    `tables.SHIFT`'s columns, each quantity contiguous, so a word takes
+    two operations for each of hi and lo."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"words are int32 holding 32-bit patterns, got "
+                        f"{words.dtype}")
+    t = tables.load(words.device).SHIFT.index_select(
+        1, s.reshape(-1).long()).reshape(4, *s.shape)
+    hi = (words >> t[0]) & t[1]
+    lo = (words << t[2]) & t[3]
+    return hi, lo
+
+
 def pack_dense(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
     """Pack [..., S] symbol strings MSB-first into [..., n_words] words.
 
-    Returns (words int64 [..., W], bits int32 [...], overflow bool). Bits
+    Returns (words int32 [..., W], bits int32 [...], overflow bool). Bits
     past 32*n_words are dropped; `bits` is the untruncated length. Each
     symbol adds into at most two words (scatter-add; disjoint bit ranges
-    make add equal to or)."""
+    make add equal to or, so the int32 adds never overflow). The symbol
+    values (below 2^25) are shifted in int64, and each word part is
+    narrowed to int32 (modulo 2^32) before the scatter."""
     lead = values.shape[:-1]
     values = values.reshape(-1, values.shape[-1]).long()
     lengths = lengths.reshape(-1, lengths.shape[-1]).long()
@@ -187,10 +215,10 @@ def pack_dense(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
     c2 = torch.where(live & ~fits, c2, 0)
 
     w1 = off >> 5
-    buf = torch.zeros(values.shape[0], n_words + 1, dtype=torch.int64,
+    buf = torch.zeros(values.shape[0], n_words + 1, dtype=torch.int32,
                       device=values.device)
-    buf.scatter_add_(1, w1.clamp(max=n_words), c1)
-    buf.scatter_add_(1, (w1 + 1).clamp(max=n_words), c2)
+    buf.scatter_add_(1, w1.clamp(max=n_words), c1.to(torch.int32))
+    buf.scatter_add_(1, (w1 + 1).clamp(max=n_words), c2.to(torch.int32))
     words = buf[:, :n_words].reshape(*lead, n_words)
     bits = bits.reshape(lead).int()
     return words, bits, (bits > 32 * n_words).any()
@@ -198,7 +226,7 @@ def pack_dense(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
 
 def pack_bits(values: torch.Tensor, lengths: torch.Tensor, n_words: int):
     """MSB-first pack of flat (value, length) symbol arrays of any shape,
-    in row-major order, into one string: (words int64 [n_words], total_bits
+    in row-major order, into one string: (words int32 [n_words], total_bits
     int32). The per-frame engine's pass 2, pack_dense of a single row."""
     words, bits, _ = pack_dense(values.reshape(1, -1), lengths.reshape(1, -1),
                                 n_words)
@@ -291,30 +319,29 @@ def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
 
 def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
                  n_words: int):
-    """Concatenate n MSB-first bit strings [..., n, W] of lengths [..., n]
-    into one [..., n_words] string per leading index (words past n_words
-    dropped). Returns (words int64, total_bits int64 [...]).
+    """Concatenate n MSB-first bit strings [..., n, W] int32 of lengths
+    [..., n] into one [..., n_words] string per leading index (words past
+    n_words dropped). Returns (words int32, total_bits int64 [...]).
 
-    Piece p starts at bit off_p (exclusive prefix sum, restarting at
-    every leading index); its word j lands shifted right by off_p % 32 in
-    word off_p // 32 + j, and its low bits spill into the next word.
-    String g of G adds into its own n_words + 1 slots of one flat
-    buffer, the last of them the spill slot."""
+    Piece p starts at bit off_p (exclusive prefix sum in int64, restarting
+    at every leading index; a frame's stays below 2^31); its word j lands
+    shifted right by off_p % 32 in word off_p // 32 + j, and its low bits
+    spill into the next word (`shift_split`). String g of G adds into its
+    own n_words + 1 slots of one flat int32 buffer, the last of them the
+    spill slot; the adds are of disjoint bit ranges, so they equal ors."""
     *lead, n, w = piece_words.shape
     dev = piece_words.device
     bits = piece_bits.long()
     off = torch.cumsum(bits, -1) - bits
     total = off[..., -1] + bits[..., -1]
-    s = (off & 31)[..., None]
     target = (off >> 5)[..., None] + torch.arange(w, device=dev)
-    hi = piece_words >> s
-    lo = (piece_words << (32 - s)) & MASK32   # 0 where s == 0
+    hi, lo = shift_split(piece_words, (off & 31)[..., None])
     n_out = 1
     for d in lead:
         n_out *= d
     base = (torch.arange(n_out, device=dev) * (n_words + 1)).reshape(
         *lead, 1, 1) if lead else 0
-    out = torch.zeros(n_out * (n_words + 1), dtype=torch.int64, device=dev)
+    out = torch.zeros(n_out * (n_words + 1), dtype=torch.int32, device=dev)
     out.index_add_(0, (base + target.clamp(max=n_words)).reshape(-1),
                    hi.reshape(-1))
     out.index_add_(0, (base + (target + 1).clamp(max=n_words)).reshape(-1),
@@ -327,7 +354,7 @@ def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
                       n_words: int, fmt: int = 1):
     """Frame payload from per-plane zigzag levels ([2nby, 2nbx, 64] luma,
     [nby, nbx, 64] chroma) in the format-1 syntax, or the format-2 syntax
-    for fmt >= 2. Returns (words int64 [n_words], total_bits, mb_bits
+    for fmt >= 2. Returns (words int32 [n_words], total_bits, mb_bits
     [nby, nbx], overflow). With a leading G axis on every array: words
     [G, n_words], total_bits [G], mb_bits [G, nby, nbx], and one overflow
     flag for the batch."""
@@ -347,7 +374,7 @@ def pack_frame_rows(levels_y8, levels_cb, levels_cr, qp_delta,
                     is_p_frame: bool, is_inter, dy, dx, block_words: int,
                     row_words: int):
     """Format-1 pack emitting one bit string per MB row: (row strings
-    [..., nby, row_words] int64, row_bits [..., nby] int64, mb_bits
+    [..., nby, row_words] int32, row_bits [..., nby] int64, mb_bits
     [..., nby, nbx], overflow). The frame payload is the in-order
     bit-concatenation of the row strings, the bytes of pack_frame_planes.
     The 2-D tile grid needs this granularity: a frame's MB raster order
@@ -392,8 +419,9 @@ def chunk_capacity(n_pieces: int, block_words: int) -> tuple[int, int, int]:
 def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
                       is_p_frame: bool, is_inter, dy, dx, block_words: int,
                       fmt: int = 1):
-    """Frame (format-1 syntax, or format-2 for fmt >= 2) as span strings: (chunk_words [C, cw] int64,
-    chunk_bits [C] int32, mb_bits [nby, nbx], ovf). The frame payload is
+    """Frame (format-1 syntax, or format-2 for fmt >= 2) as span strings:
+    (chunk_words [C, cw] int32, chunk_bits [C] int32, mb_bits [nby, nbx],
+    ovf). The frame payload is
     the host bit-concatenation of the strings in order (`codec/mux.py`),
     the same bytes as pack_frame_planes. The span merge runs through the
     dispatch rule (span_merge_mb, then span_merge in the two-stage shape)

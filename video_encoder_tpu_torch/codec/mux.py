@@ -11,8 +11,11 @@ import numpy as np
 
 
 def bit_concat(payloads: list[tuple[np.ndarray, int]]) -> tuple[bytes, int]:
-    """Bit-concatenate MSB-first strings (uint32 words, nbits) into one
-    big-endian payload: (bytes, total_bits). Pure numpy shift-or."""
+    """Bit-concatenate MSB-first strings (32-bit words, nbits) into one
+    big-endian payload: (bytes, total_bits). Pure numpy shift-or. Words
+    are uint32, or int32 holding the same bit patterns (the port's
+    downloads): they are viewed as uint32 before they widen, as an int32
+    widened to 64 bits would carry its sign into the high word."""
     total_bits = sum(b for _, b in payloads)
     out = np.zeros((total_bits + 31) // 32 + 1, dtype=np.uint64)
     pos = 0
@@ -20,7 +23,10 @@ def bit_concat(payloads: list[tuple[np.ndarray, int]]) -> tuple[bytes, int]:
         if nbits == 0:
             continue
         nw = (nbits + 31) // 32
-        w = words[:nw].astype(np.uint64)
+        w = np.asarray(words[:nw])
+        if w.dtype not in (np.uint32, np.int32):
+            raise TypeError(f"bit_concat: words are {w.dtype}, not 32-bit")
+        w = w.view(np.uint32).astype(np.uint64)
         word0, sh = pos >> 5, pos & 31
         if sh == 0:
             out[word0:word0 + nw] |= w

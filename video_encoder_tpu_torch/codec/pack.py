@@ -28,9 +28,11 @@ than the reference's, never more. The stream is the same either way: an
 overflowing GOP is encoded again at BLOCK_WORDS_MAX, where
 `_merge_budget(w) == w` and every width is the exact worst case.
 
-Words are int64 tensors holding 32-bit values; each piece's words past
-its bit count are zero (every producer zero-fills), so the pieces' bit
-ranges are disjoint and add equals or.
+Words are int32 tensors holding the reference's uint32 bit patterns (the
+module note of `codec/entropy.py`); each piece's words past its bit count
+are zero (every producer zero-fills), so the pieces' bit ranges are
+disjoint, an int32 add equals an or and never overflows. Bit offsets are
+int64 (index arithmetic), bit counts int32.
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ import dataclasses
 import torch
 
 from . import entropy
-
-MASK32 = 0xFFFFFFFF
 
 
 def _stage1_k(w: int) -> int:
@@ -113,15 +113,13 @@ def span_plan(n_mbs: int, w: int) -> SpanPlan:
 
 
 def _place(out, cw: int, string, off, words):
-    """Add words [P, W] of pieces at bit offsets off [P] of output strings
-    string [P] into out [n_strings * (cw + 1)]; words past cw land in each
-    string's spill slot cw."""
+    """Add int32 words [P, W] of pieces at bit offsets off [P] of output
+    strings string [P] into out [n_strings * (cw + 1)] int32; words past
+    cw land in each string's spill slot cw."""
     p, w = words.shape
-    s = (off & 31)[:, None]
     col = (off >> 5)[:, None] + torch.arange(w, device=off.device)
     row = (string * (cw + 1))[:, None]
-    hi = words >> s
-    lo = (words << (32 - s)) & MASK32   # 0 where s == 0
+    hi, lo = entropy.shift_split(words, (off & 31)[:, None])
     out.index_add_(0, (row + col.clamp(max=cw)).reshape(-1), hi.reshape(-1))
     out.index_add_(0, (row + (col + 1).clamp(max=cw)).reshape(-1),
                    lo.reshape(-1))
@@ -146,14 +144,14 @@ def _finish(out, totals, n_strings: int, cw: int):
 def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
                   n_strings: int):
     """Per-MB sources -> stage-1 strings. hw [n_mbs, 2], yw [n_mbs, 4, w],
-    cbw, crw [n_mbs, w] int64; piece_bits [n_mbs * 8] int32 in piece order
+    cbw, crw [n_mbs, w] int32; piece_bits [n_mbs * 8] int32 in piece order
     (0 for the empty 8th piece). String s holds pieces [s*m, (s+1)*m);
-    pieces past 8 * n_mbs are empty. Returns (words [n_strings, cw] int64,
+    pieces past 8 * n_mbs are empty. Returns (words [n_strings, cw] int32,
     bits [n_strings] int32, ovf)."""
     n_mbs = yw.shape[0]
     dev = yw.device
     off, totals = _offsets(piece_bits, m, n_strings)
-    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int64, device=dev)
+    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int32, device=dev)
     mb8 = torch.arange(n_mbs, device=dev)[:, None] * 8
     for slots, words in ((mb8, hw), (mb8 + torch.arange(1, 5, device=dev), yw),
                          (mb8 + 5, cbw), (mb8 + 6, crw)):
@@ -163,14 +161,14 @@ def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
 
 
 def span_merge(strings, bits, g: int, stop: int, cw: int):
-    """Groups of g strings [n, w] int64 (bits [n] int32) -> `stop` strings
+    """Groups of g strings [n, w] int32 (bits [n] int32) -> `stop` strings
     per group, each the concatenation of g/stop consecutive inputs.
-    Returns (words [n/g*stop, cw] int64, bits int32, ovf)."""
+    Returns (words [n/g*stop, cw] int32, bits int32, ovf)."""
     n = strings.shape[0]
     m = g // stop
     n_strings = n // g * stop
     off, totals = _offsets(bits, m, n_strings)
-    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int64,
+    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int32,
                       device=strings.device)
     gi = torch.arange(n, device=strings.device)
     _place(out, cw, gi // m, off[:n], strings)
@@ -190,8 +188,8 @@ def pick_chunk_k(n: int, w: int) -> int:
 
 def chunk_merge(words, bits, k: int):
     """Each run of k consecutive piece strings -> two half-chunk strings,
-    in piece order: words [(G,) n, w] int64, bits [(G,) n] int32, n a
-    multiple of k. Returns (words [(G,) 2n/k, (k/2) * w + 1] int64, bits
+    in piece order: words [(G,) n, w] int32, bits [(G,) n] int32, n a
+    multiple of k. Returns (words [(G,) 2n/k, (k/2) * w + 1] int32, bits
     [(G,) 2n/k] int32). The width is the exact worst case, so no string
     overflows; a leading G folds into the chunk axis."""
     *lead, n, w = words.shape
@@ -199,7 +197,7 @@ def chunk_merge(words, bits, k: int):
     n_strings = words[..., 0].numel() // m
     cw = m * w + 1
     off, totals = _offsets(bits.reshape(-1), m, n_strings)
-    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int64,
+    out = torch.zeros(n_strings * (cw + 1), dtype=torch.int32,
                       device=words.device)
     gi = torch.arange(n_strings * m, device=words.device)
     _place(out, cw, gi // m, off, words.reshape(-1, w))

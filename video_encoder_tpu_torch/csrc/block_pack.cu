@@ -8,8 +8,8 @@
 //
 // Bound on this card: device memory. A 1088x1920 luma plane is 32640
 // blocks: 8.4 MB of int32 levels in, and at n_words = 16 the strings'
-// 32-bit words (2.1 MB, held in int64: 4.2 MB stored) and the bit counts
-// out; a 0.0032 ms bound at 3.35 TB/s counting 4 bytes a word.
+// 32-bit words (2.1 MB) and the bit counts out; a 0.0032 ms bound at
+// 3.35 TB/s.
 //
 // Design: one warp per block. Lane l loads levels l and l + 32, so each of
 // the block's two 128-byte halves arrives in one coalesced access and the
@@ -91,7 +91,7 @@ template <bool V2>
 __global__ void __launch_bounds__(32 * WARPS)
 block_pack_kernel(const int* __restrict__ levels,
                   const int* __restrict__ dc_pred, int n, int n_words,
-                  long long* __restrict__ words, int* __restrict__ bits) {
+                  unsigned* __restrict__ words, int* __restrict__ bits) {
   __shared__ unsigned s_str[WARPS][MAX_WORDS + 2];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long i = (long long)blockIdx.x * WARPS + warp;
@@ -154,11 +154,11 @@ block_pack_kernel(const int* __restrict__ levels,
   if (n0) put(str, n_words, off0, c0, n0);
   if (n1) put(str, n_words, off1, c1, n1);
   __syncwarp();
-  long long* out = words + i * n_words;
+  unsigned* out = words + i * n_words;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int w = lane + 32 * k;
-    if (w < n_words) out[w] = (long long)str[w];
+    if (w < n_words) out[w] = str[w];
   }
   if (lane == 0) bits[i] = hdr + (tot & 0xffff) + (tot >> 16);
 }
@@ -167,10 +167,10 @@ block_pack_kernel(const int* __restrict__ levels,
 
 // levels: [n, 64] int32 zigzag order (|level| <= 3925, SPEC.md §4);
 // dc_pred: [n] int32, read for fmt >= 2 only (may be null for fmt 1);
-// words: [n, n_words] int64 holding 32-bit values, 1 <= n_words <= 78;
-// bits: [n] int32.
+// words: [n, n_words] 32-bit words (int32 tensors holding the uint32 bit
+// pattern), 1 <= n_words <= 78; bits: [n] int32.
 extern "C" int tvc_block_pack(const int* levels, const int* dc_pred, int n,
-                              int n_words, int fmt, long long* words,
+                              int n_words, int fmt, unsigned* words,
                               int* bits, void* stream) {
   if (n_words < 1 || n_words > MAX_WORDS) return (int)cudaErrorInvalidValue;
   if (n > 0) {

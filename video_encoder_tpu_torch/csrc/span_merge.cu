@@ -16,7 +16,7 @@
 //     writes 128 strings of 12289 words.
 //
 // Bound on this card: neither ALU nor bandwidth at 1080p. Stage 1 reads
-// 8160 MBs x 7 pieces' used words (a few MB of int64) and writes 512
+// 8160 MBs x 7 pieces' used words (a few MB) and writes 512
 // strings of 513 words; stage 2 reads those and writes 128 strings of 2049
 // words. What costs is latency: a string's bit counts, then its pieces'
 // words, the prefix scan and the store, in a few microseconds.
@@ -36,7 +36,7 @@
 // words in a shared copy of the string: a word wholly inside its piece's bits
 // is stored, and only a word that holds a piece boundary is ored in
 // (atomicOr). Words past cw are dropped, and the string leaves as coalesced
-// int64 stores. The string's true bit count is written beside it. The
+// 32-bit stores. The string's true bit count is written beside it. The
 // overflow flag (a string longer than 32 * cw bits) is derived in the same
 // launch: each block adds one ticket and its verdict to a device-wide word
 // with one atomic, issued after the scan and read at the end, and the last
@@ -45,8 +45,8 @@
 // (the port launches every kernel on the current stream). This is the
 // prefix-sum placement of the port's frame_concat; the TPU's log-step
 // pairwise merge levels and their scoped-VMEM budgets were TPU layout choices
-// and have no counterpart here. Words are int64 holding 32-bit values, as
-// block_pack.cu writes them.
+// and have no counterpart here. Words are 32 bits in and out, as
+// block_pack.cu writes them (int32 tensors holding uint32 bit patterns).
 
 #include <cuda_runtime.h>
 
@@ -71,10 +71,10 @@ constexpr unsigned int TICKET_BITS = 20;
 // Pieces of the per-MB sources, 8 per MB in the order header, Y00, Y01,
 // Y10, Y11, Cb, Cr, empty. Piece gi >= 8 * n_mbs is an empty pad piece.
 struct MbSource {
-  const long long* hw;   // [n_mbs, hww]
-  const long long* yw;   // [n_mbs, 4, w]
-  const long long* cbw;  // [n_mbs, w]
-  const long long* crw;  // [n_mbs, w]
+  const unsigned int* hw;   // [n_mbs, hww]
+  const unsigned int* yw;   // [n_mbs, 4, w]
+  const unsigned int* cbw;  // [n_mbs, w]
+  const unsigned int* crw;  // [n_mbs, w]
   const int* pbits;      // [n_mbs * 8]
   int n_mbs, hww, w;
 
@@ -83,7 +83,7 @@ struct MbSource {
     return gi < 8 * n_mbs ? __ldg(pbits + gi) : 0;
   }
   // the words of a piece with bits and how many it holds
-  __device__ const long long* words(int gi, int& cap) const {
+  __device__ const unsigned int* words(int gi, int& cap) const {
     const size_t m = (size_t)(gi >> 3);
     cap = w;
     switch (gi & 7) {
@@ -99,13 +99,13 @@ struct MbSource {
 
 // Strings [n, w] with bit counts [n], taken in order.
 struct FlatSource {
-  const long long* strings;
+  const unsigned int* strings;
   const int* pbits;
   int n, w;
 
   __host__ __device__ int max_width() const { return w; }
   __device__ int bits(int gi) const { return gi < n ? __ldg(pbits + gi) : 0; }
-  __device__ const long long* words(int gi, int& cap) const {
+  __device__ const unsigned int* words(int gi, int& cap) const {
     cap = w;
     return strings + (size_t)gi * w;
   }
@@ -119,7 +119,7 @@ struct FlatSource {
 // i; thread t takes tasks t, t + NT, ... (at most TASKS).
 template <class Source, int NT, int TASKS = tasks_per_thread<NT>()>
 __global__ void __launch_bounds__(NT)
-merge_kernel(Source src, int m, int cw, long long* __restrict__ out,
+merge_kernel(Source src, int m, int cw, unsigned int* __restrict__ out,
              int* __restrict__ bits_out, unsigned char* __restrict__ ovf) {
   extern __shared__ unsigned int smem[];
   int* offs = (int*)smem;            // [m] piece bit offsets
@@ -151,12 +151,12 @@ merge_kernel(Source src, int m, int cw, long long* __restrict__ out,
   for (int k = 0; k < TASKS; ++k) {
     const int task = tid + k * NT, i = task / chunks, c = task % chunks;
     int cap = 0;
-    const long long* p = i < m ? src.words(base + i, cap) : nullptr;
+    const unsigned int* p = i < m ? src.words(base + i, cap) : nullptr;
     tused[k] = min((tbits[k] + 31) >> 5, cap);
 #pragma unroll
     for (int e = 0; e <= CHUNK; ++e) {
       const int j = c * CHUNK - 1 + e;
-      wd[k][e] = j >= 0 && j < tused[k] ? (unsigned int)__ldg(p + j) : 0u;
+      wd[k][e] = j >= 0 && j < tused[k] ? __ldg(p + j) : 0u;
     }
   }
 
@@ -222,7 +222,7 @@ merge_kernel(Source src, int m, int cw, long long* __restrict__ out,
     }
   }
   __syncthreads();
-  for (int t = tid; t < cw; t += NT) out[(size_t)s * cw + t] = (long long)buf[t];
+  for (int t = tid; t < cw; t += NT) out[(size_t)s * cw + t] = buf[t];
 
   if (tid == 0 && ovf != nullptr &&
       (ticket & ((1u << TICKET_BITS) - 1)) == gridDim.x - 1) {
@@ -235,7 +235,7 @@ merge_kernel(Source src, int m, int cw, long long* __restrict__ out,
 
 // ovf may be null where no string can be longer than cw words.
 template <class Source>
-int launch(const Source& src, int m, int cw, int n_out, long long* out,
+int launch(const Source& src, int m, int cw, int n_out, unsigned int* out,
            int* bits, unsigned char* ovf, cudaStream_t stream) {
   const int tasks = m * ((src.max_width() + CHUNK) / CHUNK);
   if (m < 1 || m > MAX_PIECES || tasks > tasks_per_thread<1024>() * 1024 ||
@@ -260,35 +260,39 @@ int launch(const Source& src, int m, int cw, int n_out, long long* out,
 
 }  // namespace
 
-// Stage 1. hw [n_mbs, hww], yw [n_mbs, 4, w], cbw, crw [n_mbs, w] int64;
+// Words are 32-bit in and out (int32 tensors holding uint32 bit patterns).
+// Stage 1. hw [n_mbs, hww], yw [n_mbs, 4, w], cbw, crw [n_mbs, w] words;
 // piece_bits [n_mbs * 8] int32 in piece order. Output string s holds
 // pieces [s*m, (s+1)*m) (pieces past 8 * n_mbs are empty): out
-// [n_out, cw] int64, bits [n_out] int32, ovf [1] bool.
-extern "C" int tvc_span_merge_mb(const long long* hw, const long long* yw,
-                                 const long long* cbw, const long long* crw,
+// [n_out, cw] words, bits [n_out] int32, ovf [1] bool.
+extern "C" int tvc_span_merge_mb(const unsigned int* hw,
+                                 const unsigned int* yw,
+                                 const unsigned int* cbw,
+                                 const unsigned int* crw,
                                  const int* piece_bits, int n_mbs, int hww,
                                  int w, int m, int cw, int n_out,
-                                 long long* out, int* bits,
+                                 unsigned int* out, int* bits,
                                  unsigned char* ovf, void* stream) {
   const MbSource src{hw, yw, cbw, crw, piece_bits, n_mbs, hww, w};
   return launch(src, m, cw, n_out, out, bits, ovf, (cudaStream_t)stream);
 }
 
-// Stage 2. strings [n, w] int64, bits_in [n] int32; output string s
-// concatenates strings [s*m, (s+1)*m): out [n_out, cw], bits [n_out], ovf.
-extern "C" int tvc_span_merge(const long long* strings, const int* bits_in,
+// Stage 2. strings [n, w] words, bits_in [n] int32; output string s
+// concatenates strings [s*m, (s+1)*m): out [n_out, cw] words, bits [n_out],
+// ovf.
+extern "C" int tvc_span_merge(const unsigned int* strings, const int* bits_in,
                               int n, int w, int m, int cw, int n_out,
-                              long long* out, int* bits, unsigned char* ovf,
+                              unsigned int* out, int* bits, unsigned char* ovf,
                               void* stream) {
   const FlatSource src{strings, bits_in, n, w};
   return launch(src, m, cw, n_out, out, bits, ovf, (cudaStream_t)stream);
 }
 
-// chunk_merge: words [n, w] int64, bits_in [n] int32, n a multiple of k
-// (k even); output string s concatenates pieces [s*k/2, (s+1)*k/2): out
-// [2n/k, (k/2) w + 1] int64, bits [2n/k] int32.
-extern "C" int tvc_chunk_merge(const long long* words, const int* bits_in,
-                               int n, int w, int k, long long* out,
+// chunk_merge: words [n, w], bits_in [n] int32, n a multiple of k (k even);
+// output string s concatenates pieces [s*k/2, (s+1)*k/2): out
+// [2n/k, (k/2) w + 1] words, bits [2n/k] int32.
+extern "C" int tvc_chunk_merge(const unsigned int* words, const int* bits_in,
+                               int n, int w, int k, unsigned int* out,
                                int* bits, void* stream) {
   if (k < 2 || k % 2 != 0 || n % k != 0) return (int)cudaErrorInvalidValue;
   const FlatSource src{words, bits_in, n, w};

@@ -276,7 +276,7 @@ def intra_rows_recon_plane(levels_zz, q_blk, reset_rows: int = 0,
 
 def block_pack(levels_zz, n_words: int, dc_pred=None, fmt: int = 1):
     """Per-block strings in the format-1 syntax, or with fmt >= 2 the
-    format-2 syntax against dc_pred [n]: (words [n, W] int64, bits [n]
+    format-2 syntax against dc_pred [n]: (words [n, W] int32, bits [n]
     int32)."""
     if _FORCE == "plain":
         return kpack.plain_block_pack(levels_zz, n_words, dc_pred, fmt)

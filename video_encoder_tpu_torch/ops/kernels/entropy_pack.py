@@ -27,8 +27,8 @@ def plain_block_pack(levels_zz: torch.Tensor, n_words: int,
 def block_pack(levels_zz: torch.Tensor, n_words: int,
                dc_pred: torch.Tensor | None = None, fmt: int = 1):
     """Pack each 8x8 block's zigzag levels [n, 64] int32 into its own
-    MSB-first string: (words [n, n_words] int64 holding 32-bit values,
-    bits [n] int32). fmt 1 is the format-1 syntax; fmt >= 2 the format-2
+    MSB-first string: (words [n, n_words] int32 holding the reference's
+    uint32 bit patterns, bits [n] int32). fmt 1 is the format-1 syntax; fmt >= 2 the format-2
     syntax, whose DC codes against dc_pred [n] int32 (counted as
     "block_pack_v2"). A string longer than 32*n_words bits is truncated;
     `bits` keeps its full length so the caller can detect the overflow.
@@ -45,7 +45,7 @@ def block_pack(levels_zz: torch.Tensor, n_words: int,
     build.require(levels_zz, torch.int32, (n, 64), "block_pack levels")
     if fmt >= 2:
         build.require(dc_pred, torch.int32, (n,), "block_pack dc_pred")
-    words = torch.empty((n, n_words), dtype=torch.int64,
+    words = torch.empty((n, n_words), dtype=torch.int32,
                         device=levels_zz.device)
     bits = torch.empty((n,), dtype=torch.int32, device=levels_zz.device)
     err = build.lib().tvc_block_pack(

@@ -3,6 +3,9 @@
 A CPU tensor takes the plain version in `codec/pack.py`; a CUDA tensor
 launches the kernel, which is built at first use.
 
+Words are int32 tensors holding the reference's uint32 bit patterns, in
+and out; a kernel refuses words of any other dtype.
+
 The kernel reads a piece's words only up to min(ceil(bits / 32), width),
 so every piece (and every string fed to a later stage) must hold zeros
 past its bit count, as the plain version's add, which equals an or only
@@ -21,7 +24,7 @@ from . import build
 
 
 def _outputs(n_strings: int, cw: int, device):
-    return (torch.empty((n_strings, cw), dtype=torch.int64, device=device),
+    return (torch.empty((n_strings, cw), dtype=torch.int32, device=device),
             torch.empty((n_strings,), dtype=torch.int32, device=device),
             torch.empty((), dtype=torch.bool, device=device))
 
@@ -29,7 +32,7 @@ def _outputs(n_strings: int, cw: int, device):
 def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
                   n_strings: int):
     """Per-MB piece sources -> n_strings strings of m pieces, cw words:
-    (words [n_strings, cw] int64, bits [n_strings] int32, ovf bool). Each
+    (words [n_strings, cw] int32, bits [n_strings] int32, ovf bool). Each
     piece holds zeros past its bit count (see the module note)."""
     if yw.device.type == "cpu":
         return pack.span_merge_mb(hw, yw, cbw, crw, piece_bits, m, cw,
@@ -38,10 +41,10 @@ def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,
     if n_strings * m < 8 * n_mbs:
         raise ValueError(f"span_merge_mb: {n_strings} strings of {m} pieces "
                          f"do not hold {n_mbs} MBs")
-    build.require(hw, torch.int64, (n_mbs, hw.shape[-1]), "span_merge_mb hw")
-    build.require(yw, torch.int64, (n_mbs, 4, w), "span_merge_mb yw")
-    build.require(cbw, torch.int64, (n_mbs, w), "span_merge_mb cbw")
-    build.require(crw, torch.int64, (n_mbs, w), "span_merge_mb crw")
+    build.require(hw, torch.int32, (n_mbs, hw.shape[-1]), "span_merge_mb hw")
+    build.require(yw, torch.int32, (n_mbs, 4, w), "span_merge_mb yw")
+    build.require(cbw, torch.int32, (n_mbs, w), "span_merge_mb cbw")
+    build.require(crw, torch.int32, (n_mbs, w), "span_merge_mb crw")
     build.require(piece_bits, torch.int32, (n_mbs * 8,), "span_merge_mb bits")
     words, bits, ovf = _outputs(n_strings, cw, yw.device)
     err = build.lib().tvc_span_merge_mb(
@@ -63,7 +66,7 @@ def span_merge(strings, bits_in, g: int, stop: int, cw: int):
     n, w = strings.shape
     if n % g or g % stop:
         raise ValueError(f"span_merge: {n} strings in groups of {g} -> {stop}")
-    build.require(strings, torch.int64, (n, w), "span_merge strings")
+    build.require(strings, torch.int32, (n, w), "span_merge strings")
     build.require(bits_in, torch.int32, (n,), "span_merge bits")
     n_strings = n // g * stop
     words, bits, ovf = _outputs(n_strings, cw, strings.device)
@@ -79,8 +82,8 @@ def span_merge(strings, bits_in, g: int, stop: int, cw: int):
 def chunk_merge(words, bits_in, k: int):
     """Each run of k piece strings -> two half-chunk strings of k/2
     pieces at the exact worst-case width (k/2) * w + 1: words [(G,) n, w]
-    int64, bits [(G,) n] int32, n a multiple of k (k even). Returns (words
-    [(G,) 2n/k, (k/2) * w + 1] int64, bits [(G,) 2n/k] int32); a leading
+    int32, bits [(G,) n] int32, n a multiple of k (k even). Returns (words
+    [(G,) 2n/k, (k/2) * w + 1] int32, bits [(G,) 2n/k] int32); a leading
     G folds into the chunk axis (one launch). Each piece holds zeros past
     its bit count (see the module note)."""
     if words.device.type == "cpu":
@@ -89,11 +92,11 @@ def chunk_merge(words, bits_in, k: int):
     if len(lead) > 1 or k < 2 or k % 2 or n % k:
         raise ValueError(f"chunk_merge: {tuple(words.shape)} pieces in "
                          f"chunks of {k}")
-    build.require(words, torch.int64, (*lead, n, w), "chunk_merge words")
+    build.require(words, torch.int32, (*lead, n, w), "chunk_merge words")
     build.require(bits_in, torch.int32, (*lead, n), "chunk_merge bits")
     total = n * (lead[0] if lead else 1)
     cw = (k // 2) * w + 1
-    out = torch.empty((*lead, 2 * n // k, cw), dtype=torch.int64,
+    out = torch.empty((*lead, 2 * n // k, cw), dtype=torch.int32,
                       device=words.device)
     bits = torch.empty((*lead, 2 * n // k), dtype=torch.int32,
                        device=words.device)

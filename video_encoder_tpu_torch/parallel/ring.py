@@ -114,7 +114,8 @@ class RingEncoder:
         bits = outs["bits"].cpu().numpy()           # [T, B]
         qps = outs["qp"].cpu().numpy()
         nw = max(int(bits.max() + 31) // 32, 1)
-        words = outs["words"][..., :nw].cpu().numpy()   # [T, B, nw]
+        # [T, B, nw]: the device's int32 words as their uint32 bit patterns
+        words = outs["words"][..., :nw].cpu().numpy().view(np.uint32)
         if self.group is not None:
             mine = (bits, qps, words)
             parts = [None] * d

@@ -494,7 +494,8 @@ def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
 def assemble_frame_2d(words: np.ndarray, row_bits: np.ndarray, t: int
                       ) -> tuple[bytes, int]:
     """Host glue of encode_gop_tiled2d's results (numpy: words
-    [T, Sr, Sc, nby_s, row_words], row_bits [T, Sr, Sc, nby_s]): frame t's
+    [T, Sr, Sc, nby_s, row_words], int32 as downloaded or uint32, row_bits
+    [T, Sr, Sc, nby_s]): frame t's
     payload is its MB rows in frame order, each row its column shards'
     strings in order."""
     _, sr, sc, nby_s = row_bits.shape

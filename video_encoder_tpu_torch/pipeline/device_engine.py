@@ -70,7 +70,7 @@ def encode_frame_device(cur, ref, qp: torch.Tensor, *, is_p: bool,
     """The per-frame encode on the planes' device: cur and ref are (y, cb,
     cr) int32 planes (ref unused and may be None on an I frame), qp the
     frame's base qp as a 0-dim int32 device tensor. Launches only, no
-    host wait. Returns a dict of device tensors: words [n_words] int64,
+    host wait. Returns a dict of device tensors: words [n_words] int32,
     payload_bits, rec (three int32 planes), n_inter and mb_bits
     [nby, nbx] int32."""
     if search not in ("full", "diamond"):
@@ -157,7 +157,7 @@ class DeviceEngine:
         bits, n_inter = torch.stack([out["payload_bits"].long(),
                                      out["n_inter"].long()]).tolist()
         payload = (out["words"][:(bits + 31) // 32].cpu().numpy()
-                   .astype(">u4").tobytes())
+                   .view(np.uint32).astype(">u4").tobytes())
         recon = Frame(*(r.to(torch.uint8).cpu().numpy().astype(np.int32)
                         for r in out["rec"]))
         self._last = (recon, out["rec"])

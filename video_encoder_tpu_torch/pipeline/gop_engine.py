@@ -534,9 +534,9 @@ class GopEngine:
     def download(self, outs):
         """The host's copy of an encode's results, as numpy arrays with
         the device tensors' leading axes ([T] or [T, G]): bits, n_inter,
-        qp, sse [..., 3], under chunk emit cbits [..., C], and words cut
-        to the longest payload (frame emit) or span string (chunk emit,
-        as the low 32 bits of each int64 word)."""
+        qp, sse [..., 3], under chunk emit cbits [..., C], and words (the
+        device's int32, viewed as uint32) cut to the longest payload
+        (frame emit) or span string (chunk emit)."""
         chunked = "cbits" in outs
         cols = [outs["bits"][..., None], outs["n_inter"][..., None],
                 outs["qp"][..., None], outs["sse"]]
@@ -548,12 +548,9 @@ class GopEngine:
         if chunked:
             host["cbits"] = small[..., 6:]
             maxw = max(int(host["cbits"].max() + 31) // 32, 1)
-            host["words"] = (
-                outs["words"][..., :maxw].contiguous().view(torch.int32)
-                [..., ::2].cpu().numpy().view(np.uint32))
         else:
             maxw = int(host["bits"].max() + 31) // 32
-            host["words"] = outs["words"][..., :maxw].cpu().numpy()
+        host["words"] = outs["words"][..., :maxw].cpu().numpy().view(np.uint32)
         return host
 
     @staticmethod
