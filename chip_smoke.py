@@ -117,12 +117,20 @@ Phases, each of which raises on failure (exit code not 0):
    three times per P frame and, at formats 1-2, per I frame,
    recon_plane_rows three times per I frame at formats 3-4, and nothing
    else (no single-plane fetch, no stripe); the C++ engines launch
-   nothing. Then the 1080p decode rates of the GOP engine:
-   device-resident (the GOP uploaded once, its frames rebuilt, one sync),
-   with its device ops per frame and busy share from torch.profiler; with
-   the parse and the download, and those host stages on their own; and
-   the CLI wall rates of the engines beside os.cpu_count() (printed,
-   claimed nowhere).
+   nothing. The device decoders replay one CUDA graph per key from a
+   key's second call (DecodeKey: a GOP; DecodeFrameKey: a frame): each
+   decode's graph calls are counted (eager, capture, replay) and must be
+   what its GOP and frame counts give (the 640x360 GOP-1 stream's GOPs
+   3-30 and the format-3 stream's GOP 3 are replays), printed with the
+   capture seconds. Then the 1080p decode rates of the GOP engine, per
+   stream through the GOP key's graph and through the eager loop in
+   turns (graph, eager, eager, graph): device-resident (the GOP uploaded
+   once, its frames rebuilt, one sync), with its host calls per GOP,
+   device ops per frame and busy share (traced and over the untraced
+   wall) from torch.profiler and the capture seconds; with the parse and
+   the download, and those host stages on their own; and the CLI wall
+   rates of the engines beside os.cpu_count() (printed, claimed
+   nowhere).
    Then the golden model (`phase_golden`; `--engine golden`, the numpy
    executable spec, on the host's CPU): the port CLI encodes the 640x360
    GOP-1 clip (30 frames) and the format-2 clip, each equal to the
@@ -146,7 +154,16 @@ Phases, each of which raises on failure (exit code not 0):
    (`--gop 12 --gop-batch 2`: a batch of two and a short GOP of 6). Every
    `_g` kernel of a path must have launched (the batched predictor once
    per P step), no single-plane kernel in a run without a tail, and the folded block pack and span merges once
-   per plane and frame step, not G times. Then the per-frame engine
+   per plane and frame step, not G times. Then the GOP-10 streams
+   decoded (`phase_decode_graphs`): config 3 unbatched (the oracle's
+   stream) and the full-search and format-4 streams of three GOPs of 10
+   (which their `--gop-batch 3` streams equal) through the port CLI under
+   `--engine gop` (GOP 3 a replay) and `--engine device` (the P key
+   captured at frame 2, the I key at frame 10, every other frame from 3
+   on a replay), each through the graphs and eagerly in
+   turns, each file equal to the oracle's decode (config 3) or `--engine
+   native`'s, with the same launches both ways and the graph calls and
+   capture seconds printed. Then the per-frame engine
    (`--engine device`), each run through its CUDA graphs (frames 0 and 1
    eager, frame 2 the capture of the P key, the later P frames replays)
    and through the eager path (`eager_paths()`) in turns: the 1080p
@@ -2433,12 +2450,45 @@ def decode_launches(m, n, gop, device: bool):
     return {k: v for k, v in want.items() if v}
 
 
+def decode_graph_calls(n, gop, engine):
+    """The GraphCache calls of a decode of n frames at GOP gop through
+    the CLI (a fresh engine), as graph_calls() counts them. The GOP
+    decoder: one key for the full GOPs (the first eager, the second the
+    capture, the rest replays) and one for a tail (eager). The per-frame
+    decoder: one key for the I frames and one for the P frames (a P frame
+    with a reference), each eager, captured, then replayed. The C++
+    decoders make none."""
+    if engine not in ("gop", "device"):
+        return {}
+    if engine == "gop":
+        name, keys = "DecodeKey", [n // gop] + ([1] if n % gop else [])
+    else:
+        n_i = -(-n // gop)
+        name, keys = "DecodeFrameKey", [n_i, n - n_i]
+    want = {}
+    for what, k in (("eager", sum(c > 0 for c in keys)),
+                    ("capture", sum(c > 1 for c in keys)),
+                    ("replay", sum(max(c - 2, 0) for c in keys))):
+        if k:
+            want[f"{name}/{what}"] = k
+    return want
+
+
+def check_decode_graphs(what, calls, want):
+    got = {k: v for k, v in calls.items() if k != "capture_s"}
+    if got != want:
+        raise AssertionError(f"{what}: graph calls {got}, want {want}")
+
+
 def phase_decode(tmp, jobs, card):
     """Every stream of the single-GOP paths decoded by the port CLI under
     each engine of DECODES, in-process, each file byte-identical to the C++
     oracle's decode of the same stream (job["dec"], written by
     decoded_psnr_y), each device decode through the kernels of the
-    decode path and nothing else. Returns (launches of each decode, CLI
+    decode path and nothing else, and through the decoders' graphs where
+    a key recurs (decode_graph_calls: the 640x360 GOP-1 stream's GOPs 3-30
+    and the format-3 stream's GOP 3 replay, and the per-frame decoder's
+    frames from the third of a key on). Returns (launches of each decode, CLI
     summaries by (job, engine), launches per decoded frame of the device
     engines by counter)."""
     paths, summaries = [], {}
@@ -2449,7 +2499,8 @@ def phase_decode(tmp, jobs, card):
             want = f.read()
         for engine, flags in DECODES.items():
             out_path = os.path.join(tmp, f"port_dec_{job['tag']}_{engine}.yuv")
-            launches, summary = run_decode(job, out_path, flags)
+            with graph_calls() as calls:
+                launches, summary = run_decode(job, out_path, flags)
             with open(out_path, "rb") as f:
                 got = f.read()
             os.remove(out_path)
@@ -2462,6 +2513,8 @@ def phase_decode(tmp, jobs, card):
             if moved != expect:
                 raise AssertionError(f"decode {engine} of {job['tag']}: "
                                      f"launches {moved}, want {expect}")
+            check_decode_graphs(f"decode {engine} of {job['tag']}", calls,
+                                decode_graph_calls(n, gop, engine))
             paths.append(launches)
             summaries[(name, engine)] = summary
             if expect:
@@ -2470,11 +2523,82 @@ def phase_decode(tmp, jobs, card):
                     dev_launches[k] = dev_launches.get(k, 0) + v
             log(f"decode {job['tag']} {' '.join(flags)}: == oracle "
                 f"decode ({len(want)} bytes, {summary['frames']} frames), "
-                f"launches {moved}, CLI wall {summary['fps']} fps [{card}]")
+                f"launches {moved}, graph calls {calls}, CLI wall "
+                f"{summary['fps']} fps [{card}]")
     per_frame = {k: v / max(dev_frames, 1) for k, v in dev_launches.items()}
     log(f"decode: launches per decoded frame of the device engines, "
         f"{dev_frames} frames: {per_frame}")
     return paths, summaries, per_frame
+
+
+def phase_decode_graphs(tmp, plains, batched_oracle, card):
+    """The 1080p GOP-10 streams of the batched paths (30 frames, three
+    GOPs) decoded by the port CLI under `--engine gop` (GOP 1 eager, GOP 2
+    the capture, GOP 3 a replay) and `--engine device` (frames 0 and 1
+    eager, the P key captured at frame 2 and the I key at frame 10, every
+    later frame a replay), each through its graphs and under
+    eager_paths() in turns (graph, eager): config 3 unbatched (the
+    oracle's stream) against the oracle's decode, full search and format
+    4 (the port's unbatched streams, which the `--gop-batch 3` streams
+    equal) against `--engine native`'s decode. Each file byte-identical
+    to its referee, the launches the same eager and replayed, the graph
+    calls as decode_graph_calls says; the counts and capture seconds are
+    printed. Returns the launch counts of each decode."""
+    paths = []
+    with open(batched_oracle["theirs"], "rb") as f:
+        streams = [(batched_oracle, f.read(), batched_oracle["dec"])]
+    streams += [(job, stream, None) for job, stream in plains.values()]
+    for job, stream, dec in streams:
+        m, n, gop, tag = job["mode"], job["n"], job["gop"], job["tag"]
+        job = dict(job, ours=os.path.join(tmp, f"decode_{tag}.tvc"))
+        with open(job["ours"], "wb") as f:
+            f.write(stream)
+        referee = "the oracle's decode"
+        if dec is None:
+            referee = "the native decode"
+            dec = os.path.join(tmp, f"native_dec_{tag}.yuv")
+            paths.append(run_decode(job, dec, DECODES["native1"])[0])
+        with open(dec, "rb") as f:
+            want = f.read()
+        for engine in ("gop", "device"):
+            moved = {}
+            for loop in ("graph", "eager"):
+                out_path = os.path.join(tmp, f"graph_dec_{tag}_{engine}.yuv")
+                with graph_calls() as calls, (
+                        eager_paths() if loop == "eager"
+                        else contextlib.nullcontext()):
+                    launches, summary = run_decode(job, out_path,
+                                                   DECODES[engine])
+                with open(out_path, "rb") as f:
+                    got = f.read()
+                os.remove(out_path)
+                if got != want:
+                    raise AssertionError(
+                        f"decode {engine} ({loop}) of {tag}: {len(got)} "
+                        f"bytes differ from {referee} ({len(want)} bytes)")
+                moved[loop] = nonzero(launches)
+                expect = decode_launches(m, n, gop, True)
+                if moved[loop] != expect:
+                    raise AssertionError(
+                        f"decode {engine} ({loop}) of {tag}: launches "
+                        f"{moved[loop]}, want {expect}")
+                graphs = decode_graph_calls(n, gop, engine)
+                if loop == "eager":         # every call eager
+                    graphs = ({"DecodeKey/eager": -(-n // gop)}
+                              if engine == "gop"
+                              else {"DecodeFrameKey/eager": n})
+                check_decode_graphs(f"decode {engine} ({loop}) of {tag}",
+                                    calls, graphs)
+                paths.append(launches)
+                log(f"decode {tag} --engine {engine} ({loop}): == {referee} "
+                    f"({len(want)} bytes, {summary['frames']} frames), "
+                    f"launches {moved[loop]}, graph calls {calls}, CLI wall "
+                    f"{summary['fps']} fps [{card}]")
+            if moved["graph"] != moved["eager"]:
+                raise AssertionError(f"decode {engine} of {tag}: launches "
+                                     f"{moved['graph']} through the graphs, "
+                                     f"{moved['eager']} eager")
+    return paths
 
 
 def cli_child(argv) -> int:
@@ -2586,11 +2710,16 @@ def phase_golden(tmp, jobs, hier_oracle, card):
 
 
 def phase_speed_decode(cells, summaries, card):
-    """1080p decode rates of the port's device path: the GOP engine with
-    the GOP uploaded once (run, sync once) and its device ops per frame
-    and busy share from torch.profiler, then with its parse and download
-    (decode_gop_start and _finish), the host stages of a GOP on their own
-    (parse, upload, download), and the CLI wall rates of phase 4 beside
+    """1080p decode rates of the port's device path, per stream: the GOP
+    engine with the GOP uploaded once (run, sync once), through the GOP
+    key's graph and through the eager loop (eager_paths()) in turns
+    (graph, eager, eager, graph; three GOPs a turn), each with its host
+    calls per GOP (the CUDA calls that submit work), device ops per frame
+    and busy share (traced, and the traced device time over the untraced
+    wall) from torch.profiler, and the key's capture seconds; then with
+    its parse and download (decode_gop_start and _finish), graph and
+    eager; the host stages of a GOP on their own (parse, upload,
+    download), and the CLI wall rates of phase 4 beside
     os.cpu_count()."""
     from video_encoder_tpu_torch.codec import bitstream
     from video_encoder_tpu_torch.pipeline import decoder
@@ -2610,51 +2739,91 @@ def phase_speed_decode(cells, summaries, card):
         iters = 3
         # the GOP's host stages on their own, each the mean of iters runs:
         # the threaded parse, the upload, the download of the decoded bytes
+        # (the runs between them are the key's eager call, its capture and
+        # a replay)
         stage_ms = dict(parse=0.0, upload=0.0, download=0.0)
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            host = eng.parse(info.width, info.height, packets)
-            t1 = time.perf_counter()
-            dev_gop = eng.upload(host)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            out = eng.run(dev_gop)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            out.cpu()
-            t4 = time.perf_counter()
-            for k, dt in (("parse", t1 - t0), ("upload", t2 - t1),
-                          ("download", t4 - t3)):
-                stage_ms[k] += 1e3 * dt / iters
+        with graph_calls() as calls:
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                host = eng.parse(info.width, info.height, packets)
+                t1 = time.perf_counter()
+                dev_gop = eng.upload(host)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out = eng.run(dev_gop)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                out.cpu()
+                t4 = time.perf_counter()
+                for k, dt in (("parse", t1 - t0), ("upload", t2 - t1),
+                              ("download", t4 - t3)):
+                    stage_ms[k] += 1e3 * dt / iters
+        check_decode_graphs(f"decode speed {job['tag']}", calls, {
+            "DecodeKey/eager": 1, "DecodeKey/capture": 1,
+            "DecodeKey/replay": 1})
         upload_mb = sum(t.numel() * t.element_size()
                         for t in dev_gop.values()
                         if isinstance(t, torch.Tensor)) / 1e6
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            eng.run(dev_gop)
-        torch.cuda.synchronize()
-        resident = iters * n / (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            eng.decode_gop_finish(eng.decode_gop_start(info.width,
-                                                       info.height, packets))
-        full = iters * n / (time.perf_counter() - t0)
-        ops, busy, top = device_ops(lambda: eng.run(dev_gop), n,
-                                    ("recon", "mc_predict"))
+
+        def loop_of(loop):
+            return (eager_paths() if loop == "eager"
+                    else contextlib.nullcontext())
+
+        def resident(loop):
+            with loop_of(loop):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.run(dev_gop)
+                torch.cuda.synchronize()
+                return iters * n / (time.perf_counter() - t0)
+
+        def with_parse(loop):
+            with loop_of(loop):
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.decode_gop_finish(eng.decode_gop_start(
+                        info.width, info.height, packets))
+                return iters * n / (time.perf_counter() - t0)
+
+        rates = {"graph": [], "eager": []}
+        full = {"graph": [], "eager": []}
+        for loop in ("graph", "eager", "eager", "graph"):
+            rates[loop].append(resident(loop))
+            full[loop].append(with_parse(loop))
+        fig = {}
+        for loop in ("graph", "eager"):
+            def once(loop=loop):
+                with loop_of(loop):
+                    eng.run(dev_gop)
+
+            f = loop_figures(once, n, ("recon", "mc_predict"))
+            f.update(resident=sum(rates[loop]) / len(rates[loop]),
+                     with_parse=sum(full[loop]) / len(full[loop]))
+            f["busy_of_wall"] = busy_of_wall(f, n)
+            fig[loop] = f
         cli_fps = {e: summaries[(name, e)]["fps"]
                    for e in ("gop", "device", "native1", "native0")}
-        results[m["tag"]] = dict(resident=resident, with_parse=full,
-                                 ops_per_frame=ops, cli=cli_fps,
-                                 stage_ms=stage_ms, upload_mb=upload_mb)
-        log(f"speed: decode {job['tag']} GOP engine device-resident "
-            f"{resident:.3f} fps, with parse and download {full:.3f} fps; "
-            f"one GOP traced: {ops if ops is None else round(ops, 2)} device "
-            f"ops/frame, device busy "
-            f"{busy if busy is None else round(100 * busy, 1)} %, "
-            f"{top[0][2] if top else None} ms of device time per GOP; host "
+        g, e = fig["graph"], fig["eager"]
+        results[m["tag"]] = dict(
+            resident=g["resident"], with_parse=g["with_parse"],
+            host_calls_per_gop=g["calls"], ops_per_frame=g["ops"],
+            busy=g["busy"], busy_of_wall=g["busy_of_wall"],
+            eager_resident=e["resident"], eager_with_parse=e["with_parse"],
+            eager_host_calls_per_gop=e["calls"], eager_ops_per_frame=e["ops"],
+            eager_busy=e["busy"], eager_busy_of_wall=e["busy_of_wall"],
+            capture_s=calls["capture_s"], cli=cli_fps, stage_ms=stage_ms,
+            upload_mb=upload_mb)
+        for loop, f in fig.items():
+            log(f"speed: decode {job['tag']} GOP engine {loop}: "
+                f"device-resident {f['resident']:.3f} fps (turns "
+                f"{[round(r, 3) for r in rates[loop]]}), with parse and "
+                f"download {f['with_parse']:.3f} fps; one GOP traced: "
+                f"{fmt_figures(f)} [{card}]")
+            log(f"  device ms per GOP by name (launches, ms): {f['top']}")
+        log(f"  decode {job['tag']}: capture s {calls['capture_s']}; host "
             f"stages per GOP (ms) {stage_ms} ({upload_mb:.1f} MB uploaded); "
             f"CLI wall fps {cli_fps} on {os.cpu_count()} host cores [{card}]")
-        log(f"  device ms per GOP by name (launches, ms): {top}")
     return results
 
 
@@ -3747,16 +3916,17 @@ def eager_paths():
 def graph_calls():
     """Counts of the GraphCache calls made while the block runs, by the
     key's type (GraphKey: the GOP engine; TileKey: the tile loop;
-    FrameKey: the per-frame engine) and by what the call did: "eager" (a
-    key's first call, a graph-less device, or no key), "capture" (the
-    capture and its replay) or "replay"; under "capture_s" the seconds
-    of each capture."""
+    FrameKey: the per-frame engine; DecodeKey: the GOP decoder;
+    DecodeFrameKey: the per-frame decoder) and by what the call did:
+    "eager" (a key's first call, a graph-less device, or no key),
+    "capture" (the capture and its replay) or "replay"; under
+    "capture_s" the seconds of each capture."""
     from video_encoder_tpu_torch.pipeline import gop_engine
 
     counts = {}
     real = gop_engine.GraphCache.launch
 
-    def launch(cache, key, body, inputs, qps):
+    def launch(cache, key, body, inputs, qps=None):
         graph = cache.graphs.get(key, "new")
         what = ("eager" if key is None or graph == "new" or inputs[0].device.type
                 not in gop_engine._GRAPH_DEVICE_TYPES
@@ -4390,6 +4560,10 @@ def main() -> int:
             f"{mem()}")
         batched_paths, plains = phase_batched(tmp, jobs, batched_oracle, card)
         path_launches += batched_paths
+        path_launches += phase_decode_graphs(tmp, plains, batched_oracle,
+                                             card)
+        log(f"GOP-10 decode graphs done at "
+            f"{time.perf_counter() - t_start:.1f} s; {mem()}")
         t_aux = time.perf_counter()
         per_frame_paths, per_frame = phase_per_frame(tmp, jobs, summaries,
                                                      card)

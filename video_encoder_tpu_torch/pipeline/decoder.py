@@ -15,6 +15,22 @@
   `decode_clip_parallel`: the same on worker threads, streaming, with at
   most N + 1 GOPs read and not yet yielded.
 
+On CUDA both device decoders rebuild through one captured CUDA graph per
+key (`gop_engine.GraphCache`, a cache per engine): `GopDecodeEngine.run`
+per `DecodeKey`, the counterpart of the reference's jitted
+`_decode_gop_jit`, and `DeviceDecodeEngine.decode` per `DecodeFrameKey`,
+the counterpart of its jitted `DeviceDecodeEngine._recon`. A key's first
+call runs eagerly (the warm-up), its second captures, every later one
+copies the parsed tensors into the graph's static inputs, replays and
+clones the decoded bytes out, so a GOP in flight keeps its own. A
+one-GOP stream never replays; in a stream of GOPs of T frames and a
+tail, the third full GOP is the first replay (the tail is a key of its
+own). The per-frame decoder runs a stream's first P frame eagerly,
+captures at its second and replays every later one; its I frames replay
+from the third GOP on. A capture that fails raises; nothing falls back
+to the eager loop. The parse, the uploads and the downloads stay on the
+host, outside the graph.
+
 Every decoder reads the stream through the lazy `bitstream.demux` and
 yields cropped (y, cb, cr) uint8 planes in frame order. The device
 decoders run on `device` ("cuda" by default) and raise without CUDA
@@ -38,7 +54,19 @@ from ..codec.frame import Frame
 from ..codec.golden import decode_frame
 from ..io import yuv
 from ..ops import dispatch, motion
-from .gop_engine import resolve_device
+from .gop_engine import GraphCache, resolve_device
+
+# what a captured GOP decode bakes in (GopDecodeEngine.key): the reference
+# jit's static arguments but the chroma qp offset, which plane_qsteps
+# applies on the host, the GOP's frame count and padded size, its I/P
+# pattern and the route the wrappers read at every call
+DecodeKey = collections.namedtuple(
+    "DecodeKey", "fmt qmat islice t_frames hp wp is_p force")
+# what a captured frame decode bakes in (DeviceDecodeEngine.key)
+DecodeFrameKey = collections.namedtuple(
+    "DecodeFrameKey", "is_p has_ref fmt qmat islice hp wp force")
+# the parsed tensors a GOP's graph reads, in its input order
+GOP_INPUTS = ("ly", "lcb", "lcr", "qy", "qc", "dy", "dx", "inter")
 
 
 def plane_qsteps(qps: np.ndarray, fmt: int, cqpo: int):
@@ -129,7 +157,12 @@ class GopDecodeEngine:
     GOP rebuilt on the device (`recon_frame`) with no host read in
     between, the decoded bytes of all its frames in one buffer, and one
     download. `decode_gop_start` returns once the GOP's work is launched,
-    so the next GOP's parse overlaps it; `decode_gop_finish` waits."""
+    so the next GOP's parse overlaps it; `decode_gop_finish` waits.
+
+    On CUDA `run` replays one CUDA graph per `key` from a key's second
+    call on (the module docstring); `graphs` holds them, in the engine's
+    GraphCache `cache`: replays run on the current stream, which must stay
+    the one of the first replay."""
 
     def __init__(self, version: int = 1, chroma_qp_offset: int = 0,
                  quant_matrix: bool = False, intra_slice: int = 0,
@@ -140,6 +173,8 @@ class GopDecodeEngine:
         self.chroma_qp_offset = chroma_qp_offset
         self.quant_matrix = quant_matrix
         self.intra_slice = intra_slice
+        self.cache = GraphCache("GopDecodeEngine")
+        self.graphs = self.cache.graphs     # DecodeKey -> its GopGraph
 
     def parse(self, width: int, height: int, packets) -> dict:
         """One GOP's packets parsed on the host: numpy arrays ly, lcb, lcr
@@ -160,23 +195,45 @@ class GopDecodeEngine:
         return {k: v if k == "is_p" else torch.from_numpy(v).to(self.device)
                 for k, v in host.items()}
 
-    def run(self, dev: dict) -> torch.Tensor:
-        """Rebuild an uploaded GOP's frames; launches only, no host wait.
-        Returns the decoded bytes, uint8 [T, Hp * Wp * 3 / 2]: each row one
-        frame's padded y, cb and cr planes."""
-        t_frames, by8, bx8, _ = dev["ly"].shape
+    def key(self, levels_shape, is_p) -> DecodeKey:
+        """The key of a GOP's graph: the reference jit's static arguments
+        (format, quant matrix, intra slice; the chroma qp offset does not
+        reach the device, plane_qsteps applies it on the host), the frame
+        count and padded size from the luma levels' shape [T, Hp/8, Wp/8,
+        64], the tuple of is_p (the I/P pattern, and with it a first P
+        frame's zero references) and the route the wrappers read at every
+        call (dispatch.force). The parsed tensors are inputs."""
+        t_frames, by8, bx8 = levels_shape[:3]
+        return DecodeKey(self.version, self.quant_matrix, self.intra_slice,
+                         t_frames, 8 * by8, 8 * bx8, tuple(is_p),
+                         dispatch._FORCE)
+
+    def _recon_gop(self, is_p, ly, lcb, lcr, qy, qc, dy, dx, inter):
+        """Every frame of a GOP rebuilt in order, each into its row of one
+        uint8 [T, Hp * Wp * 3 / 2] buffer: the body a graph captures."""
+        t_frames, by8, bx8, _ = ly.shape
         hp, wp = by8 * 8, bx8 * 8
         out = torch.empty((t_frames, hp * wp * 3 // 2), dtype=torch.uint8,
-                          device=self.device)
+                          device=ly.device)
         refs = None
         for t in range(t_frames):
             refs = recon_frame(
-                (dev["ly"][t], dev["lcb"][t], dev["lcr"][t]),
-                (dev["qy"][t], dev["qc"][t], dev["qc"][t]),
-                (dev["dy"][t], dev["dx"][t], dev["inter"][t]), refs,
-                dev["is_p"][t], self.version, self.quant_matrix,
-                self.intra_slice, _frame_views(out[t], hp, wp))
-        return out
+                (ly[t], lcb[t], lcr[t]), (qy[t], qc[t], qc[t]),
+                (dy[t], dx[t], inter[t]), refs, is_p[t], self.version,
+                self.quant_matrix, self.intra_slice,
+                _frame_views(out[t], hp, wp))
+        return dict(out=out)
+
+    def run(self, dev: dict) -> torch.Tensor:
+        """Rebuild an uploaded GOP's frames; launches only, no host wait.
+        Eager on the CPU and at a key's first call, else the key's graph.
+        Returns the decoded bytes, uint8 [T, Hp * Wp * 3 / 2], a tensor of
+        the call's own: each row one frame's padded y, cb and cr planes."""
+        is_p = tuple(bool(p) for p in dev["is_p"])
+        return self.cache.launch(
+            self.key(dev["ly"].shape, is_p),
+            lambda *xs: self._recon_gop(is_p, *xs),
+            tuple(dev[k] for k in GOP_INPUTS))["out"]
 
     def decode_gop_start(self, width: int, height: int, packets):
         """Parse, upload and launch one GOP (its first packet the I frame)
@@ -234,7 +291,12 @@ class DeviceDecodeEngine:
     """Per-frame decode on one device: the C++ parser of one frame on the
     host (`native.parse_frame_planes`), then `recon_frame` on the device
     and one download. The recon of the frame it returned last stays on
-    the device: a P frame whose ref is that Frame reads it from there."""
+    the device: a P frame whose ref is that Frame reads it from there.
+
+    On CUDA each frame replays its key's graph from the key's second call
+    on (the module docstring); `graphs` holds them. A P frame's reference
+    planes are graph inputs, copied into its static inputs like the
+    parsed tensors, and the recon it keeps is a replay's own copy."""
 
     def __init__(self, version: int = 1, chroma_qp_offset: int = 0,
                  quant_matrix: bool = False, intra_slice: int = 0,
@@ -246,6 +308,18 @@ class DeviceDecodeEngine:
         self.quant_matrix = quant_matrix
         self.intra_slice = intra_slice
         self._last = None   # (the Frame returned last, its device planes)
+        self.cache = GraphCache("DeviceDecodeEngine")
+        self.graphs = self.cache.graphs     # DecodeFrameKey -> its GopGraph
+
+    def key(self, is_p: bool, has_ref: bool, hp: int,
+            wp: int) -> DecodeFrameKey:
+        """The key of a frame's graph: the reference's static arguments
+        (is_p, format, quant matrix, intra slice; the chroma qp offset is
+        applied on the host), whether a P frame reads reference planes or
+        the zero planes, the padded size and the route the wrappers read
+        at every call (dispatch.force)."""
+        return DecodeFrameKey(is_p, has_ref, self.version, self.quant_matrix,
+                              self.intra_slice, hp, wp, dispatch._FORCE)
 
     def decode(self, width: int, height: int, pkt: bitstream.FramePacket,
                ref: Frame | None) -> Frame:
@@ -260,23 +334,29 @@ class DeviceDecodeEngine:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        refs = None
-        if ref is not None:
+        refs = ()
+        if is_p and ref is not None:
             if self._last is not None and self._last[0] is ref:
                 refs = self._last[1]
             else:
                 refs = tuple(up(np.asarray(p, np.int32))
                              for p in (ref.y, ref.cb, ref.cr))
-        out = torch.empty(hp * wp * 3 // 2, dtype=torch.uint8,
-                          device=self.device)
-        q_c = up(qc)
-        recs = recon_frame(
-            (up(ly), up(lcb), up(lcr)), (up(qy), q_c, q_c),
-            (up(dy), up(dx), up(inter)), refs, is_p, self.version,
-            self.quant_matrix, self.intra_slice, _frame_views(out, hp, wp))
+
+        def body(ly, lcb, lcr, qy, qc, dy, dx, inter, *refs):
+            out = torch.empty(hp * wp * 3 // 2, dtype=torch.uint8,
+                              device=ly.device)
+            recs = recon_frame(
+                (ly, lcb, lcr), (qy, qc, qc), (dy, dx, inter), refs or None,
+                is_p, self.version, self.quant_matrix, self.intra_slice,
+                _frame_views(out, hp, wp))
+            return dict(out=out, rec=recs)
+
+        res = self.cache.launch(
+            self.key(is_p, bool(refs), hp, wp), body,
+            (*(up(a) for a in (ly, lcb, lcr, qy, qc, dy, dx, inter)), *refs))
         frame = Frame(*(p.numpy().astype(np.int32)
-                        for p in _frame_views(out.cpu(), hp, wp)))
-        self._last = (frame, recs)
+                        for p in _frame_views(res["out"].cpu(), hp, wp)))
+        self._last = (frame, res["rec"])
         return frame
 
 

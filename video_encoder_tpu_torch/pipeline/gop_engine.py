@@ -26,8 +26,10 @@ raises; nothing falls back to the eager loop. The eager loop runs on the
 CPU, for a key's first call, and for `hop` callers (parallel/ring.py).
 The key -> first-call-eager -> capture -> replay logic is `GraphCache`,
 which the tile loop (parallel/gop_parallel.py `ShardedGopEncoder`, on
-its GopEngine's cache) and the per-frame engine
-(pipeline/device_engine.py `DeviceEngine`) use too.
+its GopEngine's cache), the per-frame engine
+(pipeline/device_engine.py `DeviceEngine`) and the two device decoders
+(pipeline/decoder.py `GopDecodeEngine`, `DeviceDecodeEngine`, with no
+qp input) use too.
 
 The batched path (`run_batch`, `encode_gops*`; twin of
 `encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
@@ -271,21 +273,24 @@ def _clone(v):
 
 class GopGraph:
     """One body captured once and replayed: the static inputs the graph
-    reads (tensors, and the base qp as a 0-dim or [G] int32 buffer), the
+    reads (tensors, and the base qp as a 0-dim or [G] int32 buffer, or no
+    qp where qp_shape is None: a body whose every input is a tensor), the
     static outputs it writes (a dict of tensors or tuples of them), and
     the launch counts of `build.LAUNCHES` recorded while it was captured
     (the wrappers count where they launch, which under capture is once; a
     replay adds them)."""
 
     def __init__(self, body, inputs, qp_shape, pool):
-        self.inputs = tuple(torch.empty_like(p) for p in inputs)
-        self.qp = torch.zeros(qp_shape, dtype=torch.int32,
-                              device=inputs[0].device)
+        # zero-filled, not empty: a capture through the test seam runs the
+        # body on them, and a decoder's vectors must index inside a plane
+        self.inputs = tuple(torch.zeros_like(p) for p in inputs)
+        self.qp = None if qp_shape is None else torch.zeros(
+            qp_shape, dtype=torch.int32, device=inputs[0].device)
+        args = self.inputs if self.qp is None else (*self.inputs, self.qp)
         before = dict(build.LAUNCHES)
         t0 = time.perf_counter()
         try:
-            self.graph, self.outs = _capture(
-                lambda: body(*self.inputs, self.qp), pool)
+            self.graph, self.outs = _capture(lambda: body(*args), pool)
         finally:
             self.launches = {k: v - before[k]
                              for k, v in build.LAUNCHES.items()
@@ -299,9 +304,9 @@ class GopGraph:
         a call in flight keeps its own outputs."""
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
-        if self.qp.ndim == 0:
+        if self.qp is not None and self.qp.ndim == 0:
             self.qp.fill_(qps)
-        else:
+        elif self.qp is not None:
             for g, q in enumerate(qps):
                 self.qp[g].fill_(q)
         self.graph.replay()
@@ -319,8 +324,11 @@ class GraphCache:
     safe only while no two replay at once, and replay on one stream: the
     merges' overflow ticket is one per device (csrc/span_merge.cu), so a
     call from another stream raises. Engines that run on one device share
-    a cache (ShardedGopEncoder and its GopEngine). A capture that fails
-    raises; nothing falls back to the eager call."""
+    a cache (ShardedGopEncoder and its GopEngine). Each decoder engine
+    has a cache of its own (pipeline/decoder.py), so an encoder's graphs
+    and a decoder's never share a pool: graphs that share one must not
+    replay at once. A capture that fails raises; nothing falls back to
+    the eager call."""
 
     def __init__(self, owner: str):
         self.owner = owner
@@ -328,19 +336,22 @@ class GraphCache:
         self.pool = None       # the memory pool the graphs share
         self.stream = None     # the stream the graphs replay on
 
-    def launch(self, key, body, inputs, qps):
+    def launch(self, key, body, inputs, qps=None):
         """body(*inputs, qp) on the inputs' device, qp the int32 device
-        tensor of qps (an int: 0-dim; a list: [G]). Eager where the device
-        runs no graphs, where key is None (a caller whose body a capture
-        cannot take: collectives over ranks), and at a key's first call;
-        else the key's graph. Returns body's outputs, or a replay's
-        copies of them."""
+        tensor of qps (an int: 0-dim; a list: [G]), or body(*inputs)
+        where qps is None (the decoders: every input a tensor). Eager
+        where the device runs no graphs, where key is None (a caller whose
+        body a capture cannot take: collectives over ranks), and at a
+        key's first call; else the key's graph. Returns body's outputs,
+        or a replay's copies of them."""
         dev = inputs[0].device
         if dev.type not in _GRAPH_DEVICE_TYPES:
             key = None
         if key is None or key not in self.graphs:
             if key is not None:
                 self.graphs[key] = None
+            if qps is None:
+                return body(*inputs)
             qp = (torch.full((), qps, dtype=torch.int32, device=dev)
                   if isinstance(qps, int)
                   else torch.tensor(qps, dtype=torch.int32).to(dev))
@@ -355,8 +366,8 @@ class GraphCache:
         graph = self.graphs[key]
         if graph is None:
             graph = self.graphs[key] = GopGraph(
-                body, inputs, () if isinstance(qps, int) else (len(qps),),
-                self.pool)
+                body, inputs, None if qps is None
+                else () if isinstance(qps, int) else (len(qps),), self.pool)
             if self.pool is None:
                 self.pool = graph.graph.pool()
         return graph(inputs, qps)
