@@ -224,7 +224,21 @@ Phases, each of which raises on failure (exit code not 0):
    size 1 through the transport (its frames equal the plain stream's) with
    the transport check, and RingEncoder over 4 ranks on four streams cut
    from the full clip (10, 10, 10 and 7 frames) at `--rc bitrate --kbps
-   12000`, each equal to its single-device encode.
+   12000`, each equal to its single-device encode. Then the ring and the
+   2-D tile grid on the one card through their CUDA graphs
+   (`phase_ring_grid`): RingEncoder on one device (D = 4 columns, the
+   hop a roll asked for by name, GraphKey hop "roll") on the same four
+   streams at the same flags, encoded four times by one encoder (eager,
+   the capture and its replay, a replay, then with no graph), each
+   stream equal to its single-device GOP-engine encode with the same
+   launches every time; and encode_gop_tiled2d on a 2 x 2 grid over the
+   padded 1088x1920 planes at GOP 10 and worst-case capacities, the
+   clip's three GOPs one call each (eager, capture, replay: Tile2dKey):
+   rc none on the full-search clip, each GOP's frames glued by
+   assemble_frame_2d equal to the port's unsharded GOP-10 stream, and rc
+   mb at 12000 kbps with full search on the config-3 texture, equal to
+   the GOP engine's stream of those flags; the same launches every call
+   and the graph calls printed.
 5. Speed: device-resident 1080p GOP-30 encode fps, without and with each
    GOP's finish, for {full, rc none; diamond, rc mb} x {frame, chunks}
    (the emits timed in turns) and for the format-4 cell under the default
@@ -248,7 +262,14 @@ Phases, each of which raises on failure (exit code not 0):
    path's emit, each through its graph and through the eager loop in
    turns: device-resident fps, host calls per GOP, device ops per frame,
    busy share (traced and over the untraced wall) and capture seconds.
-   Then the
+   Then the ring on one card (D = 4 columns of the full-search clip,
+   GOP 30, the engine's loop with the roll as RingEncoder runs it) and
+   the 2 x 2 grid (GOP 30, budgeted capacities, the worst case on an
+   overflow), each through its graph and through the eager loop in turns
+   (ring, grid, grid, ring; graph and eager, then eager and graph):
+   device-resident fps, host calls per GOP, device ops per frame, busy
+   share (traced and over the untraced wall) and capture seconds;
+   findings, no claim. Then the
    full-search cell with TVC_SEA 0 and 1 in turns, each through its own
    graph, with the search's device time of each. The reserved memory is
    printed after each phase.
@@ -3521,6 +3542,154 @@ def phase_distributed(tmp, jobs, plains, batched_oracle, card):
     return paths
 
 
+def calls_since(before, calls) -> dict:
+    """The graph calls counted by graph_calls() since the snapshot
+    `before` (a dict copy of its counts), without the capture seconds."""
+    return {k: v - before.get(k, 0) for k, v in calls.items()
+            if k != "capture_s" and v != before.get(k, 0)}
+
+
+def phase_ring_grid(jobs, plains, card):
+    """The temporal ring and the 2-D tile grid on the one card, each
+    through its CUDA graphs (the counterparts of the reference's jitted
+    encode_ring_jit and encode_gop_tiled2d) and eagerly. RingEncoder on
+    one device, D = 4 columns, on the four streams phase_distributed cuts
+    from the full-search clip (10, 10, 10 and 7 frames) at `--rc bitrate
+    --kbps 12000`, encoded four times by one encoder: eager (a key's first
+    call), the capture and its replay, a replay, then with no graph
+    (eager_paths()); each stream equal to its single-device GOP-engine
+    encode, with the same launches every time. encode_gop_tiled2d on a
+    2 x 2 grid over the padded 1088x1920 planes at GOP 10 and the
+    worst-case capacities (BLOCK_WORDS_MAX, entropy.max_words of a tile's
+    MB columns), the clip's three GOPs one call each (eager, the capture
+    and its replay, a replay): rc none on the full-search clip, each GOP's
+    glued frames (assemble_frame_2d) equal to the port's unsharded GOP-10
+    stream; rc mb at 12000 kbps, full search, on the config-3 texture,
+    each equal to the GOP engine's stream of those flags (the grid's
+    mb_rc_offsets_tile2d on the card); with the same launches every call.
+    Returns the launch counts of each run."""
+    import dataclasses
+
+    from video_encoder_tpu_torch.codec import entropy
+    from video_encoder_tpu_torch.codec.bitstream import demux
+    from video_encoder_tpu_torch.codec.frame import Frame
+    from video_encoder_tpu_torch.ops.kernels import build
+    from video_encoder_tpu_torch.parallel import tiles
+    from video_encoder_tpu_torch.parallel.mesh import (make_ring_mesh,
+                                                       make_tile_mesh_2d)
+    from video_encoder_tpu_torch.parallel.ring import RingEncoder
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+
+    paths = []
+    full10, full_plain = plains["full"]
+    w, h = full10["w"], full10["h"]
+    cfg = config_of(full10["mode"], w, h, 10)
+
+    def same_launches(what, runs, kernels):
+        check_launches(what, runs[0], kernels)
+        if any(r != runs[0] for r in runs[1:]):
+            raise AssertionError(f"{what}: launches per call differ: "
+                                 f"{[nonzero(r) for r in runs]}")
+        paths.extend(runs)
+
+    # the ring: four streams of the full clip on one card, D = 4 columns
+    rcfg = dataclasses.replace(cfg, rc="bitrate", target_kbps=12000)
+    frames = [Frame.from_planes(*p) for p in zip(*full10["clip"])]
+    streams = [frames[a:a + n] for a, n in ((0, 10), (10, 10), (20, 10),
+                                            (3, 7))]
+    firsts = [0, 100, 200, 300]
+    eng = GopEngine(rcfg, device=DEVICE)
+    want = [[p.to_bytes() for p in eng.encode_gop(s, f)[0]]
+            for s, f in zip(streams, firsts)]
+    ring = RingEncoder(rcfg, make_ring_mesh(4, DEVICE))
+    runs, turns = [], {}
+    with graph_calls() as calls:
+        for turn in ("eager", "capture", "replay", "graphs off"):
+            before = dict(calls)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            with (eager_paths() if turn == "graphs off"
+                  else contextlib.nullcontext()):
+                got = ring.encode_streams(streams, firsts)
+            wall = time.perf_counter() - t0
+            runs.append(dict(build.LAUNCHES))
+            turns[turn] = dict(calls_since(before, calls),
+                               wall_s=round(wall, 3))
+            if [[p.to_bytes() for p in g] for g in got] != want:
+                raise AssertionError(f"ring on one card, {turn}: a stream "
+                                     f"differs from its single-device encode")
+    keys = {k.hop for k in ring.engine.graphs}
+    if (keys != {"roll"} or not turns["capture"].get("GraphKey/capture")
+            or not turns["replay"].get("GraphKey/replay")
+            or set(turns["graphs off"]) != {"GraphKey/eager", "wall_s"}):
+        raise AssertionError(f"ring on one card: graph calls {turns}, hops "
+                             f"{keys}")
+    same_launches("ring on one card", runs,
+                  ["full_search_g", "mc_predict_g", "code_plane_g",
+                   "block_pack"])
+    log(f"ring on one card (D = 4, hop 'roll'), streams (10, 10, 10, 7) of "
+        f"the full clip at --rc bitrate --kbps 12000: each == its "
+        f"single-device encode in every call, launches {nonzero(runs[0])} "
+        f"each call; graph calls and host wall per call {turns}, captures "
+        f"(s) {calls.get('capture_s')}; {mem()} [{card}]")
+
+    # the 2-D grid: the three GOPs of 10 of a clip, one call each
+    mesh = make_tile_mesh_2d(2, 2, DEVICE)
+    caps = dict(block_words=entropy.BLOCK_WORDS_MAX,
+                row_words=entropy.max_words(-(-w // 16) // 2))
+    planes_of = {}
+    for name in ("full", "config3"):
+        ys, cbs, crs = jobs[name]["clip"]
+        planes_of[name] = (up(ys, 16), up(cbs, 8), up(crs, 8))
+    c3full = mode("config3_full", rc="mb", kbps=12000, passes=4)
+    c3cfg = config_of(c3full, w, h, 10)
+    c3frames = [Frame.from_planes(*p) for p in zip(*jobs["config3"]["clip"])]
+    c3eng = GopEngine(c3cfg, device=DEVICE)
+    plain = [(p.payload, p.payload_bits)
+             for p in demux(io.BytesIO(full_plain))[1]]
+    for name, gcfg, want in (
+            ("full", cfg, plain),
+            ("config3", c3cfg,
+             [(p.payload, p.payload_bits) for k in range(3)
+              for p in c3eng.encode_gop(c3frames[10 * k:10 * k + 10],
+                                        10 * k)[0]])):
+        runs = []
+        with graph_calls() as calls:
+            for k in range(3):
+                y, cb, cr = (p[10 * k:10 * k + 10] for p in planes_of[name])
+                build.reset_launches()
+                outs = tiles.encode_gop_tiled2d(
+                    y, cb, cr, 28, mesh=mesh, rc=gcfg.rc,
+                    target_bits=gcfg.target_bits_per_frame(),
+                    vbv_bits=gcfg.vbv_bits(), **caps)
+                words = outs["words"].cpu().numpy()
+                row_bits = outs["row_bits"].cpu().numpy()
+                runs.append(dict(build.LAUNCHES))
+                if bool(outs["ovf"].any()):
+                    raise AssertionError(f"2-D grid {name} GOP {k}: overflow "
+                                         "at the worst-case capacities")
+                got = [tiles.assemble_frame_2d(words, row_bits, t)
+                       for t in range(10)]
+                if got != want[10 * k:10 * k + 10]:
+                    raise AssertionError(
+                        f"2-D grid {name} rc {gcfg.rc} GOP {k}: frames differ "
+                        f"from the unsharded stream")
+        graph = dict(calls)
+        if (graph.get("Tile2dKey/eager") != 1
+                or graph.get("Tile2dKey/capture") != 1
+                or graph.get("Tile2dKey/replay") != 1):
+            raise AssertionError(f"2-D grid {name}: graph calls {graph}")
+        same_launches(f"2-D grid {name}", runs,
+                      ["full_search_haloed", "mc_predict_haloed",
+                       "code_plane_g", "block_pack"])
+        held = ("the unsharded GOP-10 stream" if name == "full"
+                else "the GOP engine's stream of those flags")
+        log(f"2-D grid 2 x 2 {w}x{h} GOP 10 {name} rc {gcfg.rc}: three GOPs "
+            f"(eager, capture, replay) each == {held}, launches "
+            f"{nonzero(runs[0])} each call; graph calls {graph} [{card}]")
+    return paths
+
+
 def gop_memory(eng, inputs, qps) -> dict:
     """One GOP (or G in lockstep) through the engine's eager loop from a
     settled allocator: the memory allocated before it (the inputs and
@@ -3757,6 +3926,110 @@ def phase_speed_tiled(m, clip, card, shards=(1, 2, 4)):
     return results
 
 
+def phase_speed_ring_grid(m, clip, card):
+    """Device-resident 1080p GOP-30 fps of the ring on one card (D = 4
+    columns, each the cell's 30-frame clip: the engine's lockstep loop
+    with the roll, `GopEngine.run_batch(hop="roll")` as RingEncoder runs
+    it, without its upload and download) and of the 2 x 2 grid
+    (`encode_gop_tiled2d`, the budgeted capacities: block_words_for_qp(28)
+    and entropy.capacity_words of a tile's MB row), each through its graph
+    and through the eager loop (eager_paths()), in turns: ring, grid,
+    grid, ring, each (graph, eager) then (eager, graph); a GOP that
+    overflows its budgets runs again at the worst case, as the encoders
+    do. Each with its host calls per GOP, device ops per frame, busy share
+    (traced, and the traced device time over the untraced wall) and
+    capture seconds. Prints findings, claims nothing."""
+    from video_encoder_tpu_torch.codec import entropy
+    from video_encoder_tpu_torch.parallel import tiles
+    from video_encoder_tpu_torch.parallel.mesh import (make_ring_mesh,
+                                                       make_tile_mesh_2d)
+    from video_encoder_tpu_torch.parallel.ring import RingEncoder
+    from video_encoder_tpu_torch.pipeline.gop_engine import block_words_for_qp
+
+    ys, cbs, crs = clip
+    h, w = ys[0].shape
+    n = len(ys)
+    cfg = config_of(m, w, h, n)
+    y, cb, cr = up(ys, 16), up(cbs, 8), up(crs, 8)
+    d = 4
+    columns = tuple(p[:, None].expand(-1, d, -1, -1).contiguous()
+                    for p in (y, cb, cr))                  # [T, D, H, W]
+    eng = RingEncoder(cfg, make_ring_mesh(d, DEVICE)).engine
+    mesh = make_tile_mesh_2d(2, 2, DEVICE)
+    row_mbs = y.shape[-1] // 16 // 2
+
+    def grid(xl):
+        caps = (dict(block_words=entropy.BLOCK_WORDS_MAX,
+                     row_words=entropy.max_words(row_mbs)) if xl else
+                dict(block_words=block_words_for_qp(28),
+                     row_words=entropy.capacity_words(row_mbs)))
+        return tiles.encode_gop_tiled2d(
+            y, cb, cr, 28, mesh=mesh, rc=cfg.rc,
+            target_bits=cfg.target_bits_per_frame(), vbv_bits=cfg.vbv_bits(),
+            **caps)
+
+    launchers = {"ring": lambda xl: eng.run_batch(*columns, [28] * d, xl=xl,
+                                                  hop="roll"),
+                 "grid": grid}
+    frames = {"ring": d * n, "grid": n}
+    caches = {"ring": eng.graphs, "grid": tiles.tile2d_cache(DEVICE).graphs}
+
+    def launch(path, loop, xl=False):
+        with (eager_paths() if loop == "eager" else contextlib.nullcontext()):
+            return launchers[path](xl)
+
+    # a key's first call: the eager warm-up; it also finds the reruns
+    reruns = {p: bool(launch(p, "graph")["ovf"].any()) for p in launchers}
+
+    def gop(path, loop):
+        launch(path, loop)
+        if reruns[path]:
+            launch(path, loop, xl=True)
+
+    times = {(p, loop): 0.0 for p in launchers for loop in ("graph", "eager")}
+    for i, path in enumerate(("ring", "grid", "grid", "ring")):
+        for loop in (("graph", "eager") if i < 2 else ("eager", "graph")):
+            gop(path, loop)        # the graph's capture, at its first turn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gop(path, loop)
+            torch.cuda.synchronize()
+            times[path, loop] += time.perf_counter() - t0
+    results = {}
+    for path in launchers:
+        fig = {}
+        for loop in ("graph", "eager"):
+            f = loop_figures(lambda: gop(path, loop), frames[path])
+            f.update(resident=2 * frames[path] / times[path, loop])
+            f["busy_of_wall"] = busy_of_wall(f, frames[path])
+            fig[loop] = f
+        captures = [round(g.capture_s, 3) for k, g in caches[path].items()
+                    if g is not None and k.y_shape[0] == n]   # GOP 30's
+        if not captures:
+            raise AssertionError(f"{path}: no graph was captured")
+        results[f"{m['tag']}/{path}"] = dict(
+            resident=fig["graph"]["resident"],
+            ops_per_frame=fig["graph"]["ops"], busy=fig["graph"]["busy"],
+            busy_of_wall=fig["graph"]["busy_of_wall"],
+            host_calls_per_gop=fig["graph"]["calls"],
+            eager_resident=fig["eager"]["resident"],
+            eager_ops_per_frame=fig["eager"]["ops"],
+            eager_busy=fig["eager"]["busy"],
+            eager_busy_of_wall=fig["eager"]["busy_of_wall"],
+            eager_host_calls_per_gop=fig["eager"]["calls"],
+            rerun=reruns[path], capture_s=captures)
+        what = (f"ring D = {d} (hop 'roll', {d} x {n} frames a call)"
+                if path == "ring" else f"2-D grid 2 x 2 ({n} frames a call)")
+        for loop, f in fig.items():
+            log(f"speed: {what} {w}x{h} GOP {n} {m['tag']} {loop}: "
+                f"{f['resident']:.3f} fps device-resident "
+                f"({1e3 / f['resident']:.3f} ms/frame, 2 calls, rerun "
+                f"{reruns[path]}); one call traced: {fmt_figures(f)} [{card}]")
+            log(f"  device ms per call by name (launches, ms): {f['top'][:7]}")
+        log(f"  graphs of the {path}: capture s {captures}; {mem()} [{card}]")
+    return results
+
+
 def phase_speed_sea(m, clip, card):
     """The full-search cell device-resident with TVC_SEA 0 and 1 in turns
     (0, 1, 1, 0), one GOP a turn, each through its own graph (TVC_SEA is
@@ -3915,7 +4188,8 @@ def eager_paths():
 @contextlib.contextmanager
 def graph_calls():
     """Counts of the GraphCache calls made while the block runs, by the
-    key's type (GraphKey: the GOP engine; TileKey: the tile loop;
+    key's type (GraphKey: the GOP engine, and the ring on one card with
+    hop "roll"; TileKey: the tile loop; Tile2dKey: the 2-D grid;
     FrameKey: the per-frame engine; DecodeKey: the GOP decoder;
     DecodeFrameKey: the per-frame decoder) and by what the call did:
     "eager" (a key's first call, a graph-less device, or no key),
@@ -4585,6 +4859,11 @@ def main() -> int:
                                            card)
         log(f"rank paths done at {time.perf_counter() - t_start:.1f} s "
             f"({time.perf_counter() - t_ranks:.1f} s); {mem()}")
+        t_ring = time.perf_counter()
+        path_launches += phase_ring_grid(jobs, plains, card)
+        log(f"ring and 2-D grid paths done at "
+            f"{time.perf_counter() - t_start:.1f} s "
+            f"({time.perf_counter() - t_ring:.1f} s); {mem()}")
     log(f"paths done at {time.perf_counter() - t_start:.1f} s")
     for name, row in rows.items():
         row["launches"] = sum(p[name] for p in path_launches)
@@ -4617,6 +4896,11 @@ def main() -> int:
     tiled = phase_speed_tiled(FULL, jobs["full"]["clip"], card)
     log(f"result: 1080p GOP-30 tiled, graph and eager {json.dumps(tiled)} "
         f"[{card}]")
+    t_ring = time.perf_counter()
+    ring_grid = phase_speed_ring_grid(FULL, jobs["full"]["clip"], card)
+    log(f"result: 1080p GOP-30 ring (D = 4) and 2-D grid (2 x 2), graph and "
+        f"eager {json.dumps(ring_grid)} [{card}]; "
+        f"{time.perf_counter() - t_ring:.1f} s")
     sea_fps = phase_speed_sea(FULL, jobs["full"]["clip"], card)
     log(f"result: 1080p GOP-30 full search with and without TVC_SEA "
         f"{json.dumps(sea_fps)} [{card}]")

@@ -19,9 +19,24 @@ batch and the hop is a roll of its axis. The worst-case rerun is global:
 one all_reduce(MAX) of the overflow flag over the ring. The packets of
 every stream are returned on every rank (all_gather_object of the
 columns' payloads). There is no CLI flag, as in the reference.
+
+On one CUDA device the loop with its roll is one CUDA graph per key, the
+counterpart of the reference's jitted `encode_ring_jit`: the engine asks
+for the hop by name ("roll", `gop_engine.roll_hop`), which joins its
+`GraphKey`, so a ring graph and a plain lockstep graph of the same shapes
+never share a key; a key's first call runs eagerly, the second captures,
+later calls replay, and the worst-case rerun is a key of its own (its
+block and frame capacities). The overflow check stays outside the graph:
+it is the host's one wait. Over ranks the hop is a function of the
+group's collective, which a capture cannot take (gloo), so the loop has
+no key and runs eagerly at every call. The ring's GopEngine is its own,
+under frame emit, with a GraphCache of its own: it runs no span merge, so
+the merges' one ticket per device is not touched.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -34,13 +49,11 @@ from . import mesh as dmesh
 from .mesh import CodecMesh
 
 
-def ring_hop(carry, group=None):
-    """The ring's ppermute: each column's carry moves to the next column
-    (d -> d + 1 mod D). carry: tensors with the columns on axis 0; with a
-    group, this rank's one column, sent to group rank d + 1 and received
-    from d - 1 in one batch."""
-    if group is None:
-        return tuple(torch.roll(t, 1, 0) for t in carry)
+def ring_hop(carry, group):
+    """The ring's ppermute over ranks: this rank's column's carry (tensors
+    with the one column on axis 0) is sent to group rank d + 1 and the
+    carry of d - 1 received, in one batch. On one device the hop is
+    gop_engine.roll_hop, which the engine takes by the name "roll"."""
     d, n = dmesh.group_rank(group)
     if n == 1:
         return tuple(carry)
@@ -52,7 +65,9 @@ class RingEncoder:
     """encode_streams(streams, first_indices) -> the packets of each
     stream. `mesh` is a ('ring',) CodecMesh (parallel/mesh.py
     make_ring_mesh): D ranks, each calling encode_streams with the same
-    streams, or D columns on one device."""
+    streams, or D columns on one device, where on CUDA the loop replays
+    one graph per key from the key's second call on (`engine.graphs`; the
+    module docstring)."""
 
     def __init__(self, cfg, mesh: CodecMesh):
         self.cfg = cfg
@@ -101,9 +116,10 @@ class RingEncoder:
         y, cb, cr = up("y"), up("cb"), up("cr")
         base = [self.cfg.base_qp] * len(cols)
 
-        def hop(carry):
-            return ring_hop(carry, self.group)
-
+        # on one device the roll by name (a graph per key); over ranks the
+        # group's exchange, eager at every call
+        hop = ("roll" if self.group is None
+               else functools.partial(ring_hop, group=self.group))
         outs = eng.run_batch(y, cb, cr, base, hop=hop)
         if self._overflowed(outs["ovf"]):
             outs = eng.run_batch(y, cb, cr, base, xl=True, hop=hop)

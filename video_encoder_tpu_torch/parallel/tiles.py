@@ -25,9 +25,15 @@ The 2-D grid ('tr' x 'tc': MB rows and MB columns, format 1 only) shards
 [T, H, W] planes into [T, Sr * Sc, h, w] tiles; its halo carries corner
 patches from the diagonal neighbours and its pack emits one string per MB
 row, so that the host can restore the raster order across column shards.
+On one CUDA device its GOP loop (`tile2d_gop_scan`) is one CUDA graph per
+`Tile2dKey`, the counterpart of the reference's jitted
+`encode_gop_tiled2d`, with the base qp a graph input; over ranks it runs
+eagerly (its collectives are gloo's).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -35,8 +41,10 @@ import torch
 from ..codec import entropy, spec, tables
 from ..codec.mux import bit_concat
 from ..ops import dispatch, motion
-from ..pipeline.gop_engine import (_code_frame, _sse, code_pack_traced,
-                                   predict_i_traced, rc_carry_step)
+from ..ops.kernels import sad as ksad
+from ..pipeline.gop_engine import (GraphCache, _code_frame, _sse,
+                                   code_pack_traced, predict_i_traced,
+                                   rc_carry_step)
 from . import mesh as dmesh
 from .mesh import CodecMesh
 
@@ -438,6 +446,86 @@ def encode_frame_tile2d_traced(cur, ref, qp: torch.Tensor, *, is_p: bool,
                 sse=torch.stack([_sse(c, r) for c, r in zip(cur, rec)], -1))
 
 
+def tile2d_gop_scan(y, cb, cr, qp: torch.Tensor, *, grid: tuple, rc: str,
+                    block_words: int, row_words: int, target_bits: int,
+                    qbias: int = 8, vbv_bits: int = 0, groups=(None, None)):
+    """The loop over a GOP's frames on a 2-D tile grid: y [T, H, W] uint8
+    (this rank's tile over ranks), chroma [T, H/2, W/2], qp the 0-dim int32
+    base qp. Launches only, no host wait (over ranks, its collectives).
+    Each frame's results go into [T, ...] tensors made at the first
+    frame's shapes (the body a graph captures: encode_gop_tiled2d).
+    Returns encode_gop_tiled2d's tensors."""
+    t = y.shape[0]
+
+    def tiles(p):   # [T, H, W] -> [T, Sr * Sc, h, w]
+        ph, pw = p.shape[-2] // grid[0], p.shape[-1] // grid[1]
+        return p.reshape(t, grid[0], ph, grid[1], pw).permute(
+            0, 1, 3, 2, 4).reshape(t, grid[0] * grid[1], ph, pw).contiguous()
+
+    y, cb, cr = tiles(y), tiles(cb), tiles(cr)
+    fullness = torch.full_like(qp, spec.vbv_init(vbv_bits), dtype=torch.int64)
+    per_tile = ["words", "row_bits", "n_inter", "sse"]
+    keys = per_tile + ["qp", "ovf"]
+    ref = res = None
+    for k in range(t):
+        cur = (y[k].to(torch.int32), cb[k].to(torch.int32),
+               cr[k].to(torch.int32))
+        out = encode_frame_tile2d_traced(
+            cur, ref, qp, is_p=k > 0, grid=grid, rc=rc,
+            block_words=block_words, row_words=row_words, qbias=qbias,
+            groups=groups)
+        out["qp"] = qp
+        if res is None:
+            res = {n: out[n].new_empty((t, *out[n].shape)) for n in keys}
+        for n in keys:
+            res[n][k] = out[n]
+        qp, fullness = rc_carry_step(rc, target_bits, vbv_bits, qp, fullness,
+                                     out["frame_bits"])
+        ref = out["rec"]
+    for n in per_tile:
+        res[n] = res[n].unflatten(1, grid)
+    return res
+
+
+# what a captured 2-D grid loop bakes in (encode_gop_tiled2d)
+Tile2dKey = collections.namedtuple(
+    "Tile2dKey", "grid rc block_words row_words target_bits qbias vbv_bits "
+    "fmt y_shape c_shape sea force")
+
+# device -> the GraphCache of the 2-D grid's graphs on it: process-wide,
+# as the reference's jit cache of the free function encode_gop_tiled2d
+_TILE2D_CACHES: dict[str, GraphCache] = {}
+
+
+def tile2d_cache(device) -> GraphCache:
+    """The 2-D grid's graphs on a device. A cache of its own: the grid
+    packs through entropy.pack_frame_rows (block_pack and frame_concat)
+    and runs no span merge, so its graphs need not replay on the stream of
+    an engine's, whose merges share one overflow ticket per device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    name = str(dev)
+    if name not in _TILE2D_CACHES:
+        _TILE2D_CACHES[name] = GraphCache(f"encode_gop_tiled2d on {name}")
+    return _TILE2D_CACHES[name]
+
+
+def tile2d_graph_key(mesh: CodecMesh, y_shape, c_shape, **static):
+    """The key of a 2-D grid GOP's graph: the reference jit's static
+    arguments of encode_gop_tiled2d (the grid, rc, block_words,
+    row_words, target_bits, qbias, vbv_bits, fmt), the luma and chroma
+    shapes, and the routes the wrappers read at every call and a capture
+    bakes in (TVC_SEA, read by full_search_pre_haloed, and
+    dispatch.force); None on a mesh over ranks, whose collectives a
+    capture cannot take. The base qp is an input."""
+    if mesh.spans_ranks:
+        return None
+    return Tile2dKey(grid=(mesh.local("tr"), mesh.local("tc")),
+                     y_shape=tuple(y_shape), c_shape=tuple(c_shape),
+                     sea=ksad._sea_enabled(), force=dispatch._FORCE, **static)
+
+
 def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
                        rc: str, block_words: int, row_words: int,
                        target_bits: int, qbias: int = 8, vbv_bits: int = 0,
@@ -447,48 +535,32 @@ def encode_gop_tiled2d(y_u8, cb_u8, cr_u8, base_qp: int, *, mesh: CodecMesh,
     halo. y_u8 [T, H, W] uint8; H/16 divisible by Sr, W/16 by Sc. Returns
     per tile, frame and local MB row: words [T, Sr, Sc, nby_s, row_words],
     row_bits [T, Sr, Sc, nby_s]; n_inter [T, Sr, Sc], sse [T, Sr, Sc, 3];
-    qp [T]; ovf [T]. assemble_frame_2d glues a frame's payload. On a mesh
-    over ranks y_u8 is this rank's tile [T, H / Sr, W / Sc] and Sr = Sc = 1
-    in the results."""
+    qp [T]; ovf [T], each a tensor of the call's own. assemble_frame_2d
+    glues a frame's payload. On a mesh over ranks y_u8 is this rank's
+    tile [T, H / Sr, W / Sc] and Sr = Sc = 1 in the results.
+
+    On one CUDA device the loop (tile2d_gop_scan) replays one CUDA graph
+    per Tile2dKey from the key's second call on (tile2d_cache; the first
+    runs eagerly, a failed capture raises), with base_qp a graph input;
+    on the CPU and over ranks it runs eagerly at every call."""
     if fmt != 1:
         raise ValueError(
             f"encode_gop_tiled2d is format v1 only (got fmt={fmt}): v2's "
             "left-MV/DC prediction crosses 'tc' column-shard boundaries and "
             "v4's half-pel is not implemented on the 2-D grid; use the 1-D "
             "row sharding (encode_gop_tiled) for fmt>=2")
-    t, h, w = y_u8.shape
+    _, h, w = y_u8.shape
     grid = (mesh.local("tr"), mesh.local("tc"))
     mesh.check_frame(h * mesh.shape["tr"] // grid[0],
                      w * mesh.shape["tc"] // grid[1])
     groups = (mesh.group("tr"), mesh.group("tc"))
-
-    def tiles(p):   # [T, H, W] -> [T, Sr * Sc, h, w]
-        ph, pw = p.shape[-2] // grid[0], p.shape[-1] // grid[1]
-        return p.reshape(t, grid[0], ph, grid[1], pw).permute(
-            0, 1, 3, 2, 4).reshape(t, grid[0] * grid[1], ph, pw).contiguous()
-
-    y, cb, cr = tiles(y_u8), tiles(cb_u8), tiles(cr_u8)
-    qp = torch.full((), int(base_qp), dtype=torch.int32, device=y_u8.device)
-    fullness = torch.full_like(qp, spec.vbv_init(vbv_bits), dtype=torch.int64)
-    ref = None
-    outs = []
-    for k in range(t):
-        cur = (y[k].to(torch.int32), cb[k].to(torch.int32),
-               cr[k].to(torch.int32))
-        out = encode_frame_tile2d_traced(
-            cur, ref, qp, is_p=k > 0, grid=grid, rc=rc,
-            block_words=block_words, row_words=row_words, qbias=qbias,
-            groups=groups)
-        out["qp"] = qp
-        qp, fullness = rc_carry_step(rc, target_bits, vbv_bits, qp, fullness,
-                                     out["frame_bits"])
-        ref = out["rec"]
-        outs.append(out)
-    stacked = {k: torch.stack([o[k] for o in outs]).unflatten(1, grid)
-               for k in ("words", "row_bits", "n_inter", "sse")}
-    stacked["qp"] = torch.stack([o["qp"] for o in outs])
-    stacked["ovf"] = torch.stack([o["ovf"] for o in outs])
-    return stacked
+    static = dict(rc=rc, block_words=block_words, row_words=row_words,
+                  target_bits=target_bits, qbias=qbias, vbv_bits=vbv_bits)
+    key = tile2d_graph_key(mesh, y_u8.shape, cb_u8.shape, fmt=fmt, **static)
+    return tile2d_cache(y_u8.device).launch(
+        key, lambda y, cb, cr, qp: tile2d_gop_scan(
+            y, cb, cr, qp, grid=grid, groups=groups, **static),
+        (y_u8, cb_u8, cr_u8), int(base_qp))
 
 
 def assemble_frame_2d(words: np.ndarray, row_bits: np.ndarray, t: int

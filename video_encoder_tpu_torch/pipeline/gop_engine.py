@@ -23,13 +23,16 @@ every call from then on copies its planes and base qps into those
 buffers, replays the graph and copies the outputs out into tensors of
 its own, all on the caller's current stream. A capture that fails
 raises; nothing falls back to the eager loop. The eager loop runs on the
-CPU, for a key's first call, and for `hop` callers (parallel/ring.py).
-The key -> first-call-eager -> capture -> replay logic is `GraphCache`,
-which the tile loop (parallel/gop_parallel.py `ShardedGopEncoder`, on
-its GopEngine's cache), the per-frame engine
-(pipeline/device_engine.py `DeviceEngine`) and the two device decoders
-(pipeline/decoder.py `GopDecodeEngine`, `DeviceDecodeEngine`, with no
-qp input) use too.
+CPU, for a key's first call, and for a hop given as a function (the
+temporal ring over ranks, parallel/ring.py, whose hop is a collective); a
+hop given by name ("roll", `roll_hop`: the ring on one device) joins the
+key and is captured with the loop. The key -> first-call-eager -> capture ->
+replay logic is `GraphCache`, which the tile loop
+(parallel/gop_parallel.py `ShardedGopEncoder`, on its GopEngine's cache),
+the 2-D tile grid (parallel/tiles.py `encode_gop_tiled2d`, a cache per
+device of its own), the per-frame engine (pipeline/device_engine.py
+`DeviceEngine`) and the two device decoders (pipeline/decoder.py
+`GopDecodeEngine`, `DeviceDecodeEngine`, with no qp input) use too.
 
 The batched path (`run_batch`, `encode_gops*`; twin of
 `encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
@@ -247,7 +250,16 @@ def code_pack_traced(cur, pred, dy, dx, is_inter, is_p: bool,
 # what a captured GOP loop bakes in (GopEngine.graph_key)
 GraphKey = collections.namedtuple(
     "GraphKey", "search rc block_words cap_words target_bits fmt cqpo qbias "
-    "vbv_bits qmat islice emit y_shape c_shape sea force")
+    "vbv_bits qmat islice emit y_shape c_shape sea force hop")
+
+
+def roll_hop(carry):
+    """The temporal ring's hop on one device, which _run takes by the name
+    "roll": each column's carry moves to the next column (d -> d + 1 mod
+    D), a roll of the leading axis (the reference's ppermute over the
+    'ring' axis). Device ops only, so a capture takes it."""
+    return tuple(torch.roll(t, 1, 0) for t in carry)
+
 
 # the devices whose loops run as graphs (a test may add "cpu" beside a fake
 # _capture); read at every call
@@ -327,8 +339,11 @@ class GraphCache:
     a cache (ShardedGopEncoder and its GopEngine). Each decoder engine
     has a cache of its own (pipeline/decoder.py), so an encoder's graphs
     and a decoder's never share a pool: graphs that share one must not
-    replay at once. A capture that fails raises; nothing falls back to
-    the eager call."""
+    replay at once. So do the temporal ring's engine (parallel/ring.py,
+    a GopEngine of its own under frame emit) and the 2-D tile grid
+    (parallel/tiles.py, one cache per device): neither runs a span merge,
+    so neither touches the merges' ticket. A capture that fails raises;
+    nothing falls back to the eager call."""
 
     def __init__(self, owner: str):
         self.owner = owner
@@ -384,11 +399,12 @@ class GopEngine:
     (span strings glued on the host); both give the same bytes. The
     default is the one measured faster on the card (PERF.md).
 
-    On CUDA, `run` and `run_batch` (without a hop) replay one CUDA graph
-    per `graph_key` from a key's second call on (the module docstring);
-    `graphs` holds them, and they go with the engine. They live in its
-    GraphCache, `cache`: replays run on the current stream, which must
-    stay the one of the first replay, and share one memory pool.
+    On CUDA, `run` and `run_batch` (with no hop, or a hop by name) replay
+    one CUDA graph per `graph_key` from a key's second call on (the module
+    docstring); `graphs` holds them, and they go with the engine. They
+    live in its GraphCache, `cache`: replays run on the current stream,
+    which must stay the one of the first replay, and share one memory
+    pool.
     """
 
     emit = "frame"
@@ -429,8 +445,10 @@ class GopEngine:
         into [T, ...] tensors made at the first frame's shapes. hop, if
         given, maps each step's carry (the three recon planes, qp,
         fullness) to the next step's: the temporal ring's shift
-        (parallel/ring.py). The body that a GopGraph captures."""
+        (parallel/ring.py): "roll" (roll_hop) or a function. The body that
+        a GopGraph captures."""
         cfg = self.cfg
+        hop = roll_hop if hop == "roll" else hop
         target_bits, vbv_bits = cfg.target_bits_per_frame(), cfg.vbv_bits()
         fullness = torch.full_like(qp, spec.vbv_init(vbv_bits),
                                    dtype=torch.int64)
@@ -470,29 +488,34 @@ class GopEngine:
                 *ref, qp, fullness = hop((*ref, qp, fullness))
         return res
 
-    def graph_key(self, y_shape, c_shape, bw: int, cap: int) -> GraphKey:
+    def graph_key(self, y_shape, c_shape, bw: int, cap: int,
+                  hop: str | None = None) -> GraphKey:
         """The key of a GOP's graph: the reference's static arguments of
         encode_gop(_batch)_jit (search, rc, block_words, cap_words,
         target_bits, fmt, cqpo, qbias, vbv_bits, qmat, islice, emit), the
         luma and chroma shapes ([T, H, W], or [T, G, H, W] in lockstep),
-        and the routes that the wrappers read at every call and a capture
-        bakes in: TVC_SEA and dispatch.force. The base qp is an input."""
+        the routes that the wrappers read at every call and a capture
+        bakes in (TVC_SEA and dispatch.force), and the hop's name (None
+        for a plain batch; "roll" for the ring on one device, the
+        counterpart of encode_ring_jit). The base qp is an input."""
         cfg = self.cfg
         return GraphKey(cfg.search, cfg.rc, bw, cap, cfg.target_bits_per_frame(),
                         cfg.format_version, cfg.chroma_qp_offset,
                         cfg.quant_bias, cfg.vbv_bits(), cfg.quant_matrix,
                         cfg.intra_slice_mbrows, self.emit, tuple(y_shape),
-                        tuple(c_shape), ksad._sea_enabled(), dispatch._FORCE)
+                        tuple(c_shape), ksad._sea_enabled(), dispatch._FORCE,
+                        hop)
 
-    def _launch(self, y, cb, cr, qps, bw: int, cap: int):
+    def _launch(self, y, cb, cr, qps, bw: int, cap: int, hop=None):
         """The GOP loop on y's device through the engine's GraphCache:
-        eager on the CPU and for a key's first call, else the key's graph
-        (captured at its second call). qps: the base qp (int) or the G
-        base qps (list)."""
+        eager on the CPU, for a key's first call and for a hop given as a
+        function (no key), else the key's graph (captured at its second
+        call). qps: the base qp (int) or the G base qps (list)."""
+        key = None if callable(hop) else self.graph_key(y.shape, cb.shape,
+                                                         bw, cap, hop)
         return self.cache.launch(
-            self.graph_key(y.shape, cb.shape, bw, cap),
-            lambda *planes_qp: self._run(*planes_qp, bw, cap), (y, cb, cr),
-            qps)
+            key, lambda *planes_qp: self._run(*planes_qp, bw, cap, hop),
+            (y, cb, cr), qps)
 
     def run(self, y, cb, cr, base_qp: int, xl: bool = False):
         """Encode one GOP of [T, H, W] / [T, H/2, W/2] uint8 planes already
@@ -510,15 +533,14 @@ class GopEngine:
         axis leads, so each step's [G, H, W] planes are contiguous), one
         base qp per GOP. The block budget is that of the smallest qp of
         the batch. Returns run()'s tensors with the axes [T, G, ...]; ovf
-        stays [T], a frame step's flag being any GOP's. hop: as _run's,
-        and a call with one runs eagerly (its collective is not captured)."""
+        stays [T], a frame step's flag being any GOP's. hop: as _run's;
+        "roll" joins the key and is replayed with the loop, a function (a
+        collective over ranks, which a capture cannot take) runs eagerly
+        at every call."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
         qps = [int(q) for q in base_qps]
         bw, cap = self._capacities(n_mbs, min(qps), xl)
-        if hop is not None:
-            qp = torch.tensor(qps, dtype=torch.int32).to(y.device)
-            return self._run(y, cb, cr, qp, bw, cap, hop=hop)
-        return self._launch(y, cb, cr, qps, bw, cap)
+        return self._launch(y, cb, cr, qps, bw, cap, hop)
 
     def upload(self, planes, lead: tuple) -> torch.Tensor:
         """uint8 device tensor [*lead, H, W] of equal-shaped planes given
