@@ -51,11 +51,13 @@ there are fewer cards than ranks):
 `--checkpoint PATH` saves the encode's state after every GOP and resumes
 a killed encode at its last GOP, byte-identical to an uninterrupted one
 (any engine; single pass, no `--gop-batch` or `--tile`). `--trace DIR` writes a
-torch.profiler trace of the encode into DIR; `--stage-timers` adds the
-host stages' wall times to the summary. Its streams are byte-identical
-to the reference CLI's. `decode` takes the reference's engines
-(`pipeline/decoder.py`): `--engine native` (the default) decodes with the
-C++ decoder of `oracle/oracle.cpp` through ctypes (`codec/native.py`),
+torch.profiler trace of the encode, the program's spans on the host's
+row, into DIR; `--stage-timers` adds the host stages' wall times and the
+program's spans and counters (utils/trace.py RECORDER) to the summary.
+Its streams are byte-identical to the reference CLI's. `decode` takes
+the reference's engines (`pipeline/decoder.py`): `--engine native` (the
+default) decodes with the C++ decoder of `oracle/oracle.cpp` through
+ctypes (`codec/native.py`),
 GOP-parallel on `--workers` threads, or, where that library cannot be
 loaded, warns and decodes with the golden model, as the reference does;
 `--engine gop|device` parse with it and rebuild the frames on `--device`
@@ -98,7 +100,7 @@ from .pipeline.encoder import (GoldenEngine, PerFrameGopAdapter, encode_clip,
                                encode_clip_resumable, encode_clip_twopass)
 from .pipeline.gop_engine import GopEngine
 from .utils.metrics import RunSummary, psnr
-from .utils.trace import EventLog, StageTimer, trace
+from .utils.trace import RECORDER, EventLog, StageTimer, trace
 
 def _add_dims(p):
     p.add_argument("-W", "--width", type=int, default=0)
@@ -506,6 +508,8 @@ def cmd_encode(a) -> int:
         n_frames = yuv.count_yuv_frames(a.input, w, h)
 
     timer = StageTimer() if a.stage_timers else None
+    if timer is not None:
+        RECORDER.reset()    # the summary's spans and counters: this encode's
     rows = None
     t0 = time.perf_counter()
     on_frame = ((lambda st: print(st.to_json(), file=sys.stderr))
@@ -559,6 +563,8 @@ def cmd_encode(a) -> int:
         out["faults_injected"] = fault.injected
     if timer is not None:
         out["stages"] = timer.report()
+        out["spans"] = RECORDER.report()
+        out["counters"] = dict(sorted(RECORDER.counters.items()))
     print(json.dumps(out))
     return 0
 
@@ -706,9 +712,11 @@ def main(argv=None) -> int:
                         "resume from PATH if it exists (single pass, no "
                         "--gop-batch/--tile)")
     e.add_argument("--trace", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the encode into DIR")
+                   help="write a torch.profiler trace of the encode, with "
+                        "the program's spans, into DIR")
     e.add_argument("--stage-timers", action="store_true",
-                   help="add the host stages' wall times to the summary")
+                   help="add the host stages' wall times, and the program's "
+                        "spans and counters, to the summary")
     e.add_argument("--device", default="cuda",
                    help="torch device to encode on (cuda, cuda:N or cpu)")
     e.add_argument("-v", "--verbose", action="store_true",

@@ -62,6 +62,7 @@ from ..ops import transform as tx
 from ..ops.kernels import build
 from ..ops.kernels import sad as ksad
 from ..utils.metrics import FrameStats
+from ..utils.trace import RECORDER
 
 
 def block_words_for_qp(qp: int) -> int:
@@ -266,6 +267,15 @@ def roll_hop(carry):
 _GRAPH_DEVICE_TYPES = ("cuda",)
 
 
+def _pool_bytes(pool) -> int:
+    """The bytes the caching allocator has reserved in the private memory
+    pool `pool` (a graph's pool id), by its own accounting: the sizes of
+    the segments of that pool in its snapshot. (torch.cuda.memory_stats
+    counts every pool of the device together.)"""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 def _capture(body, pool):
     """(graph, outputs) of body() captured as one CUDA graph on a side
     stream, sharing the memory pool `pool` (None: a pool of its own).
@@ -290,7 +300,8 @@ class GopGraph:
     static outputs it writes (a dict of tensors or tuples of them), and
     the launch counts of `build.LAUNCHES` recorded while it was captured
     (the wrappers count where they launch, which under capture is once; a
-    replay adds them)."""
+    replay adds them). `replays` counts its replays; `capture_ns` and
+    `capture_s` are its capture's host time."""
 
     def __init__(self, body, inputs, qp_shape, pool):
         # zero-filled, not empty: a capture through the test seam runs the
@@ -300,31 +311,42 @@ class GopGraph:
             qp_shape, dtype=torch.int32, device=inputs[0].device)
         args = self.inputs if self.qp is None else (*self.inputs, self.qp)
         before = dict(build.LAUNCHES)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
-            self.graph, self.outs = _capture(lambda: body(*args), pool)
+            with RECORDER.span("engine.capture"):
+                self.graph, self.outs = _capture(lambda: body(*args), pool)
         finally:
             self.launches = {k: v - before[k]
                              for k, v in build.LAUNCHES.items()
                              if v != before[k]}
             build.LAUNCHES.update(before)
-        self.capture_s = time.perf_counter() - t0
+        self.capture_ns = time.perf_counter_ns() - t0
+        self.capture_s = self.capture_ns / 1e9
+        self.replays = 0
+        self.pool_bytes = None     # set by GraphCache on CUDA
+        RECORDER.count("engine.captures")
+        RECORDER.count("engine.capture_ns", self.capture_ns)
 
     def __call__(self, inputs, qps):
         """Replay on the current stream: inputs copied in, outputs copied
         out into fresh tensors before anything can replay again, so that
         a call in flight keeps its own outputs."""
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
-        if self.qp is not None and self.qp.ndim == 0:
-            self.qp.fill_(qps)
-        elif self.qp is not None:
-            for g, q in enumerate(qps):
-                self.qp[g].fill_(q)
-        self.graph.replay()
+        with RECORDER.span("engine.copy_in"):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src)
+            if self.qp is not None and self.qp.ndim == 0:
+                self.qp.fill_(qps)
+            elif self.qp is not None:
+                for g, q in enumerate(qps):
+                    self.qp[g].fill_(q)
+        with RECORDER.span("engine.replay"):
+            self.graph.replay()
+        self.replays += 1
+        RECORDER.count("engine.replays")
         for k, v in self.launches.items():
             build.LAUNCHES[k] += v
-        return {k: _clone(v) for k, v in self.outs.items()}
+        with RECORDER.span("engine.copy_out"):
+            return {k: _clone(v) for k, v in self.outs.items()}
 
 
 class GraphCache:
@@ -343,12 +365,23 @@ class GraphCache:
     a GopEngine of its own under frame emit) and the 2-D tile grid
     (parallel/tiles.py, one cache per device): neither runs a span merge,
     so neither touches the merges' ticket. A capture that fails raises;
-    nothing falls back to the eager call."""
+    nothing falls back to the eager call.
+
+    Each call records into utils.trace.RECORDER: an eager call the span
+    `engine.eager` and the count `engine.eager_calls`, a key's eager first
+    call its host time in `engine.capture_ns`; a capture the span
+    `engine.capture` and `engine.captures`, `engine.capture_ns`, and on
+    CUDA the change of the pool's reserved bytes in
+    `engine.graph_pool_bytes` (so its total is the pool's size); a replay
+    the span `engine.launch` (GopGraph's copies in, replay and copies out
+    within it) and `engine.replays`. stats() gives them per key."""
 
     def __init__(self, owner: str):
         self.owner = owner
         self.graphs: dict = {}
+        self.eager_ns: dict = {}   # key -> its eager first call's host ns
         self.pool = None       # the memory pool the graphs share
+        self.pool_bytes = 0    # its reserved bytes after the last capture
         self.stream = None     # the stream the graphs replay on
 
     def launch(self, key, body, inputs, qps=None):
@@ -365,12 +398,20 @@ class GraphCache:
         if key is None or key not in self.graphs:
             if key is not None:
                 self.graphs[key] = None
-            if qps is None:
-                return body(*inputs)
-            qp = (torch.full((), qps, dtype=torch.int32, device=dev)
-                  if isinstance(qps, int)
-                  else torch.tensor(qps, dtype=torch.int32).to(dev))
-            return body(*inputs, qp)
+            t0 = time.perf_counter_ns()
+            with RECORDER.span("engine.eager"):
+                if qps is None:
+                    out = body(*inputs)
+                else:
+                    qp = (torch.full((), qps, dtype=torch.int32, device=dev)
+                          if isinstance(qps, int)
+                          else torch.tensor(qps, dtype=torch.int32).to(dev))
+                    out = body(*inputs, qp)
+            RECORDER.count("engine.eager_calls")
+            if key is not None:
+                self.eager_ns[key] = time.perf_counter_ns() - t0
+                RECORDER.count("engine.capture_ns", self.eager_ns[key])
+            return out
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         if self.stream is None:
             self.stream = stream
@@ -385,7 +426,32 @@ class GraphCache:
                 else () if isinstance(qps, int) else (len(qps),), self.pool)
             if self.pool is None:
                 self.pool = graph.graph.pool()
-        return graph(inputs, qps)
+            if dev.type == "cuda":
+                graph.pool_bytes = _pool_bytes(self.pool)
+                RECORDER.count("engine.graph_pool_bytes",
+                               graph.pool_bytes - self.pool_bytes)
+                self.pool_bytes = graph.pool_bytes
+        with RECORDER.span("engine.launch"):
+            return graph(inputs, qps)
+
+    def stats(self) -> dict:
+        """Per key: its eager first call (`eager_calls` 1, `eager_ns` its
+        host time), its capture (`captures` 0 or 1, `capture_ns`), its
+        `replays`, the kernel launches each replay makes (`launches`, the
+        counts of build.LAUNCHES captured with it, which a replay adds) and,
+        on CUDA, the pool's reserved bytes after its capture
+        (`pool_bytes`)."""
+        out = {}
+        for key, graph in self.graphs.items():
+            s = dict(eager_calls=1, eager_ns=self.eager_ns.get(key),
+                     captures=0, capture_ns=None, replays=0, launches={},
+                     pool_bytes=None)
+            if graph is not None:
+                s.update(captures=1, capture_ns=graph.capture_ns,
+                         replays=graph.replays, launches=dict(graph.launches),
+                         pool_bytes=graph.pool_bytes)
+            out[key] = s
+        return out
 
 
 class GopEngine:
@@ -522,8 +588,11 @@ class GopEngine:
         on the engine's device; launches only, no host wait. xl selects the
         worst-case block and frame capacities. Returns [T, ...] per-frame
         device tensors of the call's own: words, bits, ovf, n_inter, qp,
-        sse, and cbits [T, C] under chunk emit."""
+        sse, and cbits [T, C] under chunk emit. A call with xl is counted in
+        RECORDER's `engine.overflow_reruns`."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
+        if xl:
+            RECORDER.count("engine.overflow_reruns")
         return self._launch(y, cb, cr, int(base_qp),
                             *self._capacities(n_mbs, base_qp, xl))
 
@@ -536,30 +605,51 @@ class GopEngine:
         stays [T], a frame step's flag being any GOP's. hop: as _run's;
         "roll" joins the key and is replayed with the loop, a function (a
         collective over ranks, which a capture cannot take) runs eagerly
-        at every call."""
+        at every call. A call with xl is counted as run()'s."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
+        if xl:
+            RECORDER.count("engine.overflow_reruns")
         qps = [int(q) for q in base_qps]
         bw, cap = self._capacities(n_mbs, min(qps), xl)
         return self._launch(y, cb, cr, qps, bw, cap, hop)
 
-    def upload(self, planes, lead: tuple) -> torch.Tensor:
-        """uint8 device tensor [*lead, H, W] of equal-shaped planes given
-        in row-major order of `lead`; one pass over them on the host."""
+    @staticmethod
+    def _stack(planes, lead: tuple) -> np.ndarray:
+        """uint8 host array [*lead, H, W] of equal-shaped planes given in
+        row-major order of `lead`; one pass over them."""
         out = np.empty((len(planes), *planes[0].shape), np.uint8)
         for i, p in enumerate(planes):
             out[i] = p
-        return torch.from_numpy(out.reshape(*lead, *planes[0].shape)).to(
-            self.device)
+        return out.reshape(*lead, *planes[0].shape)
+
+    def upload(self, planes, lead: tuple) -> torch.Tensor:
+        """uint8 device tensor [*lead, H, W] of equal-shaped planes given
+        in row-major order of `lead`; one pass over them on the host."""
+        return torch.from_numpy(self._stack(planes, lead)).to(self.device)
+
+    def _upload3(self, stack) -> list[torch.Tensor]:
+        """The y, cb and cr device tensors of an upload, stack(plane) giving
+        each plane's host array, in RECORDER's span `engine.upload`: the
+        numpy assembly (`engine.upload.stack`), then the pageable copies
+        (`engine.upload.copy`). An upload that finds the stream still
+        busy with earlier work, whose end a pageable copy waits for, is
+        counted in `engine.upload_busy` (a query, not a wait)."""
+        with RECORDER.span("engine.upload"):
+            with RECORDER.span("engine.upload.stack"):
+                host = [stack(plane) for plane in ("y", "cb", "cr")]
+            if (self.device.type == "cuda"
+                    and not torch.cuda.current_stream(self.device).query()):
+                RECORDER.count("engine.upload_busy")
+            with RECORDER.span("engine.upload.copy"):
+                return [torch.from_numpy(h).to(self.device) for h in host]
 
     def encode_gop_start(self, frames: list[Frame], first_index: int,
                          base_qp: int | None = None):
         """Upload a GOP and launch its encode without waiting for it."""
         base_qp = self.cfg.base_qp if base_qp is None else base_qp
         t0 = time.perf_counter()
-        lead = (len(frames),)
-        y = self.upload([f.y for f in frames], lead)
-        cb = self.upload([f.cb for f in frames], lead)
-        cr = self.upload([f.cr for f in frames], lead)
+        y, cb, cr = self._upload3(lambda plane: self._stack(
+            [getattr(f, plane) for f in frames], (len(frames),)))
         outs = self.run(y, cb, cr, base_qp)
         return dict(frames=frames, first_index=first_index, base_qp=base_qp,
                     y=y, cb=cb, cr=cr, outs=outs, t0=t0)
@@ -569,70 +659,90 @@ class GopEngine:
         the device tensors' leading axes ([T] or [T, G]): bits, n_inter,
         qp, sse [..., 3], under chunk emit cbits [..., C], and words (the
         device's int32, viewed as uint32) cut to the longest payload
-        (frame emit) or span string (chunk emit)."""
+        (frame emit) or span string (chunk emit).
+
+        In RECORDER's span `finish.copy`: the small columns' cat and copy
+        (`finish.copy.meta`), the words' copy and view
+        (`finish.copy.words`), and the bytes of the two host arrays that
+        the copies bring, counted in `finish.copy_bytes` (the same count on
+        the CPU, where .cpu() copies nothing)."""
         chunked = "cbits" in outs
-        cols = [outs["bits"][..., None], outs["n_inter"][..., None],
-                outs["qp"][..., None], outs["sse"]]
-        if chunked:
-            cols.append(outs["cbits"])
-        small = torch.cat(cols, -1).cpu().numpy()
-        host = dict(bits=small[..., 0], n_inter=small[..., 1],
-                    qp=small[..., 2], sse=small[..., 3:6], cbits=None)
-        if chunked:
-            host["cbits"] = small[..., 6:]
-            maxw = max(int(host["cbits"].max() + 31) // 32, 1)
-        else:
-            maxw = int(host["bits"].max() + 31) // 32
-        host["words"] = outs["words"][..., :maxw].cpu().numpy().view(np.uint32)
+        with RECORDER.span("finish.copy"):
+            with RECORDER.span("finish.copy.meta"):
+                cols = [outs["bits"][..., None], outs["n_inter"][..., None],
+                        outs["qp"][..., None], outs["sse"]]
+                if chunked:
+                    cols.append(outs["cbits"])
+                small = torch.cat(cols, -1).cpu().numpy()
+            host = dict(bits=small[..., 0], n_inter=small[..., 1],
+                        qp=small[..., 2], sse=small[..., 3:6], cbits=None)
+            if chunked:
+                host["cbits"] = small[..., 6:]
+                maxw = max(int(host["cbits"].max() + 31) // 32, 1)
+            else:
+                maxw = int(host["bits"].max() + 31) // 32
+            with RECORDER.span("finish.copy.words"):
+                host["words"] = outs["words"][..., :maxw].cpu().numpy().view(
+                    np.uint32)
+            RECORDER.count("finish.copy_bytes",
+                           small.nbytes + host["words"].nbytes)
         return host
 
     @staticmethod
     def gop_packets(frames, first_index: int, host, ms_per_frame: float):
-        """(packets, stats) of one GOP from its [T, ...] host arrays."""
-        bits, cbits, words = host["bits"], host["cbits"], host["words"]
-        n_mbs = (frames[0].y.shape[0] // tables.MB) * (frames[0].y.shape[1] // tables.MB)
-        npix_y, npix_c = frames[0].y.size, frames[0].cb.size
+        """(packets, stats) of one GOP from its [T, ...] host arrays, in
+        RECORDER's span `finish.packets`."""
+        with RECORDER.span("finish.packets"):
+            bits, cbits, words = host["bits"], host["cbits"], host["words"]
+            n_mbs = ((frames[0].y.shape[0] // tables.MB)
+                     * (frames[0].y.shape[1] // tables.MB))
+            npix_y, npix_c = frames[0].y.size, frames[0].cb.size
 
-        def psnr(s, n):
-            return 10 * math.log10(255.0**2 * n / s) if s > 0 else math.inf
+            def psnr(s, n):
+                return (10 * math.log10(255.0**2 * n / s) if s > 0
+                        else math.inf)
 
-        packets, stats = [], []
-        for t in range(len(frames)):
-            if cbits is not None:
-                payload, nbits = bit_concat(
-                    [(words[t, c], int(b)) for c, b in enumerate(cbits[t]) if b])
-                if nbits != int(bits[t]):
-                    raise RuntimeError(f"frame {first_index + t}: span "
-                                       f"strings hold {nbits} bits, the "
-                                       f"pack counted {int(bits[t])}")
-            else:
-                nw = (int(bits[t]) + 31) // 32
-                payload = words[t, :nw].astype(">u4").tobytes()
-            ftype = 0 if t == 0 else 1
-            qp = int(host["qp"][t])
-            n_inter = int(host["n_inter"][t])
-            sse = host["sse"][t]
-            packets.append(FramePacket(first_index + t, ftype, qp,
-                                       int(bits[t]), payload))
-            stats.append(FrameStats(
-                index=first_index + t, frame_type=ftype, base_qp=qp,
-                bits=int(bits[t]),
-                psnr_y=psnr(sse[0], npix_y),
-                psnr_cb=psnr(sse[1], npix_c),
-                psnr_cr=psnr(sse[2], npix_c),
-                ms=ms_per_frame,
-                n_intra_mb=n_mbs - n_inter if ftype else n_mbs,
-                n_inter_mb=n_inter if ftype else 0,
-            ))
-        return packets, stats
+            packets, stats = [], []
+            for t in range(len(frames)):
+                if cbits is not None:
+                    payload, nbits = bit_concat(
+                        [(words[t, c], int(b))
+                         for c, b in enumerate(cbits[t]) if b])
+                    if nbits != int(bits[t]):
+                        raise RuntimeError(f"frame {first_index + t}: span "
+                                           f"strings hold {nbits} bits, the "
+                                           f"pack counted {int(bits[t])}")
+                else:
+                    nw = (int(bits[t]) + 31) // 32
+                    payload = words[t, :nw].astype(">u4").tobytes()
+                ftype = 0 if t == 0 else 1
+                qp = int(host["qp"][t])
+                n_inter = int(host["n_inter"][t])
+                sse = host["sse"][t]
+                packets.append(FramePacket(first_index + t, ftype, qp,
+                                           int(bits[t]), payload))
+                stats.append(FrameStats(
+                    index=first_index + t, frame_type=ftype, base_qp=qp,
+                    bits=int(bits[t]),
+                    psnr_y=psnr(sse[0], npix_y),
+                    psnr_cb=psnr(sse[1], npix_c),
+                    psnr_cr=psnr(sse[2], npix_c),
+                    ms=ms_per_frame,
+                    n_intra_mb=n_mbs - n_inter if ftype else n_mbs,
+                    n_inter_mb=n_inter if ftype else 0,
+                ))
+            return packets, stats
 
     def encode_gop_finish(self, handle) -> tuple[list[FramePacket],
                                                  list[FrameStats]]:
+        """The GOP's wait for the device and overflow rerun (RECORDER's span
+        `finish.wait`), download and packets."""
         frames = handle["frames"]
         outs = handle["outs"]
-        if bool(outs["ovf"].any()):   # the GOP's one wait on the device
-            outs = self.run(handle["y"], handle["cb"], handle["cr"],
-                            handle["base_qp"], xl=True)
+        with RECORDER.span("finish.wait"):
+            if bool(outs["ovf"].any()):   # the GOP's one wait on the device
+                outs = self.run(handle["y"], handle["cb"], handle["cr"],
+                                handle["base_qp"], xl=True)
         host = self.download(outs)
         ms_total = (time.perf_counter() - handle["t0"]) * 1e3
         return self.gop_packets(frames, handle["first_index"], host,
@@ -658,12 +768,10 @@ class GopEngine:
         if base_qps is None:
             base_qps = [self.cfg.base_qp] * len(gops)
         t0 = time.perf_counter()
-
-        def up(plane):   # [T, G, H, W]: the frame axis leads
-            return self.upload([getattr(g[t], plane) for t in range(n)
-                                 for g in gops], (n, len(gops)))
-
-        y, cb, cr = up("y"), up("cb"), up("cr")
+        # [T, G, H, W]: the frame axis leads
+        y, cb, cr = self._upload3(lambda plane: self._stack(
+            [getattr(g[t], plane) for t in range(n) for g in gops],
+            (n, len(gops))))
         outs = self.run_batch(y, cb, cr, base_qps)
         return dict(gops=gops, first_indices=first_indices, base_qps=base_qps,
                     y=y, cb=cb, cr=cr, outs=outs, t0=t0)
@@ -671,12 +779,14 @@ class GopEngine:
     def encode_gops_finish(self, handle) -> list[tuple[list[FramePacket],
                                                        list[FrameStats]]]:
         """Per-GOP (packets, stats), in the order given to
-        encode_gops_start."""
+        encode_gops_start; the wait and rerun in `finish.wait`, as
+        encode_gop_finish's."""
         gops = handle["gops"]
         outs = handle["outs"]
-        if bool(outs["ovf"].any()):   # the batch's one wait on the device
-            outs = self.run_batch(handle["y"], handle["cb"], handle["cr"],
-                                  handle["base_qps"], xl=True)
+        with RECORDER.span("finish.wait"):
+            if bool(outs["ovf"].any()):   # the batch's one wait on the device
+                outs = self.run_batch(handle["y"], handle["cb"], handle["cr"],
+                                      handle["base_qps"], xl=True)
         host = self.download(outs)
         ms_total = (time.perf_counter() - handle["t0"]) * 1e3
         ms = ms_total / sum(len(g) for g in gops)
