@@ -415,6 +415,148 @@ def test_download_and_packets_spans_and_bytes(recorder, emit, g):
     assert len(packets) == g and all(r[4] == -1 for r in packets)
 
 
+def _outs(eng, frames, g, xl=False):
+    """run() (g = 1) or run_batch() (g copies of the GOP) of frames."""
+    if g == 1:
+        return eng.run(*(eng.upload([getattr(f, p) for f in frames],
+                                    (len(frames),))
+                         for p in ("y", "cb", "cr")), 28, xl=xl)
+    return eng.run_batch(*(eng.upload([getattr(f, p) for f in frames
+                                       for _ in range(g)], (len(frames), g))
+                           for p in ("y", "cb", "cr")), [28] * g, xl=xl)
+
+
+def _plain_words(outs):
+    """The words as download copied them before the staging buffer: the
+    slice to the longest payload or string, .cpu(), viewed as uint32."""
+    bits = (outs["cbits"] if "cbits" in outs else outs["bits"]).max()
+    maxw = int(bits + 31) // 32
+    if "cbits" in outs:
+        maxw = max(maxw, 1)
+    return outs["words"][..., :maxw].cpu().numpy().view(np.uint32)
+
+
+def _packets(eng, frames, host, g):
+    return [p.to_bytes() for gi in range(g)
+            for p in eng.gop_packets(frames, 0, host if g == 1 else
+                                     {k: v if v is None else v[:, gi]
+                                      for k, v in host.items()}, 1.0)[0]]
+
+
+@pytest.fixture
+def fake_staging(monkeypatch):
+    """The staging path on the CPU: "cpu" among the staging devices and
+    _pinned an ordinary tensor; the sizes it was asked for."""
+    made = []
+
+    def pinned(n, dtype):
+        made.append(n)
+        return torch.empty(n, dtype=dtype)
+
+    monkeypatch.setattr(gop_engine, "_STAGING_DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(gop_engine, "_pinned", pinned)
+    return made
+
+
+@pytest.mark.parametrize("emit", ["frame", "chunks"])
+def test_a_cpu_download_stages_nothing(recorder, emit):
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu",
+                    emit=emit)
+    frames = _clip(6, 2)
+    for _ in range(2):
+        outs = _outs(eng, frames, 1)
+        host = eng.download(outs)
+        assert np.array_equal(host["words"], _plain_words(outs))
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [0, 0]
+    assert "finish.staging_bytes" not in recorder.counters
+    assert eng._staging is None
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("emit", ["frame", "chunks"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_copy_bytes_and_words_unchanged(recorder, request, emit, g, staged):
+    """finish.copy_bytes counts the bytes of the two host arrays of the
+    plain copy, staged or not, and the words are the plain copy's."""
+    if staged:
+        request.getfixturevalue("fake_staging")
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu",
+                    emit=emit)
+    outs = _outs(eng, _clip(6, 2), g)
+    recorder.reset()
+    host = eng.download(outs)
+    plain = _plain_words(outs)
+    assert host["words"].shape == plain.shape
+    assert host["words"].tobytes() == plain.tobytes()
+    small = 3 + 3 + (outs["cbits"].shape[-1] if emit == "chunks" else 0)
+    (counted,) = _counts(recorder, "finish.copy_bytes")
+    assert counted[5] == 8 * small * outs["bits"].numel() + plain.nbytes
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [
+        int(staged)]
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("g", [1, 2])
+def test_small_columns_outlive_the_next_download(recorder, request, g,
+                                                 staged):
+    """A second download of other outputs leaves the first download's
+    small columns as they were: they are the caller's own. Its words
+    share the staging buffer, which the second download overwrites."""
+    if staged:
+        request.getfixturevalue("fake_staging")
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu")
+    first = eng.download(_outs(eng, _clip(6, 2), g))
+    kept = {k: v.copy() for k, v in first.items() if v is not None}
+    second = eng.download(_outs(eng, _clip(12, 2, noise=True), g))
+    assert not np.array_equal(second["sse"], kept["sse"])
+    for k in ("bits", "n_inter", "qp", "sse"):
+        assert np.array_equal(first[k], kept[k])
+        assert not np.shares_memory(first[k], second[k])
+    assert np.shares_memory(first["words"], second["words"]) == staged
+
+
+def test_one_staging_buffer_until_a_larger_budget(recorder, fake_staging):
+    """Three downloads of one key make one buffer, the size of the key's
+    words; a larger budgeted key makes it again, a smaller one does not."""
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu")
+    frames = _clip(6, 2)
+    sizes = []
+    for g in (1, 1, 1, 2, 1, 2):
+        outs = _outs(eng, frames, g)
+        sizes.append(outs["words"].numel())
+        eng.download(outs)
+    assert fake_staging == [sizes[0], sizes[3]]
+    assert [r[5] for r in _counts(recorder, "finish.staging_bytes")] == [
+        4 * sizes[0], 4 * sizes[3]]
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1] * 6
+
+
+@pytest.mark.parametrize("emit", ["frame", "chunks"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_an_xl_rerun_takes_the_plain_copy(recorder, fake_staging, emit, g):
+    """The worst-case rerun's words are more than any budgeted launch
+    returned: they take the plain copy (counted 0), make no buffer, and
+    give the budgeted encode's packets."""
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu",
+                    emit=emit)
+    frames = _clip(6, 2)
+    want = _packets(eng, frames, eng.download(_outs(eng, frames, g)), g)
+    xl = _outs(eng, frames, g, xl=True)
+    assert xl["words"].numel() > eng._budget_words
+    got = _packets(eng, frames, eng.download(xl), g)
+    assert got == want
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 0]
+    assert len(fake_staging) == 1
+
+
+def test_a_first_launch_at_the_worst_case_stages_nothing(recorder,
+                                                         fake_staging):
+    eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu")
+    eng.download(_outs(eng, _clip(6, 2), 1, xl=True))
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [0]
+    assert fake_staging == [] and eng._staging is None
+
+
 @pytest.mark.parametrize("batched", [False, True])
 def test_overflow_reruns_are_counted(recorder, batched):
     """Noise at qp 1 overflows every budget: each finish reruns at the
@@ -480,6 +622,25 @@ def test_stage_timers_summary_adds_spans_and_counters(recorder, tmp_path,
         assert list(out["spans"]) == ["engine.eager"]
 
 
+@pytest.mark.parametrize("staged", [False, True])
+def test_stage_timers_summary_counts_the_staging(recorder, request, tmp_path,
+                                                 capsys, staged):
+    """The summary's counters name the staged downloads and the buffer's
+    bytes: three GOP downloads, one buffer (the tail's words are fewer)."""
+    made = request.getfixturevalue("fake_staging") if staged else []
+    path = _yuv(tmp_path / "in.yuv", 10, 5)
+    assert cli.main(["encode", "-i", path, "-W", str(W), "-H", str(H),
+                     "-o", str(tmp_path / "o.tvc"), "--gop", "2",
+                     "--device", "cpu", "--stage-timers"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["counters"]["finish.copy_staged"] == (3 if staged else 0)
+    if staged:
+        assert out["counters"]["finish.staging_bytes"] == 4 * made[0]
+        assert len(made) == 1
+    else:
+        assert "finish.staging_bytes" not in out["counters"]
+
+
 # ---- on the card ---------------------------------------------------------
 
 @pytest.fixture
@@ -510,3 +671,65 @@ def test_graph_pool_and_busy_upload_on_card(recorder, cuda):
     assert recorder.counters["engine.upload_busy"] == 1
     eng.encode_gop_finish(h)
     assert recorder.counters["engine.replays"] == 3
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_staged_words_equal_the_plain_copy_at_1080p(recorder, cuda, g):
+    """At 1080p, one GOP and four in lockstep: the staged words are the
+    pageable copy's, byte for byte, and land in a buffer the size of the
+    budgeted words."""
+    eng = GopEngine(EncoderConfig(width=1920, height=1080, gop_n=2),
+                    device=cuda)
+    frames = _clip(13, 2, w=1920, h=1080)
+    outs = _outs(eng, frames, g)
+    host = eng.download(outs)
+    plain = _plain_words(outs)
+    assert host["words"].shape == plain.shape
+    assert host["words"].tobytes() == plain.tobytes()
+    assert eng._staging.is_pinned()
+    assert eng._staging.numel() == outs["words"].numel()
+    assert recorder.counters["finish.copy_staged"] == 1
+    assert recorder.counters["finish.staging_bytes"] == 4 * outs[
+        "words"].numel()
+
+
+def test_three_downloads_one_staging_buffer_on_card(recorder, cuda):
+    """Three encodes of one key (eager, capture and replay, replay): one
+    buffer, every download staged."""
+    eng = GopEngine(EncoderConfig(width=96, height=64, gop_n=3), device=cuda)
+    frames = _clip(11, 3, w=96, h=64)
+    got = [_encode(eng, frames)[0] for _ in range(3)]
+    assert got[0] == got[1] == got[2]
+    assert len(_counts(recorder, "finish.staging_bytes")) == 1
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1] * 3
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_a_download_right_after_run_has_landed(recorder, cuda, g):
+    """download straight after run(), behind a long kernel and with no
+    sync of the caller's, gives a synchronous encode's packets: the copy
+    has landed before download returns."""
+    eng = GopEngine(EncoderConfig(width=96, height=64, gop_n=3), device=cuda)
+    frames = _clip(14, 3, w=96, h=64)
+    want = _packets(eng, frames, eng.download(_outs(eng, frames, g)), g)
+    torch.cuda.synchronize()
+    for _ in range(2):       # the capture, then a replay
+        eng.download(_outs(eng, _clip(15, 3, noise=True, w=96, h=64), g))
+        torch.cuda._sleep(100_000_000)
+        got = _packets(eng, frames, eng.download(_outs(eng, frames, g)), g)
+        assert got == want
+    assert set(r[5] for r in _counts(recorder, "finish.copy_staged")) == {1}
+
+
+def test_an_xl_rerun_takes_the_plain_copy_on_card(recorder, cuda):
+    """A forced worst-case rerun falls back (counted 0), makes no buffer
+    of its own, and its stream is the budgeted encode's."""
+    eng = GopEngine(EncoderConfig(width=1920, height=1080, gop_n=2),
+                    device=cuda)
+    frames = _clip(16, 2, w=1920, h=1080)
+    want = _packets(eng, frames, eng.download(_outs(eng, frames, 1)), 1)
+    got = _packets(eng, frames, eng.download(_outs(eng, frames, 1, xl=True)),
+                   1)
+    assert got == want
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 0]
+    assert len(_counts(recorder, "finish.staging_bytes")) == 1

@@ -140,9 +140,9 @@ class ShardedGopEncoder:
         bw, cap = self._capacities(y, qps, xl)
         key = (self.graph_key(y.shape, cb.shape, bw, cap)
                if self.mesh.group("tile") is None else None)
-        return self.cache.launch(
+        return self.engine.budgeted(self.cache.launch(
             key, lambda *planes_qp: self._run(*planes_qp, bw, cap),
-            (y, cb, cr), qps)
+            (y, cb, cr), qps), xl)
 
     def encode_gop_batch_start(self, gops: list[list[Frame]],
                                first_indices: list[int],

@@ -288,6 +288,21 @@ def _capture(body, pool):
     return graph, outs
 
 
+# the devices whose downloads stage the words in pinned host memory (a test
+# may add "cpu" beside a fake _pinned); read at every download
+_STAGING_DEVICE_TYPES = ("cuda",)
+
+
+def _pinned(n: int, dtype) -> torch.Tensor:
+    """n elements of page-locked host memory, cacheable (torch's pinned
+    allocator: cudaHostAlloc with the default flags, not write-combined,
+    so numpy reads it at the host's memory rate). A device-to-host copy
+    lands there by DMA at the link's rate; into pageable memory CUDA
+    stages it through a bounce buffer of its own. The one seam
+    between the download and pinned memory."""
+    return torch.empty(n, dtype=dtype, pin_memory=True)
+
+
 def _clone(v):
     """A graph output copied out: a tensor, or a tuple of them."""
     return tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone()
@@ -495,6 +510,20 @@ class GopEngine:
         # graph_key -> its GopGraph, or None after the key's eager first
         # call; a ShardedGopEncoder over this engine adds its TileKeys
         self.graphs: dict[GraphKey, GopGraph | None] = self.cache.graphs
+        # the most words a budgeted (not xl) launch has returned, and the
+        # pinned host buffer the downloads of such words land in
+        self._budget_words = 0
+        self._staging: torch.Tensor | None = None
+
+    def budgeted(self, outs, xl: bool):
+        """outs as given; the words of a launch without xl raise the most
+        words that `download` stages (`_budget_words`). Called by every
+        launch whose outputs reach download: run, run_batch and
+        ShardedGopEncoder.run."""
+        if not xl:
+            self._budget_words = max(self._budget_words,
+                                     outs["words"].numel())
+        return outs
 
     def _capacities(self, n_mbs: int, base_qp: int, xl: bool):
         """(block words, frame capacity words): budgeted for base_qp, or
@@ -593,8 +622,9 @@ class GopEngine:
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
         if xl:
             RECORDER.count("engine.overflow_reruns")
-        return self._launch(y, cb, cr, int(base_qp),
-                            *self._capacities(n_mbs, base_qp, xl))
+        return self.budgeted(self._launch(
+            y, cb, cr, int(base_qp), *self._capacities(n_mbs, base_qp, xl)),
+            xl)
 
     def run_batch(self, y, cb, cr, base_qps, xl: bool = False, hop=None):
         """Encode G GOPs of T frames in lockstep: [T, G, H, W] /
@@ -611,7 +641,7 @@ class GopEngine:
             RECORDER.count("engine.overflow_reruns")
         qps = [int(q) for q in base_qps]
         bw, cap = self._capacities(n_mbs, min(qps), xl)
-        return self._launch(y, cb, cr, qps, bw, cap, hop)
+        return self.budgeted(self._launch(y, cb, cr, qps, bw, cap, hop), xl)
 
     @staticmethod
     def _stack(planes, lead: tuple) -> np.ndarray:
@@ -661,11 +691,24 @@ class GopEngine:
         device's int32, viewed as uint32) cut to the longest payload
         (frame emit) or span string (chunk emit).
 
+        On the card the words of a budgeted launch (no more words than a
+        launch of this engine without xl returned) land in a page-locked
+        host buffer that the engine owns and reuses (`_staging`: made at
+        the first such download, made again only when a later one needs
+        more than it holds): one copy on the current stream, on which the
+        engine's launches made outs, waited for before download returns.
+        host["words"] is then a view of that buffer and stays valid until
+        the engine's next download; the small columns are the caller's
+        own. The CPU's words and a worst-case rerun's (xl: about 15 MB a
+        1080p frame) keep the plain copy into memory of their own.
+
         In RECORDER's span `finish.copy`: the small columns' cat and copy
         (`finish.copy.meta`), the words' copy and view
-        (`finish.copy.words`), and the bytes of the two host arrays that
-        the copies bring, counted in `finish.copy_bytes` (the same count on
-        the CPU, where .cpu() copies nothing)."""
+        (`finish.copy.words`), the bytes of the two host arrays that the
+        copies bring, counted in `finish.copy_bytes` (the same count on
+        the CPU, where .cpu() copies nothing), and `finish.copy_staged`, 1
+        where the words went through the buffer and 0 where not. Each
+        making of the buffer counts its bytes in `finish.staging_bytes`."""
         chunked = "cbits" in outs
         with RECORDER.span("finish.copy"):
             with RECORDER.span("finish.copy.meta"):
@@ -682,11 +725,35 @@ class GopEngine:
             else:
                 maxw = int(host["bits"].max() + 31) // 32
             with RECORDER.span("finish.copy.words"):
-                host["words"] = outs["words"][..., :maxw].cpu().numpy().view(
-                    np.uint32)
+                words = self._stage(outs["words"], maxw)
+                staged = words is not None
+                if not staged:
+                    words = outs["words"][..., :maxw].cpu()
+                host["words"] = words.numpy().view(np.uint32)
+            RECORDER.count("finish.copy_staged", int(staged))
             RECORDER.count("finish.copy_bytes",
                            small.nbytes + host["words"].nbytes)
         return host
+
+    def _stage(self, words, maxw: int):
+        """words[..., :maxw] copied into the staging buffer, as a view of
+        its first elements shaped [..., maxw], once the copy has landed;
+        None where the words take the plain copy: off the card, or more
+        words than a budgeted launch returned (the xl rerun's)."""
+        if (words.device.type not in _STAGING_DEVICE_TYPES
+                or words.numel() > self._budget_words):
+            return None
+        if self._staging is None or self._staging.numel() < words.numel():
+            self._staging = None      # the old buffer goes before the new
+            self._staging = _pinned(words.numel(), words.dtype)
+            RECORDER.count("finish.staging_bytes",
+                           self._staging.numel() * words.element_size())
+        part = words[..., :maxw]
+        dst = self._staging[:part.numel()].view(part.shape)
+        dst.copy_(part, non_blocking=True)
+        if words.is_cuda:
+            torch.cuda.current_stream(words.device).synchronize()
+        return dst
 
     @staticmethod
     def gop_packets(frames, first_index: int, host, ms_per_frame: float):
