@@ -147,6 +147,33 @@ def test_stream_headers_and_packets_byte_equal(rng, kw):
     assert [p.payload for p in packets] == payloads and info.frame_count == 3
 
 
+@pytest.mark.parametrize("kw", [
+    dict(), dict(format_version=2, chroma_qp_offset=-5),
+    dict(format_version=3, quant_matrix=True, intra_slice_mbrows=3),
+    dict(format_version=4, chroma_qp_offset=2, quant_matrix=True),
+])
+def test_stream_header_is_one_write(kw):
+    """The port writes the whole stream header, a v3/v4 extension word
+    included, in one write (the reference's bytes), then one write per
+    frame packet: a sink that takes writes as units sees the header whole
+    as the first."""
+    want_cfg = jconfig.EncoderConfig(width=64, height=48, **kw)
+    a = io.BytesIO()
+    jbits.write_stream_header(a, want_cfg, 0)
+
+    class Writes(list):
+        def write(self, data):
+            self.append(bytes(data))
+
+    writes = Writes()
+    mux = bitstream.OrderedMux(
+        writes, config.config_from_dict(dataclasses.asdict(want_cfg)), 0)
+    mux.push(bitstream.FramePacket(0, 0, 28, 40, bytes(8)))
+    assert writes == [a.getvalue(), bitstream.FramePacket(
+        0, 0, 28, 40, bytes(8)).to_bytes()]
+    assert len(writes[0]) == (28 if kw.get("format_version", 1) >= 3 else 24)
+
+
 def test_frame_model_equal(rng):
     y = rng.integers(0, 256, (30, 44), dtype=np.uint8)
     cb = rng.integers(0, 256, (15, 22), dtype=np.uint8)

@@ -426,6 +426,81 @@ def _outs(eng, frames, g, xl=False):
                            for p in ("y", "cb", "cr")), [28] * g, xl=xl)
 
 
+def _halfpel_clip(seed, n, w=64, h=48):
+    """n frames panning (+0.5, +0.5) px a frame: each the 2x2 means of a
+    smoothed texture twice the size, at an offset growing by one of its
+    samples a frame; chroma the same pan at half the size."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(0, 256, (2 * h + 16, 2 * w + 16)).astype(np.int64)
+    for _ in range(2):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+               + np.roll(big, (1, 1), (0, 1))) // 4
+    frames = []
+    for t in range(n):
+        win = big[t:t + 2 * h, t:t + 2 * w]
+        y = (win[0::2, 0::2] + win[0::2, 1::2] + win[1::2, 0::2]
+             + win[1::2, 1::2] + 2) // 4
+        c = win.reshape(h // 2, 4, w // 2, 4).sum((1, 3)) // 16
+        frames.append(Frame.from_planes(y.astype(np.uint8),
+                                        (64 + c // 2).astype(np.uint8),
+                                        (192 - c // 2).astype(np.uint8)))
+    return frames
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_format4_download_counts_half_pel_and_inter_mbs(recorder, monkeypatch,
+                                                        g):
+    """A format-4 encode's outputs carry n_hpel, each frame's inter MBs on
+    a half-pel vector; download counts the P frames' half-pel MBs and
+    inter MBs in `motion.hpel_mbs` and `motion.inter_mbs`, inside its
+    `finish.copy` span, equal to the numbers recomputed from the vectors
+    and modes the GOP's P frames were coded with."""
+    seen = []
+    real = gop_engine.predict_p_traced
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[:3])
+        return out
+
+    monkeypatch.setattr(gop_engine, "predict_p_traced", spy)
+    cfg = EncoderConfig(width=64, height=48, gop_n=4, format_version=4,
+                        quant_matrix=True, chroma_qp_offset=2)
+    eng = GopEngine(cfg, device="cpu")
+    outs = _outs(eng, _halfpel_clip(3, 4), g)
+    recorder.reset()
+    host = eng.download(outs)
+    per_frame = [(int((inter & (((dy | dx) & 1) != 0)).sum()), int(inter.sum()))
+                 for dy, dx, inter in seen]
+    hpel, inter = map(sum, zip(*per_frame))
+    assert 0 < hpel <= inter
+    (copy,) = _spans(recorder, "finish.copy")
+    (h,) = _counts(recorder, "motion.hpel_mbs")
+    (i,) = _counts(recorder, "motion.inter_mbs")
+    assert h[4] == copy[0] and i[4] == copy[0]
+    assert (h[5], i[5]) == (hpel, inter)
+    assert host["n_hpel"].shape == host["n_inter"].shape == outs["bits"].shape
+    assert host["n_hpel"][0].sum() == 0
+    assert [int(n.sum()) for n in host["n_hpel"][1:]] == [n for n, _ in per_frame]
+
+
+@pytest.mark.parametrize("fmt", [1, 3])
+@pytest.mark.parametrize("g", [1, 2])
+def test_formats_below_4_count_no_half_pel(recorder, fmt, g):
+    """Below format 4 the outputs carry no n_hpel and download counts
+    neither motion count."""
+    cfg = EncoderConfig(width=W, height=H, gop_n=2, format_version=fmt,
+                        quant_matrix=fmt >= 3)
+    eng = GopEngine(cfg, device="cpu")
+    outs = _outs(eng, _clip(6, 2), g)
+    assert "n_hpel" not in outs
+    recorder.reset()
+    host = eng.download(outs)
+    assert "n_hpel" not in host
+    assert not _counts(recorder, "motion.hpel_mbs")
+    assert not _counts(recorder, "motion.inter_mbs")
+
+
 def _plain_words(outs):
     """The words as download copied them before the staging buffer: the
     slice to the longest payload or string, .cpu(), viewed as uint32."""

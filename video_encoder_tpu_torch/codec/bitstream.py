@@ -58,31 +58,33 @@ class FramePacket:
 
 
 def write_stream_header(f: BinaryIO, cfg: EncoderConfig, frame_count: int) -> None:
+    """The stream header in one write, its v3 extension word included, as
+    each frame packet is one write: a sink that takes writes as units (a
+    message per write) sees the whole header as the first."""
     flags = 1 if cfg.intra_only else 0
     if cfg.format_version >= 2:
         flags |= (cfg.chroma_qp_offset & 0xFF) << 8  # SPEC.md §12.1
     if cfg.format_version >= 3 and cfg.quant_matrix:
         flags |= 2  # SPEC.md §13.2
-    f.write(
-        struct.pack(
-            STREAM_HEADER_FMT,
-            MAGIC,
-            cfg.format_version,
-            flags,
-            cfg.width,
-            cfg.height,
-            cfg.gop_n,
-            cfg.base_qp,
-            cfg.search_mode_id,
-            frame_count,
-            cfg.config_hash(),
-        )
+    header = struct.pack(
+        STREAM_HEADER_FMT,
+        MAGIC,
+        cfg.format_version,
+        flags,
+        cfg.width,
+        cfg.height,
+        cfg.gop_n,
+        cfg.base_qp,
+        cfg.search_mode_id,
+        frame_count,
+        cfg.config_hash(),
     )
     if cfg.format_version >= 3:
         # v3 header extension (SPEC.md §13.3): one u32 LE — bits 0-15 =
         # intra-slice height in MB rows (0 = one slice per frame), bits
         # 16-31 reserved zero.
-        f.write(struct.pack("<I", cfg.intra_slice_mbrows & 0xFFFF))
+        header += struct.pack("<I", cfg.intra_slice_mbrows & 0xFFFF)
+    f.write(header)
 
 
 def read_stream_header(f: BinaryIO) -> StreamInfo:

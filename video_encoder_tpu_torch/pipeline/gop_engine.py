@@ -550,6 +550,8 @@ class GopEngine:
         keys = ["words", "bits", "ovf", "n_inter", "qp", "sse"]
         if self.emit == "chunks":
             keys.append("cbits")
+        if cfg.format_version >= 4:
+            keys.append("n_hpel")
         n = y.shape[0]
         ref = res = None
         for t in range(n):
@@ -572,6 +574,9 @@ class GopEngine:
                 islice=cfg.intra_slice_mbrows,
             )
             out["qp"] = qp
+            if "n_hpel" in keys:     # inter MBs on a half-pel vector
+                out["n_hpel"] = (is_inter & (((dy | dx) & 1) != 0)).sum(
+                    (-2, -1))
             if res is None:
                 res = {k: out[k].new_empty((n, *out[k].shape)) for k in keys}
             for k in keys:
@@ -617,8 +622,9 @@ class GopEngine:
         on the engine's device; launches only, no host wait. xl selects the
         worst-case block and frame capacities. Returns [T, ...] per-frame
         device tensors of the call's own: words, bits, ovf, n_inter, qp,
-        sse, and cbits [T, C] under chunk emit. A call with xl is counted in
-        RECORDER's `engine.overflow_reruns`."""
+        sse, cbits [T, C] under chunk emit, and from format 4 on n_hpel
+        (the inter MBs whose vector has an odd component). A call with xl
+        is counted in RECORDER's `engine.overflow_reruns`."""
         n_mbs = (y.shape[-2] // tables.MB) * (y.shape[-1] // tables.MB)
         if xl:
             RECORDER.count("engine.overflow_reruns")
@@ -687,9 +693,10 @@ class GopEngine:
     def download(self, outs):
         """The host's copy of an encode's results, as numpy arrays with
         the device tensors' leading axes ([T] or [T, G]): bits, n_inter,
-        qp, sse [..., 3], under chunk emit cbits [..., C], and words (the
-        device's int32, viewed as uint32) cut to the longest payload
-        (frame emit) or span string (chunk emit).
+        qp, sse [..., 3], n_hpel where the encode gave it (format 4), under
+        chunk emit cbits [..., C], and words (the device's int32, viewed
+        as uint32) cut to the longest payload (frame emit) or span string
+        (chunk emit).
 
         On the card the words of a budgeted launch (no more words than a
         launch of this engine without xl returned) land in a page-locked
@@ -708,19 +715,29 @@ class GopEngine:
         copies bring, counted in `finish.copy_bytes` (the same count on
         the CPU, where .cpu() copies nothing), and `finish.copy_staged`, 1
         where the words went through the buffer and 0 where not. Each
-        making of the buffer counts its bytes in `finish.staging_bytes`."""
+        making of the buffer counts its bytes in `finish.staging_bytes`.
+        Where the encode gave n_hpel, the P frames' half-pel MBs and inter
+        MBs are counted in `motion.hpel_mbs` and `motion.inter_mbs`."""
         chunked = "cbits" in outs
+        hpel = "n_hpel" in outs
         with RECORDER.span("finish.copy"):
             with RECORDER.span("finish.copy.meta"):
                 cols = [outs["bits"][..., None], outs["n_inter"][..., None],
                         outs["qp"][..., None], outs["sse"]]
+                if hpel:
+                    cols.append(outs["n_hpel"][..., None])
                 if chunked:
                     cols.append(outs["cbits"])
                 small = torch.cat(cols, -1).cpu().numpy()
             host = dict(bits=small[..., 0], n_inter=small[..., 1],
                         qp=small[..., 2], sse=small[..., 3:6], cbits=None)
+            if hpel:
+                host["n_hpel"] = small[..., 6]
+                RECORDER.count("motion.hpel_mbs", int(host["n_hpel"][1:].sum()))
+                RECORDER.count("motion.inter_mbs",
+                               int(host["n_inter"][1:].sum()))
             if chunked:
-                host["cbits"] = small[..., 6:]
+                host["cbits"] = small[..., 6 + hpel:]
                 maxw = max(int(host["cbits"].max() + 31) // 32, 1)
             else:
                 maxw = int(host["bits"].max() + 31) // 32
