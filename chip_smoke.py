@@ -16,8 +16,11 @@ Phases, each of which raises on failure (exit code not 0):
    scan of a whole plane in one launch, the chroma twin of sad_at_mv),
    against its plain PyTorch version on the card at the main paths'
    shapes (1088x1920 luma, 544x960 chroma, the odd 368x640 grid, the row
-   scan with and without intra slices, the diamond's four +-1
-   candidates around even vectors, the half-pel refine's nine
+   scan with and without intra slices, the diamond descent (walk and
+   final +-1 step in one launch) through dispatch.diamond_search on
+   panned, corner-bound and random 1088x1920 planes, timed beside the
+   plain descent and the route before its kernel (the plain walk with
+   the final step on sad_at_mv), the half-pel refine's nine
    candidates on four parity planes, the span strings of real 1080p and
    320x192 frames and dense overflowing pieces), exact equality
    (tolerance 0: the codec is integer-only), with both times, the least
@@ -29,7 +32,8 @@ Phases, each of which raises on failure (exit code not 0):
    calls without a sync): under ~0.05 ms the call time is the host's.
    Then the G-batched kernels at G = 4
    on the same shapes ([4, 1088, 1920], [4, 544, 960], K = 4 and K = 9 on
-   four planes, the row scan of four planes): each equal to its plain
+   four planes, the row scan of four planes, the descent of four panned
+   planes): each equal to its plain
    batched version and to G launches of the single-plane kernel, whose
    time stands beside its own. Then the pre-haloed kernels
    of the tile-sharded encode (full search, MC fetch luma and chroma, and
@@ -171,7 +175,7 @@ Phases, each of which raises on failure (exit code not 0):
    stream, and the config-3 texture at `--search diamond` with `--rc
    bitrate --kbps 12000` and with `--rc adaptive` (graph, eager), each
    equal to the GOP engine's stream of the same flags; each run launches
-   the search (or the even map and sad_at_mv) and mc_predict once per P
+   the search (or the even map and the descent) and mc_predict once per P
    frame, code_plane three times per frame and nothing else, the same
    under the graph as eager; its CLI wall fps beside the GOP engine's,
    and one traced P frame, replayed and eager: device ops, busy share and
@@ -283,9 +287,10 @@ turns, ROOT_1 .. ROOT_n then ROOT_n .. ROOT_1, each turn a child process
 that imports the port from its ROOT (building its kernels into
 ROOT/build) and this file's helpers: at 1088x1920 the exhaustive search
 (single, G = 4, four row shards), the even SAD map (single, G = 4) and the
-whole one, sad_at_mv (K = 4 over the whole window; the diamond's four +-1
-candidates around even vectors; the half-pel refine's nine on four parity
-planes, single, G = 4 and on four pre-haloed row shards), the single-plane fetches (luma and
+whole one, sad_at_mv (K = 4 over the whole window; the half-pel refine's
+nine on four parity planes, single, G = 4 and on four pre-haloed row
+shards), the diamond search (the even map and the descent, single and
+G = 4), the single-plane fetches (luma and
 chroma, G = 4, pre-haloed on four row shards), the MC of one P frame step
 with its intra mask at formats 1 and 4 (single, G = 4, four row shards:
 dispatch.mc_predict(_pre_haloed) where the checkout has it, with and
@@ -369,6 +374,8 @@ TABLE_ROW = {
     "chunk_merge": "14", "span_merge": "15", "span_merge_mb": "16",
     "mc_predict": "7", "mc_predict_g": "9m", "mc_predict_haloed": "10",
     "code_plane_rows": "11r", "code_plane_rows_g": "12r",
+    # the diamond descent: no Pallas counterpart (the reference's jnp loop)
+    "diamond_descent": "8d", "diamond_descent_g": "8d",
     # the decoders' recon: entries of row 11's kernel, no Pallas counterpart
     "recon_plane": "11d", "recon_plane_rows": "11dr"}
 # the single-plane fetches: held and timed in phase 3, launched by no
@@ -461,12 +468,14 @@ def synth_clip_halfpel(t: int, h: int, w: int, seed: int, passes: int = 2,
     return ys, cbs, crs
 
 
-def bound(inputs, outputs, ops: float):
+def bound(inputs, outputs, ops: float, extra_bytes: int = 0):
     """(bound_ms, bound_by): the least time the card could take for a
-    function that reads each input tensor once, writes each output once
-    and does `ops` int32 operations. The packed strings of block_pack and
-    the span merges are int32 words: 4 bytes a word."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    function that reads each input tensor once, writes each output once,
+    moves `extra_bytes` more and does `ops` int32 operations. The packed
+    strings of block_pack and the span merges are int32 words: 4 bytes a
+    word."""
+    nbytes = extra_bytes + sum(t.numel() * t.element_size()
+                               for t in (*inputs, *outputs))
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / INT32_OPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -513,7 +522,10 @@ def device_ms(fn, n: int = 20, per_call=1, rounds: int = 10):
     when it holds every kernel of its n calls: n * per_call of them, or,
     where per_call is None (a composition whose count is not known
     here), a multiple of n that two windows agree on with no window
-    holding more. Raises if none of `rounds` windows does."""
+    holding more. After a window of thousands of kernels, the next ones
+    lost their first kernel in every window on an H100, so each window
+    starts with a kernel of its own (torch.cuda._sleep's spin_kernel),
+    left out of the count. Raises if none of `rounds` windows does."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -521,11 +533,13 @@ def device_ms(fn, n: int = 20, per_call=1, rounds: int = 10):
     counts = []
     for _ in range(rounds):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
         k = len(dev)
         counts.append(k)
         if (k == n * per_call if per_call is not None else
@@ -736,6 +750,62 @@ def predict_bound(got, dy, dx, inter):
     nbytes = int(inter.sum()) * (256 + 2 * 64) * 4 + sum(
         t.numel() * t.element_size() for t in (dy, dx, inter, *got))
     return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def descent_walks(meven):
+    """(steps, visited, dy, dx) of the diamond descent (SPEC.md §9) over
+    the even map meven [..., 289], in numpy: the large steps each MB's
+    walk takes to its first frozen step, the distinct map entries inside
+    ±16 that the walks read (a start and each candidate once: what a
+    kernel reading only the entries it needs takes from the map), and
+    each walk's last vector, before the final ±1 step."""
+    from video_encoder_tpu_torch.codec import spec
+    from video_encoder_tpu_torch.ops import motion
+
+    r, ne = motion.R, motion.NE
+    rows = meven.reshape(-1, ne * ne).cpu().numpy().astype(np.int64)
+    n = len(rows)
+    mb = np.arange(n)
+    seen = np.zeros(rows.shape, bool)
+    dy, dx, steps = (np.zeros(n, np.int64) for _ in range(3))
+
+    def at(y, x):
+        return ((np.clip(y, -r, r) + r) >> 1) * ne + ((np.clip(x, -r, r) + r) >> 1)
+
+    seen[mb, at(dy, dx)] = True
+    cost = rows[mb, at(dy, dx)]
+    live = cost >= spec.DIAMOND_EARLY_SAD
+    for _ in range(spec.DIAMOND_MAX_STEPS):
+        steps += live
+        best, by, bx = cost.copy(), dy.copy(), dx.copy()
+        for uy, ux in ((-2, 0), (0, -2), (0, 2), (2, 0)):
+            ny, nx = dy + uy, dx + ux
+            ok = live & (np.abs(ny) <= r) & (np.abs(nx) <= r)
+            k = at(ny, nx)
+            seen[mb[ok], k[ok]] = True
+            win = np.where(ok, rows[mb, k], motion.BIG) < best
+            best = np.where(win, rows[mb, k], best)
+            by, bx = np.where(win, ny, by), np.where(win, nx, bx)
+        moved = (by != dy) | (bx != dx)
+        dy, dx, cost = by, bx, best
+        live &= moved & (cost >= spec.DIAMOND_EARLY_SAD)
+    return steps, int(seen.sum()), dy, dx
+
+
+def descent_before_kernel(cur, ref, meven):
+    """The descent as the port ran it before its kernel: the plain walk
+    over the map (motion.diamond_descent's gathers) with the final step's
+    four SADs in one sad_at_mv launch (row 8)."""
+    from video_encoder_tpu_torch.ops import dispatch, motion
+
+    def sad_even(dy, dx):
+        k = (((dy + motion.R) >> 1) * motion.NE + ((dx + motion.R) >> 1)).long()
+        if k.ndim < meven.ndim:
+            return torch.gather(meven, -1, k[..., None])[..., 0]
+        return torch.gather(meven, -1, k.movedim(-3, -1)).movedim(-1, -3)
+
+    return motion.diamond_search_with(
+        cur, sad_even, lambda dy, dx: dispatch.sad_at_mv(cur, ref, dy, dx))
 
 
 def dev_host(fn, per_call=1):
@@ -1029,30 +1099,70 @@ def phase_kernels(dev, card: str):
                    "video_encoder_tpu/ops/pallas/sad.py:852", err, timing, **dh)
             log(f"kernel {name} {h}x{w} K=4: equal" + shown(timing, dh))
 
-    # the diamond's final step: the four +-1 candidates around even
-    # vectors, whose footprints share an 18x18 box
+    # the diamond descent: the walk and the final +-1 step of every MB in
+    # one launch, through dispatch.diamond_search (the even map, then the
+    # descent) against its plain route, exact: panned planes (walks of a
+    # few steps), corner-bound ones (walks along the window's edge to its
+    # corner, final steps meeting candidates outside +-16, the frame's
+    # edges read through the clamp) and random ones. Timed on the panned
+    # planes, the kernel alone over the map, beside the plain descent and
+    # the route before the kernel; its bound: cur and the reference once,
+    # the map entries the walks read, the outputs, and the final step's
+    # four 256-pixel SADs of 2 operations a pixel
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from diamond_cases import planes as diamond_planes
+    from video_encoder_tpu_torch.ops import motion
+    from video_encoder_tpu_torch.ops.kernels import sad as ksad
+
+    def descent_timing(cur_t, ref_t, got, visited):
+        """The kernel's timing over the map of cur_t against ref_t, and
+        dev_host's fields with the route before the kernel beside it."""
+        args = (cur_t, ref_t, dispatch.sad_map_even(cur_t, ref_t))
+        timing = (time_ms(lambda: ksad.diamond_descent(*args)),
+                  time_ms(lambda: motion.diamond_descent(*args)),
+                  bound(args[:2], got, got[0].numel() * 4 * 256 * 2,
+                        4 * visited), None)
+        dh = dev_host(lambda: ksad.diamond_descent(*args))
+        ms, kernels = device_ms(lambda: descent_before_kernel(*args), n=4,
+                                per_call=None)
+        return timing, dh, dict(before_kernel_ms=time_ms(
+            lambda: descent_before_kernel(*args)), before_kernel_device_ms=ms,
+            before_kernel_device_kernels=kernels, map_entries_read=visited)
+
     h, w = luma[0]
-    cur_t, ref_t = t32(rng.integers(0, 256, (h, w))), t32(rng.integers(0, 256, (h, w)))
-    ey = 2 * rng.integers(-8, 9, (h // 16, w // 16))
-    ex = 2 * rng.integers(-8, 9, (h // 16, w // 16))
-    unit = ((-1, 0), (0, -1), (0, 1), (1, 0))
-    args = (cur_t, ref_t, t32(np.clip(np.stack([ey + a for a, _ in unit]), -16, 16)),
-            t32(np.clip(np.stack([ex + b for _, b in unit]), -16, 16)))
-    got, want = both(dispatch.sad_at_mv, *args)
-    also = (f"K=4 diamond {h}x{w}", (*timed(dispatch.sad_at_mv, *args),
-                                     bound(args, [got], got.numel() * 256 * 2), None))
-    dh = dev_host(lambda: dispatch.sad_at_mv(*args), None)
-    record("sad_at_mv", "sad_at.cu", "video_encoder_tpu/ops/pallas/sad.py:852",
-           max_abs_err([got], [want]), also=also, **dh)
-    log(f"kernel sad_at_mv {h}x{w} K=4 around even vectors: equal"
-        + shown(also[1], dh))
+    for kind in ("pan", "corner", "random"):
+        cur_t, ref_t = (t32(p) for p in diamond_planes(rng, kind, (), h, w))
+        got, want = both(dispatch.diamond_search, cur_t, ref_t)
+        err = max_abs_err(got, want)
+        steps, visited, wy, wx = descent_walks(dispatch.sad_map_even(cur_t, ref_t))
+        gy, gx = (t.reshape(-1).cpu().numpy() for t in got[:2])
+        if (np.abs(gy - wy) + np.abs(gx - wx)).max() > 1:
+            raise AssertionError(f"diamond_descent {kind}: a vector lies more "
+                                 f"than one step off its walk's end")
+        corner = int(((np.abs(wy) == 16) & (np.abs(wx) == 16)).sum())
+        if (kind == "corner" and not corner) or (kind == "pan" and steps.max() < 2):
+            raise AssertionError(f"diamond_descent {kind}: case not exercised")
+        timing, dh, extra = None, {}, {}
+        if kind == "pan":
+            timing, dh, extra = descent_timing(cur_t, ref_t, got, visited)
+        record("diamond_descent", "diamond.cu",
+               "video_encoder_tpu/ops/dispatch.py:100", err, timing, **dh,
+               **extra)
+        line = (f"kernel diamond_descent {h}x{w} {kind}: equal, walks of "
+                f"{steps.mean():.2f} steps (most {steps.max()}), {corner} MBs "
+                f"at the window's corner, {visited} map entries read")
+        if extra:
+            line += (f"; before the kernel (the plain walk, the final step on "
+                     f"sad_at_mv) {extra['before_kernel_ms']:.4f} ms, device "
+                     f"{extra['before_kernel_device_ms']:.4f} ms in "
+                     f"{extra['before_kernel_device_kernels']:g} kernels")
+        log(line + shown(timing, dh or None))
 
     # the half-pel refine's shape of sad_at_mv: nine candidates, each on
     # the parity plane of its vector, in one launch; vectors on the +-16
     # edge (candidates beyond +-32 half-pels are invalid). First the
     # wrapper itself on the refine's nine candidate planes, all
     # [9, nby, nbx] SADs held, then the whole refine.
-    from video_encoder_tpu_torch.ops import motion
     uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
     plane_of = [abs(u) * 2 + abs(v) for u, v in uv]
     for h, w in luma:
@@ -1234,6 +1344,33 @@ def phase_kernels(dev, card: str):
            f"[{g4}, {h}, {w}] K=9 on 4 planes", dispatch.sad_at_mv,
            (cur_t, planes4, t32(dy9), t32(dx9), plane_of), dy9.size * 256 * 2,
            main=False)
+
+    # the descent of four GOPs in one launch: panned, corner-bound, random
+    # and panned planes, then four panned ones (each GOP its own texture),
+    # each equal to the plain route and to four single launches; timed on
+    # the four panned GOPs
+    for kinds in (("pan", "corner", "random", "pan"), ("pan",) * g4):
+        pl = [diamond_planes(rng, k, (), h, w) for k in kinds]
+        dcur, dref = (t32(np.stack([p[i] for p in pl])) for i in (0, 1))
+        dgot, want = both(dispatch.diamond_search, dcur, dref)
+        err = max_abs_err(dgot, want)
+        max_abs_err(dgot, per_g(dispatch.diamond_search, dcur, dref))
+        line = (f"kernel diamond_descent_g [{g4}, {h}, {w}] {'/'.join(kinds)}: "
+                f"equal to plain and to {g4} single launches")
+        timing, dh, extra = None, {}, {}
+        if len(set(kinds)) == 1:
+            meven = dispatch.sad_map_even(dcur, dref)
+            _, visited, _, _ = descent_walks(meven)
+            timing, dh, extra = descent_timing(dcur, dref, dgot, visited)
+            extra.update(g=g4, single_launches_ms=time_ms(
+                lambda: singles(ksad.diamond_descent, dcur, dref, meven)))
+            line += (f" ({extra['single_launches_ms']:.4f} ms); before the "
+                     f"kernel device {extra['before_kernel_device_ms']:.4f} ms "
+                     f"in {extra['before_kernel_device_kernels']:g} kernels")
+        record("diamond_descent_g", "diamond.cu",
+               "video_encoder_tpu/ops/dispatch.py:100", err, timing, **dh,
+               **extra)
+        log(line + shown(timing, dh or None))
 
     q28 = int(tables.load(dev).QSTEP[28])
     # every plane shape a lockstep path codes: luma and chroma
@@ -2090,7 +2227,7 @@ def expected_kernels(m, emit, intra_only=False, batched=False):
     if not intra_only:
         ks += ["mc_predict"]
         ks += (["full_search"] if m["search"] == "full"
-               else ["sad_map_even", "sad_at_mv"])
+               else ["sad_map_even", "diamond_descent"])
         if m["fmt"] >= 4:
             ks.append("sad_at_mv")
     if batched:
@@ -2968,13 +3105,13 @@ def phase_batched(tmp, jobs, batched_oracle, card):
 
 def check_per_frame_launches(what, launches, m, n, gop):
     """The per-frame engine's counters for n frames at GOP length gop:
-    the search (or the even map and sad_at_mv) and mc_predict once per P
+    the search (or the even map and the descent) and mc_predict once per P
     frame, code_plane three times per frame, and nothing else (no
     block_pack, span merge or single-plane fetch)."""
     p_frames = n - -(-n // gop)
     want = {"mc_predict": p_frames, "code_plane": 3 * n}
     for k in (["full_search"] if m["search"] == "full"
-              else ["sad_map_even", "sad_at_mv"]):
+              else ["sad_map_even", "diamond_descent"]):
         want[k] = p_frames
     got = nonzero(launches)
     if got != want:
@@ -4126,9 +4263,10 @@ CODE_KERNELS = ("plane_kernel", "rows_kernel", "code_plane_kernel",
 # the motion search's kernels, by the names in a trace, in this checkout
 # and in an older one that --ab may time: the exhaustive search and the
 # whole map (tiled_kernel; tiled_search_kernel, map_kernel<1>), the even
-# map (even_map_kernel; map_kernel<2>), the SEA search, sad_at_mv
+# map (even_map_kernel; map_kernel<2>), the SEA search, sad_at_mv, the
+# diamond descent
 SAD_KERNELS = ("search_kernel", "map_kernel", "tiled_kernel", "sea_kernel",
-               "sad_at_kernel")
+               "sad_at_kernel", "descent_kernel")
 
 
 def i_frame_figures(eng, y, cb, cr):
@@ -4434,10 +4572,10 @@ def ab_child(root: str) -> dict:
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    def measure(name, fn):
+    def measure(name, fn, n=20):
         res = fn()
         torch.cuda.synchronize()
-        dev_ms, kernels = device_ms(fn, per_call=None)
+        dev_ms, kernels = device_ms(fn, n=n, per_call=None)
         out[name] = dict(ms=time_ms(fn), device_ms=dev_ms, kernels=kernels,
                          host_ms=host_ms(fn), sum=_checksum(res))
 
@@ -4466,17 +4604,11 @@ def ab_child(root: str) -> dict:
     measure("sad_map_even_g", lambda: dispatch.sad_map_even(curg, refg))
     measure("sad_map", lambda: dispatch.sad_map(cur, ref))
     # sad_at_mv: K = 4 over the whole window (phase 3's case); the
-    # diamond's final step (the four +-1 candidates around even vectors);
-    # the half-pel refine's nine on four parity planes, single, G = 4 and
-    # on four pre-haloed row shards
+    # half-pel refine's nine on four parity planes, single, G = 4 and on
+    # four pre-haloed row shards
     nby, nbx = h // 16, w // 16
     dy4, dx4 = mvs((4,), nby, nbx, 16)
     measure("sad_at_k4", lambda: dispatch.sad_at_mv(cur, ref, dy4, dx4))
-    ey, ex = (2 * t for t in mvs((), nby, nbx, 8))
-    unit = torch.tensor([[-1, 0], [0, -1], [0, 1], [1, 0]], device=dev)
-    dyd = (ey + unit[:, :1, None]).clamp(-16, 16).int().contiguous()
-    dxd = (ex + unit[:, 1:, None]).clamp(-16, 16).int().contiguous()
-    measure("sad_at_diamond", lambda: dispatch.sad_at_mv(cur, ref, dyd, dxd))
     uv = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)]
     plane_of = [abs(u) * 2 + abs(v) for u, v in uv]
     for name, lead in (("sad_at_k9", ()), ("sad_at_k9_g4", (g,))):
@@ -4672,6 +4804,12 @@ def ab_child(root: str) -> dict:
                 ms=f["wall_ms"], device_ms=f["device_ms"],
                 kernels=f["device_ops"], launches=f["launches"], top=f["top"],
                 sum=f["sum"])
+    # the diamond search on the pan: the even map and the descent (one
+    # kernel, or the plain walk and sad_at_mv where the checkout has no
+    # descent kernel); last, and traced over 4 calls, as a plain route's
+    # 700 kernels a call make large traces
+    measure("diamond_search", lambda: dispatch.diamond_search(cur, ref), 4)
+    measure("diamond_search_g", lambda: dispatch.diamond_search(curg, refg), 4)
     out["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
     return out
 

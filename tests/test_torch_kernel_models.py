@@ -852,6 +852,184 @@ def test_sad_at_warp_model_chroma(rng, case):
         assert np.array_equal(got, _pallas_sad_at(cur, ref, dy, dx, None, 8))
 
 
+# ---- the diamond descent: descent_kernel in csrc/diamond.cu -----------------
+
+def _descent_model(cur, ref, meven, walks=None):
+    """descent_kernel on planes [(G,) h, w] and their even map [(G,) nby,
+    nbx, 289] (numpy): one warp per MB of the flattened G x MB grid. The
+    walk, the same on every lane, reads the MB's row of the map: a
+    candidate's entry at its clamped vector, BIG outside ±16, a move only
+    to a strictly smaller cost in the order up, left, right, down, and it
+    stops at the first frozen step (no move, or a cost under 512). Then
+    the final ±1 step of every MB: each valid candidate's SAD summed per
+    lane over the lane's pixels of cur (column l % 16 of rows l / 16 +
+    2 i) against the reference at clamped coordinates, then over the
+    lanes by xor shuffles; an invalid candidate is not read and costs
+    BIG; the same rule. walks collects each MB's (steps taken, the walk's
+    last vector). Returns (dy, dx, sad) int64 [(G,) nby, nbx]."""
+    from video_encoder_tpu_torch.ops import motion
+
+    r, big = motion.R, motion.BIG
+    lead, (h, w) = cur.shape[:-2], cur.shape[-2:]
+    nby, nbx = h // 16, w // 16
+    cur2, ref2 = cur.reshape(-1, h, w), ref.reshape(-1, h, w)
+    rows = meven.reshape(-1, 289)
+    out = np.zeros((3, rows.shape[0]), np.int64)
+    lanes = np.arange(32)
+    col, row = lanes % 16, lanes // 16
+    units = ((-1, 0), (0, -1), (0, 1), (1, 0))
+
+    def entry(mrow, dy, dx):
+        cy, cx = min(max(dy, -r), r), min(max(dx, -r), r)
+        return int(mrow[((cy + r) >> 1) * motion.NE + ((cx + r) >> 1)])
+
+    def valid(dy, dx):
+        return abs(dy) <= r and abs(dx) <= r
+
+    def pick(dy, dx, cost, costs, scale):
+        best, by, bx = cost, dy, dx
+        for (uy, ux), c in zip(units, costs):
+            if c < best:
+                best, by, bx = c, dy + scale * uy, dx + scale * ux
+        return by, bx, best
+
+    for m, mrow in enumerate(rows):
+        g, b = divmod(m, nby * nbx)
+        y0, x0 = (b // nbx) * 16, (b % nbx) * 16
+        c = np.stack([cur2[g, y0 + row + 2 * i, x0 + col] for i in range(8)], 1)
+        dy = dx = steps = 0
+        cost = entry(mrow, 0, 0)
+        frozen = cost < spec.DIAMOND_EARLY_SAD
+        while steps < spec.DIAMOND_MAX_STEPS and not frozen:
+            steps += 1
+            costs = [entry(mrow, dy + 2 * uy, dx + 2 * ux)
+                     if valid(dy + 2 * uy, dx + 2 * ux) else big
+                     for uy, ux in units]
+            ny, nx, best = pick(dy, dx, cost, costs, 2)
+            if (ny, nx) == (dy, dx):
+                frozen = True
+            else:
+                dy, dx, cost = ny, nx, best
+                frozen = cost < spec.DIAMOND_EARLY_SAD
+        if walks is not None:
+            walks.append((steps, dy, dx))
+        costs = []
+        for uy, ux in units:
+            ny, nx = dy + uy, dx + ux
+            if not valid(ny, nx):
+                costs.append(big)
+                continue
+            x = np.clip(x0 + col + nx, 0, w - 1)
+            part = sum(np.abs(c[:, i] - ref2[g, np.clip(
+                y0 + row + 2 * i + ny, 0, h - 1), x]) for i in range(8))
+            off = 1
+            while off < 32:
+                part = part + part[lanes ^ off]
+                off *= 2
+            assert (part == part[0]).all()
+            costs.append(int(part[0]))
+        out[:, m] = pick(dy, dx, cost, costs, 1)
+    return tuple(o.reshape(*lead, nby, nbx) for o in out)
+
+
+@pytest.mark.parametrize("g", [None, 3])
+@pytest.mark.parametrize("kind", ["random", "pan", "corner", "flat"])
+def test_descent_model(rng, kind, g):
+    """The warp-per-MB model equals the plain route of the diamond search
+    (dispatch.diamond_search on the CPU: the even map, then the masked
+    loop motion.diamond_search_with) on random, panned, corner-bound and
+    flat planes, one plane and G = 3, the reference's diamond_search (the
+    JAX package, plane by plane) and, for one plane, the golden model's
+    sad_diamond_search. The corner-bound walks reach the window's edge,
+    where the final step meets candidates outside ±16."""
+    from video_encoder_tpu.ops import motion as jmotion
+    from video_encoder_tpu_torch.codec import golden
+    from video_encoder_tpu_torch.ops import dispatch, motion
+
+    from diamond_cases import planes
+
+    lead = () if g is None else (g,)
+    h, w = 64, 96
+    cur, ref = planes(rng, kind, lead, h, w)
+    meven = motion.sad_map_even(_t(cur), _t(ref))
+    walks = []
+    got = _descent_model(cur, ref, meven.numpy(), walks)
+    plain = dispatch.diamond_search(_t(cur), _t(ref))
+    for a, b in zip(got, plain):
+        assert np.array_equal(a, b.numpy())
+    ref_runs = [jmotion.diamond_search(jnp.asarray(c, jnp.int32),
+                                       jnp.asarray(r, jnp.int32))
+                for c, r in zip(cur.reshape(-1, h, w), ref.reshape(-1, h, w))]
+    for a, b in zip(got, zip(*ref_runs)):
+        assert np.array_equal(a, np.stack([np.asarray(x) for x in b])
+                              .reshape(a.shape))
+    if g is None:
+        gold = golden.sad_diamond_search(cur.astype(np.int32), ref.astype(np.int32))
+        for a, b in zip(got, gold):
+            assert np.array_equal(a, b)
+    steps = np.array([s for s, _, _ in walks])
+    if kind == "corner":
+        assert sum((s, abs(y), abs(x)) == (16, 16, 16) for s, y, x in walks) >= 3
+    if kind == "flat":
+        assert not steps.any() and not got[0].any() and not got[1].any()
+    if kind in ("pan", "corner"):
+        assert steps.max() >= 2
+
+
+@pytest.mark.parametrize("g", [None, 2])
+def test_descent_model_crafted_maps(rng, g):
+    """On maps that set each MB's walk (tests/diamond_cases.py: costs of
+    511 and 512 at the start and after the first move, ties among the
+    candidates and with the current vector, a walk that moves in all 16
+    steps along the window's edge, flat and random rows), the model
+    equals the plain descent motion.diamond_descent over the same map,
+    and each walk takes the steps its case sets."""
+    from diamond_cases import crafted_maps, near_planes
+
+    from video_encoder_tpu_torch.ops import motion
+
+    lead = () if g is None else (g,)
+    h, w = 64, 160
+    cur, ref = near_planes(rng, lead, h, w)
+    maps, cases = crafted_maps(rng, lead, h // 16, w // 16)
+    walks = []
+    got = _descent_model(cur, ref, maps, walks)
+    plain = motion.diamond_descent(_t(cur), _t(ref), torch.from_numpy(maps))
+    for a, b in zip(got, plain):
+        assert np.array_equal(a, b.numpy())
+    want = {"start511": (0, 0, 0), "start512": (1, 2, 0), "mid511": (1, 0, 2),
+            "mid512": (2, 0, 4), "tie4": (2, -2, 0), "tie_current": (1, 0, 0),
+            "tie_right_down": (2, 0, 2), "flat": (1, 0, 0)}
+    for case, walk in zip(cases.reshape(-1), walks):
+        if case in want:
+            assert walk == want[case], case
+        if case == "no_freeze":
+            assert walk[0] == 16 and abs(walk[1]) == abs(walk[2]) == 16
+    # the final step moves off the walk's end somewhere, also at the corner
+    final = [(y, x) != (wy, wx) for (_, wy, wx), y, x in
+             zip(walks, got[0].reshape(-1), got[1].reshape(-1))]
+    assert any(final)
+    assert any(f for f, c in zip(final, cases.reshape(-1)) if c == "no_freeze")
+
+
+def test_descent_constants_are_the_spec():
+    """The kernel's radius, step budget, early-exit SAD and BIG are the
+    spec's, as the plain loop reads them."""
+    import os
+    import re
+
+    from video_encoder_tpu_torch.ops import motion
+    from video_encoder_tpu_torch.ops.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "diamond.cu")) as f:
+        src = f.read()
+    assert _kernel_constant("diamond.cu", "R") == motion.R
+    assert _kernel_constant("diamond.cu", "MAX_STEPS") == spec.DIAMOND_MAX_STEPS
+    assert _kernel_constant("diamond.cu", "EARLY_SAD") == spec.DIAMOND_EARLY_SAD
+    assert 1 << int(re.search(r"constexpr int BIG = 1 << (\d+);", src)
+                    .group(1)) == motion.BIG
+
+
 # ---- the SEA search: sea_kernel in csrc/full_search.cu ----------------------
 
 def _kernel_constant(source, name):

@@ -430,9 +430,11 @@ def test_gop_engine_on_card_matches_cpu(cuda, rng, search, rc, emit):
     build.reset_launches()
     got, _ = GopEngine(cfg, device=cuda, emit=emit).encode_gop(frames, 0)
     used = ["mc_predict", "code_plane", "block_pack"]
-    used += ["full_search"] if search == "full" else ["sad_map_even", "sad_at_mv"]
+    used += (["full_search"] if search == "full"
+             else ["sad_map_even", "diamond_descent"])
     used += ["span_merge_mb"] if emit == "chunks" else []
     assert all(build.LAUNCHES[k] > 0 for k in used), build.LAUNCHES
+    assert build.LAUNCHES["sad_at_mv"] == 0     # the final step is the descent's
     # once per P frame of each run (an overflow encodes the GOP again)
     assert build.LAUNCHES["mc_predict"] in (3, 6), build.LAUNCHES
     assert not any(build.LAUNCHES[k] for k in _SINGLE_FETCHES), build.LAUNCHES
@@ -658,7 +660,8 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     n = build.LAUNCHES
     qm = "_qmat" if cfg.quant_matrix else ""
     used = ["mc_predict_g", f"code_plane{qm}_g"]
-    used += ["full_search_g"] if cfg.search == "full" else ["sad_map_even_g", "sad_at_mv_g"]
+    used += (["full_search_g"] if cfg.search == "full"
+             else ["sad_map_even_g", "diamond_descent_g"])
     used += ["sad_at_mv_g"] if cfg.format_version == 4 else []
     assert all(n[k] > 0 for k in used), n
     single = [k for k in n if not k.endswith("_g") and k.split("_v2")[0] not in (
@@ -1518,7 +1521,7 @@ def test_device_decoders_on_card_match_native(cuda, rng, kw):
                                        ("full", "adaptive"), ("diamond", "vbv")])
 def test_device_engine_on_card_matches_cpu(cuda, rng, search, rc):
     """The per-frame engine (`encode --engine device`) on the card: the
-    CPU's stream, the search (or the even map and sad_at_mv) and
+    CPU's stream, the search (or the even map and the descent) and
     mc_predict once per P frame, code_plane three times per frame, and no
     block_pack, span merge or single-plane fetch."""
     import io
@@ -1540,7 +1543,7 @@ def test_device_engine_on_card_matches_cpu(cuda, rng, search, rc):
     assert got.getvalue() == want.getvalue()
     p_frames = 3
     search_kernels = (["full_search"] if search == "full"
-                      else ["sad_map_even", "sad_at_mv"])
+                      else ["sad_map_even", "diamond_descent"])
     assert {k: v for k, v in launches.items() if v} == dict(
         {k: p_frames for k in search_kernels}, mc_predict=p_frames,
         code_plane=3 * 5), launches
@@ -1666,3 +1669,160 @@ def test_ranks_on_card_match_one_device(cuda, tmp_path, world):
         assert rank_rows[0]["launches"].get("full_search", 0) > 0
         assert rank_rows[1]["launches"].get("full_search_haloed", 0) > 0
         assert rank_rows[1]["launches"].get("code_plane_g", 0) > 0
+
+
+# ---- the diamond descent: the walk and the final ±1 step of every MB in
+# one launch (csrc/diamond.cu), against the plain descent ------------------
+
+def _descent(cur, ref):
+    """(kernel route, plain route, launches of the kernel route) of
+    dispatch.diamond_search on card planes."""
+    dispatch.force("plain")
+    try:
+        want = dispatch.diamond_search(cur, ref)
+    finally:
+        dispatch.force(None)
+    before = dict(build.LAUNCHES)
+    got = dispatch.diamond_search(cur, ref)
+    torch.cuda.synchronize()
+    rise = {k: v - before[k] for k, v in build.LAUNCHES.items()
+            if v != before[k]}
+    return got, want, rise
+
+
+def _descent_launches(g):
+    s = "" if g is None else "_g"
+    return {"sad_map_even" + s: 1, "diamond_descent" + s: 1}
+
+
+@pytest.mark.parametrize("g", [None, 4])
+def test_diamond_descent_kernel_on_content(cuda, g):
+    """1088x1920 planes of the config-3 cells' content (portbench's recipe
+    with the pan4 mix: the four-pass texture panning (2, 3) px a frame, a
+    moving random patch, noise ±2), frame 1 against frame 0 of each GOP:
+    the kernel's (dy, dx, sad) equal the plain descent's, from one
+    even-map launch and one descent launch; at G = 4 also each GOP's
+    single launch."""
+    import json
+    import pathlib
+
+    from portbench import content
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    mix = json.loads((root / "portbench/traffic/pan4.g1.json").read_text())
+    n = g or 1
+    ys = [content.pad_to(content.make_gop(mix, 2_000_000_117, i, 2, 1080,
+                                          1920, cuda)[0], 16).int()
+          for i in range(n)]
+    cur = torch.stack([y[1] for y in ys]) if g else ys[0][1]
+    ref = torch.stack([y[0] for y in ys]) if g else ys[0][0]
+    cur, ref = cur.contiguous(), ref.contiguous()
+    got, want, rise = _descent(cur, ref)
+    assert _same(got, want) and rise == _descent_launches(g)
+    assert got[0].shape == cur.shape[:-2] + (68, 120)
+    assert float((got[0] != 0).float().mean()) > 0.5      # the walks moved
+    if g:
+        assert _same(got, _per_g(dispatch.diamond_search, g, cur, ref))
+
+
+@pytest.mark.parametrize("g", [None, 3])
+@pytest.mark.parametrize("kind,h,w", [
+    ("random", 368, 640), ("random", 48, 80), ("pan", 368, 640),
+    ("corner", 128, 192), ("corner", 48, 80), ("flat", 64, 96)])
+def test_diamond_descent_kernel(cuda, rng, kind, h, w, g):
+    """Random planes; a panned texture; long-wave sinusoids moved by
+    (16, -16), whose walks run all 16 steps to the window's corner (the
+    final step there meets candidates outside ±16, and the MBs on the
+    frame's edges read through the clamp); flat planes, where every
+    candidate of every step ties. Equal to the plain descent, one launch
+    of each kernel."""
+    from diamond_cases import planes
+
+    lead = () if g is None else (g,)
+    cur, ref = (_t(p, cuda) for p in planes(rng, kind, lead, h, w))
+    got, want, rise = _descent(cur, ref)
+    assert _same(got, want) and rise == _descent_launches(g)
+    if kind == "corner":
+        assert int(((got[0].abs() >= 15) & (got[1].abs() >= 15)).sum()) >= 3
+    if kind == "flat":
+        assert not got[0].any() and not got[1].any()
+
+
+@pytest.mark.parametrize("g", [None, 2])
+def test_diamond_descent_kernel_crafted_maps(cuda, rng, g):
+    """Maps that set each MB's walk (tests/diamond_cases.py): costs of
+    exactly 511 and 512 at the start and after the first move, ties among
+    the candidates and with the current vector, a walk that never freezes
+    before step 16 and ends on the window's corner, flat and random rows.
+    The kernel over the map equals the plain descent over it on the card
+    (motion.diamond_descent), in one launch."""
+    from diamond_cases import crafted_maps, near_planes
+
+    from video_encoder_tpu_torch.ops import motion
+    from video_encoder_tpu_torch.ops.kernels import sad as ksad
+
+    lead = () if g is None else (g,)
+    h, w = 128, 320
+    cur, ref = (_t(p, cuda) for p in near_planes(rng, lead, h, w))
+    maps, cases = crafted_maps(rng, lead, h // 16, w // 16)
+    meven = torch.from_numpy(maps).to(cuda)
+    want = motion.diamond_descent(cur, ref, meven)
+    before = dict(build.LAUNCHES)
+    got = ksad.diamond_descent(cur, ref, meven)
+    torch.cuda.synchronize()
+    name = "diamond_descent" if g is None else "diamond_descent_g"
+    assert {k: v - before[k] for k, v in build.LAUNCHES.items()
+            if v != before[k]} == {name: 1}
+    assert _same(got, want)
+    start = torch.from_numpy(cases == "start511").to(cuda)
+    assert bool((got[0][start].abs() + got[1][start].abs() <= 1).all())
+
+
+def test_diamond_descent_rejects(cuda):
+    """The wrapper refuses what the kernel does not take: a map of the
+    wrong shape or type, planes of another size, an int64 plane."""
+    from video_encoder_tpu_torch.ops.kernels import sad as ksad
+
+    cur = torch.zeros((64, 96), dtype=torch.int32, device=cuda)
+    meven = torch.zeros((4, 6, 289), dtype=torch.int32, device=cuda)
+    for args in ((cur, cur, meven[..., :288]), (cur, cur, meven.long()),
+                 (cur, cur[:48], meven), (cur.long(), cur, meven),
+                 (cur, cur, meven.cpu())):
+        with pytest.raises(ValueError):
+            ksad.diamond_descent(*args)
+
+
+def test_config3_replay_launches_the_descent_per_p_frame(cuda):
+    """A GOP-30 config-3 key (diamond search, rc mb) at 192x128: its graph
+    launches the descent and the even map 29 times a replay and sad_at_mv
+    never (GraphCache.stats()), a replay adds 29 to build.LAUNCHES, and
+    the eager, captured and replayed streams equal the CPU's."""
+    rng = np.random.default_rng(25)
+    big = rng.integers(0, 256, (128 + 64, 192 + 96)).astype(np.int64)
+    for _ in range(4):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
+               + np.roll(big, 2, 0) + np.roll(big, 2, 1)) // 5
+    big = (big - big.min()) * 255 // max(int(big.max() - big.min()), 1)
+    frames = [Frame.from_planes(
+        big[2 * t:2 * t + 128, 3 * t:3 * t + 192].astype(np.uint8),
+        np.full((64, 96), 100 + t, np.uint8), np.full((64, 96), 150, np.uint8))
+        for t in range(30)]
+    cfg = EncoderConfig(width=192, height=128, gop_n=30, base_qp=26,
+                        search="diamond", rc="mb", target_kbps=900)
+    eng = GopEngine(cfg, device=cuda)
+    runs = []
+    for _ in range(3):       # the eager first call, the capture, a replay
+        before = dict(build.LAUNCHES)
+        packets = eng.encode_gop(frames, 0)[0]
+        runs.append(([p.to_bytes() for p in packets],
+                     {k: v - before[k] for k, v in build.LAUNCHES.items()}))
+    (stats,) = [s for s in eng.cache.stats().values() if s["captures"]]
+    assert stats["replays"] == 2
+    assert stats["launches"]["diamond_descent"] == 29
+    assert stats["launches"]["sad_map_even"] == 29
+    assert "sad_at_mv" not in stats["launches"]
+    for _, rise in runs:
+        assert rise["diamond_descent"] == 29 and rise["sad_at_mv"] == 0
+    want = [p.to_bytes() for p in
+            GopEngine(cfg, device="cpu").encode_gop(frames, 0)[0]]
+    assert all(got == want for got, _ in runs)

@@ -138,24 +138,17 @@ def sad_at_mv_chroma(cur_c, ref_c, dy, dx):
 
 def diamond_search(cur_y, ref_y):
     """Diamond search (SPEC.md §9) as a descent over the even-lattice SAD
-    map: one sad_map_even pass, then every large-diamond candidate is a
-    torch.gather from the map (the loop only visits even-even mvs), and
-    the final ±1 step is one sad_at_mv launch for its four candidates. The
-    descent is motion.diamond_search_with on both routes; only the two SAD
-    sources switch. Returns (dy, dx, sad) int32, [(G,) nby, nbx]."""
+    map: one sad_map_even pass, then on the card one launch of the descent
+    kernel for the large-diamond walk and the final ±1 step of every MB
+    (of every GOP, for planes [G, H, W]). Its plain version, on the CPU
+    and under force("plain"), is motion.diamond_descent: the masked loop
+    motion.diamond_search_with, every large-diamond candidate a
+    torch.gather from the map and the final step's four SADs from
+    sad_at. Returns (dy, dx, sad) int32, [(G,) nby, nbx]."""
     meven = sad_map_even(cur_y, ref_y)
-    r = motion.R
-
-    def sad_even(dy, dx):
-        k = (((dy + r) >> 1) * motion.NE + ((dx + r) >> 1)).long()
-        if k.ndim < meven.ndim:                   # no candidate axis
-            return torch.gather(meven, -1, k[..., None])[..., 0]
-        return torch.gather(meven, -1, k.movedim(-3, -1)).movedim(-1, -3)
-
-    def sad_small(dy, dx):
-        return sad_at_mv(cur_y, ref_y, dy, dx)
-
-    return motion.diamond_search_with(cur_y, sad_even, sad_small)
+    if _FORCE == "plain":
+        return motion.diamond_descent(cur_y, ref_y, meven)
+    return ksad.diamond_descent(cur_y, ref_y, meven)
 
 
 def mc_fetch_luma_plane(ref_y, dy, dx):

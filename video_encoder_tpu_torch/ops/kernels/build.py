@@ -60,7 +60,10 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "code_plane_rows": 0, "code_plane_rows_g": 0,
             # the decoders' recon: the inter recon of a plane, and the
             # format-3/4 I-frame recon of (B) planes
-            "recon_plane": 0, "recon_plane_rows": 0}
+            "recon_plane": 0, "recon_plane_rows": 0,
+            # the diamond descent of a P step (walk and final step) in one
+            # launch: one plane, and G GOPs in lockstep
+            "diamond_descent": 0, "diamond_descent_g": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,6 +101,7 @@ _SIGNATURES = {
     "tvc_code_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "tvc_recon_plane": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tvc_recon_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tvc_diamond_descent": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None

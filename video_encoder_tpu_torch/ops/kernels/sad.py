@@ -1,5 +1,5 @@
 """Wrappers of the motion kernels (csrc/full_search.cu, csrc/sad_at.cu,
-csrc/mc_fetch.cu).
+csrc/diamond.cu, csrc/mc_fetch.cu).
 
 A CPU tensor takes the plain version in `ops/motion.py`; a CUDA tensor
 launches the kernel, which is built at first use. The `_g` wrappers take
@@ -250,6 +250,31 @@ def sad_at_mv_g(cur_y: torch.Tensor, ref_y: torch.Tensor, dy: torch.Tensor,
     if cur_y.device.type == "cpu":
         return motion.sad_at(cur_y, ref_y, dy, dx, plane_of=plane_of)
     return _sad_at_mv(cur_y, ref_y, dy, dx, plane_of, "sad_at_mv_g", True)
+
+
+def diamond_descent(cur_y: torch.Tensor, ref_y: torch.Tensor,
+                    meven: torch.Tensor):
+    """The diamond search of planes [(G,) H, W] int32 over their even SAD
+    map meven [(G,) H/16, W/16, 289] int32 (sad_map_even's): the
+    large-diamond walk and the final ±1 step of every MB of every GOP in
+    one launch, counted under diamond_descent or, with a G axis,
+    diamond_descent_g. Returns (dy, dx, sad) [(G,) H/16, W/16] int32."""
+    if cur_y.device.type == "cpu":
+        return motion.diamond_descent(cur_y, ref_y, meven)
+    batched = cur_y.ndim == 3
+    name = "diamond_descent_g" if batched else "diamond_descent"
+    lead, h, w = _require_plane(cur_y, batched, 16, f"{name} cur")
+    build.require(ref_y, torch.int32, (*lead, h, w), f"{name} ref")
+    build.require(meven, torch.int32,
+                  (*lead, h // 16, w // 16, motion.NE * motion.NE),
+                  f"{name} map")
+    outs = [torch.empty((*lead, h // 16, w // 16), dtype=torch.int32,
+                        device=cur_y.device) for _ in range(3)]
+    _launch("diamond_descent", cur_y.data_ptr(), ref_y.data_ptr(),
+            meven.data_ptr(), *(lead or (1,)), h, w,
+            *(t.data_ptr() for t in outs), build.stream_ptr(cur_y.device))
+    build.LAUNCHES[name] += 1
+    return tuple(outs)
 
 
 def _sad_at_mv_chroma(cur_c, ref_c, dy, dx, name: str, batched: bool):

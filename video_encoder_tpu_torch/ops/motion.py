@@ -3,8 +3,8 @@
 Twin of `video_encoder_tpu/ops/motion.py` for the full, diamond and
 hierarchical searches and motion compensation. These are the plain
 versions the `full_search` (exhaustive and SEA), `sad_map`,
-`sad_map_even`, `sad_at_mv`, `mc_fetch` and `mc_predict` kernels are held
-against, and the CPU path of the port.
+`sad_map_even`, `sad_at_mv`, `diamond_descent`, `mc_fetch` and
+`mc_predict` kernels are held against, and the CPU path of the port.
 
 Every function takes planes [H, W] or, for G GOPs encoded in lockstep,
 [G, H, W], and gives for each g exactly what it gives for that plane
@@ -290,6 +290,26 @@ def diamond_search_with(cur_y: torch.Tensor, sad_fn, sad_fn_small):
     dy, dx, cost, _ = evaluate(dy, dx, cost, torch.zeros_like(frozen), unit,
                                sad_fn_small)
     return dy, dx, cost
+
+
+def diamond_descent(cur_y: torch.Tensor, ref_y: torch.Tensor,
+                    meven: torch.Tensor):
+    """Diamond search over the even SAD map meven [..., nby, nbx, 289] of
+    the planes (sad_map_even's): every large-diamond candidate is a
+    torch.gather from the map (the loop only visits even-even mvs), the
+    final ±1 step's four SADs come from sad_at. The plain version of the
+    descent kernel (csrc/diamond.cu). Returns (dy, dx, sad) int32
+    [..., nby, nbx]."""
+    def sad_even(dy, dx):
+        k = (((dy + R) >> 1) * NE + ((dx + R) >> 1)).long()
+        if k.ndim < meven.ndim:                   # no candidate axis
+            return torch.gather(meven, -1, k[..., None])[..., 0]
+        return torch.gather(meven, -1, k.movedim(-3, -1)).movedim(-1, -3)
+
+    def sad_small(dy, dx):
+        return sad_at(cur_y, ref_y, dy, dx)
+
+    return diamond_search_with(cur_y, sad_even, sad_small)
 
 
 def diamond_search(cur_y: torch.Tensor, ref_y: torch.Tensor):
