@@ -2522,16 +2522,16 @@ def phase_graphs(jobs, streams, card):
         want_back = [p.to_bytes() for p in
                      GopEngine(cfg, device=DEVICE).encode_gop(back, 0)[0]]
         build.reset_launches()
-        first = eng.encode_gop_start(frames, 0)
-        second = eng.encode_gop_start(back, 0)
-        if ([p.to_bytes() for p in eng.encode_gop_finish(first)[0]] != want
-                or [p.to_bytes() for p in eng.encode_gop_finish(second)[0]]
+        first = eng.start([frames], [0])
+        second = eng.start([back], [0])
+        if ([p.to_bytes() for p in eng.finish(first)[0][0]] != want
+                or [p.to_bytes() for p in eng.finish(second)[0][0]]
                 != want_back):
             raise AssertionError(f"{job['tag']}: two GOPs in flight did not "
                                  "keep their own outputs")
         paths.append(dict(build.LAUNCHES))
         # one replay traced: the graph's kernels under their own names
-        y, cb, cr = first["y"], first["cb"], first["cr"]
+        y, cb, cr = first.y, first.cb, first.cr
         build.reset_launches()
         ops, busy, top = device_ops(lambda: eng.run(y, cb, cr, 28), n,
                                     CODE_KERNELS + SAD_KERNELS)
@@ -3073,8 +3073,8 @@ def phase_batched(tmp, jobs, batched_oracle, card):
     frames = [Frame.from_planes(*p) for p in zip(*job["clip"])]
     eng = GopEngine(cfg, device=DEVICE, emit=other)
     build.reset_launches()
-    results = eng.encode_gops([frames[0:10], frames[10:20], frames[20:30]],
-                              [0, 10, 20])
+    results = eng.finish(eng.start(
+        [frames[0:10], frames[10:20], frames[20:30]], [0, 10, 20]))
     launches = dict(build.LAUNCHES)
     check_batched_launches(f"{job['tag']} in-process, emit {other}", launches,
                            job["mode"], other, 10)
@@ -4430,7 +4430,7 @@ def phase_speed(cells, card):
     the figures and, per cell, the traces of its GOP under the default
     emit, graph and eager."""
     from video_encoder_tpu_torch.codec.frame import Frame
-    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
+    from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine, Launch
 
     results, traces = {}, {}
     for m, (ys, cbs, crs), emits in cells:
@@ -4459,9 +4459,9 @@ def phase_speed(cells, card):
                 run(emit, loop, xl=True)
 
         def finished_gop(emit, loop):
-            engines[emit].encode_gop_finish(dict(
-                frames=frames, first_index=0, base_qp=28, y=y, cb=cb, cr=cr,
-                outs=run(emit, loop), t0=time.perf_counter()))
+            eng = engines[emit]
+            eng.finish(Launch([frames], [0], y, cb, cr, 28, run(emit, loop),
+                              time.perf_counter(), eng.run, eng.download))
 
         iters = 2
         turns = (emits + emits[::-1]) if len(emits) == 2 else emits * 2

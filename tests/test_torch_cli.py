@@ -195,12 +195,11 @@ def test_gop_batch_calls_the_batched_engine(long_clip_file, tmp_path,
     from video_encoder_tpu_torch.pipeline.gop_engine import GopEngine
 
     calls = []
-    one, many = GopEngine.encode_gop_start, GopEngine.encode_gops_start
-    monkeypatch.setattr(GopEngine, "encode_gop_start", lambda self, gop, first:
-                        calls.append(("one", first)) or one(self, gop, first))
-    monkeypatch.setattr(GopEngine, "encode_gops_start", lambda self, gops, firsts:
-                        calls.append(("many", list(firsts)))
-                        or many(self, gops, firsts))
+    start = GopEngine.start
+    monkeypatch.setattr(GopEngine, "start", lambda self, gops, firsts:
+                        calls.append(("one", firsts[0]) if len(gops) == 1
+                                     else ("many", list(firsts)))
+                        or start(self, gops, firsts))
     _, path = long_clip_file
     base = ["encode", "-i", path, "-W", str(W), "-H", str(H), "--gop", "3",
             "--device", "cpu", "-o", str(tmp_path / "o.tvc")]

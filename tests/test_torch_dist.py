@@ -14,7 +14,8 @@ the module, run every job below; the tests read their results.
   unequal streams) against the single-device GOP engine and the
   reference's RingEncoder (tests/test_aux.py's cases).
 - encode_gops_with_recovery with a FaultInjector against the reference's,
-  and the start/finish seam of ShardedGopEncoder.
+  the start/finish seam of ShardedGopEncoder, and the overflow decision
+  over a group of two ranks.
 
 Tolerance 0 everywhere: the codec is integer-only."""
 
@@ -219,6 +220,16 @@ def test_transport_over_ranks_equals_the_tensor_axis(ranks, case):
         np.testing.assert_array_equal(arr, want[sl])
     assert all(row["max_abs_err"] == 0 and row["backend"] == "gloo"
                for row in rows)
+
+
+def test_overflow_is_decided_by_the_group(ranks):
+    """gop_engine.overflowed over a group of two ranks (mesh.group_max, the
+    2 x 2 grid's 'tc' groups), one rank's flag set: both ranks of that
+    group decide true, both of the other group false."""
+    results, _ = _job(ranks, "transport")
+    got = {r: bool(results[0][r]["overflow"][0][0]) for r in range(RANKS)}
+    assert got == {0: True, 1: True, 2: False, 3: False}
+    assert all(results[0][r]["overflow"][1] == 0 for r in range(RANKS))
 
 
 # ---- DP and row shards over ranks -----------------------------------------------
@@ -471,8 +482,8 @@ def test_recovery_matches_the_reference():
 # ---- the start/finish seam -------------------------------------------------------
 
 def test_batch_start_does_not_wait_on_the_device(monkeypatch):
-    """encode_gop_batch_start uploads and launches: no host read of a
-    device value (bool, item, tolist, numpy, cpu) until finish."""
+    """start uploads and launches: no host read of a device value (bool,
+    item, tolist, numpy, cpu) until finish."""
     cfg = _cfg(base_qp=26)
     senc = ShardedGopEncoder(cfg, make_codec_mesh(2, 2, "cpu"))
     frames = _frames(0, 6)
@@ -488,12 +499,12 @@ def test_batch_start_does_not_wait_on_the_device(monkeypatch):
                  "numpy", "cpu"):
         monkeypatch.setattr(torch.Tensor, name,
                             spy(name, getattr(torch.Tensor, name)))
-    handle = senc.encode_gop_batch_start([frames[:3], frames[3:]], [0, 3])
+    handle = senc.start([frames[:3], frames[3:]], [0, 3])
     assert reads == []
-    got = senc.encode_gop_batch_finish(handle)
+    got = senc.finish(handle)
     assert reads                       # the finish waits, once it must
     monkeypatch.undo()
-    want = GopEngine(cfg, device="cpu").encode_gops([frames[:3], frames[3:]],
-                                                   [0, 3])
+    eng = GopEngine(cfg, device="cpu")
+    want = eng.finish(eng.start([frames[:3], frames[3:]], [0, 3]))
     for g, w in zip(got, want):
         _same(g, w)

@@ -1,11 +1,11 @@
-"""The batched-GOP encode of the port (GopEngine.encode_gops, run_batch) on
-the CPU, mirroring tests/test_gop_batch.py at its size (48x32, T = 3,
-G = 3): the packets of G GOPs encoded in lockstep equal, byte for byte,
-the port's own sequential encode_gop packets and the reference
-GopEngine.encode_gops packets, under every rc mode, formats 1 to 4,
-diamond search, per-GOP base qps, the overflow rerun and both emits.
-Then the pieces that carry the G axis: the frame assembly, the folded
-span merges, the rate-control carry. Tolerance 0: integer codec."""
+"""The batched-GOP encode of the port (GopEngine.start of G GOPs,
+run_batch) on the CPU, mirroring tests/test_gop_batch.py at its size
+(48x32, T = 3, G = 3): the packets of G GOPs encoded in lockstep equal,
+byte for byte, the port's own sequential encode_gop packets and the
+reference GopEngine.encode_gops packets, under every rc mode, formats 1
+to 4, diamond search, per-GOP base qps, the overflow rerun and both
+emits. Then the pieces that carry the G axis: the frame assembly, the
+folded span merges, the rate-control carry. Tolerance 0: integer codec."""
 
 import dataclasses
 import functools
@@ -81,12 +81,12 @@ def test_batch_matches_sequential_and_reference(case, emit):
     eng = GopEngine(cfg, device="cpu", emit=emit)
     seq = [eng.encode_gop(g, f, None if qps is None else qps[i])
            for i, (g, f) in enumerate(zip(gops, FIRSTS))]
-    handle = eng.encode_gops_start(gops, FIRSTS, qps)
+    handle = eng.start(gops, FIRSTS, qps)
     if case == "overflow-qp4" and emit == "frame":
         # the frame capacity overflowed: the whole batch is run again (the
         # span strings at BLOCK_WORDS_MAX are exact and do not overflow)
-        assert bool(handle["outs"]["ovf"].any())
-    bat = eng.encode_gops_finish(handle)
+        assert bool(handle.outs["ovf"].any())
+    bat = eng.finish(handle)
     assert len(bat) == G
     for gi, ((sp, ss), (bp, bs)) in enumerate(zip(seq, bat)):
         got = [p.to_bytes() for p in bp]
@@ -109,8 +109,8 @@ def test_batch_order_is_the_order_given():
     cfg = config_from_dict(dict(width=W, height=H, gop_n=T, base_qp=26))
     gops = _split([Frame.from_planes(*p) for p in _clip()])
     eng = GopEngine(cfg, device="cpu")
-    a = eng.encode_gops(gops, FIRSTS, [22, 26, 31])
-    b = eng.encode_gops(gops[::-1], FIRSTS[::-1], [31, 26, 22])
+    a = eng.finish(eng.start(gops, FIRSTS, [22, 26, 31]))
+    b = eng.finish(eng.start(gops[::-1], FIRSTS[::-1], [31, 26, 22]))
     for (ap, _), (bp, _) in zip(a, b[::-1]):
         assert [p.to_bytes() for p in ap] == [p.to_bytes() for p in bp]
 
@@ -119,11 +119,19 @@ def test_batch_of_one_and_unequal_lengths():
     cfg = config_from_dict(dict(width=W, height=H, gop_n=T, base_qp=26))
     gops = _split([Frame.from_planes(*p) for p in _clip()])
     eng = GopEngine(cfg, device="cpu")
-    (one, _), = eng.encode_gops(gops[:1], [0])
+    (one, _), = eng.finish(eng.start(gops[:1], [0]))
     alone, _ = eng.encode_gop(gops[0], 0)
     assert [p.to_bytes() for p in one] == [p.to_bytes() for p in alone]
+    # a lockstep launch of one GOP ([T, 1, H, W] planes through run_batch)
+    # gives the same packets through the same finish
+    planes = eng.upload(lambda p: [getattr(f, p) for f in gops[0]], (T, 1))
+    qps = [cfg.base_qp]
+    (batch, _), = eng.finish(gop_engine.Launch(
+        gops[:1], [0], *planes, qps, eng.run_batch(*planes, qps), 0.0,
+        eng.run_batch, eng.download))
+    assert [p.to_bytes() for p in batch] == [p.to_bytes() for p in alone]
     with pytest.raises(ValueError, match="equal length"):
-        eng.encode_gops([gops[0], gops[1][:2]], [0, 3])
+        eng.finish(eng.start([gops[0], gops[1][:2]], [0, 3]))
 
 
 def test_run_batch_shapes_and_block_budget(monkeypatch):

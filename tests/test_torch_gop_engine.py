@@ -69,9 +69,9 @@ def test_overflow_rerun_matches_golden(rng):
     frames = _frames(clip)
     cfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=1)
     eng = GopEngine(cfg, device="cpu")
-    handle = eng.encode_gop_start(frames, 0)
-    assert bool(handle["outs"]["ovf"].any())          # the budget overflowed
-    tpk, _ = eng.encode_gop_finish(handle)
+    handle = eng.start([frames], [0])
+    assert bool(handle.outs["ovf"].any())             # the budget overflowed
+    tpk, _ = eng.finish(handle)[0]
     gpk, _ = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
     assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
 
@@ -174,9 +174,9 @@ def test_chunk_emit_overflow_rerun_matches_golden(rng):
     cfg = EncoderConfig(width=w, height=h, gop_n=3, base_qp=28,
                         search="diamond", rc="mb", target_kbps=200)
     eng = GopEngine(cfg, device="cpu", emit="chunks")
-    handle = eng.encode_gop_start(frames, 0)
-    assert bool(handle["outs"]["ovf"].any())          # a budget overflowed
-    tpk, tst = eng.encode_gop_finish(handle)
+    handle = eng.start([frames], [0])
+    assert bool(handle.outs["ovf"].any())             # a budget overflowed
+    tpk, tst = eng.finish(handle)[0]
     gpk, gst = encode_gop(cfg, GoldenEngine(), frames, 0, 0)
     assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
     assert [s.base_qp for s in tst] == [s.base_qp for s in gst]
@@ -291,9 +291,9 @@ def test_format2_overflow_rerun_matches_golden(rng, emit, w, h, qp):
                          format_version=2, chroma_qp_offset=-1)
     eng = GopEngine(config_from_dict(dataclasses.asdict(rcfg)), device="cpu",
                     emit=emit)
-    handle = eng.encode_gop_start([Frame.from_planes(*p) for p in clip], 0)
-    assert bool(handle["outs"]["ovf"].any())          # the budget overflowed
-    tpk, _ = eng.encode_gop_finish(handle)
+    handle = eng.start([[Frame.from_planes(*p) for p in clip]], [0])
+    assert bool(handle.outs["ovf"].any())             # the budget overflowed
+    tpk, _ = eng.finish(handle)[0]
     gpk, _ = encode_gop(rcfg, GoldenEngine(), _frames(clip), 0, 0)
     assert [p.to_bytes() for p in tpk] == [p.to_bytes() for p in gpk]
 

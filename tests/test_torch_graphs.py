@@ -185,7 +185,7 @@ def test_cpu_engine_never_builds_a_graph(monkeypatch):
     first = eng.encode_gop(_frames(clip), 0)[0]
     for _ in range(2):
         assert _bytes(eng.encode_gop(_frames(clip), 0)[0]) == _bytes(first)
-        eng.encode_gops([_frames(clip)] * 2, [0, 3])
+        eng.finish(eng.start([_frames(clip)] * 2, [0, 3]))
     assert eng.graphs == {}
 
 
@@ -247,21 +247,21 @@ def test_two_gops_in_flight_keep_their_own_outputs(fake_graphs):
     eng = GopEngine(cfg, device="cpu")
     handles, rises = [], []
     for i in (0, 1, 2, 0, 1):          # eager, capture, then replays
-        h, rise = _counted(lambda i=i: eng.encode_gop_start(clips[i], 0))
+        h, rise = _counted(lambda i=i: eng.start([clips[i]], [0]))
         handles.append((i, h))
         rises.append(rise)
         if len(handles) > 1:           # drain the one before, as the CLI does
             j, prev = handles[-2]
-            assert _bytes(eng.encode_gop_finish(prev)[0]) == want[j]
+            assert _bytes(eng.finish(prev)[0][0]) == want[j]
     j, last = handles[-1]
-    assert _bytes(eng.encode_gop_finish(last)[0]) == want[j]
+    assert _bytes(eng.finish(last)[0][0]) == want[j]
     assert rises == [{"code_plane": 9}] * 5
     (graph,) = [g for g in eng.graphs.values()]
     assert len(fake_graphs) == 1 and fake_graphs[0].replays == 4
     assert graph.launches == {"code_plane": 9} and graph.capture_s >= 0
     static = {v.data_ptr() for v in graph.outs.values()}
     assert not static & {v.data_ptr() for _, h in handles
-                         for v in h["outs"].values()}
+                         for v in h.outs.values()}
 
 
 def test_overflow_rerun_reads_its_own_planes(fake_graphs):
@@ -273,15 +273,15 @@ def test_overflow_rerun_reads_its_own_planes(fake_graphs):
     clips = [_frames(_noise(s, 48, 32, 3)) for s in (5, 6, 7, 8)]
     want = [_eager(cfg, c) for c in clips]
     eng = GopEngine(cfg, device="cpu")
-    h = [eng.encode_gop_start(clips[0], 0), eng.encode_gop_start(clips[1], 0)]
-    got = [eng.encode_gop_finish(h[0])]               # the rerun's eager call
-    h.append(eng.encode_gop_start(clips[2], 0))       # static inputs: GOP 2's
-    got.append(eng.encode_gop_finish(h[1]))           # rerun captured: GOP 1
-    h.append(eng.encode_gop_start(clips[3], 0))
-    got += [eng.encode_gop_finish(h[2]), eng.encode_gop_finish(h[3])]
+    h = [eng.start([clips[0]], [0]), eng.start([clips[1]], [0])]
+    got = [eng.finish(h[0])[0]]                  # the rerun's eager call
+    h.append(eng.start([clips[2]], [0]))         # static inputs: GOP 2's
+    got.append(eng.finish(h[1])[0])              # rerun captured: GOP 1
+    h.append(eng.start([clips[3]], [0]))
+    got += [eng.finish(h[2])[0], eng.finish(h[3])[0]]
     for g, w in zip(got, want):
         assert _bytes(g[0]) == w
-    assert all(bool(x["outs"]["ovf"].any()) for x in h)
+    assert all(bool(x.outs["ovf"].any()) for x in h)
     xl = [g for k, g in eng.graphs.items() if k.cap_words == entropy.max_words(6)]
     assert len(xl) == 1 and xl[0] is not None
     assert [g.replays for g in fake_graphs] == [3, 3]
@@ -293,12 +293,15 @@ def test_batched_replay_fills_per_gop_qps(fake_graphs):
     packets of its own eager encode."""
     cfg = EncoderConfig(width=48, height=32, gop_n=3)
     gops = [_frames(_clip(s, 48, 32, 3)) for s in (1, 2)]
-    want = {qps: [_bytes(p) for p, _ in GopEngine(cfg, device="cpu")
-                  .encode_gops(gops, [0, 3], list(qps))]
-            for qps in ((24, 30), (31, 22), (27, 27))}
+    def eager(qps):     # a fresh engine: its key's first, eager call
+        plain = GopEngine(cfg, device="cpu")
+        return [_bytes(p) for p, _ in
+                plain.finish(plain.start(gops, [0, 3], list(qps)))]
+
+    want = {qps: eager(qps) for qps in ((24, 30), (31, 22), (27, 27))}
     eng = GopEngine(cfg, device="cpu")
     for qps in ((24, 30), (31, 22), (27, 27), (24, 30)):
-        got = eng.encode_gops(gops, [0, 3], list(qps))
+        got = eng.finish(eng.start(gops, [0, 3], list(qps)))
         assert [_bytes(p) for p, _ in got] == want[qps]
     assert len(fake_graphs) == 1 and fake_graphs[0].replays == 3
 
@@ -329,11 +332,11 @@ def test_loop_matches_jax_engine(cell, emit):
     finally:
         jdispatch.force(None)
     eng = GopEngine(EncoderConfig(**kw), device="cpu", emit=emit)
-    outs = eng.run(*(eng.upload([getattr(f, a) for f in _frames(clips[0])],
-                                (n,)) for a in ("y", "cb", "cr")), 26)
+    outs = eng.run(*eng.upload(
+        lambda p: [getattr(f, p) for f in _frames(clips[0])], (n,)), 26)
     assert outs["words"].shape[0] == n and outs["sse"].shape == (n, 3)
     assert _bytes(eng.encode_gop(_frames(clips[0]), 0)[0]) == want
-    got = eng.encode_gops([_frames(c) for c in clips], [0, n])
+    got = eng.finish(eng.start([_frames(c) for c in clips], [0, n]))
     assert [_bytes(p) for p, _ in got] == want_batch
 
 
@@ -359,7 +362,7 @@ def test_replay_equals_eager_on_card(cuda, cell, emit, g):
     def call():
         if g == 1:
             return [eng.encode_gop(gops[0], 0)]
-        return eng.encode_gops(gops, firsts)
+        return eng.finish(eng.start(gops, firsts))
 
     runs = [_counted(call) for _ in range(3)]
     want = [_bytes(p) for p, _ in runs[0][0]]
@@ -379,8 +382,7 @@ def test_replayed_outputs_equal_the_eager_loop_on_card(cuda, cell):
     cfg = _card_cfg(cell)
     eng = GopEngine(cfg, device=cuda)
     frames = _frames(_clip(31, 192, 128, 6))
-    y, cb, cr = (eng.upload([getattr(f, a) for f in frames], (6,))
-                 for a in ("y", "cb", "cr"))
+    y, cb, cr = eng.upload(lambda p: [getattr(f, p) for f in frames], (6,))
     n_mbs = (128 // 16) * (192 // 16)
     bw, cap = eng._capacities(n_mbs, 26, False)
     eager = eng._run(y, cb, cr, torch.full((), 26, dtype=torch.int32,
@@ -416,12 +418,12 @@ def test_forced_rerun_replays_on_card(cuda):
     clips = [_frames(_noise(s, 64, 48, 3)) for s in (5, 6, 7, 8)]
     want = [_eager(cfg, c, cuda) for c in clips]
     eng = GopEngine(cfg, device=cuda)
-    h = [eng.encode_gop_start(clips[0], 0), eng.encode_gop_start(clips[1], 0)]
-    got = [eng.encode_gop_finish(h[0])]
-    h.append(eng.encode_gop_start(clips[2], 0))
-    got.append(eng.encode_gop_finish(h[1]))
-    h.append(eng.encode_gop_start(clips[3], 0))
-    got += [eng.encode_gop_finish(h[2]), eng.encode_gop_finish(h[3])]
+    h = [eng.start([clips[0]], [0]), eng.start([clips[1]], [0])]
+    got = [eng.finish(h[0])[0]]
+    h.append(eng.start([clips[2]], [0]))
+    got.append(eng.finish(h[1])[0])
+    h.append(eng.start([clips[3]], [0]))
+    got += [eng.finish(h[2])[0], eng.finish(h[3])[0]]
     assert [_bytes(g[0]) for g in got] == want
     xl = [v for k, v in eng.graphs.items() if k.cap_words == entropy.max_words(12)]
     assert len(xl) == 1 and xl[0] is not None

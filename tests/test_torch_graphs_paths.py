@@ -121,7 +121,7 @@ def _eager_tiled(cfg, frames, n_tile=2, device="cpu"):
     """The packets of a fresh sharded encoder's first call: the eager
     tile loop (and its worst-case rerun's)."""
     senc = ShardedGopEncoder(cfg, make_codec_mesh(1, n_tile, device))
-    return _bytes(senc.encode_gop_batch([frames], [0])[0][0])
+    return _bytes(senc.finish(senc.start([frames], [0]))[0][0])
 
 
 # ---- (a) the keys --------------------------------------------------------
@@ -231,9 +231,9 @@ def test_cpu_encoder_and_engine_never_build_a_graph(monkeypatch):
     clip = _clip(1, 32, 64, 3)
     cfg = EncoderConfig(width=32, height=64, gop_n=3, base_qp=26)
     senc = ShardedGopEncoder(cfg, make_codec_mesh(1, 2, "cpu"))
-    first = senc.encode_gop_batch([_frames(clip)], [0])[0][0]
+    first = senc.finish(senc.start([_frames(clip)], [0]))[0][0]
     for _ in range(2):
-        assert _bytes(senc.encode_gop_batch([_frames(clip)], [0])[0][0]) == \
+        assert _bytes(senc.finish(senc.start([_frames(clip)], [0]))[0][0]) == \
             _bytes(first)
     eng = DeviceEngine("cpu")
     for _ in range(2):
@@ -328,15 +328,14 @@ def test_two_tile_batches_in_flight_keep_their_own_outputs(fake_graphs):
     senc = ShardedGopEncoder(cfg, make_codec_mesh(1, 2, "cpu"))
     handles, rises = [], []
     for i in (0, 1, 2, 0, 1):          # eager, capture, then replays
-        h, rise = _counted(
-            lambda i=i: senc.encode_gop_batch_start([clips[i]], [0]))
+        h, rise = _counted(lambda i=i: senc.start([clips[i]], [0]))
         handles.append((i, h))
         rises.append(rise)
         if len(handles) > 1:           # drain the one before, as the CLI does
             j, prev = handles[-2]
-            assert _bytes(senc.encode_gop_batch_finish(prev)[0][0]) == want[j]
+            assert _bytes(senc.finish(prev)[0][0]) == want[j]
     j, last = handles[-1]
-    assert _bytes(senc.encode_gop_batch_finish(last)[0][0]) == want[j]
+    assert _bytes(senc.finish(last)[0][0]) == want[j]
     assert rises == [{"code_plane": 9}] * 5
     (graph,) = [g for g in senc.cache.graphs.values()]
     assert len(fake_graphs) == 1 and fake_graphs[0].replays == 4
@@ -344,7 +343,7 @@ def test_two_tile_batches_in_flight_keep_their_own_outputs(fake_graphs):
     assert senc.cache is senc.engine.cache
     static = {v.data_ptr() for v in graph.outs.values()}
     assert not static & {v.data_ptr() for _, h in handles
-                         for v in h["outs"].values()}
+                         for v in h.outs.values()}
 
 
 def test_tile_overflow_rerun_reads_its_own_planes(fake_graphs):
@@ -359,10 +358,10 @@ def test_tile_overflow_rerun_reads_its_own_planes(fake_graphs):
     senc = ShardedGopEncoder(cfg, make_codec_mesh(1, 2, "cpu"))
 
     def start(i):
-        return senc.encode_gop_batch_start([clips[i]], [0])
+        return senc.start([clips[i]], [0])
 
     def finish(h):
-        return _bytes(senc.encode_gop_batch_finish(h)[0][0])
+        return _bytes(senc.finish(h)[0][0])
 
     h = [start(0), start(1)]
     got = [finish(h[0])]               # the rerun's eager call
@@ -371,7 +370,7 @@ def test_tile_overflow_rerun_reads_its_own_planes(fake_graphs):
     h.append(start(3))
     got += [finish(h[2]), finish(h[3])]
     assert got == want
-    assert all(bool(x["outs"]["ovf"].any()) for x in h)
+    assert all(bool(x.outs["ovf"].any()) for x in h)
     xl = [g for k, g in senc.cache.graphs.items()
           if k.cap_words == entropy.max_words(32)]
     assert len(xl) == 1 and xl[0] is not None
@@ -579,8 +578,8 @@ def test_tile_replay_equals_eager_on_card(cuda, s, g, fmt4):
     if g == 1 and not fmt4:
         cpu = ShardedGopEncoder(cfg, make_codec_mesh(1, s, "cpu"))
         frames = _frames(clips[0])
-        assert _bytes(senc.encode_gop_batch([frames], [0])[0][0]) == \
-            _bytes(cpu.encode_gop_batch([frames], [0])[0][0])
+        assert _bytes(senc.finish(senc.start([frames], [0]))[0][0]) == \
+            _bytes(cpu.finish(cpu.start([frames], [0]))[0][0])
 
 
 def test_tile_forced_rerun_replays_on_card(cuda):
@@ -594,10 +593,10 @@ def test_tile_forced_rerun_replays_on_card(cuda):
     senc = ShardedGopEncoder(cfg, make_codec_mesh(1, 2, cuda))
 
     def start(i):
-        return senc.encode_gop_batch_start([clips[i]], [0])
+        return senc.start([clips[i]], [0])
 
     def finish(h):
-        return _bytes(senc.encode_gop_batch_finish(h)[0][0])
+        return _bytes(senc.finish(h)[0][0])
 
     h = [start(0), start(1)]
     got = [finish(h[0])]
@@ -606,7 +605,7 @@ def test_tile_forced_rerun_replays_on_card(cuda):
     h.append(start(3))
     got += [finish(h[2]), finish(h[3])]
     assert got == want
-    assert all(bool(x["outs"]["ovf"].any()) for x in h)
+    assert all(bool(x.outs["ovf"].any()) for x in h)
     xl = [v for k, v in senc.cache.graphs.items()
           if k.cap_words == entropy.max_words(32)]
     assert len(xl) == 1 and xl[0] is not None

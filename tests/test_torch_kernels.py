@@ -654,9 +654,9 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     cfg = EncoderConfig(**{**dict(width=96, height=64, gop_n=t, base_qp=24), **kw})
     qps = [22, 24, 30] if cfg.base_qp == 24 else None
     eng = GopEngine(cfg, device=cuda, emit=emit)
-    handle = eng.encode_gops_start(gops, firsts, qps)
+    handle = eng.start(gops, firsts, qps)
     build.reset_launches()       # count a clean first run, not a rerun
-    eng.run_batch(handle["y"], handle["cb"], handle["cr"], handle["base_qps"])
+    eng.run_batch(handle.y, handle.cb, handle.cr, handle.qps)
     n = build.LAUNCHES
     qm = "_qmat" if cfg.quant_matrix else ""
     used = ["mc_predict_g", f"code_plane{qm}_g"]
@@ -676,8 +676,9 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
         assert n[f"code_plane{qm}_g"] == 3 * (t - 1) * passes
     assert not any(n[k] for k in _SINGLE_FETCHES), n
     assert n["span_merge_mb"] == (t if emit == "chunks" else 0)
-    got = eng.encode_gops_finish(handle)
-    want = GopEngine(cfg, device="cpu", emit=emit).encode_gops(gops, firsts, qps)
+    got = eng.finish(handle)
+    cpu = GopEngine(cfg, device="cpu", emit=emit)
+    want = cpu.finish(cpu.start(gops, firsts, qps))
     for (gp, _), (wp, _) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
 
@@ -836,7 +837,7 @@ def test_sharded_encoder_on_card_matches_cpu(cuda, rng, kw, g, s):
     runs, run = [], senc.run
     senc.run = lambda *a, xl=False: runs.append(xl) or run(*a, xl=xl)
     build.reset_launches()
-    got = senc.encode_gop_batch(gops, firsts)
+    got = senc.finish(senc.start(gops, firsts))
     n = build.LAUNCHES
     reruns = len(runs)          # 2 where a shard overflowed its budget
     assert runs == [False, True][:reruns]
@@ -854,7 +855,8 @@ def test_sharded_encoder_on_card_matches_cpu(cuda, rng, kw, g, s):
     assert not any(n[k] for k in ("full_search", "full_search_g", "mc_predict",
                                   "mc_predict_g", "sad_at_mv", "sad_at_mv_g",
                                   *_SINGLE_FETCHES))
-    want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+    cpu = GopEngine(cfg, device="cpu")
+    want = cpu.finish(cpu.start(gops, firsts))
     for (gp, gs), (wp, ws) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
         assert [st.psnr_y for st in gs] == [st.psnr_y for st in ws]
@@ -1097,13 +1099,15 @@ def test_encode_with_sea_on_card_matches_cpu(cuda, rng, monkeypatch, path):
         want = [GopEngine(cfg, device="cpu").encode_gop(gops[0], 0)]
         sea, plain = "full_search_sea", "full_search"
     elif path == "batched":
-        got = GopEngine(cfg, device=cuda).encode_gops(gops, firsts)
-        want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+        eng, cpu = GopEngine(cfg, device=cuda), GopEngine(cfg, device="cpu")
+        got = eng.finish(eng.start(gops, firsts))
+        want = cpu.finish(cpu.start(gops, firsts))
         sea, plain = "full_search_sea_g", "full_search_g"
     else:
-        got = ShardedGopEncoder(cfg, make_codec_mesh(1, 4, cuda)).encode_gop_batch(
-            gops[:1], firsts[:1])
-        want = GopEngine(cfg, device="cpu").encode_gops(gops[:1], firsts[:1])
+        senc = ShardedGopEncoder(cfg, make_codec_mesh(1, 4, cuda))
+        cpu = GopEngine(cfg, device="cpu")
+        got = senc.finish(senc.start(gops[:1], firsts[:1]))
+        want = cpu.finish(cpu.start(gops[:1], firsts[:1]))
         sea, plain = "full_search_sea_haloed", "full_search_haloed"
     n = build.LAUNCHES
     assert n[sea] >= t - 1 and n[plain] == 0, n

@@ -114,7 +114,7 @@ clip = [(rng.integers(0, 256, (32, 48), dtype=np.uint8),
 cfg = EncoderConfig(width=48, height=32, gop_n=3, rc="bitrate", target_kbps=200)
 eng = GopEngine(cfg, device="cpu")
 frames = [Frame.from_planes(*p) for p in clip]
-out = eng.encode_gops([frames[:3], frames[3:]], [0, 3], [24, 30])
+out = eng.finish(eng.start([frames[:3], frames[3:]], [0, 3], [24, 30]))
 buf = io.BytesIO()
 encode_clip_twopass(cfg, lambda: iter(clip), buf, 6, engine=eng)
 leaked = [k for k in sys.modules
@@ -165,7 +165,7 @@ cfg = EncoderConfig(width=48, height=32, gop_n=3, format_version=4,
                     intra_slice_mbrows=1, rc="vbv", target_kbps=200)
 frames = [Frame.from_planes(*p) for p in clip]
 senc = ShardedGopEncoder(cfg, make_codec_mesh(2, 2, "cpu"))
-out = senc.encode_gop_batch([frames[:3], frames[3:]], [0, 3])
+out = senc.finish(senc.start([frames[:3], frames[3:]], [0, 3]))
 leaked = [k for k in sys.modules
           if k.split(".")[0] in ("jax", "jaxlib", "video_encoder_tpu")
           and sys.modules[k] is not None]
@@ -194,8 +194,8 @@ def test_tiled_encode_runs_without_jax():
     cfg = EncoderConfig(width=48, height=32, gop_n=3, format_version=4,
                         intra_slice_mbrows=1, rc="vbv", target_kbps=200)
     frames = [Frame.from_planes(*p) for p in clip]
-    want = GopEngine(cfg, device="cpu").encode_gops(
-        [frames[:3], frames[3:]], [0, 3])
+    eng = GopEngine(cfg, device="cpu")
+    want = eng.finish(eng.start([frames[:3], frames[3:]], [0, 3]))
     assert bytes.fromhex(line.split()[1]) == b"".join(
         p.to_bytes() for pk, _ in want for p in pk)
 

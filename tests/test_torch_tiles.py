@@ -249,8 +249,8 @@ def test_sharded_encoder_matches_reference_and_encode_gops(case, n_gop, n_tile):
     """(G, S) = (4, 2) and (2, 4): the reference's ShardedGopEncoder on an
     8-device CPU mesh takes 8 GOPs at once over its 'gop' axis (local
     batches of 2 or 4); the port takes G per call. Same packets, and the
-    port's unsharded encode_gops' packets and stats (the shards' sse
-    summed: the reference drops it on this path)."""
+    port's unsharded lockstep encode's packets and stats (the shards'
+    sse summed: the reference drops it on this path)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (fake) devices")
     _, t, g = _SHARDED[case]
@@ -263,9 +263,10 @@ def test_sharded_encoder_matches_reference_and_encode_gops(case, n_gop, n_tile):
     assert (senc.n_gop_devices, senc.n_tile_devices) == (n_gop, n_tile)
     got = []
     for i in range(0, g, n_gop):
-        got += senc.encode_gop_batch(gops[i:i + n_gop], firsts[i:i + n_gop])
+        got += senc.finish(senc.start(gops[i:i + n_gop], firsts[i:i + n_gop]))
     assert sorted((p.index, p.to_bytes()) for pk, _ in got for p in pk) == want
-    plain = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+    eng = GopEngine(cfg, device="cpu")
+    plain = eng.finish(eng.start(gops, firsts))
     for (gp, gs), (pp, ps) in zip(got, plain):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in pp]
         for a, b in zip(gs, ps):
@@ -293,24 +294,36 @@ def test_sharded_encoder_reruns_an_overflowing_batch(rng, n_tile, monkeypatch):
     real = senc.run
     monkeypatch.setattr(senc, "run", lambda *a, xl=False: (
         runs.append(xl) or real(*a, xl=xl)))
-    got = senc.encode_gop_batch(gops, firsts)
+    got = senc.finish(senc.start(gops, firsts))
     assert runs == [False, True]
-    want = GopEngine(cfg, device="cpu").encode_gops(gops, firsts)
+    eng = GopEngine(cfg, device="cpu")
+    want = eng.finish(eng.start(gops, firsts))
     for (gp, gs), (wp, ws) in zip(got, want):
         assert [p.to_bytes() for p in gp] == [p.to_bytes() for p in wp]
         assert [s.psnr_y for s in gs] == [s.psnr_y for s in ws]
 
 
 def test_sharded_encoder_with_one_tile_is_encode_gops():
+    """With one tile the sharded encoder's start is the engine's: its
+    lockstep launch for two GOPs, its single-plane launch for one, and the
+    engine's bytes."""
     cfg = config_from_dict(dict(width=W, height=H, gop_n=2, search="diamond"))
     frames = [Frame.from_planes(*p) for p in _smooth_planes(H, W, 4)]
     gops = [frames[:2], frames[2:]]
     senc = ShardedGopEncoder(cfg, make_codec_mesh(2, 1, "cpu"))
-    got = senc.encode_gop_batch(gops, [0, 2], 30)
-    want = GopEngine(cfg, device="cpu").encode_gops(gops, [0, 2], [30, 30])
+    launch = senc.start(gops, [0, 2], [30, 30])
+    assert launch.run == senc.engine.run_batch and launch.y.shape[:2] == (2, 2)
+    got = senc.finish(launch)
+    eng = GopEngine(cfg, device="cpu")
+    want = eng.finish(eng.start(gops, [0, 2], [30, 30]))
     assert ([p.to_bytes() for pk, _ in got for p in pk]
             == [p.to_bytes() for pk, _ in want for p in pk])
     assert got[0][0][0].base_qp == 30
+    one = ShardedGopEncoder(cfg, make_codec_mesh(1, 1, "cpu"))
+    launch = one.start(gops[:1], [0], [30])
+    assert launch.run == one.engine.run and launch.y.ndim == 3
+    assert ([p.to_bytes() for p in one.finish(launch)[0][0]]
+            == [p.to_bytes() for p in want[0][0]])
 
 
 def test_sharded_encoder_preconditions():
@@ -325,9 +338,9 @@ def test_sharded_encoder_preconditions():
     senc = ShardedGopEncoder(cfg, mesh)
     frames = [Frame.from_planes(*p) for p in _smooth_planes(H, W, 3)]
     with pytest.raises(ValueError, match="2 on its gop axis"):
-        senc.encode_gop_batch([frames[:2]], [0])
+        senc.start([frames[:2]], [0])
     with pytest.raises(ValueError, match="equal length"):
-        senc.encode_gop_batch([frames[:2], frames[2:]], [0, 2])
+        senc.start([frames[:2], frames[2:]], [0, 2])
     if not torch.cuda.is_available():    # the mesh's device defaults to the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ShardedGopEncoder(cfg, make_codec_mesh(2, 2))

@@ -232,7 +232,7 @@ def test_anchor_puts_a_span_on_the_profilers_clock(recorder):
 # ---- the profiler sees the spans only when asked ------------------------
 
 def _encode(eng, frames):
-    return eng.encode_gop_finish(eng.encode_gop_start(frames, 0))
+    return eng.finish(eng.start([frames], [0]))[0]
 
 
 def test_a_profiled_encode_holds_no_span_unless_asked(recorder):
@@ -364,7 +364,7 @@ def test_graph_cache_stats_per_key(recorder, fake_graphs):
     for _ in range(3):
         _encode(eng, frames)
     for _ in range(2):
-        eng.encode_gops([frames, frames], [0, 2])
+        eng.finish(eng.start([frames, frames], [0, 2]))
     stats = eng.cache.stats()
     assert sorted((s["replays"], s["captures"]) for s in stats.values()) == [
         (1, 1), (2, 1)]
@@ -391,11 +391,11 @@ def test_download_and_packets_spans_and_bytes(recorder, emit, g):
     eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu",
                     emit=emit)
     frames = _clip(6, 2)
-    outs = (eng.run(*(eng.upload([getattr(f, p) for f in frames], (2,))
-                      for p in ("y", "cb", "cr")), 28) if g == 1 else
-            eng.run_batch(*(eng.upload([getattr(f, p) for f in frames
-                                        for _ in range(g)], (2, g))
-                            for p in ("y", "cb", "cr")), [28] * g))
+    outs = (eng.run(*eng.upload(lambda p: [getattr(f, p) for f in frames],
+                                (2,)), 28) if g == 1 else
+            eng.run_batch(*eng.upload(lambda p: [getattr(f, p) for f in frames
+                                                 for _ in range(g)], (2, g)),
+                          [28] * g))
     recorder.reset()
     host = eng.download(outs)
     for gi in range(g):
@@ -418,12 +418,11 @@ def test_download_and_packets_spans_and_bytes(recorder, emit, g):
 def _outs(eng, frames, g, xl=False):
     """run() (g = 1) or run_batch() (g copies of the GOP) of frames."""
     if g == 1:
-        return eng.run(*(eng.upload([getattr(f, p) for f in frames],
-                                    (len(frames),))
-                         for p in ("y", "cb", "cr")), 28, xl=xl)
-    return eng.run_batch(*(eng.upload([getattr(f, p) for f in frames
-                                       for _ in range(g)], (len(frames), g))
-                           for p in ("y", "cb", "cr")), [28] * g, xl=xl)
+        return eng.run(*eng.upload(lambda p: [getattr(f, p) for f in frames],
+                                   (len(frames),)), 28, xl=xl)
+    return eng.run_batch(*eng.upload(lambda p: [getattr(f, p) for f in frames
+                                                for _ in range(g)],
+                                     (len(frames), g)), [28] * g, xl=xl)
 
 
 def _halfpel_clip(seed, n, w=64, h=48):
@@ -641,7 +640,7 @@ def test_overflow_reruns_are_counted(recorder, batched):
     clips = [_clip(s, 2, noise=True) for s in (7, 8)]
     for frames in clips:
         if batched:
-            eng.encode_gops([frames, frames], [0, 2])
+            eng.finish(eng.start([frames, frames], [0, 2]))
         else:
             _encode(eng, frames)
     assert recorder.counters["engine.overflow_reruns"] == 2
@@ -657,12 +656,12 @@ def test_upload_spans(recorder, batched):
     eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu")
     frames = _clip(9, 2)
     if batched:
-        h = eng.encode_gops_start([frames, frames], [0, 2])
-        assert h["y"].shape == (2, 2, H, W)
+        h = eng.start([frames, frames], [0, 2])
+        assert h.y.shape == (2, 2, H, W)
     else:
-        h = eng.encode_gop_start(frames, 0)
-        assert h["y"].shape == (2, H, W)
-    assert torch.equal(h["cb"][1] if not batched else h["cb"][1, 0],
+        h = eng.start([frames], [0])
+        assert h.y.shape == (2, H, W)
+    assert torch.equal(h.cb[1] if not batched else h.cb[1, 0],
                        torch.from_numpy(frames[1].cb))
     (up,) = _spans(recorder, "engine.upload")
     for name in ("engine.upload.stack", "engine.upload.copy"):
@@ -742,9 +741,9 @@ def test_graph_pool_and_busy_upload_on_card(recorder, cuda):
     assert "engine.upload_busy" not in recorder.counters
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000_000)          # keeps the stream busy
-    h = eng.encode_gop_start(frames, 0)
+    h = eng.start([frames], [0])
     assert recorder.counters["engine.upload_busy"] == 1
-    eng.encode_gop_finish(h)
+    eng.finish(h)
     assert recorder.counters["engine.replays"] == 3
 
 

@@ -396,6 +396,8 @@ def test_ring_glue_bit31_equals_reference(rng, ref, monkeypatch):
     qp = rng.integers(20, 40, (t, d)).astype(np.int32)
     outs = dict(words=_as_int32(words),
                 bits=torch.from_numpy(bits.astype(np.int64)), qp=_t(qp),
+                n_inter=torch.zeros((t, d), dtype=torch.int64),
+                sse=torch.zeros((t, d, 3), dtype=torch.int64),
                 ovf=torch.zeros(t, dtype=torch.bool))
 
     ring = RingEncoder(config_from_dict(dataclasses.asdict(cfg)),

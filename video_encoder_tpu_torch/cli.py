@@ -141,7 +141,7 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
     GOP k runs on the device.
 
     gop_batch = G > 1 groups G full GOPs into one lockstep encode
-    (`GopEngine.encode_gops_start`), byte-identical to G = 1. Of the tail,
+    (`GopEngine.start` of G GOPs), byte-identical to G = 1. Of the tail,
     leftover full GOPs are batched if there is more than one of them, and
     a single one or a short last GOP goes through the single-GOP encode.
     timer (utils.trace.StageTimer, `--stage-timers`) splits the wall time
@@ -153,21 +153,17 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
     out = _Mux(fo, cfg, n_frames, verbose)
     pending = None   # double buffer: batch k runs while k+1 is read
 
-    def drain(batched, handle):
+    def drain(handle):
         with stage("drain+mux"):
-            if batched:
-                for packets, stats in eng.encode_gops_finish(handle):
-                    out.emit(packets, stats)
-            else:
-                out.emit(*eng.encode_gop_finish(handle))
+            for packets, stats in eng.finish(handle):
+                out.emit(packets, stats)
 
-    def launch(batched, *args):
+    def launch(gops, firsts):
         nonlocal pending
-        start_fn = eng.encode_gops_start if batched else eng.encode_gop_start
         with stage("upload+dispatch"):
-            handle = (batched, start_fn(*args))
+            handle = eng.start(gops, firsts)
         if pending is not None:
-            drain(*pending)
+            drain(pending)
         pending = handle
 
     gop: list[Frame] = []
@@ -183,21 +179,20 @@ def encode_gop_resident(cfg: EncoderConfig, eng: GopEngine, frames, fo,
                 batch.append(gop)
                 batch_firsts.append(start)
                 if len(batch) == gop_batch:
-                    launch(True, batch, batch_firsts)
+                    launch(batch, batch_firsts)
                     batch, batch_firsts = [], []
             else:
-                launch(False, gop, start)
+                launch([gop], [start])
             start += len(gop)
             gop = []
-    # the tail: leftover full GOPs, then the short GOP
-    if len(batch) > 1:
-        launch(True, batch, batch_firsts)
-    elif batch:
-        launch(False, batch[0], batch_firsts[0])
+    # the tail: leftover full GOPs (one alone is a single-GOP encode), then
+    # the short GOP
+    if batch:
+        launch(batch, batch_firsts)
     if gop:
-        launch(False, gop, start)
+        launch([gop], [start])
     if pending is not None:
-        drain(*pending)
+        drain(pending)
     out.mux.close()
     return out.summary
 
@@ -208,7 +203,7 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
                  ) -> RunSummary:
     """Tile-sharded encode + ordered mux: every batch of as many full GOPs
     as the mesh's 'gop' axis goes through `senc`, batch k + 1 read and
-    launched while batch k runs (`encode_gop_batch_start` / `_finish`);
+    launched while batch k runs (`senc.start`, `GopEngine.finish`);
     full GOPs short of a batch and the clip's short last GOP go through
     the single-device engine. Same bytes as the unsharded encode. With a
     survivor (`--failover`), a batch whose injected fault fires (checked
@@ -217,10 +212,9 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
     out = _Mux(fo, cfg, n_frames, verbose)
     pending = None
 
-    def drain(batched, handle, gops, firsts):
+    def drain(handle, gops, firsts):
         try:
-            results = (senc.encode_gop_batch_finish(handle) if batched
-                       else [eng.encode_gop_finish(handle)])
+            results = eng.finish(handle)
         except RECOVERABLE as e:
             if survivor is None:
                 raise
@@ -235,8 +229,7 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
             if batched and fault is not None:
                 for first in firsts:
                     fault.check(first)
-            handle = (senc.encode_gop_batch_start(gops, firsts) if batched
-                      else eng.encode_gop_start(gops[0], firsts[0]))
+            handle = (senc if batched else eng).start(gops, firsts)
         except RECOVERABLE as e:
             if survivor is None:
                 raise
@@ -244,7 +237,7 @@ def encode_tiled(cfg: EncoderConfig, senc: ShardedGopEncoder, eng: GopEngine,
             return
         if pending is not None:
             drain(*pending)
-        pending = (batched, handle, gops, firsts)
+        pending = (handle, gops, firsts)
 
     gop: list[Frame] = []
     batch: list[list[Frame]] = []

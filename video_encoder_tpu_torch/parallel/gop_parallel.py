@@ -15,17 +15,18 @@ for the ('gop', 'tile') layout of `parallel/mesh.py`.
   ranks of its 'tile' group. Tile rank 0 gathers its group's span strings
   (all_gather_object over the 'tile' group) and glues them in tile order,
   so the packets leave the ranks whole; the other tile ranks return none.
-- With one tile the encode is the engine's own (`GopEngine.encode_gop_start`
-  for one GOP, `encode_gops_start` for several in lockstep), under chunk
-  emit as the tile path, and the stats keep each frame's sse: the
-  reference's DP branch runs the frame emit and drops sse (its PSNR reads
-  0), which is not copied.
+- With one tile the encode is the engine's own (`GopEngine.start`: one
+  GOP on the single-plane path, several in lockstep), under chunk emit as
+  the tile path, and the stats keep each frame's sse: the reference's DP
+  branch runs the frame emit and drops sse (its PSNR reads 0), which is
+  not copied.
 
-The encode is split as the engine's is: `encode_gop_batch_start` uploads
-and launches, `encode_gop_batch_finish` waits once, reruns the batch at
-the worst-case capacities if any shard overflowed (over ranks, the whole
-'tile' group decides by an all_reduce(MAX) of the flag and reruns
-together), downloads and makes the packets.
+`ShardedGopEncoder.start` uploads and launches and returns a
+`gop_engine.Launch`; `GopEngine.finish` (also `ShardedGopEncoder.finish`)
+waits once, reruns the batch at the worst-case capacities if any shard
+overflowed (over ranks, the whole 'tile' group decides by an
+all_reduce(MAX) of the flag and reruns together), downloads and makes the
+packets.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..codec.config import EncoderConfig
 from ..codec.frame import Frame
 from ..ops import dispatch
 from ..ops.kernels import sad as ksad
-from ..pipeline.gop_engine import GopEngine, block_words_for_qp
+from ..pipeline.gop_engine import GopEngine, Launch, block_words_for_qp
 from . import mesh as dmesh
 from . import tiles
 from .mesh import CodecMesh, make_codec_mesh
@@ -54,10 +55,10 @@ TileKey = collections.namedtuple(
 
 
 class ShardedGopEncoder:
-    """encode_gop_batch(gops, first_indices, base_qp) -> one (packets,
-    stats) pair per GOP, as GopEngine.encode_gops gives them and with the
-    same bytes. `mesh` is a ('gop', 'tile') CodecMesh (default: one GOP,
-    one tile, one device); `device` defaults to the mesh's. On a mesh over
+    """finish(start(gops, first_indices, base_qps)) -> one (packets,
+    stats) pair per GOP, as the GopEngine's give them and with the same
+    bytes. `mesh` is a ('gop', 'tile') CodecMesh (default: one GOP, one
+    tile, one device); `device` defaults to the mesh's. On a mesh over
     ranks the GOPs are this rank's (one), and only tile rank 0 gets
     packets. The tile path exchanges halos and packs under chunk emit."""
 
@@ -144,95 +145,61 @@ class ShardedGopEncoder:
             key, lambda *planes_qp: self._run(*planes_qp, bw, cap),
             (y, cb, cr), qps), xl)
 
-    def encode_gop_batch_start(self, gops: list[list[Frame]],
-                               first_indices: list[int],
-                               base_qp: int | None = None):
+    def start(self, gops: list[list[Frame]], first_indices: list[int],
+              base_qps: list[int] | None = None) -> Launch:
         """Upload this process's GOPs of a batch and launch their encode,
         without waiting on the device: as many equal-length GOPs as the
-        mesh's 'gop' axis on one device, one over ranks."""
-        base_qp = self.cfg.base_qp if base_qp is None else base_qp
+        mesh's 'gop' axis on one device, one over ranks. With one tile
+        this is GopEngine.start; with S tiles the Launch reruns through
+        `run`, decides an overflow over the 'tile' group and fetches the
+        whole frames' host arrays (`_fetch`)."""
         want = self.mesh.local("gop")
         if len(gops) != want:
             where = ("per rank" if self.mesh.spans_ranks
                      else f"for a mesh of {want} on its gop axis")
             raise ValueError(f"{len(gops)} GOPs {where}; want {want}")
-        if self.n_tile_devices == 1 and len(gops) == 1:
-            return dict(gop=self.engine.encode_gop_start(
-                gops[0], first_indices[0], base_qp))
+        eng = self.engine
         if self.n_tile_devices == 1:
-            return dict(batch=self.engine.encode_gops_start(
-                gops, first_indices, [base_qp] * len(gops)))
+            return eng.start(gops, first_indices, base_qps)
         n = len(gops[0])
         if any(len(g) != n for g in gops):
             raise ValueError("batched GOPs must be of equal length")
+        qps = (list(base_qps) if base_qps is not None
+               else [self.cfg.base_qp] * len(gops))
         t0 = time.perf_counter()
-        rows = slice(None)
+        rows = {plane: slice(None) for plane in ("y", "cb", "cr")}
         if self.mesh.spans_ranks:     # this rank's rows of the padded frame
-            h = gops[0][0].y.shape[0] // self.n_tile_devices
             s = self.mesh.coords["tile"]
-            rows = slice(s * h, (s + 1) * h)
-        eng = self.engine
+            for plane in rows:
+                h = getattr(gops[0][0], plane).shape[0] // self.n_tile_devices
+                rows[plane] = slice(s * h, (s + 1) * h)
+        # [T, G, H, W]: the frame axis leads
+        y, cb, cr = eng.upload(lambda p: [getattr(g[t], p)[rows[p]]
+                                          for t in range(n) for g in gops],
+                               (n, len(gops)))
+        return Launch(gops, first_indices, y, cb, cr, qps,
+                      self.run(y, cb, cr, qps), t0, self.run, self._fetch,
+                      dmesh.group_max(self.mesh.group("tile")))
 
-        def up(plane, sub):   # [T, G, H, W]: the frame axis leads
-            return eng.upload([getattr(g[t], plane)[sub] for t in range(n)
-                               for g in gops], (n, len(gops)))
+    finish = staticmethod(GopEngine.finish)
 
-        crows = slice(None) if rows.start is None else slice(
-            rows.start // 2, rows.stop // 2)
-        y, cb, cr = up("y", rows), up("cb", crows), up("cr", crows)
-        return dict(gops=gops, first_indices=first_indices, base_qp=base_qp,
-                    y=y, cb=cb, cr=cr, outs=self.run(y, cb, cr, base_qp),
-                    t0=t0)
-
-    def _overflowed(self, ovf: torch.Tensor) -> bool:
-        """The batch's one wait on the device: did any shard overflow? Over
-        ranks the 'tile' group decides together."""
-        flag = ovf.any().to(torch.int32)
-        group = self.mesh.group("tile")
-        if group is not None:
-            flag = dmesh.all_reduce(flag, group, dist.ReduceOp.MAX)
-        return bool(flag)
-
-    def encode_gop_batch_finish(self, handle):
-        """Per-GOP (packets, stats) of a started batch, in the order given
-        to encode_gop_batch_start; over ranks, [] on tile ranks other than
-        0."""
-        if "gop" in handle:
-            return [self.engine.encode_gop_finish(handle["gop"])]
-        if "batch" in handle:
-            return self.engine.encode_gops_finish(handle["batch"])
-        outs = handle["outs"]
-        if self._overflowed(outs["ovf"]):
-            outs = self.run(handle["y"], handle["cb"], handle["cr"],
-                            handle["base_qp"], xl=True)
-        eng = self.engine
-        # a frame's strings in order: tile by tile, span by span
-        host = eng.download(dict(
+    def _fetch(self, outs):
+        """The host arrays of the whole frames from the shards' outputs:
+        a frame's strings in order, tile by tile and span by span, the
+        bits, inter MBs and sse summed over the shards. Over ranks tile
+        rank 0 gathers and glues its group's downloads; the others get
+        None."""
+        host = self.engine.download(dict(
             words=outs["words"].flatten(2, 3),
             cbits=outs["cbits"].flatten(2, 3), bits=tiles.psum(outs["bits"]),
             n_inter=tiles.psum(outs["n_inter"]), qp=outs["qp"],
             sse=tiles.psum(outs["sse"], -2)))
         group = self.mesh.group("tile")
-        if group is not None:
-            shares = [None] * self.n_tile_devices
-            dist.all_gather_object(shares, host, group=group)
-            if self.mesh.coords["tile"]:
-                return []
-            host = _glue_shards(shares)
-        gops = handle["gops"]
-        ms = (time.perf_counter() - handle["t0"]) * 1e3 / sum(map(len, gops))
-        return [
-            eng.gop_packets(
-                frames, first_index,
-                {k: v if v is None else v[:, gi] for k, v in host.items()}, ms)
-            for gi, (frames, first_index)
-            in enumerate(zip(gops, handle["first_indices"]))]
-
-    def encode_gop_batch(self, gops: list[list[Frame]],
-                         first_indices: list[int], base_qp: int | None = None):
-        """Synchronous start and finish of one batch."""
-        return self.encode_gop_batch_finish(
-            self.encode_gop_batch_start(gops, first_indices, base_qp))
+        if group is None:
+            return host
+        shares = [None] * self.n_tile_devices
+        dist.all_gather_object(shares, host, group=group)
+        return None if self.mesh.coords["tile"] else _glue_shards(shares)
 
 
 def _glue_shards(shares: list) -> dict:
@@ -264,7 +231,7 @@ def encode_gops_on_ranks(senc: ShardedGopEncoder, gops, emit) -> int:
     pending = None
 
     def finish(k, handle):
-        results = senc.encode_gop_batch_finish(handle)
+        results = senc.finish(handle)
         emit(k, results)
         bits = sum(p.payload_bits for packets, _ in results for p in packets)
         return int(dmesh.all_reduce(
@@ -272,7 +239,7 @@ def encode_gops_on_ranks(senc: ShardedGopEncoder, gops, emit) -> int:
             dist.group.WORLD))
 
     for k, (first, frames) in enumerate(gops):
-        handle = senc.encode_gop_batch_start([frames], [first])
+        handle = senc.start([frames], [first])
         if pending is not None:
             total += finish(*pending)
         pending = (k, handle)

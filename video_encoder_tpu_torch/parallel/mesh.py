@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import math
 import os
 import time
@@ -284,6 +285,15 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
         buf = _staged(t, group).clone()
         dist.all_reduce(buf, op=op, group=group)
         return buf.to(t.device)
+
+
+def group_max(group):
+    """A 0-dim flag's maximum over a process group (all_reduce MAX), the
+    reduction gop_engine.overflowed takes, so that the group decides an
+    overflow rerun together; None on one device (no group)."""
+    if group is None:
+        return None
+    return functools.partial(all_reduce, group=group, op=dist.ReduceOp.MAX)
 
 
 def all_gather(t: torch.Tensor, group) -> list:

@@ -22,7 +22,8 @@ Jobs (`kind`):
   `ref_mode` and `emit`) or 2-D (`grid`) tile program of one GOP, every
   rank returning its shard's tensors;
 - "transport": each transport body of `parallel/tiles.py` over the group
-  against its tensor-axis body on the same random planes.
+  against its tensor-axis body on the same random planes, and the overflow
+  decision over a group of two ranks.
 
     python -m video_encoder_tpu_torch.parallel.multiprocess --spawn 2 --device cpu
 
@@ -55,7 +56,7 @@ from ..codec.config import EncoderConfig, config_from_dict
 from ..codec.frame import Frame
 from ..io import yuv
 from ..ops.kernels import build
-from ..pipeline.gop_engine import GopEngine
+from ..pipeline.gop_engine import GopEngine, overflowed
 from . import mesh as dmesh
 from . import tiles
 from .gop_parallel import ShardedGopEncoder, encode_gops_on_ranks
@@ -148,7 +149,7 @@ def encode_gops_multiprocess(cfg, y: np.ndarray, cb: np.ndarray,
                                     for t in range(y.shape[1])]
 
     if warmup:
-        senc.encode_gop_batch([next(gops())[1]], [0])
+        senc.finish(senc.start([next(gops())[1]], [0]))
         dist.barrier()
     local = {}
 
@@ -306,6 +307,13 @@ def _job_transport(job, ranks, emit):
     cases["mb_rc_2d"] = (
         tiles.mb_rc_offsets_tile2d(est[r:r + 1, c:c + 1], group=groups[1]),
         tiles.mb_rc_offsets_tile2d(est)[r:r + 1, c:c + 1])
+    # the overflow decision over each 'tc' group: a flag set on the last
+    # tile of row 0 only, so every rank of row 0 decides true, the others
+    # false
+    ovf = torch.tensor([False, (r, c) == (0, sc - 1)], device=dev)
+    cases["overflow"] = (
+        torch.tensor([overflowed(ovf, dmesh.group_max(groups[1]))]),
+        torch.tensor([r == 0]))
     out = {k: (got.cpu().numpy(), int((got.long() - want.long()).abs().max()))
            for k, (got, want) in cases.items()}
     emit(0, out)

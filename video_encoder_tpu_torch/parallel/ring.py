@@ -16,9 +16,11 @@ Over ranks each rank runs the engine's frame loop (`GopEngine.run_batch`)
 on its own column of the schedule, with the hop a batch_isend_irecv over
 the mesh's 'ring' group; on one device the D columns are one lockstep
 batch and the hop is a roll of its axis. The worst-case rerun is global:
-one all_reduce(MAX) of the overflow flag over the ring. The packets of
-every stream are returned on every rank (all_gather_object of the
-columns' payloads). There is no CLI flag, as in the reference.
+one all_reduce(MAX) of the overflow flag over the ring
+(`gop_engine.overflowed` with `mesh.group_max`). The packets of every
+stream are returned on every rank (all_gather_object of the columns'
+bits, qps and words from `GopEngine.download`). There is no CLI flag, as
+in the reference.
 
 On one CUDA device the loop with its roll is one CUDA graph per key, the
 counterpart of the reference's jitted `encode_ring_jit`: the engine asks
@@ -39,12 +41,11 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ..codec.bitstream import FramePacket
 from ..codec.frame import Frame
-from ..pipeline.gop_engine import GopEngine
+from ..pipeline.gop_engine import GopEngine, overflowed
 from . import mesh as dmesh
 from .mesh import CodecMesh
 
@@ -76,12 +77,6 @@ class RingEncoder:
         self.group = mesh.group("ring")
         self.engine = GopEngine(cfg, device=mesh.device, emit="frame")
 
-    def _overflowed(self, ovf: torch.Tensor) -> bool:
-        flag = ovf.any().to(torch.int32)
-        if self.group is not None:
-            flag = dmesh.all_reduce(flag, self.group, dist.ReduceOp.MAX)
-        return bool(flag)
-
     def encode_streams(self, streams: list[list[Frame]],
                        first_indices: list[int]) -> list[list[FramePacket]]:
         """streams: up to D streams of any (nonzero) lengths.
@@ -108,12 +103,10 @@ class RingEncoder:
         cols = [self.mesh.coords["ring"]] if self.group is not None else range(d)
         eng = self.engine
 
-        def up(plane):   # [T, B, H, W], B the columns this process holds
-            return eng.upload([getattr(streams[(dev - m) % d][m], plane)
-                               for m in range(t) for dev in cols],
-                              (t, len(cols)))
-
-        y, cb, cr = up("y"), up("cb"), up("cr")
+        # [T, B, H, W], B the columns this process holds
+        y, cb, cr = eng.upload(lambda p: [getattr(streams[(dev - m) % d][m], p)
+                                          for m in range(t) for dev in cols],
+                               (t, len(cols)))
         base = [self.cfg.base_qp] * len(cols)
 
         # on one device the roll by name (a graph per key); over ranks the
@@ -121,21 +114,18 @@ class RingEncoder:
         hop = ("roll" if self.group is None
                else functools.partial(ring_hop, group=self.group))
         outs = eng.run_batch(y, cb, cr, base, hop=hop)
-        if self._overflowed(outs["ovf"]):
+        group_max = dmesh.group_max(self.group)
+        if overflowed(outs["ovf"], group_max):
             outs = eng.run_batch(y, cb, cr, base, xl=True, hop=hop)
-            if self._overflowed(outs["ovf"]):
+            if overflowed(outs["ovf"], group_max):
                 raise RuntimeError(
                     "ring encode overflowed worst-case payload capacity "
                     "(corrupt input or internal bug)")
-        bits = outs["bits"].cpu().numpy()           # [T, B]
-        qps = outs["qp"].cpu().numpy()
-        nw = max(int(bits.max() + 31) // 32, 1)
-        # [T, B, nw]: the device's int32 words as their uint32 bit patterns
-        words = outs["words"][..., :nw].cpu().numpy().view(np.uint32)
+        host = eng.download(outs)       # [T, B, ...]: B the columns held here
+        bits, qps, words = host["bits"], host["qp"], host["words"]
         if self.group is not None:
-            mine = (bits, qps, words)
             parts = [None] * d
-            dist.all_gather_object(parts, mine, group=self.group)
+            dist.all_gather_object(parts, (bits, qps, words), group=self.group)
             nw = max(p[2].shape[-1] for p in parts)
             bits = np.concatenate([p[0] for p in parts], 1)
             qps = np.concatenate([p[1] for p in parts], 1)

@@ -34,20 +34,27 @@ device of its own), the per-frame engine (pipeline/device_engine.py
 `DeviceEngine`) and the two device decoders (pipeline/decoder.py
 `GopDecodeEngine`, `DeviceDecodeEngine`, with no qp input) use too.
 
-The batched path (`run_batch`, `encode_gops*`; twin of
+The batched path (`run_batch`; twin of
 `encode_gop_batch_jit`) encodes G GOPs of equal length in lockstep: the
 same loop over frames, every tensor with a G axis before its plane axes
 ([G, H, W] planes, [G] qp and fullness), so that each kernel launches
 once for G frames. The I/P decision is the loop index; the host waits
 once per batch, and any frame's overflow reruns the whole batch. The
 packets are byte-identical to G single-GOP encodes.
+
+The host side of an encode of 1 to G GOPs is `GopEngine.start`, which
+returns a `Launch`, and `GopEngine.finish`: the one wait (`overflowed`),
+the worst-case rerun, the download, the packets. The tile encoder
+(parallel/gop_parallel.py) makes a `Launch` of its own.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 import time
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -469,12 +476,45 @@ class GraphCache:
         return out
 
 
+def overflowed(ovf: torch.Tensor, group_max=None) -> bool:
+    """An encode's one wait on the device: is any overflow flag set? Over
+    a process group, group_max (parallel/mesh.py `group_max`) takes the
+    flag to the group's maximum, so that every rank of it decides the
+    same and they rerun together."""
+    flag = ovf.any()
+    if group_max is not None:
+        flag = group_max(flag.to(torch.int32))
+    return bool(flag)
+
+
+@dataclasses.dataclass
+class Launch:
+    """A started encode of 1 to G equal-length GOPs, all GopEngine.finish
+    needs: the device planes ([T, H, W] for one GOP on the engine, else
+    [T, G, H, W]) and the base qps as `run` takes them, the launch's
+    outputs; run(y, cb, cr, qps, xl=True) reruns at the worst case,
+    fetch(outs) gives the host arrays (None on a rank that returns no
+    packets), group_max is `overflowed`'s over a process group."""
+
+    gops: list
+    first_indices: list
+    y: torch.Tensor
+    cb: torch.Tensor
+    cr: torch.Tensor
+    qps: int | list
+    outs: dict
+    t0: float
+    run: Callable
+    fetch: Callable
+    group_max: Callable | None = None
+
+
 class GopEngine:
     """Host driver of the GOP-resident path on one device.
 
     encode_gop(frames, first_index) -> (packets, stats);
-    encode_gops(gops, first_indices, base_qps) -> one such pair per GOP,
-    from one lockstep encode of G equal-length GOPs. `device` is
+    finish(start(gops, first_indices, base_qps)) -> one such pair per GOP,
+    from one encode of G >= 1 equal-length GOPs. `device` is
     explicit and defaults to "cuda"; nothing moves to the CPU on its own.
     `emit` is "frame" (the device assembles each payload) or "chunks"
     (span strings glued on the host); both give the same bytes. The
@@ -658,37 +698,24 @@ class GopEngine:
             out[i] = p
         return out.reshape(*lead, *planes[0].shape)
 
-    def upload(self, planes, lead: tuple) -> torch.Tensor:
-        """uint8 device tensor [*lead, H, W] of equal-shaped planes given
-        in row-major order of `lead`; one pass over them on the host."""
-        return torch.from_numpy(self._stack(planes, lead)).to(self.device)
-
-    def _upload3(self, stack) -> list[torch.Tensor]:
-        """The y, cb and cr device tensors of an upload, stack(plane) giving
-        each plane's host array, in RECORDER's span `engine.upload`: the
-        numpy assembly (`engine.upload.stack`), then the pageable copies
+    def upload(self, planes, lead: tuple) -> list[torch.Tensor]:
+        """The y, cb and cr uint8 device tensors [*lead, H, W] of an
+        upload, planes(name) listing the equal-shaped planes of y, cb or
+        cr in row-major order of `lead`, in RECORDER's span
+        `engine.upload`: the numpy assembly, one pass over them
+        (`engine.upload.stack`), then the pageable copies
         (`engine.upload.copy`). An upload that finds the stream still
         busy with earlier work, whose end a pageable copy waits for, is
         counted in `engine.upload_busy` (a query, not a wait)."""
         with RECORDER.span("engine.upload"):
             with RECORDER.span("engine.upload.stack"):
-                host = [stack(plane) for plane in ("y", "cb", "cr")]
+                host = [self._stack(planes(p), lead)
+                        for p in ("y", "cb", "cr")]
             if (self.device.type == "cuda"
                     and not torch.cuda.current_stream(self.device).query()):
                 RECORDER.count("engine.upload_busy")
             with RECORDER.span("engine.upload.copy"):
                 return [torch.from_numpy(h).to(self.device) for h in host]
-
-    def encode_gop_start(self, frames: list[Frame], first_index: int,
-                         base_qp: int | None = None):
-        """Upload a GOP and launch its encode without waiting for it."""
-        base_qp = self.cfg.base_qp if base_qp is None else base_qp
-        t0 = time.perf_counter()
-        y, cb, cr = self._upload3(lambda plane: self._stack(
-            [getattr(f, plane) for f in frames], (len(frames),)))
-        outs = self.run(y, cb, cr, base_qp)
-        return dict(frames=frames, first_index=first_index, base_qp=base_qp,
-                    y=y, cb=cb, cr=cr, outs=outs, t0=t0)
 
     def download(self, outs):
         """The host's copy of an encode's results, as numpy arrays with
@@ -817,72 +844,59 @@ class GopEngine:
                 ))
             return packets, stats
 
-    def encode_gop_finish(self, handle) -> tuple[list[FramePacket],
-                                                 list[FrameStats]]:
-        """The GOP's wait for the device and overflow rerun (RECORDER's span
-        `finish.wait`), download and packets."""
-        frames = handle["frames"]
-        outs = handle["outs"]
-        with RECORDER.span("finish.wait"):
-            if bool(outs["ovf"].any()):   # the GOP's one wait on the device
-                outs = self.run(handle["y"], handle["cb"], handle["cr"],
-                                handle["base_qp"], xl=True)
-        host = self.download(outs)
-        ms_total = (time.perf_counter() - handle["t0"]) * 1e3
-        return self.gop_packets(frames, handle["first_index"], host,
-                                 ms_total / len(frames))
-
-    def encode_gop(self, frames: list[Frame], first_index: int,
-                   base_qp: int | None = None):
-        """Synchronous upload, encode and download of one GOP."""
-        return self.encode_gop_finish(
-            self.encode_gop_start(frames, first_index, base_qp))
-
-    # ---- batched-GOP path: G equal-length GOPs in one lockstep encode ----
-
-    def encode_gops_start(self, gops: list[list[Frame]],
-                          first_indices: list[int],
-                          base_qps: list[int] | None = None):
-        """Upload G equal-length GOPs and launch one lockstep encode of
-        them (run_batch) without waiting for it. The packets are
-        byte-identical to per-GOP encodes."""
+    def start(self, gops: list[list[Frame]], first_indices: list[int],
+              base_qps: list[int] | None = None) -> Launch:
+        """Upload G >= 1 equal-length GOPs and launch their encode without
+        waiting for it: one GOP through `run` on [T, H, W] planes, several
+        in lockstep through `run_batch` on [T, G, H, W] planes (the frame
+        axis leads). base_qps: one per GOP, by default the config's."""
         n = len(gops[0])
         if any(len(g) != n for g in gops):
             raise ValueError("batched GOPs must be of equal length")
         if base_qps is None:
             base_qps = [self.cfg.base_qp] * len(gops)
+        one = len(gops) == 1
         t0 = time.perf_counter()
-        # [T, G, H, W]: the frame axis leads
-        y, cb, cr = self._upload3(lambda plane: self._stack(
-            [getattr(g[t], plane) for t in range(n) for g in gops],
-            (n, len(gops))))
-        outs = self.run_batch(y, cb, cr, base_qps)
-        return dict(gops=gops, first_indices=first_indices, base_qps=base_qps,
-                    y=y, cb=cb, cr=cr, outs=outs, t0=t0)
+        y, cb, cr = self.upload(
+            lambda p: [getattr(g[t], p) for t in range(n) for g in gops],
+            (n,) if one else (n, len(gops)))
+        run, qps = ((self.run, base_qps[0]) if one
+                    else (self.run_batch, list(base_qps)))
+        return Launch(gops, first_indices, y, cb, cr, qps,
+                      run(y, cb, cr, qps), t0, run, self.download)
 
-    def encode_gops_finish(self, handle) -> list[tuple[list[FramePacket],
-                                                       list[FrameStats]]]:
-        """Per-GOP (packets, stats), in the order given to
-        encode_gops_start; the wait and rerun in `finish.wait`, as
-        encode_gop_finish's."""
-        gops = handle["gops"]
-        outs = handle["outs"]
+    @staticmethod
+    def finish(launch: Launch) -> list[tuple[list[FramePacket],
+                                            list[FrameStats]]]:
+        """(packets, stats) of each GOP of a started encode, in the order
+        given to start: the encode's one wait on the device, for the
+        overflow flag, and where it is set the rerun at the worst-case
+        capacities (RECORDER's span `finish.wait`), then the download
+        (`launch.fetch`) and each GOP's packets. [] where fetch gives no
+        host arrays (a tile rank other than 0)."""
+        outs = launch.outs
         with RECORDER.span("finish.wait"):
-            if bool(outs["ovf"].any()):   # the batch's one wait on the device
-                outs = self.run_batch(handle["y"], handle["cb"], handle["cr"],
-                                      handle["base_qps"], xl=True)
-        host = self.download(outs)
-        ms_total = (time.perf_counter() - handle["t0"]) * 1e3
-        ms = ms_total / sum(len(g) for g in gops)
-        return [
-            self.gop_packets(
-                frames, first_index,
-                {k: v if v is None else v[:, gi] for k, v in host.items()}, ms)
-            for gi, (frames, first_index)
-            in enumerate(zip(gops, handle["first_indices"]))]
+            if overflowed(outs["ovf"], launch.group_max):
+                outs = launch.run(launch.y, launch.cb, launch.cr, launch.qps,
+                                  xl=True)
+        host = launch.fetch(outs)
+        if host is None:
+            return []
+        ms = ((time.perf_counter() - launch.t0) * 1e3
+              / sum(map(len, launch.gops)))
 
-    def encode_gops(self, gops: list[list[Frame]], first_indices: list[int],
-                    base_qps: list[int] | None = None):
-        """Synchronous batched encode of G equal-length GOPs."""
-        return self.encode_gops_finish(
-            self.encode_gops_start(gops, first_indices, base_qps))
+        def gop_host(gi):     # a lockstep encode's arrays are [T, G, ...]
+            if launch.y.ndim == 3:
+                return host
+            return {k: v if v is None else v[:, gi] for k, v in host.items()}
+
+        return [GopEngine.gop_packets(frames, first, gop_host(gi), ms)
+                for gi, (frames, first)
+                in enumerate(zip(launch.gops, launch.first_indices))]
+
+    def encode_gop(self, frames: list[Frame], first_index: int,
+                   base_qp: int | None = None):
+        """Synchronous upload, encode and download of one GOP: (packets,
+        stats)."""
+        qps = None if base_qp is None else [base_qp]
+        return self.finish(self.start([frames], [first_index], qps))[0]
