@@ -81,11 +81,14 @@ Phases, each of which raises on failure (exit code not 0):
    search at 1088x1920 against plain, with its two sad_at_mv launches.
    The pack's words are int32 holding uint32 bit patterns (block_pack's
    output, the merges' input and output, checked), so each pack row's
-   bound counts 4 bytes a word. After the span merges, the frame emit's
-   assembly (entropy.frame_concat, plain PyTorch on the card) of a real
-   1080p frame's pieces at 16 words, alone and for G = 4 frames in one
-   call: call, device and host times, device kernels per call, and the
-   bytes it must move over the memory rate.
+   bound counts 4 bytes a word. After the span merges, row 17: the frame
+   pack's tail (dispatch.frame_assemble, two launches) on a real 1080p
+   frame's block strings at 16 words in both syntaxes, alone and for G = 4
+   frames in one call, and rc mb's lengths-only launch, each against its
+   plain version; then the frame emit's whole pack (entropy.
+   pack_frame_planes: block_pack and the tail) of that frame, alone and
+   for G = 4: call, device and host times, device kernels per call, and
+   the bytes it must move over the memory rate.
 4. Paths: the port CLI encodes three 1920x1080 I420 clips of 30 frames
    (GOP 30, qp 28) in-process on the card: full search, rc none, format
    1; on a smoother texture, diamond search, rc mb and --kbps 12000
@@ -304,8 +307,8 @@ syntaxes; the SEA search (TVC_SEA=1) on phase 3's three references
 each beside the exhaustive search on the same planes in the same turn;
 span_merge_mb and span_merge on the real 1080p frame's sources and on
 dense pieces, and chunk_merge on the real frame's pieces at 24 words and
-on dense ones, each with its device ops per call (kernels); frame_concat
-of the real frame's pieces, alone and for G = 4 frames; one G = 4
+on dense ones, each with its device ops per call (kernels); the frame
+emit's whole pack of the real frame, alone and for G = 4 frames; one G = 4
 lockstep GOP of 30 1080p frames of the full cell under each emit: the
 eager batch's peak allocated memory and download bytes per GOP, and the
 batch's time through its graph and eager (each checkout takes its own
@@ -377,7 +380,10 @@ TABLE_ROW = {
     # the diamond descent: no Pallas counterpart (the reference's jnp loop)
     "diamond_descent": "8d", "diamond_descent_g": "8d",
     # the decoders' recon: entries of row 11's kernel, no Pallas counterpart
-    "recon_plane": "11d", "recon_plane_rows": "11dr"}
+    "recon_plane": "11d", "recon_plane_rows": "11dr",
+    # the frame pack's tail: no Pallas counterpart (the reference's jnp
+    # headers and tree_concat)
+    "frame_headers": "17", "frame_place": "17", "frame_mb_bits": "17"}
 # the single-plane fetches: held and timed in phase 3, launched by no
 # encode path (a P step's three predictors are one mc_predict launch)
 SINGLE_FETCHES = ("mc_fetch_luma", "mc_fetch_chroma", "mc_fetch_luma_g",
@@ -1247,7 +1253,8 @@ def phase_kernels(dev, card: str):
             log(f"kernel span_merge {name}: {plan.n_strings} strings of "
                 f"{plan.cwf} words: equal, overflow {bool(got2[2])}"
                 + shown(timing, dh2))
-    frame_concat_figures(rng, dev, card)
+    frame_tail_rows(rng, dev, record, shown)
+    frame_pack_figures(rng, dev, card)
 
     # ---- the G-batched kernels at G = 4: each against its plain batched
     # version AND against G launches of the single-plane kernel; its bound
@@ -1868,14 +1875,77 @@ def merge_bound(bits, caps, outputs):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def frame_concat_figures(rng, dev, card, g: int = 4) -> dict:
-    """The frame emit's assembly (entropy.frame_concat, plain PyTorch on
-    the card: no kernel of its own) of a real 1080p frame's pieces at 16
-    words into its budgeted capacity, alone and for G frames in one call:
-    call time, device time (its kernels' durations) and device kernels
-    per call, host time, and the bytes it must move (the pieces' words
-    and bit counts read once, the frame's words written once) over the
-    card's memory rate."""
+def frame_tail_rows(rng, dev, record, shown, g: int = 4):
+    """Row 17, the frame pack's tail: block_pack's outputs of a real 1080p
+    frame's levels at 16 words and its MB arrays to the frame's words,
+    through dispatch.frame_assemble (the header launch and the placement)
+    against its plain version (the header symbols and their pack,
+    frame_concat), exact, in both syntaxes, one frame and G in one call;
+    and rc mb's lengths-only launch (dispatch.mb_bit_totals). The bound:
+    the pieces' used words, the blocks' bit counts and the MB arrays read
+    once, the frames' words, totals and MB totals written once."""
+    from video_encoder_tpu_torch.codec import entropy
+    from video_encoder_tpu_torch.ops import dispatch
+
+    h, w = LUMA[0]
+    nby, nbx = h // 16, w // 16
+    levels = frame_levels(rng, dev, h, w)
+    hdr = (torch.from_numpy(rng.integers(-2, 3, (nby, nbx)).astype(np.int32)).to(dev),
+           torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev),
+           *(torch.from_numpy(rng.integers(-16, 17, (nby, nbx)).astype(
+               np.int32)).to(dev) for _ in range(2)))
+    cap = entropy.capacity_words(nby * nbx)
+    for fmt in (1, 2):
+        for lead in (1, g):
+            def rep(t):
+                return t if lead == 1 else t.expand(lead, *t.shape).contiguous()
+            blocks = entropy._plane_blocks(*(rep(t) for t in levels), 16, fmt)
+            hd = tuple(rep(t) for t in hdr)
+            args = (blocks, hd, True, cap, fmt)
+            got, want = both(dispatch.frame_assemble, *args)
+            err = max_abs_err(got, want)
+            used = sum(int(torch.clamp((b.long() + 31) // 32, max=16).sum())
+                       for _, b in blocks)
+            reads = 4 * used + sum(b.numel() * 4 for _, b in blocks) + sum(
+                t.numel() * t.element_size() for t in hd)
+            timing = (*timed(dispatch.frame_assemble, *args),
+                      bound([], got[:3], 0, reads), None)
+            dh = dev_host(lambda: dispatch.frame_assemble(*args), per_call=2)
+            shape = f"{'' if lead == 1 else f'{lead} x '}{h}x{w} format {fmt}"
+            first = dict(timing=timing) if (lead, fmt) == (1, 1) else dict(
+                also=(shape, timing))
+            for name in ("frame_headers", "frame_place"):
+                record(name, "frame_pack.cu",
+                       "video_encoder_tpu/codec/entropy.py:851", err, **first,
+                       **dh)
+            log(f"kernels frame_headers, frame_place {shape}: equal, "
+                f"{int(got[1].reshape(-1)[0])} bits a frame, {used} used "
+                f"block words" + shown(timing, dh))
+            if lead == 1:
+                bits = tuple(b for _, b in blocks)
+                est, want_est = both(dispatch.mb_bit_totals, bits, hd, True, fmt)
+                err = max_abs_err([est], [want_est])
+                max_abs_err([est], [got[2]])
+                timing = (*timed(dispatch.mb_bit_totals, bits, hd, True, fmt),
+                          bound([*bits, *hd], [est], 0), None)
+                dh = dev_host(lambda: dispatch.mb_bit_totals(bits, hd, True, fmt))
+                first = dict(timing=timing) if fmt == 1 else dict(
+                    also=(shape, timing))
+                record("frame_mb_bits", "frame_pack.cu",
+                       "video_encoder_tpu/codec/entropy.py:206", err, **first,
+                       **dh)
+                log(f"kernel frame_mb_bits {shape}: equal to the plain MB "
+                    f"totals and to the placement's" + shown(timing, dh))
+
+
+def frame_pack_figures(rng, dev, card, g: int = 4) -> dict:
+    """The frame emit's whole pack (entropy.pack_frame_planes: block_pack
+    of the three planes, then the tail) of a real 1080p frame's levels at
+    16 words into its budgeted capacity, alone and for G frames in one
+    call: call time, device time (its kernels' durations) and device
+    kernels per call, host time, and the bytes it must move (the levels
+    and MB arrays read once, the frame's words written once) over the
+    card's memory rate. An entry point every checkout has, for --ab."""
     from video_encoder_tpu_torch.codec import entropy
 
     h, w = LUMA[0]
@@ -1885,29 +1955,31 @@ def frame_concat_figures(rng, dev, card, g: int = 4) -> dict:
     inter = torch.from_numpy(rng.random((nby, nbx)) < 0.7).to(dev)
     mvy, mvx = (torch.from_numpy(rng.integers(-16, 17, (nby, nbx)).astype(
         np.int32)).to(dev) for _ in range(2))
-    pw_, pb_, _ = entropy._frame_pieces(*levels, qpd, True, inter, mvy, mvx, 16)
-    pieces, bits = pw_.reshape(-1, 16), pb_.reshape(-1)
     cap = entropy.capacity_words(nby * nbx)
     out = {}
     for lead in (1, g):
-        p = pieces if lead == 1 else pieces.expand(lead, *pieces.shape).contiguous()
-        b = bits if lead == 1 else bits.expand(lead, -1).contiguous()
+        def rep(t):
+            return t if lead == 1 else t.expand(lead, *t.shape).contiguous()
+        args = (*(rep(t) for t in levels), rep(qpd), True, rep(inter),
+                rep(mvy), rep(mvx), 16, cap)
 
-        def fn(p=p, b=b):
-            return entropy.frame_concat(p, b, cap)
-        words, total = fn()
-        nbytes = (p.numel() * p.element_size() + b.numel() * b.element_size()
-                  + words.numel() * words.element_size())
+        def fn(args=args):
+            return entropy.pack_frame_planes(*args)
+        words, total, _, _ = fn()
+        nbytes = sum(t.numel() * t.element_size() for t in args
+                     if isinstance(t, torch.Tensor)) + (
+            words.numel() * words.element_size())
         dev_ms, kernels = device_ms(fn, per_call=None)
         f = dict(ms=time_ms(fn), device_ms=dev_ms, kernels=kernels,
                  host_ms=host_ms(fn), bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
                  words_dtype=str(words.dtype).replace("torch.", ""),
                  sum=_checksum([words, total]))
         out["single" if lead == 1 else f"g{lead}"] = f
-        log(f"frame_concat {list(p.shape)} -> {list(words.shape)} "
-            f"{f['words_dtype']} ({int(total.reshape(-1)[0])} bits a frame): "
-            f"{f['ms']:.4f} ms, device {dev_ms:.4f} ms in {kernels:g} kernels, "
-            f"host {f['host_ms']:.4f} ms, bytes bound {f['bound_ms']:.4f} ms "
+        log(f"frame pack {'' if lead == 1 else f'{lead} x '}{h}x{w} -> "
+            f"{list(words.shape)} {f['words_dtype']} "
+            f"({int(total.reshape(-1)[0])} bits a frame): {f['ms']:.4f} ms, "
+            f"device {dev_ms:.4f} ms in {kernels:g} kernels, host "
+            f"{f['host_ms']:.4f} ms, bytes bound {f['bound_ms']:.4f} ms "
             f"[{card}]")
     return out
 
@@ -2217,7 +2289,8 @@ HIER_SMALL = mode("hier", search="hier", passes=4, scale=4)
 MB_SMALL = mode("mb", search="diamond", rc="mb", kbps=3000, passes=4, scale=4)
 
 
-FOLDED = ("block_pack", "block_pack_v2", "span_merge_mb", "span_merge")
+FOLDED = ("block_pack", "block_pack_v2", "span_merge_mb", "span_merge",
+          "frame_headers", "frame_place", "frame_mb_bits")
 
 
 def expected_kernels(m, emit, intra_only=False, batched=False):
@@ -2232,9 +2305,10 @@ def expected_kernels(m, emit, intra_only=False, batched=False):
             ks.append("sad_at_mv")
     if batched:
         ks = [k + "_g" for k in ks]
-    ks.append("block_pack_v2" if m["fmt"] >= 2 else "block_pack")
-    if emit == "chunks":
-        ks += ["span_merge_mb", "span_merge"]
+    ks += ["block_pack_v2" if m["fmt"] >= 2 else "block_pack", "frame_headers"]
+    ks += ["span_merge_mb", "span_merge"] if emit == "chunks" else ["frame_place"]
+    if m["rc"] == "mb" and not intra_only:
+        ks.append("frame_mb_bits")
     return ks
 
 
@@ -3347,9 +3421,9 @@ def check_tiled_launches(what, launches, m, emit, p_steps):
         raise AssertionError(f"{what}: pre-haloed launches {got}, want {want}; "
                              f"unsharded kernels that ran: {unsharded}")
     ks = ["code_plane_qmat_g" if m["qmat"] else "code_plane_g",
-          "block_pack_v2" if m["fmt"] >= 2 else "block_pack"]
+          "block_pack_v2" if m["fmt"] >= 2 else "block_pack", "frame_headers"]
     check_launches(what, launches, ks + (
-        ["span_merge_mb", "span_merge"] if emit == "chunks" else []))
+        ["span_merge_mb", "span_merge"] if emit == "chunks" else ["frame_place"]))
     check_row_scan(what, launches, m, p_steps + 1, batched=True)
 
 
@@ -3663,7 +3737,7 @@ def phase_distributed(tmp, jobs, plains, batched_oracle, card):
              for k, v in build.LAUNCHES.items()}
     check_launches("ring over 4 ranks", total,
                    ["full_search_g", "mc_predict_g", "code_plane_g",
-                    "block_pack"])
+                    "block_pack", "frame_headers", "frame_place"])
     paths.append(total)
     log(f"ring over 4 ranks ({rows[0][0]['backend']}), streams {streams} at "
         f"--rc bitrate --kbps 12000: each == its single-device encode; "
@@ -3763,7 +3837,7 @@ def phase_ring_grid(jobs, plains, card):
                              f"{keys}")
     same_launches("ring on one card", runs,
                   ["full_search_g", "mc_predict_g", "code_plane_g",
-                   "block_pack"])
+                   "block_pack", "frame_headers", "frame_place"])
     log(f"ring on one card (D = 4, hop 'roll'), streams (10, 10, 10, 7) of "
         f"the full clip at --rc bitrate --kbps 12000: each == its "
         f"single-device encode in every call, launches {nonzero(runs[0])} "
@@ -3818,7 +3892,8 @@ def phase_ring_grid(jobs, plains, card):
             raise AssertionError(f"2-D grid {name}: graph calls {graph}")
         same_launches(f"2-D grid {name}", runs,
                       ["full_search_haloed", "mc_predict_haloed",
-                       "code_plane_g", "block_pack"])
+                       "code_plane_g", "block_pack", "frame_headers",
+                       "frame_place"])
         held = ("the unsharded GOP-10 stream" if name == "full"
                 else "the GOP engine's stream of those flags")
         log(f"2-D grid 2 x 2 {w}x{h} GOP 10 {name} rc {gcfg.rc}: three GOPs "
@@ -4759,9 +4834,9 @@ def ab_child(root: str) -> dict:
     full_bits = torch.full_like(bits, 32 * words.shape[1])
     measure("chunk_merge", lambda: dispatch.chunk_merge(words, bits, kc))
     measure("chunk_merge_dense", lambda: dispatch.chunk_merge(full, full_bits, kc))
-    # the frame emit's assembly of the real frame's pieces (plain PyTorch)
-    for k, f in frame_concat_figures(rng, dev, "").items():
-        out[f"frame_concat_{k}"] = f
+    # the frame emit's whole pack of the real frame (block_pack and the tail)
+    for k, f in frame_pack_figures(rng, dev, "").items():
+        out[f"frame_pack_{k}"] = f
 
     # one G = 4 lockstep GOP of 30 1080p frames (the full cell) under each
     # emit: the eager loop's peak allocated memory and download bytes
@@ -5018,7 +5093,7 @@ def main() -> int:
     check_launches("the main paths", {k: r["launches"] for k, r in rows.items()},
                    [k for k, r in rows.items() if r.get("on_path", True)])
     table = {r["row"].rstrip("cqvhmsrd") for r in rows.values()}
-    if table != {str(i) for i in range(1, 17)} or set(rows) != set(TABLE_ROW):
+    if table != {str(i) for i in range(1, 18)} or set(rows) != set(TABLE_ROW):
         raise AssertionError(f"kernel table rows {sorted(table)}, counters "
                              f"{sorted(set(TABLE_ROW) ^ set(rows))} unheld")
     fps, traces = phase_speed([(FULL, jobs["full"]["clip"], ["frame", "chunks"]),

@@ -1523,3 +1523,366 @@ def test_producers_zero_past_bits(rng, producer):
     assert _zero_past(hw, bits[:, 0]) and _zero_past(yw, bits[:, 1:5])
     assert _zero_past(cbw, bits[:, 5]) and _zero_past(crw, bits[:, 6])
     assert int(bits[:, 0].max()) <= 32 * hw.shape[-1]
+
+
+# ---- the frame pack's tail: csrc/frame_pack.cu ------------------------------
+
+TAIL_TILE = _kernel_constant("frame_pack.cu", "TILE")            # MBs a tile
+TAIL_WARPS = _kernel_constant("frame_pack.cu", "PLACE_WARPS")    # a block's
+
+
+def _put64(acc, off, code, n):
+    """put64: a code of n bits appended at bit off of a 64-bit string,
+    bits past 64 dropped."""
+    if off < 64:
+        end = off + n
+        acc |= code << (64 - end) if end <= 64 else code >> (end - 64)
+    return acc, off + n
+
+
+def _tail_ue_len(u):
+    """ue_len of one Python int."""
+    return 2 * (u + 1).bit_length() - 1
+
+
+def _tail_se_ue(v):
+    """se_ue of one Python int."""
+    return 2 * v - 1 if v > 0 else -2 * v
+
+
+def _tail_headers_model(block_bits, hdr, is_p, n_strings, m, nbx, w, fmt):
+    """mb_header_kernel: tile b of string s = b // tps, one lane per MB
+    (flat MB i = s m + j in raster order): the header's four symbols into a
+    64-bit code, its six blocks' counts from the luma [2 nby, 2 nbx] and
+    chroma grids, the MB's total; the tile's sum and verdict. Returns
+    (hw [n, 2] uint32, mb_bits [n], piece bits [n, 8], tile_info [n_tiles,
+    2])."""
+    qpd, inter, dy, dx = (np.asarray(t).reshape(-1).astype(np.int64)
+                          for t in hdr)
+    yb, cbb, crb = (np.asarray(b).reshape(-1).astype(np.int64)
+                    for b in block_bits)
+    tps = -(-m // TAIL_TILE)
+    n = n_strings * m
+    hw = np.zeros((n, 2), np.uint32)
+    mb = np.zeros(n, np.int64)
+    pbits = np.zeros((n, 8), np.int64)
+    tile_info = np.zeros((n_strings * tps, 2), np.int64)
+    for b in range(n_strings * tps):
+        s, t = divmod(b, tps)
+        for lane in range(TAIL_TILE):
+            j = t * TAIL_TILE + lane
+            if j >= m:
+                continue
+            i = s * m + j
+            row, c = divmod(i, nbx)
+            h = hb = 0
+            if is_p:
+                h, hb = _put64(h, hb, 1 if inter[i] else 2, 1 if inter[i] else 3)
+            if is_p and inter[i]:
+                vy, vx = int(dy[i]), int(dx[i])
+                if fmt >= 2 and c > 0 and inter[i - 1]:
+                    vy, vx = vy - int(dy[i - 1]), vx - int(dx[i - 1])
+                for v in (vx, vy):
+                    u = _tail_se_ue(v)
+                    h, hb = _put64(h, hb, u + 1, _tail_ue_len(u))
+            u = _tail_se_ue(int(qpd[i]))
+            h, hb = _put64(h, hb, u + 1, _tail_ue_len(u))
+            y0 = 2 * row * 2 * nbx + 2 * c
+            blk = [yb[y0], yb[y0 + 1], yb[y0 + 2 * nbx], yb[y0 + 2 * nbx + 1],
+                   cbb[i], crb[i]]
+            mb[i] = hb + sum(blk)
+            assert mb[i] <= INT32_MAX
+            hw[i] = (h >> 32, h & MASK32)
+            pbits[i] = [hb, *blk, 0]
+            tile_info[b, 0] += mb[i]
+            tile_info[b, 1] |= hb > 64 or max(blk) > 32 * w
+        assert tile_info[b, 0] <= INT32_MAX
+    return hw, mb, pbits, tile_info
+
+
+def _tail_scan_model(mb, tile_info, n_strings, m):
+    """frame_place_kernel's offsets: block b's base is the sum of its
+    string's earlier tile sums, and warp 0's exclusive scan of the tile's
+    MB totals, from the base's bit within its first word, gives each MB's
+    offset; every partial sum is an int32. Returns (base per tile, MB
+    offsets from the tile's first word [n])."""
+    tps = -(-m // TAIL_TILE)
+    bases = np.zeros(n_strings * tps, np.int64)
+    offs = np.zeros(n_strings * m, np.int64)
+    for b in range(n_strings * tps):
+        s, t = divmod(b, tps)
+        earlier = tile_info[s * tps:b, 0]
+        parts = [int(earlier[k::TAIL_WARPS * 32].sum())
+                 for k in range(TAIL_WARPS * 32)]    # each thread's part
+        assert max(parts) <= INT32_MAX
+        bases[b] = sum(parts)
+        assert bases[b] + tile_info[b, 0] <= INT32_MAX
+        i0 = s * m + t * TAIL_TILE
+        v = mb[i0:i0 + min(TAIL_TILE, m - t * TAIL_TILE)]
+        incl = np.cumsum(v)
+        assert incl.max() + 31 <= INT32_MAX
+        offs[i0:i0 + len(v)] = (bases[b] & 31) + incl - v
+    return bases, offs
+
+
+def _tail_model(blocks, hdr, is_p, n_words, fmt, per_row, order):
+    """The two launches: the headers (with the zero fill), then the
+    placement of the tiles in the given order. A tile's words are built in
+    a buffer of its worst case: a warp per MB, lane l taking positions l,
+    l + 32, ... of each of the seven pieces, the word before a lane's
+    from lane l - 1 (lane 0: lane 31 of the round before); position q of a
+    piece at o = 32 T + r makes word T + q, its word q >> r ored with its
+    word q - 1 << (32 - r), stored if the word lies inside the piece's bits
+    and ored otherwise; words past the buffer dropped. The tile leaves as
+    stores, but its first and last words ored where a neighbour shares
+    them; words past cap dropped. Asserts that every word stored has one
+    writer. Returns (words [n_strings, cap] int32, totals, mb_bits, ovf,
+    the header model's outputs)."""
+    (yw, yb), (cbw, cbb), (crw, crb) = blocks
+    *lead, nby, nbx = np.asarray(hdr[0]).shape
+    w = yw.shape[-1]
+    n_lead = int(np.prod(lead))
+    n_strings, m = (n_lead * nby, nbx) if per_row else (n_lead, nby * nbx)
+    heads = _tail_headers_model((yb, cbb, crb), hdr, is_p, n_strings, m, nbx,
+                                w, fmt)
+    hw, mb, _, tile_info = heads
+    bases, offs = _tail_scan_model(mb, tile_info, n_strings, m)
+    tps = -(-m // TAIL_TILE)
+    srcs = [np.asarray(a).reshape(-1, a.shape[-1]).view(np.uint32)
+            for a in (yw, cbw, crw)]
+    nbits = [np.asarray(a).reshape(-1).astype(np.int64) for a in (yb, cbb, crb)]
+    buf_words = TAIL_TILE * (2 + 6 * w) + 2
+    cap = n_words
+    out = np.zeros((n_strings, cap), np.uint64)       # the zero fill
+    writers = [[set() for _ in range(cap)] for _ in range(n_strings)]
+    stored_by = -np.ones((n_strings, cap), np.int64)
+    totals = np.zeros(n_strings, np.int64)
+    ovf = False
+    lanes = np.arange(32)
+    for b in order:
+        s, t = divmod(b, tps)
+        base, tile_sum = int(bases[b]), int(tile_info[b, 0])
+        r0 = base & 31
+        span = r0 + tile_sum
+        nw = (span + 31) >> 5
+        clipped = nw > buf_words
+        nw = min(nw, buf_words)
+        buf = np.zeros(nw, np.uint64)
+        stored = np.zeros(nw, np.int64)
+        ored = np.zeros(nw, bool)
+        i0 = s * m + t * TAIL_TILE
+        for i in range(i0, i0 + min(TAIL_TILE, m - t * TAIL_TILE)):
+            row, c = divmod(i, nbx)
+            y0 = 2 * row * 2 * nbx + 2 * c
+            yo = [y0, y0 + 1, y0 + 2 * nbx, y0 + 2 * nbx + 1]
+            pieces = ([hw[i]] + [srcs[0][k] for k in yo] + [srcs[1][i], srcs[2][i]])
+            pb = [nbits[0][k] for k in yo] + [nbits[1][i], nbits[2][i]]
+            pb = [int(mb[i]) - sum(pb)] + [int(x) for x in pb]
+            off = list(int(offs[i]) + np.cumsum([0] + pb[:-1]))
+            used = [min((x + 31) >> 5, len(p)) for x, p in zip(pb, pieces)]
+            carry = [0] * 7
+            for q0 in range(0, max(used) + 1, 32):
+                q = q0 + lanes
+                for p in range(7):
+                    cur = np.zeros(q0 + 32, np.uint64)   # a lane's load of word q
+                    cur[:used[p]] = pieces[p][:used[p]]
+                    cur = cur[q]
+                    prev = np.r_[carry[p], cur[:-1]]
+                    carry[p] = int(cur[31])
+                    r = off[p] & 31
+                    for lane in range(32):
+                        ql = int(q[lane])
+                        if pb[p] == 0 or ql > used[p] or (ql == used[p] and r == 0):
+                            continue
+                        word = int(cur[lane]) if r == 0 else (
+                            ((int(prev[lane]) << (32 - r)) | (int(cur[lane]) >> r)) & MASK32)
+                        tw = (off[p] >> 5) + ql
+                        if tw >= nw:
+                            continue
+                        if 32 * tw >= off[p] and 32 * tw + 32 <= off[p] + pb[p]:
+                            buf[tw] = word
+                            stored[tw] += 1
+                        elif word:
+                            buf[tw] |= np.uint64(word)
+                            ored[tw] = True
+        assert stored.max(initial=0) <= 1 and not (ored & (stored > 0)).any()
+        head = r0 != 0 or clipped
+        tail = (span & 31) != 0 or clipped
+        for k in range(nw):
+            g = (base >> 5) + k
+            if g >= cap:
+                break
+            writers[s][g].add(b)
+            if (k == 0 and head) or (k == nw - 1 and tail) or clipped:
+                out[s, g] |= buf[k]
+            else:
+                stored_by[s, g] = b
+                out[s, g] = buf[k]
+        ovf |= bool(tile_info[b, 1])
+        if t == tps - 1:
+            totals[s] = base + tile_sum
+            ovf |= totals[s] > 32 * cap
+    for s in range(n_strings):
+        for g in np.nonzero(stored_by[s] >= 0)[0]:
+            assert writers[s][g] == {stored_by[s, g]}
+    shape = (*lead, nby) if per_row else tuple(lead)
+    words = out.astype(np.uint32).view(np.int32).reshape(*shape, cap)
+    return (words, totals.reshape(shape), mb.reshape(*lead, nby, nbx), ovf,
+            heads)
+
+
+def _tail_case(rng, lead, nby, nbx, fmt, is_p, dense=False):
+    """Levels of the three planes (sparse, or dense at the largest level
+    where `dense`) and the MB arrays of a frame: qp deltas in -2..2 and a
+    few extremes, vectors within +-16 (+-32 half-pels in format 4) whose
+    neighbours are often inter, all intra in an I frame."""
+    def lv(shape):
+        p = 0.9 if dense else rng.choice([0.01, 0.04, 0.1])
+        v = rng.integers(-40, 41, shape) * (rng.random(shape) < p)
+        if dense:
+            v = np.where(rng.random(shape) < 0.5, 3925, -3925)
+        return _t(v)
+
+    mbs = (*lead, nby, nbx)
+    levels = (lv((*lead, 2 * nby, 2 * nbx, 64)), lv((*mbs, 64)), lv((*mbs, 64)))
+    qpd = rng.integers(-2, 3, mbs)
+    qpd.reshape(-1)[:3] = (-26, 26, 0)
+    r = 32 if fmt >= 4 else 16
+    inter = (rng.random(mbs) < 0.8) if is_p else np.zeros(mbs, bool)
+    dy, dx = (np.where(inter, rng.integers(-r, r + 1, mbs), 0) for _ in range(2))
+    hdr = (_t(qpd), torch.from_numpy(inter), _t(dy), _t(dx))
+    return levels, hdr
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+@pytest.mark.parametrize("lead", [(), (4,)])
+@pytest.mark.parametrize("fmt", [1, 2, 4])
+def test_frame_tail_model(rng, fmt, lead, is_p):
+    """The two launches' model equals the plain pack_frame_planes (words,
+    total bits, MB totals, flag), the plain chunk headers (entropy.
+    mb_headers: the header words and piece counts that _mb_sources gives
+    the merges) and frame_mb_bits, on frames of 3 x 40 MBs (four tiles a
+    string) in both syntaxes, G = 1 and 4, I and P frames; the tiles
+    placed in a random order."""
+    nby, nbx, bw = 3, 40, 16
+    levels, hdr = _tail_case(rng, lead, nby, nbx, fmt, is_p)
+    cap = entropy.capacity_words(nby * nbx)
+    blocks = entropy._plane_blocks(*levels, bw, fmt)
+    n_tiles = int(np.prod(lead)) * -(-nby * nbx // TAIL_TILE)
+    words, totals, mb, ovf, (hw, _, pbits, _) = _tail_model(
+        blocks, hdr, is_p, cap, fmt, False, rng.permutation(n_tiles))
+    qpd, inter, dy, dx = hdr
+    gw, gbits, gmb, govf = entropy.pack_frame_planes(
+        *levels, qpd, is_p, inter, dy, dx, bw, cap, fmt=fmt)
+    assert np.array_equal(words, gw.numpy()) and np.array_equal(totals, gbits.numpy())
+    assert np.array_equal(mb, gmb.numpy()) and not ovf and not bool(govf)
+    phw, ppb, pmb, povf = entropy.mb_headers(
+        tuple(b for _, b in blocks), hdr, is_p, bw, fmt)
+    assert np.array_equal(hw, phw.reshape(-1, 2).numpy().view(np.uint32))
+    assert np.array_equal(pbits, ppb.reshape(-1, 8).numpy())
+    (sw, *_), sbits, _ = entropy._mb_sources(*levels, qpd, is_p, inter, dy, dx,
+                                             bw, fmt)
+    assert np.array_equal(hw, sw.reshape(-1, 2).numpy().view(np.uint32))
+    assert np.array_equal(pbits[:, :7], sbits.reshape(-1, 7).numpy())
+    est = entropy.frame_mb_bits(*levels, qpd, is_p, inter, dy, dx, bw, fmt)
+    assert np.array_equal(mb, est.numpy())
+    assert (mb > 0).all() and (pbits[:, 0] > 0).all()
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_frame_tail_model_rows(rng, lead, is_p):
+    """One string per MB row (pack_frame_rows, the 2-D grid's strings):
+    rows of 40 MBs, two tiles each, equal to the plain row strings, the
+    rows' bits and the flag."""
+    nby, nbx, bw = 3, 40, 16
+    levels, hdr = _tail_case(rng, lead, nby, nbx, 1, is_p)
+    row_words = entropy.capacity_words(nbx)
+    blocks = entropy._plane_blocks(*levels, bw)
+    n_tiles = int(np.prod(lead)) * nby * -(-nbx // TAIL_TILE)
+    words, totals, mb, ovf, _ = _tail_model(
+        blocks, hdr, is_p, row_words, 1, True, rng.permutation(n_tiles))
+    qpd, inter, dy, dx = hdr
+    gw, gbits, gmb, govf = entropy.pack_frame_rows(
+        *levels, qpd, is_p, inter, dy, dx, bw, row_words)
+    assert np.array_equal(words, gw.numpy()) and np.array_equal(totals, gbits.numpy())
+    assert np.array_equal(mb, gmb.numpy()) and not ovf and not bool(govf)
+
+
+@pytest.mark.parametrize("case", ["block", "cap", "cap_rows"])
+def test_frame_tail_model_overflow(rng, case):
+    """A block over its budget (dense levels at |level| 3925 and 2 words a
+    block): the flag, the untruncated totals and MB totals equal the plain
+    version's, and the model's placement stays inside each tile's buffer
+    and the string; a frame (or a row) over cap with every block inside its
+    budget: the flag, the totals, and the words up to cap (the plain
+    version drops the rest too), at G = 4 (two rows of G = 2)."""
+    nby, nbx = 3, 40
+    per_row = case == "cap_rows"
+    lead = (2,) if per_row else (4,)
+    dense = case == "block"
+    bw = 2 if dense else 16
+    levels, hdr = _tail_case(rng, lead, nby, nbx, 2 if case == "cap" else 1,
+                             True, dense)
+    fmt = 2 if case == "cap" else 1
+    blocks = entropy._plane_blocks(*levels, bw, fmt)
+    plain = entropy.assemble(blocks, hdr, True, 10_000, fmt, per_row)
+    n_words = 10_000 if dense else int(plain[1].max()) // 32 - 3
+    want = entropy.assemble(blocks, hdr, True, n_words, fmt, per_row)
+    strings = int(np.prod(lead)) * (nby if per_row else 1)
+    n_tiles = strings * -(-(nbx if per_row else nby * nbx) // TAIL_TILE)
+    words, totals, mb, ovf, _ = _tail_model(
+        blocks, hdr, True, n_words, fmt, per_row, rng.permutation(n_tiles))
+    assert ovf and bool(want[3])
+    assert np.array_equal(totals, want[1].numpy()) and np.array_equal(mb, want[2].numpy())
+    over_blocks = any(bool((b > 32 * bw).any()) for _, b in blocks)
+    assert over_blocks == dense
+    if not dense:
+        assert np.array_equal(words, want[0].numpy())
+        assert (totals > 32 * n_words).any() and not (totals > 32 * n_words).all()
+
+
+def test_frame_tail_int32_scan_bound():
+    """The scan is int32: a string's bits stay below 2^31. An MB takes at
+    most a header of 46 bits (mode 3, two vector differences of 15 at
+    format 4's +-64 half-pels, a qp delta of 13) and six blocks of at most
+    1 + 13 + 64 * 38 bits (entropy.MAX_MB_BITS's blocks), under the
+    wrappers' MB_BITS_BOUND; the plain header and block symbols at their
+    extremes stay inside those. So a 1080p frame (8160 MBs) holds under
+    1.2e8 bits, and the largest string the wrappers take (MAX_STRING_MBS)
+    under 2^31: the scan model of the placement at that bound, one 1080p
+    frame and four in lockstep, and the largest string, keeps every
+    partial sum an int32."""
+    from video_encoder_tpu_torch.ops.kernels import assemble as kasm
+
+    header_max = 3 + 2 * 15 + 13
+    block_max = 1 + 13 + 64 * (13 + 25)
+    assert entropy.MAX_MB_BITS - (3 + 22 + 13) == 6 * block_max
+    assert header_max + 6 * block_max <= kasm.MB_BITS_BOUND
+    assert 8160 * kasm.MB_BITS_BOUND < 2**31 // 16
+    assert kasm.MAX_STRING_MBS * kasm.MB_BITS_BOUND <= INT32_MAX
+    # the plain symbols at their extremes: vectors +-32 half-pels against
+    # a left neighbour at -+32, qp deltas +-63; dense blocks at 3925
+    qpd = _t([[-63, 63, -63]])
+    inter = torch.ones((1, 3), dtype=torch.bool)
+    dv = _t([[32, -32, 32]])
+    _, hl = entropy._header_slots(qpd, True, inter, dv, dv, 4)
+    assert int(hl.sum(0).max()) <= header_max
+    _, hl = entropy._header_slots(qpd, False, ~inter, dv, dv, 1)
+    assert int(hl.sum(0).max()) <= header_max
+    dense = _t(np.where(np.arange(64) % 2, 3925, -3925)[None].repeat(2, 0))
+    for fmt in (1, 2):
+        _, bits = kpack.plain_block_pack(dense, entropy.BLOCK_WORDS_MAX,
+                                         _t([-3925, 3925]), fmt)
+        assert int(bits.max()) <= block_max
+    for n_strings, m in ((1, 8160), (4, 8160), (1, kasm.MAX_STRING_MBS)):
+        mb = np.full(n_strings * m, kasm.MB_BITS_BOUND - 1, np.int64)
+        tps = -(-m // TAIL_TILE)
+        tile_info = np.zeros((n_strings * tps, 2), np.int64)
+        for b in range(n_strings * tps):
+            s, t = divmod(b, tps)
+            tile_info[b, 0] = mb[s * m + t * TAIL_TILE:
+                                 s * m + min((t + 1) * TAIL_TILE, m)].sum()
+        bases, offs = _tail_scan_model(mb, tile_info, n_strings, m)
+        assert bases.max() + tile_info[:, 0].max() <= INT32_MAX
+        assert offs.max() < 2**31

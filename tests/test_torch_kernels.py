@@ -637,7 +637,7 @@ def test_intra_rows_g_on_card(cuda, rng, reset_rows):
 ], ids=lambda kw: "-".join(f"{k[:6]}{v}" for k, v in kw.items()) or "default")
 def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     """G = 3 GOPs of 3 frames in lockstep on the card: the CPU's packets,
-    through the batched kernels only, the pack and the span merges
+    through the batched kernels only, the pack, its tail and the span merges
     launched once per frame step."""
     g, t = 3, 3
     big = rng.integers(0, 256, (176, 240)).astype(np.int64)
@@ -665,11 +665,15 @@ def test_gop_engine_batch_on_card_matches_cpu(cuda, rng, kw, emit):
     used += ["sad_at_mv_g"] if cfg.format_version == 4 else []
     assert all(n[k] > 0 for k in used), n
     single = [k for k in n if not k.endswith("_g") and k.split("_v2")[0] not in (
-        "block_pack", "span_merge_mb", "span_merge")]
+        "block_pack", "span_merge_mb", "span_merge", "frame_headers",
+        "frame_place", "frame_mb_bits")]
     assert all(n[k] == 0 for k in single), n
     passes = 2 if cfg.rc == "mb" else 1
     packs = n["block_pack"] + n["block_pack_v2"]
     assert packs == 3 * t * passes                  # per plane, not per GOP
+    # the pack's tail: once per frame step, not per GOP
+    assert n["frame_headers"] == t and n["frame_mb_bits"] == t * (passes - 1)
+    assert n["frame_place"] == (t if emit == "frame" else 0)
     assert n["mc_predict_g"] == t - 1               # once per P step
     if cfg.format_version >= 3:     # one row-scan launch per plane
         assert n["code_plane_rows_g"] == 3 * passes
@@ -1830,3 +1834,317 @@ def test_config3_replay_launches_the_descent_per_p_frame(cuda):
     want = [p.to_bytes() for p in
             GopEngine(cfg, device="cpu").encode_gop(frames, 0)[0]]
     assert all(got == want for got, _ in runs)
+
+
+# ---- the frame pack's tail: csrc/frame_pack.cu ------------------------------
+
+def _rise(fn):
+    """(fn(), the launch counters it raised)."""
+    before = dict(build.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in build.LAUNCHES.items()
+                 if v != before[k]}
+
+
+def _plain(fn):
+    dispatch.force("plain")
+    try:
+        out = fn()
+    finally:
+        dispatch.force(None)
+    torch.cuda.synchronize()
+    return out
+
+
+def _tail_frame(rng, dev, lead, h, w, fmt, is_p, p=0.04, dense=False):
+    """Levels of the three planes [lead, H/8, W/8, 64] (sparse, or dense
+    at |level| 3925) and the MB arrays of a frame: qp deltas in -2..2
+    with a few extremes, vectors within +-16 (+-32 half-pels at format 4),
+    most MBs inter in a P frame, none in an I frame."""
+    nby, nbx = h // 16, w // 16
+    mbs = (*lead, nby, nbx)
+
+    def lv(shape):
+        if dense:
+            return _t(np.where(rng.random(shape) < 0.5, 3925, -3925), dev)
+        return _t(rng.integers(-30, 31, shape) * (rng.random(shape) < p), dev)
+
+    levels = (lv((*lead, 2 * nby, 2 * nbx, 64)), lv((*mbs, 64)), lv((*mbs, 64)))
+    qpd = rng.integers(-2, 3, mbs)
+    qpd.reshape(-1)[:2] = (-26, 26)
+    r = 32 if fmt >= 4 else 16
+    inter = (rng.random(mbs) < 0.8) if is_p else np.zeros(mbs, bool)
+    dy, dx = (np.where(inter, rng.integers(-r, r + 1, mbs), 0) for _ in range(2))
+    return levels, (_t(qpd, dev), torch.from_numpy(inter).to(dev), _t(dy, dev),
+                    _t(dx, dev))
+
+
+def _tail_args(levels, hdr, is_p):
+    qpd, inter, dy, dx = hdr
+    return (*levels, qpd, is_p, inter, dy, dx)
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+@pytest.mark.parametrize("fmt", [1, 2, 4])
+@pytest.mark.parametrize("g", [None, 4])
+def test_frame_tail_kernels(cuda, rng, g, fmt, is_p):
+    """At 1088x1920, G = 1 and 4, both syntaxes, I and P frames: the
+    frame emit (pack_frame_planes: two launches after the three block
+    packs), rc mb's lengths-only pass (frame_mb_bits: one launch) and the
+    chunk emit's headers (pack_frame_chunks: one launch before its merges)
+    equal their plain routes, and each pack call raises build.LAUNCHES by
+    exactly its launches."""
+    lead = () if g is None else (g,)
+    levels, hdr = _tail_frame(rng, cuda, lead, 1088, 1920, fmt, is_p)
+    args = _tail_args(levels, hdr, is_p)
+    cap = entropy.capacity_words(8160)
+    bp = "block_pack_v2" if fmt >= 2 else "block_pack"
+
+    def planes():
+        return entropy.pack_frame_planes(*args, 16, cap, fmt=fmt)
+    got, rise = _rise(planes)
+    assert rise == {bp: 3, "frame_headers": 1, "frame_place": 1}
+    assert _same(got, _plain(planes)) and not bool(got[3])
+    assert got[0].shape == (*lead, cap) and got[1].dtype == torch.int64
+    assert int(got[1].min()) > 8160 * 7
+
+    def est():
+        return entropy.frame_mb_bits(*args, 16, fmt)
+    mb, rise = _rise(est)
+    assert rise == {bp: 3, "frame_mb_bits": 1}
+    assert torch.equal(mb, _plain(est)) and torch.equal(mb, got[2])
+
+    def chunks():
+        return entropy.pack_frame_chunks(*args, 16, fmt=fmt)
+    cgot, rise = _rise(chunks)
+    assert rise == {bp: 3, "frame_headers": 1, "span_merge_mb": 1,
+                    "span_merge": 1}
+    assert _same(cgot, _plain(chunks)) and torch.equal(cgot[2], got[2])
+    if g:
+        single = [entropy.pack_frame_planes(*(a[i] if isinstance(a, torch.Tensor)
+                                              else a for a in args), 16, cap,
+                                            fmt=fmt) for i in range(g)]
+        assert torch.equal(got[0], torch.stack([s[0] for s in single]))
+        assert torch.equal(got[1], torch.stack([s[1] for s in single]))
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+@pytest.mark.parametrize("lead,h,w", [((), 1088, 1920), ((4,), 1088, 1920),
+                                      ((4,), 544, 960), ((2,), 48, 640)])
+def test_frame_tail_rows_kernel(cuda, rng, lead, h, w, is_p):
+    """One string per MB row (pack_frame_rows: the tile path's and the
+    2-D grid's strings) at 1080p, four 1080p frames, four 544x960 tiles
+    and rows of 40 MBs: equal to the plain rows, two launches."""
+    levels, hdr = _tail_frame(rng, cuda, lead, h, w, 1, is_p)
+    args = _tail_args(levels, hdr, is_p)
+    row_words = entropy.capacity_words(w // 16)
+
+    def rows():
+        return entropy.pack_frame_rows(*args, 16, row_words)
+    got, rise = _rise(rows)
+    assert rise == {"block_pack": 3, "frame_headers": 1, "frame_place": 1}
+    assert _same(got, _plain(rows)) and not bool(got[3])
+    assert got[0].shape == (*lead, h // 16, row_words)
+
+
+@pytest.mark.parametrize("case", ["block", "block_xl", "cap", "cap_rows", "cap_g"])
+def test_frame_tail_overflow_kernel(cuda, rng, case):
+    """A block over its budget (dense levels at 2 words a block, and at 16
+    words on a 1080p frame): the flag, the untruncated totals and MB
+    totals equal the plain version's; a frame (or a row) over cap with
+    every block inside its budget: the flag, the totals and the words up
+    to cap equal it; one flag for a G = 4 batch of which one frame is
+    over; a flag raised by one call does not stay raised in the next."""
+    lead = (4,) if case in ("cap_g", "block") else ()
+    h, w = (1088, 1920) if case in ("block_xl", "cap", "cap_g") else (48, 640)
+    dense = case.startswith("block")
+    bw = 2 if case == "block" else 16
+    levels, hdr = _tail_frame(rng, cuda, lead, h, w, 1, True, p=0.3,
+                              dense=dense)
+    if case == "cap_g":       # frame 2's levels doubled: its string is the longest
+        levels = tuple(torch.cat([lv[:2], 2 * lv[2:3], lv[3:]]) for lv in levels)
+    args = _tail_args(levels, hdr, True)
+    per_row = case == "cap_rows"
+    pack = entropy.pack_frame_rows if per_row else entropy.pack_frame_planes
+    full = _plain(lambda: pack(*args, bw, 1 << 20))
+    n_words = 1 << 20 if dense else int(full[1].max()) // 32 - 5
+    if case == "cap_g":       # only frame 2 of the four passes cap
+        n_words = int(full[1][2]) // 32 - 5
+        assert int(full[1].sort().values[-2]) < 32 * n_words < int(full[1][2])
+    got = pack(*args, bw, n_words)
+    want = _plain(lambda: pack(*args, bw, n_words))
+    assert bool(got[3]) and bool(want[3])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    if not dense:
+        assert torch.equal(got[0], want[0])
+    clean = _tail_frame(rng, cuda, lead, h, w, 1, True, p=0.01)
+    ok = pack(*_tail_args(*clean, True), 16, entropy.capacity_words(
+        (w // 16) * (1 if per_row else h // 16)))
+    assert not bool(ok[3])
+
+
+@pytest.mark.parametrize("search,rc,emit", [("full", "none", "frame"),
+                                            ("diamond", "mb", "frame"),
+                                            ("full", "none", "chunks")])
+def test_gop_replay_launches_the_tail(cuda, search, rc, emit):
+    """A GOP-10 key at 192x128 through its graph: each replay launches the
+    tail once per frame (GraphCache.stats(): frame_headers and, under
+    frame emit, frame_place 10 a replay; rc mb's first pass
+    frame_mb_bits 10), a replay adds those counts to build.LAUNCHES, and
+    the eager, captured and replayed streams equal the CPU's."""
+    rng = np.random.default_rng(27)
+    big = rng.integers(0, 256, (128 + 64, 192 + 96)).astype(np.int64)
+    for _ in range(3):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) // 3
+    frames = [Frame.from_planes(
+        big[2 * t:2 * t + 128, 3 * t:3 * t + 192].astype(np.uint8),
+        np.full((64, 96), 100 + t, np.uint8), np.full((64, 96), 150, np.uint8))
+        for t in range(10)]
+    kw = dict(target_kbps=900) if rc == "mb" else {}
+    cfg = EncoderConfig(width=192, height=128, gop_n=10, base_qp=26,
+                        search=search, rc=rc, **kw)
+    eng = GopEngine(cfg, device=cuda, emit=emit)
+    runs = []
+    for _ in range(3):       # the eager first call, the capture, a replay
+        packets, rise = _rise(lambda: eng.encode_gop(frames, 0)[0])
+        runs.append(([p.to_bytes() for p in packets], rise))
+    (stats,) = [s for s in eng.cache.stats().values() if s["captures"]]
+    want = {"frame_headers": 10, "frame_place": 10 if emit == "frame" else 0,
+            "frame_mb_bits": 10 if rc == "mb" else 0}
+    assert stats["replays"] == 2
+    assert {k: stats["launches"].get(k, 0) for k in want} == want
+    for _, rise in runs:
+        assert {k: rise.get(k, 0) for k in want} == want
+    cpu = [p.to_bytes() for p in
+           GopEngine(cfg, device="cpu", emit=emit).encode_gop(frames, 0)[0]]
+    assert all(got == cpu for got, _ in runs)
+
+
+def test_frame_tail_rejects(cuda):
+    """The wrappers refuse what the kernels do not take: int64 words or
+    bits, MB arrays of another grid, a string past the int32 scan's
+    MAX_STRING_MBS, block words past BLOCK_WORDS_MAX."""
+    from video_encoder_tpu_torch.ops.kernels import assemble as kasm
+
+    def frame(nby, nbx, w=2):
+        z = torch.zeros
+        blocks = ((z((2 * nby, 2 * nbx, w), dtype=torch.int32, device=cuda),
+                   z((2 * nby, 2 * nbx), dtype=torch.int32, device=cuda)),
+                  *((z((nby, nbx, w), dtype=torch.int32, device=cuda),
+                     z((nby, nbx), dtype=torch.int32, device=cuda))
+                    for _ in range(2)))
+        hdr = (z((nby, nbx), dtype=torch.int32, device=cuda),
+               z((nby, nbx), dtype=torch.bool, device=cuda),
+               z((nby, nbx), dtype=torch.int32, device=cuda),
+               z((nby, nbx), dtype=torch.int32, device=cuda))
+        return blocks, hdr
+
+    blocks, hdr = frame(4, 6)
+    long_words = ((blocks[0][0].long(), blocks[0][1]), *blocks[1:])
+    long_bits = ((blocks[0][0], blocks[0][1].long()), *blocks[1:])
+    for b, h in ((long_words, hdr), (long_bits, hdr),
+                 (blocks, (hdr[0][:3], *hdr[1:]))):
+        with pytest.raises(ValueError):
+            kasm.frame_assemble(b, h, True, 100)
+    with pytest.raises(ValueError):
+        kasm.frame_assemble(*frame(4, 6, entropy.BLOCK_WORDS_MAX + 1), True, 100)
+    big = kasm.MAX_STRING_MBS + 1
+    with pytest.raises(ValueError):
+        kasm.frame_assemble(*frame(1, big, 1), True, 100)
+    # rows of just under the bound, in one string each (empty blocks)
+    half = big // 2
+    ok = kasm.frame_assemble(*frame(2, half, 1), False,
+                             entropy.capacity_words(half), per_row=True)
+    torch.cuda.synchronize()
+    assert not bool(ok[3]) and ok[1].tolist() == [half, half]   # se(0) each
+
+
+_PLAIN_TAIL = ("_header_slots", "bitlen", "pack_dense", "shift_split",
+               "frame_concat")
+
+
+@pytest.fixture
+def no_plain_tail_on_card(monkeypatch):
+    """The plain tail's functions raise when they meet a CUDA tensor and
+    the dispatch rule is not forced to the plain versions."""
+    def guard(name, fn):
+        def checked(*args, **kw):
+            if dispatch._FORCE is None and any(
+                    isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"entropy.{name} ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return checked
+
+    for name in _PLAIN_TAIL:
+        monkeypatch.setattr(entropy, name, guard(name, getattr(entropy, name)))
+
+
+@pytest.mark.parametrize("path", ["frame", "chunks", "mb", "fmt4", "batch",
+                                  "tiles", "ring", "grid"])
+def test_no_plain_tail_on_card_paths(cuda, rng, no_plain_tail_on_card, path):
+    """On the GOP engine's (both emits, rc mb, format 4, a lockstep batch),
+    the tile loop's (chunk emit), the ring's and the 2-D grid's (row
+    strings) paths no _header_slots,
+    bitlen, pack_dense, shift_split or frame_concat runs on a CUDA tensor,
+    eagerly, under capture and under replay (three calls), and the tail's
+    launches rose on each call; the streams equal the CPU's."""
+    from video_encoder_tpu_torch.parallel.mesh import make_ring_mesh
+    from video_encoder_tpu_torch.parallel.ring import RingEncoder
+
+    t = 3
+    frames = _pan_frames(rng, 4 * t)
+    kw = dict(fmt4=dict(format_version=4, quant_matrix=True,
+                        chroma_qp_offset=2),
+              mb=dict(search="diamond", rc="mb", target_kbps=300)).get(path, {})
+    cfg = EncoderConfig(**{**dict(width=96, height=128, gop_n=t, base_qp=26),
+                           **kw})
+    gops = [frames[i * t:(i + 1) * t] for i in range(2)]
+    if path == "grid":
+        y, cb, cr = (torch.from_numpy(np.stack([getattr(f, p) for f in frames[:t]]))
+                     .to(cuda) for p in ("y", "cb", "cr"))
+        mesh = make_tile_mesh_2d(2, 2, cuda)
+        tiles._TILE2D_CACHES.clear()
+
+        def encode():
+            outs = tiles.encode_gop_tiled2d(
+                y, cb, cr, 26, mesh=mesh, rc="none",
+                block_words=entropy.BLOCK_WORDS_MAX,
+                row_words=entropy.max_words(96 // 16 // 2),
+                target_bits=cfg.target_bits_per_frame(), vbv_bits=0)
+            w_, b_ = outs["words"].cpu().numpy(), outs["row_bits"].cpu().numpy()
+            return [tiles.assemble_frame_2d(w_, b_, k) for k in range(t)]
+        want = [(p.payload, p.payload_bits) for p in
+                GopEngine(cfg, device="cpu").encode_gop(frames[:t], 0)[0]]
+    elif path == "ring":
+        ring = RingEncoder(cfg, make_ring_mesh(2, cuda))
+
+        def encode():
+            return [[p.to_bytes() for p in s]
+                    for s in ring.encode_streams(gops, [0, t])]
+        want = [[p.to_bytes() for p in s] for s in RingEncoder(
+            cfg, make_ring_mesh(2, "cpu")).encode_streams(gops, [0, t])]
+    else:
+        if path == "tiles":
+            enc = ShardedGopEncoder(cfg, make_codec_mesh(2, 2, cuda))
+            cpu = GopEngine(cfg, device="cpu")
+        else:
+            emit = "chunks" if path == "chunks" else "frame"
+            enc = GopEngine(cfg, device=cuda, emit=emit)
+            cpu = GopEngine(cfg, device="cpu", emit=emit)
+        batch = gops if path in ("batch", "tiles") else gops[:1]
+        firsts = [0, t][:len(batch)]
+
+        def encode():
+            return [[p.to_bytes() for p in gp]
+                    for gp, _ in enc.finish(enc.start(batch, firsts))]
+        want = [[p.to_bytes() for p in gp]
+                for gp, _ in cpu.finish(cpu.start(batch, firsts))]
+    for _ in range(3):
+        got, rise = _rise(encode)
+        assert got == want
+        assert rise.get("frame_headers", 0) > 0
+        assert rise.get("frame_place", 0) == (
+            0 if path in ("chunks", "tiles") else rise["frame_headers"])
+        assert rise.get("frame_mb_bits", 0) == (rise["frame_headers"]
+                                                if path == "mb" else 0)

@@ -7,10 +7,14 @@ the format-2 syntax (left-MV prediction and DC DPCM, which formats 3 and
 symbol's (value, length) is computed in parallel, each 8x8 block is
 packed into its own MSB-first word string (`block_pack`, a kernel on the
 GPU), and the frame payload is assembled from the per-MB pieces (header,
-Y00, Y01, Y10, Y11, Cb, Cr) by `frame_concat`: an exclusive prefix sum of
-the piece bit lengths, then one shifted add per piece word into the two
-target words it straddles. Disjoint bit ranges make add equal to or, so
-the bytes equal the reference's `tree_concat`.
+Y00, Y01, Y10, Y11, Cb, Cr). That tail goes through the dispatch rule
+(`dispatch.frame_assemble`, `mb_headers`, `mb_bit_totals`): on the GPU
+two kernel launches (`ops/kernels/assemble.py`), on the CPU its plain
+version here (`assemble`): the header symbols (`_header_slots`) packed
+into two words per MB (`pack_header`), then `frame_concat`, an exclusive
+prefix sum of the piece bit lengths and one shifted add per piece word
+into the two target words it straddles. Disjoint bit ranges make add
+equal to or, so the bytes equal the reference's `tree_concat`.
 
 Words are int32 tensors holding the reference's uint32 bit patterns, on
 the CPU and on the card (torch has no uint32 shifts or adds on the CPU).
@@ -261,8 +265,9 @@ def _pack_blocks(levels: torch.Tensor, block_words: int, fmt: int = 1):
     """Per-block pack of a plane's [..., by, bx, 64] zigzag level array
     through the dispatch rule (block_pack kernel on the GPU, one launch
     on all the leading axes' blocks): ([..., by, bx, W] words, [..., by,
-    bx] bits, overflow). From format 2 on each block's DC codes against
-    its left neighbour's in the same plane."""
+    bx] bits, each a block's untruncated bit count). From format 2 on
+    each block's DC codes against its left neighbour's in the same
+    plane."""
     from ..ops import dispatch  # lazy: dispatch imports this module
 
     lead = levels.shape[:-1]
@@ -270,51 +275,105 @@ def _pack_blocks(levels: torch.Tensor, block_words: int, fmt: int = 1):
                else None)
     w, b = dispatch.block_pack(levels.reshape(-1, 64), block_words, dc_pred,
                                fmt)
-    return (w.reshape(*lead, block_words), b.reshape(lead),
-            (b > 32 * block_words).any())
+    return w.reshape(*lead, block_words), b.reshape(lead)
+
+
+def _plane_blocks(levels_y8, levels_cb, levels_cr, block_words: int,
+                  fmt: int = 1):
+    """block_pack of the three planes: ((yw, yb), (cbw, cbb), (crw, crb)),
+    luma on its [..., 2 nby, 2 nbx] block grid, chroma on [..., nby,
+    nbx]: what the frame pack's tail starts from."""
+    return tuple(_pack_blocks(lv, block_words, fmt)
+                 for lv in (levels_y8, levels_cb, levels_cr))
+
+
+def _mb_words(blocks):
+    """block_pack's words of the three planes in MB order: yw [..., n_mbs,
+    4, W] (Y00, Y01, Y10, Y11), cbw and crw [..., n_mbs, W]."""
+    (yw, _), (cbw, _), (crw, _) = blocks
+    *lead, by, bx, w = yw.shape
+    n_mbs = by * bx // 4
+    yw = yw.reshape(*lead, by // 2, 2, bx // 2, 2, w).transpose(-4, -3)
+    return (yw.reshape(*lead, n_mbs, 4, w), cbw.reshape(*lead, n_mbs, w),
+            crw.reshape(*lead, n_mbs, w))
+
+
+def mb_headers(block_bits, hdr, is_p_frame: bool, block_words: int,
+               fmt: int = 1):
+    """The plain version of the frame pack's first launch (`ops/kernels/
+    assemble.py`): each MB's header symbols packed into its two words and
+    its piece bit counts, from block_pack's bit counts (yb [..., 2 nby,
+    2 nbx], cbb, crb [..., nby, nbx]) and the MB arrays hdr = (qp_delta,
+    is_inter, dy, dx), each [..., nby, nbx]. Returns (hw [..., n_mbs, 2]
+    int32, piece bits [..., n_mbs, 8] int32 in the order header, Y00, Y01,
+    Y10, Y11, Cb, Cr, empty, mb_bits [..., nby, nbx] int32, overflow: a
+    header or block over its budget)."""
+    qp_delta, is_inter, dy, dx = hdr
+    yb, cbb, crb = block_bits
+    *lead, nby, nbx = qp_delta.shape
+    n_mbs = nby * nbx
+    hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
+    hwords, hbits, ovf = pack_header(hv, hl)
+    ybits = yb.reshape(*lead, nby, 2, nbx, 2).transpose(-3, -2)
+    piece_bits = torch.cat([
+        hbits.reshape(*lead, n_mbs, 1), ybits.reshape(*lead, n_mbs, 4),
+        cbb.reshape(*lead, n_mbs, 1), crb.reshape(*lead, n_mbs, 1),
+        torch.zeros_like(crb).reshape(*lead, n_mbs, 1)], -1)
+    for b in block_bits:
+        ovf = ovf | (b > 32 * block_words).any()
+    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
+    return (hwords.reshape(*lead, n_mbs, HEADER_WORDS), piece_bits, mb_bits,
+            ovf)
+
+
+def mb_bit_totals(block_bits, hdr, is_p_frame: bool, fmt: int = 1):
+    """The plain version of the lengths-only launch: per-MB bit counts
+    [..., nby, nbx] int32 (header symbols plus the six block strings) from
+    block_pack's bit counts and the MB arrays hdr, no word packed."""
+    qp_delta, is_inter, dy, dx = hdr
+    yb, cbb, crb = block_bits
+    *lead, nby, nbx = qp_delta.shape
+    _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
+    ysum = yb.reshape(*lead, nby, 2, nbx, 2).sum((-3, -1))
+    return (hl.sum(0) + ysum + cbb + crb).int()
+
+
+def mb_sources(blocks, hdr, is_p_frame: bool, block_words: int,
+               fmt: int = 1):
+    """Per-MB piece sources from block_pack's outputs: words (hw [...,
+    n_mbs, 2], yw [..., n_mbs, 4, W], cbw, crw [..., n_mbs, W]), piece bit
+    counts [..., n_mbs, 7] int32 in the order header, Y00, Y01, Y10, Y11,
+    Cb, Cr, and the overflow flag (one for all leading axes)."""
+    hw, piece_bits, _, ovf = mb_headers(tuple(b for _, b in blocks), hdr,
+                                        is_p_frame, block_words, fmt)
+    return (hw, *_mb_words(blocks)), piece_bits[..., :7], ovf
 
 
 def _mb_sources(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
                 is_inter, dy, dx, block_words: int, fmt: int = 1):
-    """Per-MB piece sources: words (hw [..., n_mbs, 2], yw [..., n_mbs, 4,
-    W], cbw, crw [..., n_mbs, W]), piece bit counts [..., n_mbs, 7] int32
-    in the order header, Y00, Y01, Y10, Y11, Cb, Cr, and the block
-    overflow flag (one for all leading axes)."""
-    *lead, nby, nbx = qp_delta.shape
-    n_mbs = nby * nbx
+    """mb_sources of the three planes' zigzag levels."""
+    return mb_sources(
+        _plane_blocks(levels_y8, levels_cb, levels_cr, block_words, fmt),
+        (qp_delta, is_inter, dy, dx), is_p_frame, block_words, fmt)
 
-    hv, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
-    hwords, hbits, ovf_h = pack_header(hv, hl)
 
-    ywords, ybits, ovf_y = _pack_blocks(levels_y8, block_words, fmt)
-    ywords = ywords.reshape(*lead, nby, 2, nbx, 2, block_words).transpose(-4, -3)
-    ybits = ybits.reshape(*lead, nby, 2, nbx, 2).transpose(-3, -2)
-    cbwords, cbbits, ovf_cb = _pack_blocks(levels_cb, block_words, fmt)
-    crwords, crbits, ovf_cr = _pack_blocks(levels_cr, block_words, fmt)
-
-    words = (hwords.reshape(*lead, n_mbs, HEADER_WORDS),
-             ywords.reshape(*lead, n_mbs, 4, block_words),
-             cbwords.reshape(*lead, n_mbs, block_words),
-             crwords.reshape(*lead, n_mbs, block_words))
-    piece_bits = torch.cat([
-        hbits.reshape(*lead, n_mbs, 1), ybits.reshape(*lead, n_mbs, 4),
-        cbbits.reshape(*lead, n_mbs, 1), crbits.reshape(*lead, n_mbs, 1),
-    ], -1)
-    return words, piece_bits, ovf_h | ovf_y | ovf_cb | ovf_cr
+def _pieces(sources, block_words: int):
+    """Per-MB piece strings [..., n_mbs, 7, W] of mb_sources' words, the
+    header padded to W words."""
+    hw, yw, cbw, crw = sources
+    hpad = torch.nn.functional.pad(hw.unsqueeze(-2),
+                                   (0, block_words - HEADER_WORDS))
+    return torch.cat([hpad, yw, cbw.unsqueeze(-2), crw.unsqueeze(-2)], -2)
 
 
 def _frame_pieces(levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame,
                   is_inter, dy, dx, block_words: int, fmt: int = 1):
     """Per-MB piece strings [..., n_mbs, 7, W] and bit counts [..., n_mbs,
     7] in the order header, Y00, Y01, Y10, Y11, Cb, Cr."""
-    (hw, yw, cbw, crw), piece_bits, ovf = _mb_sources(
+    sources, piece_bits, ovf = _mb_sources(
         levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
         dy, dx, block_words, fmt)
-    hpad = torch.nn.functional.pad(hw.unsqueeze(-2),
-                                   (0, block_words - HEADER_WORDS))
-    piece_words = torch.cat([hpad, yw, cbw.unsqueeze(-2), crw.unsqueeze(-2)],
-                            -2)
-    return piece_words, piece_bits, ovf
+    return _pieces(sources, block_words), piece_bits, ovf
 
 
 def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
@@ -349,25 +408,45 @@ def frame_concat(piece_words: torch.Tensor, piece_bits: torch.Tensor,
     return out.reshape(*lead, n_words + 1)[..., :n_words], total
 
 
+def assemble(blocks, hdr, is_p_frame: bool, n_words: int, fmt: int = 1,
+             per_row: bool = False):
+    """The plain version of the frame pack's tail (`ops/kernels/
+    assemble.py`, csrc/frame_pack.cu): from block_pack's outputs of the
+    three planes (`_plane_blocks`) and the MB arrays hdr = (qp_delta,
+    is_inter, dy, dx) to one string per leading index (a frame), or with
+    per_row one per MB row: the per-MB headers (`mb_headers`), then
+    `frame_concat` of the pieces in MB raster order. Returns (words int32
+    [..., (nby,) n_words], total bits int64 [..., (nby)], mb_bits int32
+    [..., nby, nbx], overflow: a header or block over its budget, or a
+    string over n_words)."""
+    *lead, nby, nbx = hdr[0].shape
+    block_words = blocks[0][0].shape[-1]
+    sources, piece_bits, ovf = mb_sources(blocks, hdr, is_p_frame,
+                                          block_words, fmt)
+    strings = (*lead, nby) if per_row else tuple(lead)
+    words, total = frame_concat(
+        _pieces(sources, block_words).reshape(*strings, -1, block_words),
+        piece_bits.reshape(*strings, -1), n_words)
+    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
+    return words, total, mb_bits, ovf | (total > 32 * n_words).any()
+
+
 def pack_frame_planes(levels_y8, levels_cb, levels_cr, qp_delta,
                       is_p_frame: bool, is_inter, dy, dx, block_words: int,
                       n_words: int, fmt: int = 1):
     """Frame payload from per-plane zigzag levels ([2nby, 2nbx, 64] luma,
     [nby, nbx, 64] chroma) in the format-1 syntax, or the format-2 syntax
-    for fmt >= 2. Returns (words int32 [n_words], total_bits, mb_bits
-    [nby, nbx], overflow). With a leading G axis on every array: words
+    for fmt >= 2: block_pack, then the frame pack's tail through the
+    dispatch rule (`dispatch.frame_assemble`: two kernel launches on the
+    GPU). Returns (words int32 [n_words], total_bits int64, mb_bits [nby,
+    nbx] int32, overflow). With a leading G axis on every array: words
     [G, n_words], total_bits [G], mb_bits [G, nby, nbx], and one overflow
     flag for the batch."""
-    *lead, nby, nbx = qp_delta.shape
-    piece_words, piece_bits, ovf = _frame_pieces(
-        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words, fmt,
-    )
-    words, total = frame_concat(
-        piece_words.reshape(*lead, -1, block_words),
-        piece_bits.reshape(*lead, -1), n_words)
-    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
-    return words, total, mb_bits, ovf | (total > 32 * n_words).any()
+    from ..ops import dispatch  # lazy: dispatch imports this module
+
+    return dispatch.frame_assemble(
+        _plane_blocks(levels_y8, levels_cb, levels_cr, block_words, fmt),
+        (qp_delta, is_inter, dy, dx), is_p_frame, n_words, fmt)
 
 
 def pack_frame_rows(levels_y8, levels_cb, levels_cr, qp_delta,
@@ -379,15 +458,11 @@ def pack_frame_rows(levels_y8, levels_cb, levels_cr, qp_delta,
     bit-concatenation of the row strings, the bytes of pack_frame_planes.
     The 2-D tile grid needs this granularity: a frame's MB raster order
     interleaves the column shards within each MB row."""
-    *lead, nby, nbx = qp_delta.shape
-    piece_words, piece_bits, ovf = _frame_pieces(
-        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words)
-    words, row_bits = frame_concat(
-        piece_words.reshape(*lead, nby, -1, block_words),
-        piece_bits.reshape(*lead, nby, -1), row_words)
-    mb_bits = piece_bits.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
-    return words, row_bits, mb_bits, ovf | (row_bits > 32 * row_words).any()
+    from ..ops import dispatch  # lazy: dispatch imports this module
+
+    return dispatch.frame_assemble(
+        _plane_blocks(levels_y8, levels_cb, levels_cr, block_words),
+        (qp_delta, is_inter, dy, dx), is_p_frame, row_words, per_row=True)
 
 
 def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
@@ -395,14 +470,14 @@ def frame_mb_bits(levels_y8, levels_cb, levels_cr, qp_delta,
                   fmt: int = 1):
     """Per-MB bit counts [..., nby, nbx] int32 (header symbols plus the
     six block strings) with no payload assembled: the rc=mb pass-1
-    estimate, which uses nothing else of the pack."""
-    *lead, nby, nbx = qp_delta.shape
-    _, hl = _header_slots(qp_delta, is_p_frame, is_inter, dy, dx, fmt)
-    _, ybits, _ = _pack_blocks(levels_y8, block_words, fmt)
-    _, cbbits, _ = _pack_blocks(levels_cb, block_words, fmt)
-    _, crbits, _ = _pack_blocks(levels_cr, block_words, fmt)
-    ysum = ybits.reshape(*lead, nby, 2, nbx, 2).sum((-3, -1))
-    return (hl.sum(0) + ysum + cbbits + crbits).int()
+    estimate, which uses nothing else of the pack (the lengths-only
+    launch on the GPU, `dispatch.mb_bit_totals`)."""
+    from ..ops import dispatch  # lazy: dispatch imports this module
+
+    blocks = _plane_blocks(levels_y8, levels_cb, levels_cr, block_words, fmt)
+    return dispatch.mb_bit_totals(tuple(b for _, b in blocks),
+                                  (qp_delta, is_inter, dy, dx), is_p_frame,
+                                  fmt)
 
 
 def chunk_capacity(n_pieces: int, block_words: int) -> tuple[int, int, int]:
@@ -426,7 +501,9 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
     the same bytes as pack_frame_planes. The span merge runs through the
     dispatch rule (span_merge_mb, then span_merge in the two-stage shape)
     straight from the per-MB sources; no [n_mbs, 8, W] piece array is
-    made.
+    made. The per-MB headers come from the dispatch rule too
+    (`dispatch.mb_headers`: the frame pack's first launch on the GPU, its
+    header words and piece bit counts).
 
     With a leading G axis on every array the G frames fold into the row
     axis of both merges, which still launch once each: every frame's MB
@@ -438,10 +515,11 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
 
     *lead, nby, nbx = qp_delta.shape
     n_mbs = nby * nbx
-    (hw, yw, cbw, crw), bits7, ovf = _mb_sources(
-        levels_y8, levels_cb, levels_cr, qp_delta, is_p_frame, is_inter,
-        dy, dx, block_words, fmt)
-    piece_bits = torch.nn.functional.pad(bits7, (0, 1))
+    blocks = _plane_blocks(levels_y8, levels_cb, levels_cr, block_words, fmt)
+    hw, piece_bits, mb_bits, ovf = dispatch.mb_headers(
+        tuple(b for _, b in blocks), (qp_delta, is_inter, dy, dx),
+        is_p_frame, block_words, fmt)
+    yw, cbw, crw = _mb_words(blocks)
     plan = pack.span_plan(n_mbs, block_words)
     n_strings = plan.n1
     if lead:
@@ -467,6 +545,4 @@ def pack_frame_chunks(levels_y8, levels_cb, levels_cr, qp_delta,
     if lead:
         words = words.reshape(g, -1, words.shape[-1])
         bits = bits.reshape(g, -1)
-    mb_bits = bits7.sum(-1, dtype=torch.int32).reshape(*lead, nby, nbx)
     return words, bits, mb_bits, ovf | ovf_m
-

@@ -8,8 +8,10 @@ the card (chip_smoke.py); it mirrors the reference's `force("jnp")`.
 
 Planes with a leading G axis ([G, H, W]: G GOPs encoded in lockstep) go to
 the G-batched kernels, one launch for all G, or on the CPU to the same
-plain versions, which take the axis as it is. The block pack and the span
-merges have no batched twin: their callers fold G into the row axis.
+plain versions, which take the axis as it is. The block pack, the frame
+pack's tail and the span merges have no batched twin: their callers fold G
+into the row axis, and the tail's strings are the product of the leading
+axes.
 
 The `_pre_haloed` functions serve the tile-sharded encode
 (`parallel/tiles.py`): the reference plane of a shard already carries its
@@ -27,8 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from ..codec import pack
+from ..codec import entropy, pack
 from . import motion, transform
+from .kernels import assemble as kasm
 from .kernels import codec as kcodec
 from .kernels import entropy_pack as kpack
 from .kernels import pack as kspan
@@ -274,6 +277,37 @@ def block_pack(levels_zz, n_words: int, dc_pred=None, fmt: int = 1):
     if _FORCE == "plain":
         return kpack.plain_block_pack(levels_zz, n_words, dc_pred, fmt)
     return kpack.block_pack(levels_zz, n_words, dc_pred, fmt)
+
+
+def frame_assemble(blocks, hdr, is_p_frame: bool, n_words: int,
+                   fmt: int = 1, per_row: bool = False):
+    """The frame pack's tail: block_pack's outputs of the three planes and
+    the MB arrays hdr = (qp_delta, is_inter, dy, dx) to one string per
+    leading index (with per_row, per MB row): (words int32, total bits
+    int64, mb_bits int32, ovf). Two launches on the GPU (the headers, then
+    the placement), for any leading shape."""
+    if _FORCE == "plain":
+        return entropy.assemble(blocks, hdr, is_p_frame, n_words, fmt,
+                                per_row)
+    return kasm.frame_assemble(blocks, hdr, is_p_frame, n_words, fmt, per_row)
+
+
+def mb_headers(block_bits, hdr, is_p_frame: bool, block_words: int,
+               fmt: int = 1):
+    """Each MB's header words and piece bit counts for the chunk emit's
+    merges: (hw, piece_bits, mb_bits, ovf); one launch on the GPU."""
+    if _FORCE == "plain":
+        return entropy.mb_headers(block_bits, hdr, is_p_frame, block_words,
+                                  fmt)
+    return kasm.mb_headers(block_bits, hdr, is_p_frame, block_words, fmt)
+
+
+def mb_bit_totals(block_bits, hdr, is_p_frame: bool, fmt: int = 1):
+    """Per-MB bit counts only (rc mb's first pass); one launch on the
+    GPU."""
+    if _FORCE == "plain":
+        return entropy.mb_bit_totals(block_bits, hdr, is_p_frame, fmt)
+    return kasm.mb_bit_totals(block_bits, hdr, is_p_frame, fmt)
 
 
 def span_merge_mb(hw, yw, cbw, crw, piece_bits, m: int, cw: int,

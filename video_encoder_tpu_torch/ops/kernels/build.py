@@ -63,11 +63,17 @@ LAUNCHES = {"full_search": 0, "sad_map_even": 0, "sad_at_mv": 0,
             "recon_plane": 0, "recon_plane_rows": 0,
             # the diamond descent of a P step (walk and final step) in one
             # launch: one plane, and G GOPs in lockstep
-            "diamond_descent": 0, "diamond_descent_g": 0}
+            "diamond_descent": 0, "diamond_descent_g": 0,
+            # the frame pack's tail: the MB headers, totals and tile sums
+            # (frame and chunk emit), the placement (frame emit), and the
+            # MB totals alone (rc mb's first pass); one launch each for
+            # any leading shape
+            "frame_headers": 0, "frame_place": 0, "frame_mb_bits": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_LL = ctypes.c_longlong
 # C signatures: pointers, ints, then the stream; every entry returns an int
 _SIGNATURES = {
     "tvc_full_search": [_P, _P, _I, _I, _P, _P, _P, _P],
@@ -102,6 +108,11 @@ _SIGNATURES = {
     "tvc_recon_plane": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "tvc_recon_plane_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tvc_diamond_descent": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tvc_frame_pack_tile": [],
+    "tvc_mb_headers": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _LL, _P, _P],
+    "tvc_frame_place": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _P],
 }
 
 _lib = None
