@@ -87,4 +87,7 @@ def test_the_entry_lists_every_cell():
     assert entry["workloads"] == [w["name"] for w in bench["workloads"]]
     assert entry["moves"] == "encode_fps" and entry["source"] == "device_trace"
     assert entry["layer"] == "kernels"
-    assert bench["per_layer"][-1] is entry
+    # appended after every metric that was there before it
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names.index(entry["name"]) > names.index(
+        "descent.device_ms_per_frame")

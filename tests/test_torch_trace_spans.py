@@ -609,26 +609,36 @@ def test_one_staging_buffer_until_a_larger_budget(recorder, fake_staging):
 @pytest.mark.parametrize("g", [1, 2])
 def test_an_xl_rerun_takes_the_plain_copy(recorder, fake_staging, emit, g):
     """The worst-case rerun's words are more than any budgeted launch
-    returned: they take the plain copy (counted 0), make no buffer, and
-    give the budgeted encode's packets."""
+    returned, but cut to the longest payload they fit the budgeted
+    buffer: they go through it (counted 1), make no buffer of their own,
+    equal the plain copy byte for byte and give the budgeted encode's
+    packets."""
     eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu",
                     emit=emit)
     frames = _clip(6, 2)
     want = _packets(eng, frames, eng.download(_outs(eng, frames, g)), g)
     xl = _outs(eng, frames, g, xl=True)
     assert xl["words"].numel() > eng._budget_words
-    got = _packets(eng, frames, eng.download(xl), g)
+    host = eng.download(xl)
+    assert host["words"].tobytes() == _plain_words(xl).tobytes()
+    got = _packets(eng, frames, host, g)
     assert got == want
-    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 0]
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 1]
     assert len(fake_staging) == 1
 
 
 def test_a_first_launch_at_the_worst_case_stages_nothing(recorder,
                                                          fake_staging):
+    """Before any budgeted launch, a worst-case download stages nothing
+    beyond its words cut to the longest payload: the buffer is made at
+    their size, not at the worst case's."""
     eng = GopEngine(EncoderConfig(width=W, height=H, gop_n=2), device="cpu")
-    eng.download(_outs(eng, _clip(6, 2), 1, xl=True))
-    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [0]
-    assert fake_staging == [] and eng._staging is None
+    outs = _outs(eng, _clip(6, 2), 1, xl=True)
+    host = eng.download(outs)
+    plain = _plain_words(outs)
+    assert host["words"].tobytes() == plain.tobytes()
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1]
+    assert fake_staging == [plain.size] and plain.size < outs["words"].numel()
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -796,14 +806,17 @@ def test_a_download_right_after_run_has_landed(recorder, cuda, g):
 
 
 def test_an_xl_rerun_takes_the_plain_copy_on_card(recorder, cuda):
-    """A forced worst-case rerun falls back (counted 0), makes no buffer
-    of its own, and its stream is the budgeted encode's."""
+    """A forced worst-case rerun's words, cut to the longest payload, go
+    through the budgeted buffer (counted 1), make no buffer of their own,
+    equal the plain copy, and its stream is the budgeted encode's."""
     eng = GopEngine(EncoderConfig(width=1920, height=1080, gop_n=2),
                     device=cuda)
     frames = _clip(16, 2, w=1920, h=1080)
     want = _packets(eng, frames, eng.download(_outs(eng, frames, 1)), 1)
-    got = _packets(eng, frames, eng.download(_outs(eng, frames, 1, xl=True)),
-                   1)
+    xl = _outs(eng, frames, 1, xl=True)
+    host = eng.download(xl)
+    assert host["words"].tobytes() == _plain_words(xl).tobytes()
+    got = _packets(eng, frames, host, 1)
     assert got == want
-    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 0]
+    assert [r[5] for r in _counts(recorder, "finish.copy_staged")] == [1, 1]
     assert len(_counts(recorder, "finish.staging_bytes")) == 1

@@ -551,15 +551,18 @@ class GopEngine:
         # call; a ShardedGopEncoder over this engine adds its TileKeys
         self.graphs: dict[GraphKey, GopGraph | None] = self.cache.graphs
         # the most words a budgeted (not xl) launch has returned, and the
-        # pinned host buffer the downloads of such words land in
+        # pinned host buffer every download's words land in
         self._budget_words = 0
         self._staging: torch.Tensor | None = None
+        # the budgeted frame capacity of the last launch through run or
+        # run_batch (words), set by _capacities
+        self._frame_budget_words: int | None = None
 
     def budgeted(self, outs, xl: bool):
         """outs as given; the words of a launch without xl raise the most
-        words that `download` stages (`_budget_words`). Called by every
-        launch whose outputs reach download: run, run_batch and
-        ShardedGopEncoder.run."""
+        words that `download`'s staging buffer holds (`_budget_words`).
+        Called by every launch whose outputs reach download: run,
+        run_batch and ShardedGopEncoder.run."""
         if not xl:
             self._budget_words = max(self._budget_words,
                                      outs["words"].numel())
@@ -567,10 +570,13 @@ class GopEngine:
 
     def _capacities(self, n_mbs: int, base_qp: int, xl: bool):
         """(block words, frame capacity words): budgeted for base_qp, or
-        with xl the exact worst case."""
+        with xl the exact worst case. Either way the budgeted frame
+        capacity is kept in `_frame_budget_words`, which `download`'s fill
+        count reads."""
+        self._frame_budget_words = entropy.capacity_words(n_mbs)
         if xl:
             return entropy.BLOCK_WORDS_MAX, entropy.max_words(n_mbs)
-        return block_words_for_qp(base_qp), entropy.capacity_words(n_mbs)
+        return block_words_for_qp(base_qp), self._frame_budget_words
 
     def _run(self, y, cb, cr, qp, bw: int, cap: int, hop=None):
         """The loop over a GOP's frames: y [T, H, W] with a 0-dim qp, or
@@ -725,16 +731,19 @@ class GopEngine:
         as uint32) cut to the longest payload (frame emit) or span string
         (chunk emit).
 
-        On the card the words of a budgeted launch (no more words than a
-        launch of this engine without xl returned) land in a page-locked
-        host buffer that the engine owns and reuses (`_staging`: made at
-        the first such download, made again only when a later one needs
-        more than it holds): one copy on the current stream, on which the
-        engine's launches made outs, waited for before download returns.
-        host["words"] is then a view of that buffer and stays valid until
-        the engine's next download; the small columns are the caller's
-        own. The CPU's words and a worst-case rerun's (xl: about 15 MB a
-        1080p frame) keep the plain copy into memory of their own.
+        On the card the words land in a page-locked host buffer that the
+        engine owns and reuses (`_staging`: made at the first download,
+        made again only when a later one needs more than it holds): one
+        copy on the current stream, on which the engine's launches made
+        outs, waited for before download returns. The buffer holds the
+        most words a launch of this engine without xl returned, or a
+        worst-case rerun's words cut to the longest payload where they
+        are more (a 4K I frame at qp 20 slightly overflows its budget), so
+        a rerun's download is as fast as a budgeted one's and no fresh
+        pageable array is faulted in for it. host["words"] is a view of
+        that buffer and stays valid until the engine's next download; the
+        small columns are the caller's own. The CPU's words keep the plain
+        copy into memory of their own.
 
         In RECORDER's span `finish.copy`: the small columns' cat and copy
         (`finish.copy.meta`), the words' copy and view
@@ -744,7 +753,12 @@ class GopEngine:
         where the words went through the buffer and 0 where not. Each
         making of the buffer counts its bytes in `finish.staging_bytes`.
         Where the encode gave n_hpel, the P frames' half-pel MBs and inter
-        MBs are counted in `motion.hpel_mbs` and `motion.inter_mbs`."""
+        MBs are counted in `motion.hpel_mbs` and `motion.inter_mbs`. Once
+        the engine has launched through `run` or `run_batch`, every
+        download counts the largest frame's payload bits over the budgeted
+        frame capacity of its last such launch (`_frame_budget_words`,
+        also where the words are a worst-case rerun's), in parts per
+        million, in `engine.frame_budget_fill_ppm`."""
         chunked = "cbits" in outs
         hpel = "n_hpel" in outs
         with RECORDER.span("finish.copy"):
@@ -758,6 +772,10 @@ class GopEngine:
                 small = torch.cat(cols, -1).cpu().numpy()
             host = dict(bits=small[..., 0], n_inter=small[..., 1],
                         qp=small[..., 2], sse=small[..., 3:6], cbits=None)
+            if self._frame_budget_words:
+                RECORDER.count("engine.frame_budget_fill_ppm",
+                               int(host["bits"].max()) * 10**6
+                               // (32 * self._frame_budget_words))
             if hpel:
                 host["n_hpel"] = small[..., 6]
                 RECORDER.count("motion.hpel_mbs", int(host["n_hpel"][1:].sum()))
@@ -782,17 +800,18 @@ class GopEngine:
     def _stage(self, words, maxw: int):
         """words[..., :maxw] copied into the staging buffer, as a view of
         its first elements shaped [..., maxw], once the copy has landed;
-        None where the words take the plain copy: off the card, or more
-        words than a budgeted launch returned (the xl rerun's)."""
-        if (words.device.type not in _STAGING_DEVICE_TYPES
-                or words.numel() > self._budget_words):
+        None off the card, where the words take the plain copy. The
+        buffer is made to hold the budgeted words (`_budget_words`) or
+        the cut part where that is more."""
+        if words.device.type not in _STAGING_DEVICE_TYPES:
             return None
-        if self._staging is None or self._staging.numel() < words.numel():
+        part = words[..., :maxw]
+        need = max(self._budget_words, part.numel())
+        if self._staging is None or self._staging.numel() < need:
             self._staging = None      # the old buffer goes before the new
-            self._staging = _pinned(words.numel(), words.dtype)
+            self._staging = _pinned(need, words.dtype)
             RECORDER.count("finish.staging_bytes",
                            self._staging.numel() * words.element_size())
-        part = words[..., :maxw]
         dst = self._staging[:part.numel()].view(part.shape)
         dst.copy_(part, non_blocking=True)
         if words.is_cuda:

@@ -78,13 +78,13 @@ class Recorder(StageTimer):
     while it is open), so once the ring has gone round (`dropped` > 0)
     every record it still holds started at or after `oldest_ns()`, and
     every record it dropped started before it. Its size: the densest
-    window of the benchmark, full1080.g1 (one 30-frame GOP a launch, at
-    most 1,021 frames/s on an H100, 34 GOPs/s), writes 11 records a GOP
-    (engine.launch, engine.copy_in, engine.replay, engine.copy_out,
+    window of the benchmark, rcmb1080.g1 (one 30-frame GOP a launch, at
+    most about 2,300 frames/s on an H100, 77 GOPs/s), writes 12 records a
+    GOP (engine.launch, engine.copy_in, engine.replay, engine.copy_out,
     finish.copy, finish.copy.meta, finish.copy.words, finish.packets, and
-    the counts engine.replays, finish.copy_staged and finish.copy_bytes):
-    51 s x 34 x 11 = 19,074 records. 2**16 = 65,536 slots hold 3.4 times
-    that.
+    the counts engine.replays, engine.frame_budget_fill_ppm,
+    finish.copy_staged and finish.copy_bytes): 51 s x 77 x 12 = 47,124
+    records. 2**16 = 65,536 slots hold 1.39 times that.
 
     `anchor` is a (perf_counter_ns, time_ns) pair taken when the
     recorder starts (or is reset): epoch_ns() puts a time onto the
